@@ -1,0 +1,154 @@
+"""4x4 MMSE equalizer weights per subcarrier (kernel K3).
+
+Port of ``equalize_weights`` (srsran_project_tpu/ops/equalizer.py, MMSE,
+tx_scaling = 1) and of its TPU kernel ``equalize_weights_pallas``
+(ops/equalizer_pallas.py).  ``mmse_weights_4x4`` is the entry point: a
+CUDA tensor launches the hand-written kernel
+(``csrc/mmse_weights_4x4.cu``), a CPU tensor runs ``equalize_weights``,
+the plain torch version below.  Both compute the kernel's algebra: gram,
+C = G + nv I with nv >= 1e-12, blocked 2x2 Schur inverse, unbias mu
+clipped to [1e-9, 1 - 1e-9], W = C^-1 H^H / mu, eq_nvar = (1 - mu) / mu.
+Explicit scalar complex algebra on (re, im) float32 tensors: no
+torch.linalg, no matmul (so no TF32 path either).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import cuda_lib
+
+L = P = 4
+
+
+def _cmul(a, b):
+    return (a[0] * b[0] - a[1] * b[1], a[0] * b[1] + a[1] * b[0])
+
+
+def _cadd(a, b):
+    return (a[0] + b[0], a[1] + b[1])
+
+
+def _csub(a, b):
+    return (a[0] - b[0], a[1] - b[1])
+
+
+def _cneg(a):
+    return (-a[0], -a[1])
+
+
+def _cconj(a):
+    return (a[0], -a[1])
+
+
+def _crecip(a):
+    r = 1.0 / torch.clamp_min(a[0] * a[0] + a[1] * a[1], 1e-30)
+    return (a[0] * r, -a[1] * r)
+
+
+def _inv2(c00, c01, c10, c11):
+    r = _crecip(_csub(_cmul(c00, c11), _cmul(c01, c10)))
+    return (_cmul(c11, r), _cneg(_cmul(c01, r)), _cneg(_cmul(c10, r)), _cmul(c00, r))
+
+
+def _mm2(a, b):
+    return (_cadd(_cmul(a[0], b[0]), _cmul(a[1], b[2])),
+            _cadd(_cmul(a[0], b[1]), _cmul(a[1], b[3])),
+            _cadd(_cmul(a[2], b[0]), _cmul(a[3], b[2])),
+            _cadd(_cmul(a[2], b[1]), _cmul(a[3], b[3])))
+
+
+def _check(h: torch.Tensor, noise_var: torch.Tensor) -> torch.Tensor:
+    """Validate h (..., nsc, 4, 4) complex64 and return noise_var as a
+    float32 tensor of shape h.shape[:-3] on h's device."""
+    if h.dim() < 3 or h.shape[-2:] != (P, L) or h.dtype != torch.complex64:
+        raise ValueError(f"mmse_weights_4x4: want (..., nsc, 4, 4) complex64, got "
+                         f"{tuple(h.shape)} {h.dtype}")
+    nv = torch.as_tensor(noise_var, dtype=torch.float32, device=h.device)
+    if nv.shape != h.shape[:-3]:
+        raise ValueError(f"mmse_weights_4x4: noise_var shape {tuple(nv.shape)} != "
+                         f"{tuple(h.shape[:-3])}")
+    return nv
+
+
+def equalize_weights(h: torch.Tensor, noise_var: torch.Tensor):
+    """Plain version: (..., nsc, P=4, L=4) complex64 channels and (...,)
+    noise variances -> (w (..., nsc, L, P) complex64, eq_nvar (..., nsc, L)
+    float32)."""
+    nv = torch.clamp_min(_check(h, noise_var), 1e-12)[..., None]
+    hr, hi = h.real, h.imag
+    hh = [[(hr[..., p, l], hi[..., p, l]) for l in range(L)] for p in range(P)]
+    zero = torch.zeros_like(hr[..., 0, 0])
+    g = [[None] * L for _ in range(L)]
+    for l in range(L):
+        for m in range(L):
+            acc = (zero, zero)
+            for p in range(P):
+                acc = _cadd(acc, _cmul(_cconj(hh[p][l]), hh[p][m]))
+            g[l][m] = acc
+    c = [[(g[l][m][0] + nv, g[l][m][1]) if l == m else g[l][m] for m in range(L)]
+         for l in range(L)]
+
+    a = (c[0][0], c[0][1], c[1][0], c[1][1])
+    bm = (c[0][2], c[0][3], c[1][2], c[1][3])
+    bh = (c[2][0], c[2][1], c[3][0], c[3][1])
+    d = (c[2][2], c[2][3], c[3][2], c[3][3])
+    ai = _inv2(*a)
+    si = _inv2(*(_csub(x, t) for x, t in zip(d, _mm2(_mm2(bh, ai), bm))))
+    aib = _mm2(ai, bm)
+    bhai = _mm2(bh, ai)
+    tl = tuple(_cadd(x, t) for x, t in zip(ai, _mm2(_mm2(aib, si), bhai)))
+    tr = tuple(_cneg(t) for t in _mm2(aib, si))
+    bl = tuple(_cneg(t) for t in _mm2(si, bhai))
+    ci = [[tl[0], tl[1], tr[0], tr[1]],
+          [tl[2], tl[3], tr[2], tr[3]],
+          [bl[0], bl[1], si[0], si[1]],
+          [bl[2], bl[3], si[2], si[3]]]
+
+    w_rows, ev = [], []
+    for l in range(L):
+        mu = zero
+        for m in range(L):
+            mu = mu + (ci[l][m][0] * g[m][l][0] - ci[l][m][1] * g[m][l][1])
+        mu = torch.clamp(mu, 1e-9, 1.0 - 1e-9)
+        inv_mu = 1.0 / mu
+        row = []
+        for p in range(P):
+            acc = (zero, zero)
+            for m in range(L):
+                acc = _cadd(acc, _cmul(ci[l][m], _cconj(hh[p][m])))
+            row.append(torch.complex(acc[0] * inv_mu, acc[1] * inv_mu))
+        w_rows.append(torch.stack(row, dim=-1))
+        ev.append((1.0 - mu) * inv_mu)
+    return torch.stack(w_rows, dim=-2), torch.stack(ev, dim=-1)
+
+
+def mmse_weights_4x4(h: torch.Tensor, noise_var: torch.Tensor):
+    """4x4 MMSE weights: (..., nsc, 4, 4) complex64 h, (...,) noise_var ->
+    (w (..., nsc, L, P) complex64, eq_nvar (..., nsc, L) float32).
+
+    CUDA tensor: kernel K3 (one launch); CPU tensor: the plain version."""
+    if h.device.type == "cpu":
+        return equalize_weights(h, noise_var)
+    if h.device.type != "cuda":
+        raise ValueError(f"mmse_weights_4x4: unsupported device {h.device}")
+    nv = _check(h, noise_var).contiguous()
+    if not h.is_contiguous():
+        raise ValueError("mmse_weights_4x4: h must be contiguous")
+    nsc = h.shape[-3]
+    n = h.numel() // (P * L)
+    w = torch.empty(h.shape, dtype=torch.complex64, device=h.device)
+    ev = torch.empty(h.shape[:-1], dtype=torch.float32, device=h.device)
+    if n == 0:
+        return w, ev
+    lib = cuda_lib.library()
+    with torch.cuda.device(h.device):
+        status = lib.mmse_weights_4x4(h.data_ptr(), nv.data_ptr(), n, nsc,
+                                      w.data_ptr(), ev.data_ptr(),
+                                      torch.cuda.current_stream(h.device).cuda_stream)
+    cuda_lib.check(status, "mmse_weights_4x4")
+    mmse_weights_4x4.launches += 1
+    return w, ev
+
+
+mmse_weights_4x4.launches = 0

@@ -1,0 +1,95 @@
+"""DM-RS channel estimator, fast path (port of
+``srsran_project_tpu/ops/estimator.py``: ``estimate_channel``,
+``_smooth_freq``, ``_rc_filter_taps``).
+
+Per (rx port, layer): LS at the pilot REs -> OCC despread over CDM pairs
+-> time average over DM-RS symbols -> bulk-delay derotation -> 9-tap
+raised-cosine smoothing in frequency -> linear interpolation to every
+subcarrier -> re-rotation.  The flagship path measures noise by second
+differences and SINR after equalization (phy/pusch.py), so the
+estimator's own noise, EPRE/RSRP/SNR, CFO and TA metrics are not ported
+yet (ROADMAP Q1.8).
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from ._tables import device_table
+
+
+@functools.lru_cache(maxsize=None)
+def _rc_filter_taps(nof_taps: int = 9, rolloff: float = 0.2, cutoff: float = 0.45) -> np.ndarray:
+    """Raised-cosine low-pass taps used for frequency smoothing, normalized."""
+    n = np.arange(nof_taps) - (nof_taps - 1) / 2
+    sinc = np.sinc(2 * cutoff * n)
+    cosf = np.cos(np.pi * rolloff * 2 * cutoff * n)
+    den = 1 - (2 * rolloff * 2 * cutoff * n) ** 2
+    den = np.where(np.abs(den) < 1e-9, 1e-9, den)
+    taps = sinc * cosf / den
+    return (taps / taps.sum()).astype(np.float32)
+
+
+def _smooth_freq(h: torch.Tensor, taps: np.ndarray) -> torch.Tensor:
+    """Edge-replicated 1-D convolution along the last axis."""
+    k = len(taps)
+    pad = k // 2
+    n = h.shape[-1]
+    hp = torch.cat([h[..., :1].expand(h.shape[:-1] + (pad,)), h,
+                    h[..., -1:].expand(h.shape[:-1] + (pad,))], dim=-1)
+    out = torch.zeros_like(h)
+    for i in range(k):
+        out = out + float(taps[i]) * hp[..., i : i + n]
+    return out
+
+
+def _interp_plan(pair_positions: tuple, nof_sc: int):
+    """(left neighbour (nof_sc,), fraction (nof_sc,), pair-index coordinate
+    (nof_sc,)) of the linear interpolation from pair centres."""
+    pos = np.asarray(pair_positions, dtype=np.float32)
+    x = np.arange(nof_sc, dtype=np.float32)
+    li = np.clip(np.searchsorted(pos, x, side="right") - 1, 0, max(len(pos) - 2, 0))
+    frac = np.clip((x - pos[li]) / (pos[li + 1] - pos[li]), 0.0, 1.0)
+    spacing = float(pos[1] - pos[0])
+    return li.astype(np.int64), frac.astype(np.float32), ((x - pos[0]) / spacing).astype(np.float32)
+
+
+_interp_on = device_table(lambda pp, n, which: _interp_plan(pp, n)[which])
+
+
+def _unit_phasor(phase: torch.Tensor) -> torch.Tensor:
+    return torch.polar(torch.ones_like(phase), phase)
+
+
+def estimate_channel(y_pilots: torch.Tensor, ref_pilots: torch.Tensor, wf: torch.Tensor,
+                     pair_positions: tuple, nof_sc: int):
+    """Estimate (rx port, layer) channels over an allocation.
+
+    y_pilots:   (..., nsym_dmrs, Np) received pilot REs
+    ref_pilots: broadcastable to y_pilots — pilot values without the OCC
+    wf:         broadcastable (Np,) +-1 frequency OCC of the layer's port
+    pair_positions: CDM pair centres relative to the allocation start
+    Returns h (..., nof_sc) complex64."""
+    if len(pair_positions) < 2:
+        raise NotImplementedError("allocations below one PRB are not ported (ROADMAP Q1.8)")
+    dev = y_pilots.device
+    ls = y_pilots * ref_pilots.conj() * wf
+    pair = ls.reshape(ls.shape[:-1] + (ls.shape[-1] // 2, 2))
+    h_pair = pair.mean(dim=-1)  # (..., nsym_dmrs, Np/2)
+    h_t = h_pair.mean(dim=-2)  # (..., Np/2)
+
+    # Bulk-delay derotation before smoothing/interpolation (both lag a fast
+    # phase rotation); the rotation is re-applied at every subcarrier.
+    n_pairs = h_t.shape[-1]
+    slope = torch.angle(torch.sum(h_t[..., 1:] * h_t[..., :-1].conj(), dim=-1, keepdim=True))
+    idx = torch.arange(n_pairs, dtype=torch.float32, device=dev)
+    h_t = _smooth_freq(h_t * _unit_phasor(-slope * idx), _rc_filter_taps())
+
+    li = _interp_on(dev, pair_positions, nof_sc, 0)
+    fr = _interp_on(dev, pair_positions, nof_sc, 1)
+    k_pair = _interp_on(dev, pair_positions, nof_sc, 2)
+    h = h_t[..., li] * (1 - fr) + h_t[..., li + 1] * fr
+    return (h * _unit_phasor(slope * k_pair)).to(torch.complex64)

@@ -1,0 +1,148 @@
+"""Shared-channel transport coding: TB bits <-> codeword bits / LLRs.
+
+Port of ``srsran_project_tpu/phy/sch.py``, hot path only: the encoder
+chain (segment + CRC, LDPC encode with LBRM-truncated parity, per-E-group
+rate match) and the fused decode (one K1 launch per E-group, then
+desegment + CRC).  HARQ combining, repetition geometry and the two-stage
+decode (kernel K2) are not ported yet (ROADMAP Q1.8, Q2).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+
+import torch
+
+from ..ops.ldpc import encoder as ldpc_encoder
+from ..ops.ldpc import rate_match as rm
+from ..ops.ldpc import segmenter
+from ..ops.ldpc.decoder import decode_dematch
+
+
+@dataclasses.dataclass(frozen=True)
+class SchConfig:
+    """Static transport-block coding configuration (twin of the
+    reference's ``SchConfig``: same fields, defaults and derived values)."""
+
+    tbs: int
+    target_code_rate: float
+    qm: int
+    nof_layers: int
+    nof_total_bits: int  # G: rate-matched bits of this codeword
+    rv: int = 0
+    # TBS_LBRM for limited-buffer rate matching; None = unlimited buffer.
+    tbs_lbrm_bytes: int | None = 159749
+    decoder: str = "auto"
+
+    def __post_init__(self):
+        if self.decoder != "auto":
+            raise NotImplementedError(
+                f"decoder={self.decoder!r}: the reference-exact int8 decoder is "
+                "not ported yet (ROADMAP Q1.8)")
+
+    @functools.cached_property
+    def seg(self) -> segmenter.SegmentParams:
+        return segmenter.compute_segment_params(self.tbs, self.target_code_rate)
+
+    @functools.cached_property
+    def n_cb(self) -> int | None:
+        """Circular-buffer length min(N, N_ref); None = full N."""
+        if self.tbs_lbrm_bytes is None:
+            return None
+        n = self.seg.full_codeword_bits
+        n_ref = min(self.tbs_lbrm_bytes * 8 * 3 // (2 * self.seg.nof_codeblocks), 25344)
+        return n_ref if n_ref < n else None
+
+    @functools.cached_property
+    def cb_e_bits(self) -> tuple[int, ...]:
+        """Per-codeblock rate-matched length E_r (TS 38.212 §5.4.2.1)."""
+        c = self.seg.nof_codeblocks
+        g = self.nof_total_bits
+        unit = self.qm * self.nof_layers
+        assert g % unit == 0, (g, unit)
+        lo = unit * (g // (unit * c))
+        nof_hi = (g // unit) % c
+        return tuple([lo] * (c - nof_hi) + [lo + unit] * nof_hi)
+
+
+def _e_groups(cb_e_bits):
+    """Codeblocks grouped by equal E: [(start, count, e)], contiguous."""
+    groups = []
+    start = 0
+    for e in cb_e_bits:
+        if groups and groups[-1][2] == e:
+            s, c, _ = groups[-1]
+            groups[-1] = (s, c + 1, e)
+        else:
+            groups.append((start, 1, e))
+        start += 1
+    return groups
+
+
+def encode_transport_block(tb_bits: torch.Tensor, cfg: SchConfig) -> torch.Tensor:
+    """TB payload (..., A) -> codeword bits (..., G)."""
+    seg = cfg.seg
+    cbs = segmenter.segment_tx(tb_bits, seg)  # (..., C, K)
+    buf = ldpc_encoder.encode_to_buffer(cbs, seg.base_graph, seg.lifting_size, n_cb=cfg.n_cb)
+    pieces = []
+    for start, count, e in _e_groups(cfg.cb_e_bits):
+        grp = rm.rate_match(buf[..., start : start + count, :], seg.base_graph,
+                            seg.lifting_size, seg.nof_payload_bits_per_cb, e, cfg.rv,
+                            cfg.qm, cfg.n_cb)  # (..., count, e)
+        pieces.append(grp.reshape(grp.shape[:-2] + (count * e,)))
+    return torch.cat(pieces, dim=-1)
+
+
+@functools.lru_cache(maxsize=None)
+def _fused_decode_ok(cfg: SchConfig) -> bool:
+    """The fused dematch + decode covers the no-repetition case (every E_r
+    fits one pass over the usable circular buffer)."""
+    seg = cfg.seg
+    n_cb = cfg.n_cb or seg.full_codeword_bits
+    usable = sum(ln for _, ln in rm._valid_runs(
+        seg.base_graph, seg.lifting_size, seg.nof_payload_bits_per_cb, cfg.rv, n_cb))
+    return max(cfg.cb_e_bits) <= usable
+
+
+def _fused_decode(llrs: torch.Tensor, cfg: SchConfig, nof_iterations: int, early_stop: bool):
+    """Rate dematch + LDPC decode, one ``decode_dematch`` call per E-group
+    (the de-stream -> buffer map is E-specific).  llrs (..., G) int8 ->
+    (bits (lead*C, K) uint8, iterations (lead*C,) int32), rows ordered as
+    the reference's."""
+    seg = cfg.seg
+    n_cb = cfg.n_cb or seg.full_codeword_bits
+    lead = llrs.shape[:-1]
+    bits_groups, iters_groups = [], []
+    off = 0
+    for _start, count, e in _e_groups(cfg.cb_e_bits):
+        span = llrs[..., off : off + count * e].reshape(-1, e)
+        bits_g, iters_g = decode_dematch(
+            span.contiguous(), seg.base_graph, seg.lifting_size,
+            seg.nof_payload_bits_per_cb, e, cfg.rv, cfg.qm, n_cb, nof_iterations,
+            early_stop=early_stop)
+        bits_groups.append(bits_g.reshape(lead + (count, -1)))
+        iters_groups.append(iters_g.reshape(lead + (count,)))
+        off += count * e
+    bits = torch.cat(bits_groups, dim=-2)
+    iters = torch.cat(iters_groups, dim=-1)
+    return bits.reshape((-1,) + bits.shape[-1:]), iters.reshape(-1)
+
+
+def _desegment_stage(bits: torch.Tensor, cfg: SchConfig, lead_shape: tuple):
+    """(lead*C, K) codeblock bits -> (TB (lead..., A), CRC ok (lead...,))."""
+    seg = cfg.seg
+    return segmenter.desegment_rx(bits.reshape(tuple(lead_shape) + (seg.nof_codeblocks, -1)), seg)
+
+
+def decode_transport_block(llrs: torch.Tensor, cfg: SchConfig, nof_iterations: int = 6,
+                           early_stop: bool = False):
+    """Codeword LLRs (..., G) int8 -> (tb_bits (..., A) uint8,
+    tb_crc_ok (...,) bool): the fused hot path of the reference."""
+    if llrs.dtype != torch.int8:
+        raise ValueError(f"decode_transport_block: want int8 LLRs, got {llrs.dtype}")
+    if not _fused_decode_ok(cfg):
+        raise NotImplementedError("repetition geometry needs the two-stage decode "
+                                  "(kernel K2, ROADMAP Q1.8 / Q2)")
+    bits, _iters = _fused_decode(llrs, cfg, nof_iterations, early_stop)
+    return _desegment_stage(bits, cfg, llrs.shape[:-1])

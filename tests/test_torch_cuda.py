@@ -1,0 +1,107 @@
+"""The port's CUDA kernels on the card against their plain torch versions,
+and the 24-PRB 4x4 slice on the card against the port's CPU path.
+
+Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without
+one.  The file imports no JAX, so it also runs on a GPU host that has
+none; there, skip the suite's conftest (which pins JAX to the CPU):
+
+    python -m pytest --noconftest -q tests/test_torch_cuda.py
+
+Tolerances: K1 bits and iteration counts exact (both sides compute every
+float operation separately rounded, in the same order); K3 as
+tests/test_torch_equalizer.py; IQ 1e-4 x RMS and int8 LLRs within +-1
+(cuFFT and pocketfft round differently); TB bits and CRC exact.
+"""
+
+import numpy as np
+import pytest
+import torch
+from torch_parity import cuda_device, to_np, to_torch  # noqa: F401
+
+from srsran_project_tpu_torch.models import cell
+from srsran_project_tpu_torch.ops import equalizer, ofdm
+from srsran_project_tpu_torch.ops.ldpc import decoder
+from srsran_project_tpu_torch.phy import pusch, sch
+
+pytestmark = pytest.mark.cuda
+
+K1_CASES = [
+    pytest.param(dict(tbs=9000, target_code_rate=0.45, qm=8, nof_layers=2,
+                      nof_total_bits=20032, rv=0, tbs_lbrm_bytes=None), id="bg1-two-e-groups"),
+    pytest.param(dict(tbs=2000, target_code_rate=0.2, qm=2, nof_layers=1,
+                      nof_total_bits=9000, rv=2, tbs_lbrm_bytes=None), id="bg2-rv2"),
+]
+
+
+def _noisy_llrs(cfg, seed: int) -> torch.Tensor:
+    rng = np.random.default_rng(seed)
+    tb = torch.from_numpy(rng.integers(0, 2, size=(cfg.tbs,), dtype=np.uint8))
+    cw = to_np(sch.encode_transport_block(tb, cfg))
+    llr = (1.0 - 2.0 * cw.astype(np.float32)) * 14.0 + rng.normal(0.0, 4.0, size=cw.shape)
+    return torch.from_numpy(np.clip(np.round(llr), -120, 120).astype(np.int8))
+
+
+@pytest.mark.parametrize("early_stop", [False, True])
+@pytest.mark.parametrize("kw", K1_CASES)
+def test_k1_matches_plain(cuda_device, kw, early_stop):  # noqa: F811
+    cfg = sch.SchConfig(**kw)
+    seg = cfg.seg
+    llrs = torch.stack([_noisy_llrs(cfg, 6), _noisy_llrs(cfg, 7)])
+    off = 0
+    for _s, count, e in sch._e_groups(cfg.cb_e_bits):
+        span = llrs[:, off : off + count * e].reshape(-1, e).contiguous()
+        args = (seg.base_graph, seg.lifting_size, seg.nof_payload_bits_per_cb, e, cfg.rv,
+                cfg.qm, seg.full_codeword_bits, 6, early_stop)
+        before = decoder.decode_dematch.launches
+        bits_k, it_k = decoder.decode_dematch(span.to(cuda_device), *args)
+        assert decoder.decode_dematch.launches == before + 1
+        bits_p, it_p = decoder.decode_dematch(span, *args)
+        np.testing.assert_array_equal(to_np(bits_k), to_np(bits_p))
+        np.testing.assert_array_equal(to_np(it_k), to_np(it_p))
+        off += count * e
+
+
+def test_k3_matches_plain(cuda_device):  # noqa: F811
+    rng = np.random.default_rng(7)
+    h = ((rng.standard_normal((2, 3276, 4, 4)) + 1j * rng.standard_normal((2, 3276, 4, 4)))
+         * 0.5).astype(np.complex64)
+    nv = np.array([0.013, 0.5], np.float32)
+    before = equalizer.mmse_weights_4x4.launches
+    w_k, e_k = equalizer.mmse_weights_4x4(to_torch(h).to(cuda_device),
+                                          to_torch(nv).to(cuda_device))
+    assert equalizer.mmse_weights_4x4.launches == before + 1
+    w_p, e_p = equalizer.equalize_weights(to_torch(h), to_torch(nv))
+    assert np.abs(to_np(w_k) - to_np(w_p)).max() <= 1e-4 * max(1.0, float(w_p.abs().max()))
+    e_p = to_np(e_p)
+    assert (np.abs(to_np(e_k) - e_p) <= 1e-4 * np.maximum(1.0, np.abs(e_p))).all()
+
+
+def test_slice_on_card_matches_cpu(cuda_device):  # noqa: F811
+    cfg = cell.CellConfig(nof_rb=24, nof_ports=4, nof_layers=4)
+    rng = np.random.default_rng(0)
+    tb = torch.from_numpy(rng.integers(0, 2, size=(2, cfg.tbs), dtype=np.uint8))
+    rnti = torch.tensor([0x4601, 0x4602])
+    w = torch.eye(4, dtype=torch.complex64)
+    iq_c = cell.encode_slot(tb, rnti, w, cfg)
+    iq_g = cell.encode_slot(tb.to(cuda_device), rnti.to(cuda_device), w, cfg)
+    rms = float(iq_c.abs().pow(2).mean().sqrt())
+    assert float((iq_g.cpu() - iq_c).abs().max()) <= 1e-4 * rms
+    noise = ((rng.standard_normal(iq_c.shape) + 1j * rng.standard_normal(iq_c.shape))
+             * np.sqrt(0.5) * rms * 10 ** (-30 / 20)).astype(np.complex64)
+    rx = iq_c + to_torch(noise)
+
+    k1, k3 = decoder.decode_dematch.launches, equalizer.mmse_weights_4x4.launches
+    out_g = cell.decode_slot(rx.to(cuda_device), rnti.to(cuda_device), cfg)
+    assert decoder.decode_dematch.launches - k1 == len(sch._e_groups(cfg.pusch_cfg.sch.cb_e_bits))
+    assert equalizer.mmse_weights_4x4.launches - k3 == 1
+    out_c = cell.decode_slot(rx, rnti, cfg)
+    np.testing.assert_array_equal(to_np(out_g["tb_bits"]), to_np(tb))
+    assert to_np(out_g["tb_crc_ok"]).all() and to_np(out_c["tb_crc_ok"]).all()
+    np.testing.assert_array_equal(to_np(out_g["tb_bits"]), to_np(out_c["tb_bits"]))
+
+    grid = ofdm.demodulate_slot(rx, cfg.nof_rb, cfg.scs, cfg.dft_size, cfg.cp, 0,
+                                     f_center_hz=cfg.f_center_hz)
+    llr_c, _, _ = pusch._front_end(grid, rnti, cfg.pusch_cfg)
+    llr_g, _, _ = pusch._front_end(grid.to(cuda_device), rnti.to(cuda_device), cfg.pusch_cfg)
+    diff = (llr_g.cpu().int() - llr_c.int()).abs()
+    assert int(diff.max()) <= 1 and float((diff == 0).float().mean()) >= 0.999
