@@ -1,19 +1,36 @@
 #!/usr/bin/env python3
-"""Quickest proof that the PyTorch/CUDA port runs its flagship slot on a GPU.
+"""Quickest proof that the PyTorch/CUDA port runs its uplink and downlink
+paths on a GPU.
 
 Run from the repository root on a machine with one NVIDIA Hopper card:
 
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``srsran_project_tpu_torch/csrc``
-(into ``build/``), checks each kernel against its plain torch version on
-the card at the flagship shapes, then drives the flagship cell (273 PRB,
-30 kHz, 4x4, 256QAM r~0.926, LBRM) end to end through the port's public
-entry points: 8 random transport blocks -> ``encode_slot`` -> AWGN at
-30 dB -> ``decode_slot``, every CRC and every bit checked, and the
-kernels' launch counters read around that one decode.  It then times the
-encode and decode per slot, the decode's stages, and each kernel against
-its plain version.
+(into ``build/``, one ``nvcc`` per source, side by side), checks each
+kernel against its plain torch version on the card at the shapes of the
+paths below, then drives three paths through the port's public entry
+points, each with every kernel launch counter set to 0 just before it and
+read just after:
+
+1. the flagship cell (273 PRB, 30 kHz, 4x4, 256QAM r~0.926, LBRM): 8 random
+   transport blocks -> ``encode_slot`` -> AWGN at 30 dB -> ``decode_slot``
+   (kernels K1 and K3);
+2. a heterogeneous 8-UE uplink slot on the same 273-PRB carrier with 4 RX
+   ports -> ``ul_slot.process_slot`` (kernel K2 once per code group, and
+   K3): two 4-layer 256QAM grants, four rank-1 64QAM grants and two
+   rank-1 QPSK grants whose E exceeds the circular buffer (repetition);
+   then the same grid again with UE 3 retransmitted at rv 2 and its HARQ
+   buffer attached: UE 3 is attenuated so that rv 0 fails its CRC and the
+   rv 0 + rv 2 combine passes.  On each pass K2 is held against its plain
+   version on every code group's buffers;
+3. the flagship decode with ``demapper="planes"`` on the slots of path 1
+   (kernels K3, K4 and K1 reading the bit-plane layout), whose TB bits must
+   equal the float path's; K4 and K1 are held against their plain
+   versions on that batch's own tensors.
+
+Every CRC and every bit is checked.  It then times each path per slot,
+the flagship decode's stages, and each kernel against its plain version.
 
 Output: progress and timing lines, then one JSON line with the kernels,
 the card's name and power limit, and as the LAST line
@@ -25,6 +42,7 @@ imported.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -37,6 +55,22 @@ SNR_DB = 30.0
 NOF_SLOTS = 8
 RNTI = 0x4601
 SEED = 0
+DEVICE = "cuda"  # every path's tensors live here
+
+# The heterogeneous uplink slot: one 273-PRB carrier, 4 RX ports, every
+# grant on the flagship's symbols 1-13 with DM-RS on symbol 2.  Per group:
+# (UEs, layers, bits per symbol, code rate, PRBs each).  The rates are
+# MCS 20 and MCS 0 of the 64QAM MCS table (TS 38.214 Table 5.1.3.1-1):
+# 567/1024 (benchmarks/multi_ue_bench.py's MCS) and 120/1024.
+UL_NOF_PRB = 273
+UL_NOF_PORTS = 4
+UL_GROUPS = (
+    (2, 4, 8, 948.0 / 1024.0, 80),  # A: UEs 0-1, PRB 0-159
+    (4, 1, 6, 567.0 / 1024.0, 24),  # B: UEs 2-5, PRB 160-255
+    (2, 1, 2, 120.0 / 1024.0, 8),   # C: UEs 6-7, PRB 256-271, repetition
+)
+UL_RETX_UE = 3
+UL_RETX_ATTEN_DB = 19.0  # rv 0 alone fails, rv 0 + rv 2 passes (see ul_slot_plan)
 
 
 def fail(msg: str):
@@ -67,32 +101,256 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
+# ---- launch counters ---------------------------------------------------------
+
+def _counted():
+    """(name, wrapper, attribute) of every kernel launch counter."""
+    from srsran_project_tpu_torch.ops import demap_planes, equalizer
+    from srsran_project_tpu_torch.ops.ldpc import decoder
+
+    return (("decode_dematch", decoder.decode_dematch, "launches"),
+            ("decode_dematch_planes", decoder.decode_dematch, "plane_launches"),
+            ("decode", decoder.decode, "launches"),
+            ("mmse_weights_4x4", equalizer.mmse_weights_4x4, "launches"),
+            ("demap_planes", demap_planes.demap_planes, "launches"))
+
+
+def reset_counts() -> None:
+    for _name, fn, attr in _counted():
+        setattr(fn, attr, 0)
+
+
+def read_counts() -> dict:
+    """Launches per kernel since the last reset; decode_dematch counts the
+    stream layout only, decode_dematch_planes the plane layout."""
+    counts = {name: getattr(fn, attr) for name, fn, attr in _counted()}
+    counts["decode_dematch"] -= counts["decode_dematch_planes"]
+    return counts
+
+
+def expect_counts(path: str, got: dict, want: dict) -> None:
+    want = {name: want.get(name, 0) for name in got}
+    if got != want:
+        fail(f"{path}: kernel launches {got}, want {want}")
+    print(f"# {path}: kernel launches {got}")
+
+
+# ---- the uplink slot ---------------------------------------------------------
+
+def ul_config(layers: int, qm: int, rate: float, nof_rb: int, first_rb: int, rv: int = 0):
+    """The port's PuschConfig of one grant: a compact window of nof_rb PRBs
+    (rb_start 0, crb_start first_rb for the DM-RS) with the flagship's
+    symbols, DM-RS, TBS rule and decoder settings."""
+    from srsran_project_tpu_torch.models.cell import CellConfig
+    from srsran_project_tpu_torch.ops.modulation import Modulation
+
+    pc = CellConfig(nof_rb=nof_rb, nof_ports=UL_NOF_PORTS, nof_layers=layers,
+                    modulation=Modulation(qm), target_code_rate=rate).pusch_cfg
+    return dataclasses.replace(pc, alloc=dataclasses.replace(pc.alloc, crb_start=first_rb),
+                               rv=rv)
+
+
+def ul_slot_plan(seed: int = SEED, atten_db: float = UL_RETX_ATTEN_DB):
+    """Everything random about the two passes of the uplink slot, made with
+    numpy from ``seed``: per UE a dict of rnti, first_rb, (layers, qm, rate,
+    nof_rb), TB bits and its (layers, 4) channel (a random unitary matrix
+    for 4 layers, a random unit-norm row for one, UE 3's scaled down by
+    ``atten_db``); and the complex noise of each pass, (2, 4, 14, 3276) at
+    SNR_DB per RE and port.  On seed 0, UE 3 (64QAM r 0.55, post-MRC SNR
+    30 - atten_db) fails at rv 0 and passes once rv 2 is combined in for
+    atten_db from 17 to 21 dB, in the JAX package and in the port alike on
+    the CPU; 19 dB sits in the middle
+    (tests/test_torch_ul_slot.py::test_chip_smoke_retransmission_pair)."""
+    rng = np.random.default_rng(seed)
+    ues = []
+    rb = 0
+    for nof_ues, layers, qm, rate, nof_rb in UL_GROUPS:
+        for _ in range(nof_ues):
+            ue = len(ues)
+            cfg = ul_config(layers, qm, rate, nof_rb, rb)
+            tb = rng.integers(0, 2, size=(cfg.tbs,), dtype=np.uint8)
+            h = rng.standard_normal((layers, layers if layers > 1 else UL_NOF_PORTS, 2))
+            h = h[..., 0] + 1j * h[..., 1]
+            if layers > 1:
+                h = np.linalg.qr(h)[0]
+            else:
+                h = h / np.linalg.norm(h)
+            if ue == UL_RETX_UE:
+                h = h * 10 ** (-atten_db / 20)
+            ues.append(dict(rnti=RNTI + ue, first_rb=rb, shape=(layers, qm, rate, nof_rb),
+                            tb=tb, channel=h.astype(np.complex64)))
+            rb += nof_rb
+    sigma = np.sqrt(0.5 * 10 ** (-SNR_DB / 10))
+    noise = rng.standard_normal((2, UL_NOF_PORTS, 14, UL_NOF_PRB * 12, 2)) * sigma
+    return ues, (noise[..., 0] + 1j * noise[..., 1]).astype(np.complex64)
+
+
+def ul_grid(ues, noise, device, retx_rv: int | None = None):
+    """The received (4, 14, 3276) grid of one pass, built on ``device`` with
+    the port's transmitter, and each UE's config (UE 3 at retx_rv when
+    given)."""
+    import torch
+
+    from srsran_project_tpu_torch.phy import pusch
+
+    grid = torch.from_numpy(noise).to(device)
+    cfgs = []
+    for i, ue in enumerate(ues):
+        rv = retx_rv if (retx_rv is not None and i == UL_RETX_UE) else 0
+        cfg = ul_config(*ue["shape"], ue["first_rb"], rv)
+        sub = pusch.transmit(torch.from_numpy(ue["tb"]).to(device),
+                             torch.tensor(ue["rnti"], device=device), cfg,
+                             torch.from_numpy(ue["channel"]).to(device))
+        sc0 = 12 * ue["first_rb"]
+        grid[:, :, sc0 : sc0 + cfg.nof_grid_sc] += sub
+        cfgs.append(cfg)
+    return grid, cfgs
+
+
+def check_code_groups(grid, pdus, name: str) -> float:
+    """K2 against its plain version on the very buffers ``process_slot``
+    hands it for ``grid`` and ``pdus``: per code group, bits and
+    iteration counts equal at the path's settings (bits only, as the path
+    calls it), and a-posteriori LLRs equal with bits_only=False.  Returns
+    the largest a-posteriori difference."""
+    import torch
+
+    from srsran_project_tpu_torch.ops.ldpc import decoder
+    from srsran_project_tpu_torch.phy import ul_slot
+
+    groups = ul_slot._config_groups(pdus)
+    cfgs = tuple(groups)
+    fronts = ul_slot._slot_front(grid, groups, pdus)
+    err = 0.0
+    for (bg, z, iters, early, n_cb), _gis, _sizes, llrs in ul_slot._code_groups(cfgs, fronts):
+        args = (llrs, bg, z, iters, early)
+        for bits_only in (True, False):
+            bits_k, app_k, it_k = decoder.decode(*args, bits_only, n_cb)
+            bits_p, app_p, it_p = decoder.decode_plain(*args, bits_only, n_cb)
+            torch.cuda.synchronize()
+            what = f"K2 {name} BG{bg} Z={z} C={llrs.shape[0]} bits_only={bits_only}"
+            if not torch.equal(bits_k, bits_p):
+                fail(f"{what}: {int((bits_k != bits_p).sum())} bits differ from the plain "
+                     f"version")
+            if not torch.equal(it_k, it_p):
+                fail(f"{what}: iteration counts differ from the plain version")
+            if not bits_only:
+                err = max(err, float((app_k - app_p).abs().max()))
+                if not torch.equal(app_k, app_p):
+                    fail(f"{what}: a-posteriori LLRs differ (max {err:.3e})")
+        print(f"# K2 {name} BG{bg} Z={z} C={llrs.shape[0]} n_cb={n_cb} early_stop={early}: "
+              f"bits, iterations (mean {it_k.float().mean().item():.2f}) and a-posteriori "
+              f"LLRs equal the plain version")
+    return err
+
+
+def ul_slot_phase(card: str) -> tuple[dict, float]:
+    """Path 2: the 8-UE slot and UE 3's retransmission, with the launch
+    counters read around each pass and K2 checked against its plain
+    version on each pass's code groups; returns the launch counts of the
+    first pass and K2's largest a-posteriori difference."""
+    import torch
+
+    from srsran_project_tpu_torch.phy import ul_slot
+
+    dev = torch.device(DEVICE)
+    ues, noise = ul_slot_plan()
+    results, counts = [], None
+    harq = None
+    k2_err = 0.0
+    for p, (rv, pass_noise) in enumerate(((None, noise[0]), (2, noise[1]))):
+        grid, cfgs = ul_grid(ues, pass_noise, dev, retx_rv=rv)
+        pdus = [ul_slot.UlSlotPdu(rnti=ue["rnti"], first_rb=ue["first_rb"], config=cfg,
+                                  harq_buffer=harq if i == UL_RETX_UE else None)
+                for i, (ue, cfg) in enumerate(zip(ues, cfgs))]
+        torch.cuda.synchronize()
+        reset_counts()
+        res, _, _ = ul_slot.process_slot(grid, pdus)
+        torch.cuda.synchronize()
+        got = read_counts()
+        codes = {(c.sch.seg.base_graph, c.sch.seg.lifting_size, c.nof_ldpc_iterations,
+                  c.ldpc_early_stop, c.sch.n_cb) for c in cfgs}
+        if len(codes) != 3:
+            fail(f"ul_slot pass {p}: {len(codes)} code groups, want 3")
+        expect_counts(f"ul_slot pass {p}", got, {"decode": len(codes), "mmse_weights_4x4": 1})
+        k2_err = max(k2_err, check_code_groups(grid, pdus, f"ul_slot pass {p}"))
+        if counts is None:
+            counts = got
+            first = (grid, pdus)
+        harq = res[UL_RETX_UE]["harq_buffer"]
+        results.append(res)
+
+    for p, res in enumerate(results):
+        ok = [bool(r["tb_crc_ok"]) for r in res]
+        errs = [int((r["tb_bits"].cpu().numpy() != ue["tb"]).sum()) for r, ue in zip(res, ues)]
+        snr = [round(float(r["snr_db"]), 2) for r in res]
+        print(f"# ul_slot pass {p} ({'new data' if p == 0 else 'UE 3 at rv 2 + HARQ'}): "
+              f"CRC ok {ok}, bit errors {errs}, SINR dB {snr}")
+        for i, (r, e) in enumerate(zip(res, errs)):
+            want = p == 1 or i != UL_RETX_UE
+            if ok[i] != want or (want and e):
+                fail(f"ul_slot pass {p}, UE {i}: CRC {ok[i]} with {e} bit errors, "
+                     f"want CRC {want}" + (" and every bit right" if want else ""))
+            if not (np.isfinite(float(r["noise_var"])) and np.isfinite(float(r["snr_db"]))):
+                fail(f"ul_slot pass {p}, UE {i}: non-finite noise_var / snr_db")
+    repeated = [i for i, c in enumerate(cfgs) if not _fused_ok(c)]
+    if repeated != [6, 7]:
+        fail(f"ul_slot: repetition geometry at UEs {repeated}, want [6, 7]")
+
+    grid, pdus = first
+    ms = cuda_ms(lambda: ul_slot.process_slot(grid, pdus), reps=5)
+    print(f"# [{card}] ul_slot: 8 UEs, 3 configs, 273 PRB x 4 ports: {ms:.4f} ms/slot")
+    return counts, k2_err
+
+
+def _fused_ok(cfg) -> bool:
+    from srsran_project_tpu_torch.phy.sch import _fused_decode_ok
+
+    return _fused_decode_ok(cfg.sch)
+
+
+# ---- the kernels against their plain versions ---------------------------------
+
+def noisy_llrs(cfg, rng, dev):
+    """int8 LLRs around a valid codeword of a random TB (|LLR| 14, noise 4)."""
+    import torch
+
+    from srsran_project_tpu_torch.phy import sch as sch_mod
+
+    tb = torch.from_numpy(rng.integers(0, 2, size=(cfg.tbs,), dtype=np.uint8)).to(dev)
+    cw = sch_mod.encode_transport_block(tb, cfg).cpu().numpy()
+    llr = (1.0 - 2.0 * cw.astype(np.float32)) * 14.0 + rng.normal(0.0, 4.0, size=cw.shape)
+    return torch.from_numpy(np.clip(np.round(llr), -120, 120).astype(np.int8)).to(dev)
+
+
 def kernel_phase(card: str):
-    """K1 and K3 against their plain versions on the card, at the flagship
-    shapes; returns the per-kernel entries of the JSON line (without
-    launch counts)."""
+    """K1 (both layouts), K2, K3 and K4 against their plain versions on the
+    card, at the shapes of the three paths; returns the per-kernel entries
+    of the JSON line (without launch counts)."""
     import torch
 
     from srsran_project_tpu_torch.models.cell import CellConfig
+    from srsran_project_tpu_torch.ops import demap_planes as dp
     from srsran_project_tpu_torch.ops import equalizer
     from srsran_project_tpu_torch.ops.ldpc import decoder
+    from srsran_project_tpu_torch.ops.modulation import Modulation
     from srsran_project_tpu_torch.phy import sch as sch_mod
 
-    dev = torch.device("cuda")
+    dev = torch.device(DEVICE)
     rng = np.random.default_rng(SEED)
     cfg = CellConfig().pusch_cfg.sch
     seg = cfg.seg
     n_cb = cfg.n_cb or seg.full_codeword_bits
 
-    # K1: int8 LLRs around a valid flagship codeword, per E-group.
-    tb = torch.from_numpy(rng.integers(0, 2, size=(cfg.tbs,), dtype=np.uint8)).to(dev)
-    cw = sch_mod.encode_transport_block(tb, cfg).cpu().numpy()
-    llr = (1.0 - 2.0 * cw.astype(np.float32)) * 14.0 + rng.normal(0.0, 4.0, size=cw.shape)
-    llr = torch.from_numpy(np.clip(np.round(llr), -120, 120).astype(np.int8)).to(dev)
+    # K1: int8 LLRs around a valid flagship codeword, per E-group, read as
+    # the (C, E) stream and as (1, qm, C, E/qm) views of the bit-planes.
+    llr = noisy_llrs(cfg, rng, dev)
+    planes = llr.reshape(1, -1, cfg.qm).transpose(1, 2).contiguous()
     groups = []
     off = 0
-    for _start, count, e in sch_mod._e_groups(cfg.cb_e_bits):
-        groups.append((llr[off : off + count * e].reshape(count, e).contiguous(), e))
+    for view, e in sch_mod._plane_groups(planes, cfg):
+        count = view.shape[2]
+        groups.append((llr[off : off + count * e].reshape(count, e).contiguous(), view, e))
         off += count * e
     args = (seg.base_graph, seg.lifting_size, seg.nof_payload_bits_per_cb)
 
@@ -100,14 +358,14 @@ def kernel_phase(card: str):
         return decoder.decode_dematch(span, *args, e, cfg.rv, cfg.qm, n_cb, iters, early)
 
     def k1_plain(span, e, iters, early):
-        plan = decoder.dematch_decode_plan(*args, e, cfg.rv, cfg.qm, n_cb)
-        return decoder.layered_min_sum(decoder.assemble_buffer(span, plan), plan, iters, early)
+        return decoder.decode_dematch_plain(span, *args, e, cfg.rv, cfg.qm, n_cb, iters, early)
 
     k1_err = 0
-    for span, e in groups:
+    for span, view, e in groups:
         for early in (False, True):
             bits_k, it_k = k1(span, e, 6, early)
             bits_p, it_p = k1_plain(span, e, 6, early)
+            bits_v, it_v = k1(view, e, 6, early)
             torch.cuda.synchronize()
             nbad = int((bits_k != bits_p).sum())
             k1_err = max(k1_err, int((bits_k.int() - bits_p.int()).abs().max()))
@@ -117,13 +375,61 @@ def kernel_phase(card: str):
                 fail(f"K1 E={e}: per-codeblock iteration counts differ from the plain version")
             if not early and not bool((it_k == 6).all()):
                 fail("K1: fixed-budget iteration count is not 6")
+            if not (torch.equal(bits_v, bits_k) and torch.equal(it_v, it_k)):
+                fail(f"K1 E={e} early_stop={early}: the plane layout differs from the stream")
         print(f"# K1 E={e} C={span.shape[0]}: bits equal (6 iterations; early stop: bits and "
-              f"iterations equal, mean {it_k.float().mean().item():.2f} iterations)")
-    k1_ms = sum(cuda_ms(lambda s=s, e=e: k1(s, e, 6, True), reps=20) for s, e in groups)
+              f"iterations equal, mean {it_k.float().mean().item():.2f} iterations); plane "
+              f"layout equal to the stream")
+    k1_ms = sum(cuda_ms(lambda s=s, e=e: k1(s, e, 6, True), reps=20) for s, _v, e in groups)
     k1_plain_ms = sum(cuda_ms(lambda s=s, e=e: k1_plain(s, e, 6, True), reps=3)
-                      for s, e in groups)
+                      for s, _v, e in groups)
+    k1v_ms = sum(cuda_ms(lambda v=v, e=e: k1(v, e, 6, True), reps=20) for _s, v, e in groups)
+    k1v_plain_ms = sum(cuda_ms(lambda v=v, e=e: k1_plain(v, e, 6, True), reps=3)
+                       for _s, v, e in groups)
     print(f"# [{card}] K1 decode_dematch, flagship slot (2 E-groups, early stop): "
-          f"kernel {k1_ms:.4f} ms, plain torch {k1_plain_ms:.4f} ms")
+          f"kernel {k1_ms:.4f} ms, plain torch {k1_plain_ms:.4f} ms; plane layout: "
+          f"kernel {k1v_ms:.4f} ms, plain torch {k1v_plain_ms:.4f} ms")
+
+    # K2: the flagship's dematched buffers (LBRM-truncated graph) and those
+    # of the uplink slot's group A (41 codeblocks, untruncated BG1 graph).
+    cfg_a = ul_config(*UL_GROUPS[0][1:], 0).sch
+    k2_cases = []
+    for name, c, lead in (("flagship", cfg, llr), ("group A", cfg_a, None)):
+        src = lead if lead is not None else noisy_llrs(c, rng, dev)
+        buf = sch_mod._dematch_stage(src, None, c)
+        k2_cases.append((name, c, buf))
+    k2_err = 0.0
+    for name, c, buf in k2_cases:
+        kargs = (c.seg.base_graph, c.seg.lifting_size, 6)
+        for bits_only in (True, False):
+            for early in (False, True):
+                bits_k, app_k, it_k = decoder.decode(buf, *kargs, early, bits_only, c.n_cb)
+                bits_p, app_p, it_p = decoder.decode_plain(buf, *kargs, early, bits_only,
+                                                            c.n_cb)
+                torch.cuda.synchronize()
+                if not torch.equal(bits_k, bits_p):
+                    fail(f"K2 {name} early_stop={early} bits_only={bits_only}: "
+                         f"{int((bits_k != bits_p).sum())} bits differ from the plain version")
+                if not torch.equal(it_k, it_p):
+                    fail(f"K2 {name} early_stop={early}: iteration counts differ")
+                if not early and not bool((it_k == 6).all()):
+                    fail(f"K2 {name}: fixed-budget iteration count is not 6")
+                if not bits_only:
+                    k2_err = max(k2_err, float((app_k - app_p).abs().max()))
+                    if not torch.equal(app_k, app_p):
+                        fail(f"K2 {name} early_stop={early}: a-posteriori LLRs differ "
+                             f"(max {k2_err:.3e})")
+        plan = decoder.decode_plan(c.seg.base_graph, c.seg.lifting_size, buf.shape[-1], c.n_cb)
+        print(f"# K2 {name} C={buf.shape[0]} Z={c.seg.lifting_size} rows={len(plan.layers)}: "
+              f"bits, iterations (mean {it_k.float().mean().item():.2f} with early stop) "
+              f"and a-posteriori LLRs equal")
+    k2_times = {}
+    for name, c, buf in k2_cases:
+        kargs = (c.seg.base_graph, c.seg.lifting_size, 6, True, True, c.n_cb)
+        k2_times[name] = (cuda_ms(lambda b=buf, a=kargs: decoder.decode(b, *a), reps=20),
+                          cuda_ms(lambda b=buf, a=kargs: decoder.decode_plain(b, *a), reps=3))
+    print(f"# [{card}] K2 decode (bits only, early stop): " + "; ".join(
+        f"{n} kernel {k:.4f} ms, plain torch {p:.4f} ms" for n, (k, p) in k2_times.items()))
 
     # K3: random 4x4 channels at the flagship's 3276 subcarriers.
     nsc, nv = 3276, 0.013
@@ -152,15 +458,51 @@ def kernel_phase(card: str):
     print(f"# [{card}] K3 mmse_weights_4x4, one slot (3276 subcarriers): "
           f"kernel {k3_ms:.4f} ms, plain torch {k3_plain_ms:.4f} ms")
 
+    # K4: one flagship slot's data symbols (4 ports, 12 data symbols, 3276
+    # subcarriers, 4 layers, 256QAM), random weights, noise and signs.
+    p, s, l, qm = 4, 12, 4, 8
+    y = rng.standard_normal((1, p, s, nsc, 2)) * 0.5
+    w = rng.standard_normal((1, nsc, l, p, 2)) * 0.5
+    ins = (torch.from_numpy((y[..., 0] + 1j * y[..., 1]).astype(np.complex64)).to(dev),
+           torch.from_numpy((w[..., 0] + 1j * w[..., 1]).astype(np.complex64)).to(dev),
+           torch.from_numpy((0.01 + 0.1 * rng.random((1, nsc, l))).astype(np.float32)).to(dev),
+           torch.from_numpy((1.0 - 2.0 * rng.integers(0, 2, size=(1, qm, s * nsc * l)))
+                            .astype(np.float32)).to(dev))
+    planes_k, err_k = dp.demap_planes(*ins, Modulation.QAM256)
+    planes_p, err_p = dp.demap_planes_plain(*ins, Modulation.QAM256)
+    torch.cuda.synchronize()
+    k4_err = int((planes_k.int() - planes_p.int()).abs().max())
+    rel = float(((err_k - err_p).abs() / err_p.abs().clamp_min(1e-30)).max())
+    if k4_err or not rel <= 1e-6:
+        fail(f"K4 vs plain: planes max |d| {k4_err}, err2 max relative {rel:.3e} (limit 1e-6)")
+    print(f"# K4 {tuple(planes_k.shape)}: planes equal, err2 max relative {rel:.3e}")
+    k4_ms = cuda_ms(lambda: dp.demap_planes(*ins, Modulation.QAM256), reps=50)
+    k4_plain_ms = cuda_ms(lambda: dp.demap_planes_plain(*ins, Modulation.QAM256), reps=10)
+    print(f"# [{card}] K4 demap_planes, one flagship slot: kernel {k4_ms:.4f} ms, "
+          f"plain torch {k4_plain_ms:.4f} ms")
+
+    k2_ms, k2_plain_ms = k2_times["group A"]
     return [
         {"name": "decode_dematch", "route": "cuda",
          "source": "srsran_project_tpu_torch/csrc/ldpc_decode_dematch.cu",
          "replaces": "srsran_project_tpu/ops/ldpc/decoder_pallas.py:322",
          "max_abs_err": float(k1_err), "ms": k1_ms, "plain_ms": k1_plain_ms},
+        {"name": "decode_dematch_planes", "route": "cuda",
+         "source": "srsran_project_tpu_torch/csrc/ldpc_decode_dematch.cu",
+         "replaces": "srsran_project_tpu/ops/ldpc/decoder_pallas.py:322",
+         "max_abs_err": float(k1_err), "ms": k1v_ms, "plain_ms": k1v_plain_ms},
+        {"name": "decode", "route": "cuda",
+         "source": "srsran_project_tpu_torch/csrc/ldpc_decode.cu",
+         "replaces": "srsran_project_tpu/ops/ldpc/decoder_pallas.py:172",
+         "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms},
         {"name": "mmse_weights_4x4", "route": "cuda",
          "source": "srsran_project_tpu_torch/csrc/mmse_weights_4x4.cu",
          "replaces": "srsran_project_tpu/ops/equalizer_pallas.py:132",
          "max_abs_err": k3_err, "ms": k3_ms, "plain_ms": k3_plain_ms},
+        {"name": "demap_planes", "route": "cuda",
+         "source": "srsran_project_tpu_torch/csrc/demap_planes.cu",
+         "replaces": "srsran_project_tpu/ops/demap_pallas.py:45",
+         "max_abs_err": float(k4_err), "ms": k4_ms, "plain_ms": k4_plain_ms},
     ]
 
 
@@ -174,17 +516,18 @@ def _mmse_oracle64(h, nv):
     return (ci @ hH) / mu[..., None], (1.0 - mu) / mu
 
 
+# ---- the flagship cell ----------------------------------------------------------
+
 def slice_phase(card: str):
-    """The flagship slot end to end; returns the launch counts of the one
-    batched decode."""
+    """Path 1: the flagship slot end to end.  Returns the launch counts of
+    the one batched decode, and (rx, tb, decoded TB bits) for path 3."""
     import torch
 
     from srsran_project_tpu_torch.models import cell
-    from srsran_project_tpu_torch.ops import equalizer, ofdm
-    from srsran_project_tpu_torch.ops.ldpc import decoder
+    from srsran_project_tpu_torch.ops import ofdm
     from srsran_project_tpu_torch.phy import pusch, sch as sch_mod
 
-    dev = torch.device("cuda")
+    dev = torch.device(DEVICE)
     cfg = cell.CellConfig()
     rng = np.random.default_rng(SEED + 1)
     tb = torch.from_numpy(rng.integers(0, 2, size=(NOF_SLOTS, cfg.tbs), dtype=np.uint8)).to(dev)
@@ -198,30 +541,14 @@ def slice_phase(card: str):
     rx = iq + noise * torch.sqrt(sig_pow * 10.0 ** (-SNR_DB / 10.0))
     torch.cuda.synchronize()
 
-    decoder.decode_dematch.launches = 0
-    equalizer.mmse_weights_4x4.launches = 0
+    reset_counts()
     out = cell.decode_slot(rx, RNTI, cfg)
     torch.cuda.synchronize()
-    launches = {"decode_dematch": decoder.decode_dematch.launches,
-                "mmse_weights_4x4": equalizer.mmse_weights_4x4.launches}
-
+    launches = read_counts()
     nof_groups = len(sch_mod._e_groups(cfg.pusch_cfg.sch.cb_e_bits))
-    if launches != {"decode_dematch": nof_groups, "mmse_weights_4x4": 1}:
-        fail(f"launch counts {launches}, want {nof_groups} K1 and 1 K3 per batched decode")
-    if tuple(out["tb_bits"].shape) != (NOF_SLOTS, cfg.tbs):
-        fail(f"tb_bits shape {tuple(out['tb_bits'].shape)}")
-    crc_ok = out["tb_crc_ok"].cpu().numpy()
-    bit_errors = (out["tb_bits"] != tb).sum(dim=1).cpu().numpy()
-    snr_db = out["snr_db"].cpu().numpy()
-    noise_var = out["noise_var"].cpu().numpy()
-    print(f"# slice: {NOF_SLOTS} flagship slots, CRC ok {crc_ok.tolist()}, bit errors "
-          f"{bit_errors.tolist()}, SINR dB {np.round(snr_db, 2).tolist()}")
-    if not crc_ok.all() or bit_errors.any():
-        fail("flagship decode is not CRC-clean with every bit right")
-    if not (np.isfinite(noise_var).all() and np.isfinite(snr_db).all()):
-        fail("non-finite noise_var / snr_db")
-    if not ((snr_db > SNR_DB - 5).all() and (snr_db < SNR_DB + 5).all()):
-        fail(f"post-equalization SINR {snr_db} far from the {SNR_DB} dB channel")
+    expect_counts("flagship decode", launches,
+                  {"decode_dematch": nof_groups, "mmse_weights_4x4": 1})
+    check_flagship(out, tb, cfg, "flagship")
 
     # Timing: per-slot encode and decode at batch 1 and 8 (device time
     # between CUDA events; the eager host launches are inside it).
@@ -252,12 +579,95 @@ def slice_phase(card: str):
     parts = {k: cuda_ms(fn, reps=5) / NOF_SLOTS for k, fn in stages.items()}
     print(f"# [{card}] decode stages at batch {NOF_SLOTS}, ms/slot: "
           + ", ".join(f"{k} {v:.4f}" for k, v in parts.items()))
-    return launches
+    return launches, (rx, tb, out["tb_bits"])
+
+
+def check_flagship(out: dict, tb, cfg, path: str) -> None:
+    """Every CRC clean, every bit right, finite metrics near the channel."""
+    if tuple(out["tb_bits"].shape) != (NOF_SLOTS, cfg.tbs):
+        fail(f"{path}: tb_bits shape {tuple(out['tb_bits'].shape)}")
+    crc_ok = out["tb_crc_ok"].cpu().numpy()
+    bit_errors = (out["tb_bits"] != tb).sum(dim=1).cpu().numpy()
+    snr_db = out["snr_db"].cpu().numpy()
+    noise_var = out["noise_var"].cpu().numpy()
+    print(f"# {path}: {NOF_SLOTS} flagship slots, CRC ok {crc_ok.tolist()}, bit errors "
+          f"{bit_errors.tolist()}, SINR dB {np.round(snr_db, 2).tolist()}")
+    if not crc_ok.all() or bit_errors.any():
+        fail(f"{path}: the decode is not CRC-clean with every bit right")
+    if not (np.isfinite(noise_var).all() and np.isfinite(snr_db).all()):
+        fail(f"{path}: non-finite noise_var / snr_db")
+    if not ((snr_db > SNR_DB - 5).all() and (snr_db < SNR_DB + 5).all()):
+        fail(f"{path}: post-equalization SINR {snr_db} far from the {SNR_DB} dB channel")
+
+
+def plane_phase(card: str, rx, tb, float_bits) -> tuple[dict, dict]:
+    """Path 3: the flagship slots of path 1 through ``decode_slot`` with
+    ``demapper="planes"``, then K4 and K1 in plane layout against their
+    plain versions on the path's own batch tensors; returns its launch
+    counts and those kernels' largest differences."""
+    import torch
+
+    from srsran_project_tpu_torch.models import cell
+    from srsran_project_tpu_torch.ops import demap_planes as dp
+    from srsran_project_tpu_torch.ops import ofdm
+    from srsran_project_tpu_torch.ops.ldpc import decoder
+    from srsran_project_tpu_torch.phy import pusch, sch as sch_mod
+
+    cfg = cell.CellConfig(demapper="planes")
+    pc = cfg.pusch_cfg
+    torch.cuda.synchronize()
+    reset_counts()
+    out = cell.decode_slot(rx, RNTI, cfg)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    nof_groups = len(sch_mod._e_groups(pc.sch.cb_e_bits))
+    expect_counts("plane decode", launches, {"decode_dematch_planes": nof_groups,
+                                             "mmse_weights_4x4": 1, "demap_planes": 1})
+    check_flagship(out, tb, cfg, "plane path")
+    if not torch.equal(out["tb_bits"], float_bits):
+        fail("plane path: TB bits differ from the float path's")
+    print("# plane path: TB bits equal to the float path's")
+
+    # K4 and K1 (plane layout) on the tensors the batch decode hands them.
+    grid = ofdm.demodulate_slot(rx, cfg.nof_rb, cfg.scs, cfg.dft_size, cfg.cp, 0,
+                                f_center_hz=cfg.f_center_hz)
+    rntis = torch.full((rx.shape[0],), RNTI, dtype=torch.int64, device=rx.device)
+    ins, _ = pusch._plane_inputs(grid, rntis, pc)
+    planes_k, err_k = dp.demap_planes(*ins, pc.modulation, pc.llr_range_limit)
+    planes_p, err_p = dp.demap_planes_plain(*ins, pc.modulation, pc.llr_range_limit)
+    torch.cuda.synchronize()
+    k4_err = int((planes_k.int() - planes_p.int()).abs().max())
+    rel = float(((err_k - err_p).abs() / err_p.abs().clamp_min(1e-30)).max())
+    if k4_err or not rel <= 1e-6:
+        fail(f"plane path K4 {tuple(planes_k.shape)} vs plain: planes max |d| {k4_err}, "
+             f"err2 max relative {rel:.3e} (limit 1e-6)")
+    print(f"# plane path K4 {tuple(planes_k.shape)}: planes equal the plain version, err2 "
+          f"max relative {rel:.3e}")
+    seg = pc.sch.seg
+    n_cb = pc.sch.n_cb or seg.full_codeword_bits
+    for view, e in sch_mod._plane_groups(planes_k, pc.sch):
+        args = (view, seg.base_graph, seg.lifting_size, seg.nof_payload_bits_per_cb, e,
+                pc.sch.rv, pc.sch.qm, n_cb, pc.nof_ldpc_iterations, pc.ldpc_early_stop)
+        bits_k, it_k = decoder.decode_dematch(*args)
+        bits_p, it_p = decoder.decode_dematch_plain(*args)
+        torch.cuda.synchronize()
+        if not (torch.equal(bits_k, bits_p) and torch.equal(it_k, it_p)):
+            fail(f"plane path K1 {tuple(view.shape)} E={e}: "
+                 f"{int((bits_k != bits_p).sum())} bits differ from the plain version, "
+                 f"iterations equal {torch.equal(it_k, it_p)}")
+        print(f"# plane path K1 {tuple(view.shape)} E={e}: bits and iterations (mean "
+              f"{it_k.float().mean().item():.2f}) equal the plain version")
+
+    for b in (1, NOF_SLOTS):
+        dec = cuda_ms(lambda: cell.decode_slot(rx[:b], RNTI, cfg), reps=5) / b
+        print(f"# [{card}] plane path batch {b}: decode {dec:.4f} ms/slot")
+    return launches, {"demap_planes": float(k4_err), "decode_dematch_planes": 0.0}
 
 
 def main() -> int:
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         fail("no CUDA device: the port's smoke run needs an NVIDIA GPU")
     here = os.path.dirname(os.path.abspath(__file__))
@@ -275,20 +685,28 @@ def main() -> int:
     from srsran_project_tpu_torch.ops import cuda_lib
 
     t0 = time.perf_counter()
-    built = not cuda_lib.library_path().exists()
     cuda_lib.library()
-    print(f"# kernels {'built' if built else 'found'} in {time.perf_counter() - t0:.1f} s: "
-          f"{cuda_lib.library_path().name}")
-    log = cuda_lib.library_path().with_suffix(".log")
-    if log.exists():
+    print(f"# kernels ready in {time.perf_counter() - t0:.1f} s: {cuda_lib.build_dir()}")
+    for log in sorted(cuda_lib.build_dir().glob("*.log")):
         for line in log.read_text().splitlines():
             if "registers" in line or "spill" in line:
-                print(f"#   ptxas: {line.strip()}")
+                print(f"#   ptxas {log.stem}: {line.strip()}")
 
     kernels = kernel_phase(card)
-    launches = slice_phase(card)
+    counts, (rx, tb, float_bits) = slice_phase(card)
+    launches = {"decode_dematch": counts["decode_dematch"],
+                "mmse_weights_4x4": counts["mmse_weights_4x4"]}
+    counts, k2_err = ul_slot_phase(card)
+    launches["decode"] = counts["decode"]
+    errs = {"decode": k2_err}
+    counts, plane_errs = plane_phase(card, rx, tb, float_bits)
+    errs.update(plane_errs)
+    launches["decode_dematch_planes"] = counts["decode_dematch_planes"]
+    launches["demap_planes"] = counts["demap_planes"]
     for k in kernels:
         k["launches"] = launches[k["name"]]
+        k["max_abs_err"] = max(k["max_abs_err"], errs.get(k["name"], 0.0))
+    print(f"# chip_smoke took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

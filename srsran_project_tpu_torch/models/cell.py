@@ -6,7 +6,8 @@ counterpart of ``encode_slot_fused`` and ``decode_slot`` of
 ``decode_slot_fused``.  Both take an optional leading slot-batch
 dimension, and run on the device of their input tensor: on a CUDA tensor
 the UL goes through the hand-written kernels K1 (LDPC) and K3 (MMSE
-weights), on a CPU tensor through their plain torch versions.
+weights), and with ``demapper="planes"`` K4 (apply + demap into the
+decoder's bit-planes); on a CPU tensor through their plain torch versions.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ from srsran_project_tpu.ran.constants import NRE, CyclicPrefix, SubcarrierSpacin
 from ..ops import ofdm
 from ..ops.modulation import Modulation
 from ..phy import pdsch, pusch
-from ..phy.sch import decode_transport_block
+from ..phy.sch import _desegment_stage, _fused_decode, decode_from_planes
 
 
 @dataclasses.dataclass(frozen=True)
@@ -147,14 +148,24 @@ def encode_slot(tb_bits: torch.Tensor, rnti, precoding: torch.Tensor,
 
 def decode_slot(iq: torch.Tensor, rnti, cfg: CellConfig) -> dict:
     """UL slot: IQ (P, ns) or (B, P, ns) complex64 -> {"tb_bits" (..., A)
-    uint8, "tb_crc_ok" (...,) bool, "noise_var" (...,), "snr_db" (...,)}."""
+    uint8, "tb_crc_ok" (...,) bool, "noise_var" (...,), "snr_db" (...,)}.
+
+    New data only: like the reference's fused program, it keeps no HARQ
+    buffer, so no rate dematch runs beside the fused K1 decode."""
     x, squeeze = _batched(iq, 2)
     pc = cfg.pusch_cfg
     grid = ofdm.demodulate_slot(x, cfg.nof_rb, cfg.scs, cfg.dft_size, cfg.cp, 0,
                                 f_center_hz=cfg.f_center_hz)
-    llr_i8, noise_var, snr_acc = pusch._front_end(grid, _rntis(rnti, x.shape[0], x.device), pc)
-    tb, ok = decode_transport_block(llr_i8, pc.sch, pc.nof_ldpc_iterations,
+    rntis = _rntis(rnti, x.shape[0], x.device)
+    if pusch._demap_planes_ok(pc):
+        planes, noise_var, snr_acc = pusch._front_end_planes(grid, rntis, pc)
+        tb, ok = decode_from_planes(planes, pc.sch, pc.nof_ldpc_iterations,
                                     early_stop=pc.ldpc_early_stop)
+    else:
+        llr_i8, noise_var, snr_acc = pusch._front_end(grid, rntis, pc)
+        bits, _iters = _fused_decode(llr_i8, pc.sch, pc.nof_ldpc_iterations,
+                                     pc.ldpc_early_stop)
+        tb, ok = _desegment_stage(bits, pc.sch, llr_i8.shape[:-1])
     out = {
         "tb_bits": tb,
         "tb_crc_ok": ok,

@@ -1,0 +1,142 @@
+"""MMSE apply + max-log demap + int8 quantize + descramble into the LDPC
+decoder's de-interleave bit-planes (kernel K4).
+
+Port of ``demap_planes_pallas`` (srsran_project_tpu/ops/demap_pallas.py)
+with a leading slot batch.  ``demap_planes`` is the entry point: a CUDA
+tensor launches the hand-written kernel (``csrc/demap_planes.cu``), a CPU
+tensor runs ``demap_planes_plain`` below.  Both compute, per lane (slot,
+data symbol s, subcarrier n, layer l):
+
+* x = sum_p w[n, l, p] y[p, s, n], as real multiply-adds in port order,
+  each separately rounded;
+* per axis the squared distances to the PAM levels, and per bit label the
+  difference of the two min trees (the closed-form max-log LLR of
+  ``demap_soft``);
+* q = clip(round(llr * (1 / max(eq_nvar, 1e-12)) * 120 / range_limit),
+  +-120), rounded half to even, times the +-1 descrambling sign, written
+  to plane bit at position (s*nsc + n)*L + l;
+* the squared distance to the nearest constellation point (for the
+  decision-directed post-equalization SINR).
+
+The TPU kernel's lane expansion (y repeated L times, re/im planes) was a
+Mosaic layout workaround and is left out.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import cuda_lib
+from ._tables import device_table
+from .modulation.demapper import LLR_MAX
+from .modulation.mapper import Modulation, pam_levels
+
+
+def _check(y, w, eq_nvar, signs, mod: Modulation):
+    """Validate the shapes and types -> (B, P, S, N, L, qm)."""
+    if mod not in (Modulation.QPSK, Modulation.QAM16, Modulation.QAM64, Modulation.QAM256):
+        raise NotImplementedError(f"demap_planes: {mod.name} is not a square QAM")
+    qm = int(mod)
+    if y.dim() != 4 or w.dim() != 4:
+        raise ValueError(f"demap_planes: want y (B, P, S, N), w (B, N, L, P), got "
+                         f"{tuple(y.shape)}, {tuple(w.shape)}")
+    b, p, s, n = y.shape
+    l = w.shape[2]
+    want = {"y": (y, (b, p, s, n), torch.complex64), "w": (w, (b, n, l, p), torch.complex64),
+            "eq_nvar": (eq_nvar, (b, n, l), torch.float32),
+            "signs": (signs, (b, qm, s * n * l), torch.float32)}
+    for name, (t, shape, dtype) in want.items():
+        if tuple(t.shape) != shape or t.dtype != dtype or t.device != y.device:
+            raise ValueError(f"demap_planes: {name} is {tuple(t.shape)} {t.dtype} on "
+                             f"{t.device}, want {shape} {dtype} on {y.device}")
+    return b, p, s, n, l, qm
+
+
+def demap_planes_plain(y: torch.Tensor, w: torch.Tensor, eq_nvar: torch.Tensor,
+                       signs: torch.Tensor, mod: Modulation, range_limit: float = 20.0):
+    """Plain torch version of ``demap_planes`` (same arguments)."""
+    b, p_, s, n, l, qm = _check(y, w, eq_nvar, signs, mod)
+    levels, labels = pam_levels(mod)
+    lv = [float(np.float32(v)) for v in levels]
+    yr, yi = y.real[:, :, :, :, None], y.imag[:, :, :, :, None]  # (B, P, S, N, 1)
+    wr, wi = w.real[:, None], w.imag[:, None]  # (B, 1, N, L, P)
+    xr = wr[..., 0] * yr[:, 0] - wi[..., 0] * yi[:, 0]  # (B, S, N, L)
+    xi = wr[..., 0] * yi[:, 0] + wi[..., 0] * yr[:, 0]
+    for p in range(1, p_):
+        xr = xr + wr[..., p] * yr[:, p] - wi[..., p] * yi[:, p]
+        xi = xi + wr[..., p] * yi[:, p] + wi[..., p] * yr[:, p]
+    inv = (1.0 / torch.clamp_min(eq_nvar, 1e-12))[:, None]  # (B, 1, N, L)
+    scale = float(np.float32(LLR_MAX / range_limit))
+
+    def axis(v):
+        d2 = [(v - x) * (v - x) for x in lv]
+        llrs = []
+        for t in range(labels.shape[1]):
+            m0 = m1 = None
+            for k, d in enumerate(d2):
+                if labels[k, t]:
+                    m1 = d if m1 is None else torch.minimum(m1, d)
+                else:
+                    m0 = d if m0 is None else torch.minimum(m0, d)
+            llrs.append(m1 - m0)
+        dmin = d2[0]
+        for d in d2[1:]:
+            dmin = torch.minimum(dmin, d)
+        return llrs, dmin
+
+    li, di = axis(xr)
+    lq, dq = axis(xi)
+    sg = signs.reshape(b, qm, s, n, l)
+    planes = torch.empty((b, qm, s, n, l), dtype=torch.int8, device=y.device)
+    for t in range(qm // 2):
+        for bit, llr in ((2 * t, li[t]), (2 * t + 1, lq[t])):
+            q = torch.clamp(torch.round(llr * inv * scale), -LLR_MAX, LLR_MAX)
+            planes[:, bit] = (q * sg[:, bit]).to(torch.int8)
+    return planes.reshape(b, qm, -1), (di + dq).reshape(b, s, n * l)
+
+
+_levels_on = device_table(lambda mod: pam_levels(mod)[0].astype(np.float32))
+_labels_on = device_table(
+    lambda mod: (pam_levels(mod)[1] << np.arange(pam_levels(mod)[1].shape[1])).sum(
+        axis=1).astype(np.int32))
+
+
+def demap_planes(y: torch.Tensor, w: torch.Tensor, eq_nvar: torch.Tensor,
+                 signs: torch.Tensor, mod: Modulation, range_limit: float = 20.0):
+    """Fused equalize-apply + demap + quantize + descramble.
+
+    y: (B, P, S, N) complex64 data symbols; w: (B, N, L, P) complex64
+    per-subcarrier weights; eq_nvar: (B, N, L) f32 post-equalization noise;
+    signs: (B, qm, S*N*L) f32 descrambling signs (1 - 2c) in plane layout.
+    Returns (planes (B, qm, S*N*L) int8, positive = bit 0, equal to the
+    quantized, descrambled LLR stream re-laid as ``llr.reshape(-1, qm).T``;
+    err2 (B, S, N*L) f32 squared distances to the nearest point).
+
+    CUDA tensor: kernel K4 (one launch); CPU tensor: the plain version."""
+    if y.device.type == "cpu":
+        return demap_planes_plain(y, w, eq_nvar, signs, mod, range_limit)
+    if y.device.type != "cuda":
+        raise ValueError(f"demap_planes: unsupported device {y.device}")
+    b, p, s, n, l, qm = _check(y, w, eq_nvar, signs, mod)
+    for name, t in (("y", y), ("w", w), ("eq_nvar", eq_nvar), ("signs", signs)):
+        if not t.is_contiguous():
+            raise ValueError(f"demap_planes: {name} must be contiguous")
+    dev = y.device
+    planes = torch.empty((b, qm, s * n * l), dtype=torch.int8, device=dev)
+    err2 = torch.empty((b, s, n * l), dtype=torch.float32, device=dev)
+    if planes.numel() == 0:
+        return planes, err2
+    lib = cuda_lib.library()
+    with torch.cuda.device(dev):
+        status = lib.demap_planes(
+            y.data_ptr(), w.data_ptr(), eq_nvar.data_ptr(), signs.data_ptr(),
+            _levels_on(dev, mod).data_ptr(), _labels_on(dev, mod).data_ptr(),
+            b, p, s, n, l, qm, float(np.float32(LLR_MAX / range_limit)),
+            planes.data_ptr(), err2.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    cuda_lib.check(status, "demap_planes")
+    demap_planes.launches += 1
+    return planes, err2
+
+
+demap_planes.launches = 0

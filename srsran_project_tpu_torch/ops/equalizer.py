@@ -1,4 +1,4 @@
-"""4x4 MMSE equalizer weights per subcarrier (kernel K3).
+"""MMSE equalizer weights per subcarrier: 4x4 (kernel K3) and rank 1.
 
 Port of ``equalize_weights`` (srsran_project_tpu/ops/equalizer.py, MMSE,
 tx_scaling = 1) and of its TPU kernel ``equalize_weights_pallas``
@@ -10,6 +10,10 @@ C = G + nv I with nv >= 1e-12, blocked 2x2 Schur inverse, unbias mu
 clipped to [1e-9, 1 - 1e-9], W = C^-1 H^H / mu, eq_nvar = (1 - mu) / mu.
 Explicit scalar complex algebra on (re, im) float32 tensors: no
 torch.linalg, no matmul (so no TF32 path either).
+
+``mmse_weights_rank1`` is the general path of ``equalize_weights`` at one
+layer, which the reference computes outside any TPU kernel: plain torch on
+every device.
 """
 
 from __future__ import annotations
@@ -152,3 +156,21 @@ def mmse_weights_4x4(h: torch.Tensor, noise_var: torch.Tensor):
 
 
 mmse_weights_4x4.launches = 0
+
+
+def mmse_weights_rank1(h: torch.Tensor, noise_var: torch.Tensor):
+    """One-layer MMSE weights: (..., nsc, P, 1) complex64 h, (...,)
+    noise_var -> (w (..., nsc, 1, P) complex64, eq_nvar (..., nsc, 1)
+    float32): g = |h|^2, mu = g / (g + nv) clipped to [1e-9, 1 - 1e-9],
+    w = conj(h) / (g + nv) / mu, eq_nvar = (1 - mu) / mu."""
+    if h.dim() < 3 or h.shape[-1] != 1 or h.dtype != torch.complex64:
+        raise ValueError(f"mmse_weights_rank1: want (..., nsc, P, 1) complex64, got "
+                         f"{tuple(h.shape)} {h.dtype}")
+    nv = torch.as_tensor(noise_var, dtype=torch.float32, device=h.device)
+    nv = torch.clamp_min(nv, 1e-12)[..., None]
+    hr, hi = h.real[..., 0], h.imag[..., 0]  # (..., nsc, P)
+    g = (hr * hr + hi * hi).sum(dim=-1)
+    ci = 1.0 / (g + nv)
+    mu = torch.clamp(ci * g, 1e-9, 1.0 - 1e-9)
+    w = torch.complex(ci[..., None] * hr / mu[..., None], -(ci[..., None] * hi) / mu[..., None])
+    return w[..., None, :], ((1.0 - mu) / mu)[..., None]

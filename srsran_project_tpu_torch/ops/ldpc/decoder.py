@@ -1,23 +1,31 @@
-"""Fused LDPC rate dematch + layered normalized min-sum decode (kernel K1).
+"""Layered normalized min-sum LDPC decoding (kernels K1 and K2).
 
-Port of ``decode_dematch_pallas`` (srsran_project_tpu/ops/ldpc/
-decoder_pallas.py) with the numerics of ``ops/ldpc/decoder.py``: f32 state,
+Port of ``decode_dematch_pallas`` (K1: fused rate dematch + decode) and
+``decode_pallas`` (K2: decode of rate-dematched buffers), both in
+srsran_project_tpu/ops/ldpc/decoder_pallas.py, with the numerics of
+``ops/ldpc/decoder.py``: f32 state,
 channel LLRs clamped to +-64, punctured 2Z prefix and erasures at 0,
 fillers at +64, scaling 0.8 with the duplicate-minimum rule, hard bit = 1
 iff the a-posteriori LLR < 0.  Only the check rows that can reach the
 message bits run (``_active_layers``: 46 -> 16 rows at the flagship's LBRM
 n_cb, bit-exact for the message).
 
-``decode_dematch`` is the entry point: a CUDA tensor launches the
-hand-written kernel (``csrc/ldpc_decode_dematch.cu``), a CPU tensor runs
-the plain torch version below (``assemble_buffer`` + ``layered_min_sum``).
+``decode_dematch`` (K1) and ``decode`` (K2) are the entry points: a CUDA
+tensor launches the hand-written kernel (``csrc/ldpc_decode_dematch.cu``,
+``csrc/ldpc_decode.cu``; both run the layer loop of
+``csrc/ldpc_layered.cuh``), a CPU tensor runs the plain torch version
+(``decode_dematch_plain``, ``decode_plain``: ``assemble_buffer`` or
+``decode_buffer``, then ``layered_min_sum``).
 
 Two fixed choices keep the two bit-exact with each other and with the
 reference at a fixed iteration budget:
 
-* the update computes r = (+-0.8) * mag, stores r, then v + r, each
-  rounded on its own (no fused multiply-add): the kernel is built with
-  ``--fmad=false`` and uses ``__fmul_rn``/``__fadd_rn``;
+* the update stores r = (+-0.8) * mag rounded, and writes the
+  a-posteriori LLR as ONE fused multiply-add, round((+-0.8) * mag + v):
+  the reference's Pallas kernel, run through XLA on the CPU, contracts
+  v + r into an FMA (its a-posteriori output shows it; ``_fma`` below
+  reproduces it exactly).  The kernels are built with ``--fmad=false``
+  and spell both out (``__fmul_rn``, ``__fmaf_rn``);
 * early stop is PER CODEBLOCK: a codeblock stops after a whole iteration
   in which the on-the-fly layered syndrome saw every check satisfied.
   The TPU kernel stops per batch tile of 16 codeblocks, so iteration
@@ -82,22 +90,37 @@ def _dematch_plane_plan(bg: int, z: int, k_prime: int, e: int, rv: int,
 
 
 @dataclasses.dataclass(frozen=True)
-class DematchDecodePlan:
-    """Everything static about one E-group's fused dematch + decode."""
+class LayeredPlan:
+    """The check rows a decode runs and the a-posteriori columns it holds."""
 
     z: int
     kb: int
-    e: int
-    qm: int
-    ncols: int  # a-posteriori columns held: the assembled buffer + active rows
+    ncols: int  # a-posteriori columns held
     layers: tuple  # ((col, shift), ...) per active check row
-    copies: tuple  # ((plane_b, lo, hi, buf_start), ...)
-    f_start: int  # filler range [f_start, f_end) in buffer coordinates
-    f_end: int
 
     @property
     def total_edges(self) -> int:
         return sum(len(edges) for edges in self.layers)
+
+
+@dataclasses.dataclass(frozen=True)
+class DematchDecodePlan(LayeredPlan):
+    """Everything static about one E-group's fused dematch + decode (K1);
+    ncols covers the assembled buffer and the active rows."""
+
+    e: int
+    qm: int
+    copies: tuple  # ((plane_b, lo, hi, buf_start), ...)
+    f_start: int  # filler range [f_start, f_end) in buffer coordinates
+    f_end: int
+
+
+@dataclasses.dataclass(frozen=True)
+class DecodePlan(LayeredPlan):
+    """Everything static about a decode of rate-dematched buffers (K2)."""
+
+    n: int  # columns of the whole graph: the a-posteriori output is n*Z wide
+    width_in: int  # input LLRs read per codeblock, behind the 2Z prefix
 
 
 @functools.lru_cache(maxsize=None)
@@ -113,19 +136,34 @@ def dematch_decode_plan(bg: int, z: int, k_prime: int, e: int, rv: int, qm: int,
     if any(ci > 0 for ci, *_ in plan):
         raise ValueError("decode_dematch covers the no-repetition case only "
                          "(E <= usable buffer)")
-    layers, _ = _edge_plan(bg, z, nof_layers)
-    assert max(len(edges) for edges in layers) <= MAX_ROW_DEGREE
     return DematchDecodePlan(
         z=z, kb=g.kb, e=e, qm=qm,
         ncols=max(g.kb + max(4, nof_layers), -(-(n_cb + 2 * z) // z)),
-        layers=tuple(tuple(edges) for edges in layers),
+        layers=_layers(bg, z, nof_layers),
         copies=tuple((b, lo, hi, bs) for _ci, b, lo, hi, bs in plan),
         f_start=k_prime - 2 * z, f_end=g.kb * z - 2 * z)
 
 
+@functools.lru_cache(maxsize=None)
+def decode_plan(bg: int, z: int, width: int, n_cb: int | None = None) -> DecodePlan:
+    """Plan of ``decode`` for (C, width) input buffers: with an LBRM n_cb
+    only the rows that reach the message bits run (``_active_layers``)."""
+    g = graphs.get_graph(bg, z)
+    nof_layers = _active_layers(g, n_cb, None)
+    ncols = g.kb + max(4, nof_layers)
+    return DecodePlan(z=z, kb=g.kb, ncols=ncols, layers=_layers(bg, z, nof_layers),
+                      n=g.n, width_in=min(width, (ncols - 2) * z))
+
+
+def _layers(bg: int, z: int, nof_layers: int) -> tuple:
+    layers, _ = _edge_plan(bg, z, nof_layers)
+    assert max(len(edges) for edges in layers) <= MAX_ROW_DEGREE
+    return tuple(tuple(edges) for edges in layers)
+
+
 # ---- plain torch version ---------------------------------------------------
 
-def _layer_index(plan: DematchDecodePlan) -> list[np.ndarray]:
+def _layer_index(plan: LayeredPlan) -> list[np.ndarray]:
     """Per layer, the (deg, Z) flat APP positions col*Z + (z + shift) mod Z
     of its edges: the circulant read (and write-back) of each row."""
     zi = np.arange(plan.z)
@@ -152,7 +190,34 @@ def assemble_buffer(llrs: torch.Tensor, plan: DematchDecodePlan) -> torch.Tensor
     return app
 
 
-def _iteration(app: torch.Tensor, r: torch.Tensor, plan: DematchDecodePlan,
+def decode_buffer(llrs: torch.Tensor, plan: DecodePlan) -> torch.Tensor:
+    """(C, N) dematched LLRs -> (C, ncols*Z) f32 a-posteriori start:
+    punctured prefix 0, the first width_in LLRs clamped to +-64."""
+    z, w = plan.z, plan.width_in
+    app = torch.zeros((llrs.shape[0], plan.ncols * z), dtype=torch.float32,
+                      device=llrs.device)
+    app[:, 2 * z : 2 * z + w] = llrs[:, :w].to(torch.float32).clamp(-INPUT_CLAMP, INPUT_CLAMP)
+    return app
+
+
+def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """float32 a*b + c rounded once (fmaf).  The product is exact in
+    float64; the float64 sum s and its exact error e (TwoSum) give
+    a*b + c = s + e, so rounding s to float32 is right except where s is
+    exactly halfway between two floats and e breaks the tie."""
+    p = a.double() * b.double()
+    cd = c.double()
+    s = p + cd
+    bv = s - p
+    e = (p - (s - bv)) + (cd - bv)
+    r = s.float()
+    toward = torch.nextafter(r, torch.where(s > r.double(), torch.inf, -torch.inf).float())
+    tie = (s != r.double()) & (toward.double() - s == s - r.double())
+    flip = tie & (e != 0) & ((e > 0) == (toward > r))
+    return torch.where(flip, toward, r)
+
+
+def _iteration(app: torch.Tensor, r: torch.Tensor, plan: LayeredPlan,
                early_stop: bool) -> torch.Tensor:
     """One layered min-sum iteration in place on app (n, ncols*Z) and
     r (n, total_edges, Z); returns (n,) bool: some check was unsatisfied
@@ -177,17 +242,18 @@ def _iteration(app: torch.Tensor, r: torch.Tensor, plan: DematchDecodePlan,
         odd_total = neg.sum(dim=1, keepdim=True) % 2 == 1
         mag = torch.where(is_min, m2, m1)
         # Sign over the other edges = total parity xor own sign.
-        r_new = torch.where(odd_total ^ neg, -SCALING, SCALING) * mag
-        r[:, base : base + deg] = r_new
-        app[:, idx] = v + r_new
+        sign = torch.where(odd_total ^ neg, -SCALING, SCALING)
+        r[:, base : base + deg] = sign * mag
+        app[:, idx] = _fma(sign, mag, v)
         base += deg
     return odd_any
 
 
-def layered_min_sum(app: torch.Tensor, plan: DematchDecodePlan, nof_iterations: int,
+def layered_min_sum(app: torch.Tensor, plan: LayeredPlan, nof_iterations: int,
                     early_stop: bool):
-    """Decode from an assembled (C, ncols*Z) buffer -> (bits (C, Kb*Z)
-    uint8, iterations run (C,) int32), early stop per codeblock."""
+    """Decode from an assembled (C, ncols*Z) buffer -> (final a-posteriori
+    (C, ncols*Z) f32, iterations run (C,) int32), early stop per
+    codeblock.  Hard bit = 1 iff the a-posteriori LLR < 0."""
     c, z = app.shape[0], plan.z
     app = app.clone()
     r = torch.zeros((c, plan.total_edges, z), dtype=torch.float32, device=app.device)
@@ -205,10 +271,15 @@ def layered_min_sum(app: torch.Tensor, plan: DematchDecodePlan, nof_iterations: 
         iters[active] += 1
         if early_stop:
             active = active[odd]
-    return (app[:, : plan.kb * z] < 0).to(torch.uint8), iters
+    return app, iters
 
 
-# ---- the CUDA kernel -------------------------------------------------------
+def hard_bits(app: torch.Tensor, plan: LayeredPlan) -> torch.Tensor:
+    """(C, >= Kb*Z) a-posteriori LLRs -> (C, Kb*Z) uint8 message bits."""
+    return (app[:, : plan.kb * plan.z] < 0).to(torch.uint8)
+
+
+# ---- the CUDA kernels -----------------------------------------------------
 
 _copies_on = device_table(
     lambda plan: np.asarray(plan.copies, np.int32).reshape(-1, 4))
@@ -218,14 +289,21 @@ _layer_off_on = device_table(
     lambda plan: np.cumsum([0] + [len(edges) for edges in plan.layers]).astype(np.int32))
 
 
-def _launch(llrs: torch.Tensor, plan: DematchDecodePlan, nof_iterations: int,
-            early_stop: bool):
-    if not llrs.is_contiguous():
-        raise ValueError("decode_dematch: llrs must be contiguous")
+def _graph_args(plan: LayeredPlan, dev: torch.device) -> tuple:
+    """The graph arguments both kernels take: edges, layer offsets, counts."""
+    return (_edges_on(dev, plan).data_ptr(), _layer_off_on(dev, plan).data_ptr(),
+            len(plan.layers), plan.total_edges, plan.z, plan.ncols, plan.kb)
+
+
+def _launch_dematch(planes: torch.Tensor, plan: DematchDecodePlan, nof_iterations: int,
+                    early_stop: bool, plane_layout: bool):
+    """K1 on a (B, qm, count, E/qm) int8 view of any strides: codeblock
+    o*count + i reads plane b, element j at planes[o, b, i, j]."""
     lib = cuda_lib.library()
-    dev = llrs.device
-    c, z = llrs.shape[0], plan.z
-    copies, edges, layer_off = _copies_on(dev, plan), _edges_on(dev, plan), _layer_off_on(dev, plan)
+    dev = planes.device
+    outer, _, per, _ = planes.shape
+    c, z = outer * per, plan.z
+    copies = _copies_on(dev, plan)
     r = torch.empty((c, plan.total_edges * z), dtype=torch.float32, device=dev)
     bits = torch.empty((c, plan.kb * z), dtype=torch.uint8, device=dev)
     iters = torch.empty((c,), dtype=torch.int32, device=dev)
@@ -233,34 +311,130 @@ def _launch(llrs: torch.Tensor, plan: DematchDecodePlan, nof_iterations: int,
         return bits, iters
     with torch.cuda.device(dev):
         status = lib.ldpc_decode_dematch(
-            llrs.data_ptr(), c, plan.e, plan.qm,
+            planes.data_ptr(), c, per, *planes.stride(),
             copies.data_ptr(), copies.shape[0], plan.f_start, plan.f_end,
-            edges.data_ptr(), layer_off.data_ptr(), len(plan.layers), plan.total_edges,
-            z, plan.ncols, plan.kb, nof_iterations, int(early_stop),
+            *_graph_args(plan, dev), nof_iterations, int(early_stop),
             r.data_ptr(), bits.data_ptr(), iters.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     cuda_lib.check(status, "ldpc_decode_dematch")
     decode_dematch.launches += 1
+    decode_dematch.plane_launches += plane_layout
     return bits, iters
+
+
+def decode_dematch_plain(llrs: torch.Tensor, bg: int, z: int, k_prime: int, e: int,
+                         rv: int, qm: int, n_cb: int | None = None, nof_iterations: int = 6,
+                         early_stop: bool = False):
+    """Plain torch version of ``decode_dematch`` (same arguments), on the
+    device of llrs: the plane layout reshapes back to the stream."""
+    plan = dematch_decode_plan(bg, z, k_prime, e, rv, qm, n_cb)
+    if llrs.dim() == 4:
+        llrs = llrs.permute(0, 2, 3, 1).reshape(-1, e)
+    app, iters = layered_min_sum(assemble_buffer(llrs, plan), plan, nof_iterations,
+                                 early_stop)
+    return hard_bits(app, plan), iters
 
 
 def decode_dematch(llrs: torch.Tensor, bg: int, z: int, k_prime: int, e: int, rv: int,
                    qm: int, n_cb: int | None = None, nof_iterations: int = 6,
                    early_stop: bool = False):
-    """Rate dematch + decode of one E-group: (C, E) int8 rate-matched LLRs
-    of each codeblock, in transmission order -> (bits (C, Kb*Z) uint8,
+    """Rate dematch + decode of one E-group -> (bits (C, Kb*Z) uint8,
     iterations run (C,) int32).
 
-    CUDA tensor: kernel K1 (one launch); CPU tensor: the plain version."""
+    llrs: int8 rate-matched LLRs of each codeblock, in one of two layouts:
+    the stream, (C, E) in transmission order; or the de-interleave planes,
+    a (B, qm, count, E/qm) view (C = B*count, codeblock o*count + i) of
+    ``pusch._front_end_planes``' (B, qm, G/qm) output, any strides.
+
+    CUDA tensor: kernel K1 (one launch, reading either layout through
+    strides; ``decode_dematch.plane_launches`` counts the plane-layout
+    ones); CPU tensor: the plain version."""
     plan = dematch_decode_plan(bg, z, k_prime, e, rv, qm, n_cb)
-    if llrs.dim() != 2 or llrs.shape[1] != e or llrs.dtype != torch.int8:
-        raise ValueError(f"decode_dematch: want (C, {e}) int8, got "
-                         f"{tuple(llrs.shape)} {llrs.dtype}")
-    if llrs.device.type == "cuda":
-        return _launch(llrs, plan, nof_iterations, early_stop)
-    if llrs.device.type != "cpu":
+    stream = llrs.dim() == 2 and llrs.shape[1] == e
+    if llrs.dtype != torch.int8 or not (stream or (
+            llrs.dim() == 4 and llrs.shape[1] == qm and llrs.shape[3] == e // qm)):
+        raise ValueError(f"decode_dematch: want (C, {e}) or (B, {qm}, count, {e // qm}) "
+                         f"int8, got {tuple(llrs.shape)} {llrs.dtype}")
+    if llrs.device.type == "cpu":
+        return decode_dematch_plain(llrs, bg, z, k_prime, e, rv, qm, n_cb, nof_iterations,
+                                    early_stop)
+    if llrs.device.type != "cuda":
         raise ValueError(f"decode_dematch: unsupported device {llrs.device}")
-    return layered_min_sum(assemble_buffer(llrs, plan), plan, nof_iterations, early_stop)
+    planes = llrs
+    if stream:  # plane b, element j = llrs[cb, j*qm + b]
+        s0, s1 = llrs.stride()
+        planes = llrs.as_strided((llrs.shape[0], qm, 1, e // qm), (s0, s1, 0, qm * s1))
+    return _launch_dematch(planes, plan, nof_iterations, early_stop, not stream)
 
 
 decode_dematch.launches = 0
+decode_dematch.plane_launches = 0
+
+
+def _launch_decode(llrs: torch.Tensor, plan: DecodePlan, nof_iterations: int,
+                   early_stop: bool, bits_only: bool):
+    if llrs.stride(1) != 1:
+        raise ValueError("decode: llrs rows must be contiguous")
+    lib = cuda_lib.library()
+    dev = llrs.device
+    c, z = llrs.shape[0], plan.z
+    r = torch.empty((c, plan.total_edges * z), dtype=torch.float32, device=dev)
+    if bits_only:
+        out = torch.empty((c, plan.kb * z), dtype=torch.uint8, device=dev)
+    else:
+        out = torch.empty((c, plan.n * z), dtype=torch.float32, device=dev)
+    iters = torch.empty((c,), dtype=torch.int32, device=dev)
+    if c == 0:
+        return out, iters
+    with torch.cuda.device(dev):
+        status = lib.ldpc_decode(
+            llrs.data_ptr(), int(llrs.dtype == torch.float32), c, llrs.stride(0),
+            plan.width_in, *_graph_args(plan, dev), plan.n, nof_iterations,
+            int(early_stop), int(bits_only), r.data_ptr(), out.data_ptr(),
+            iters.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    cuda_lib.check(status, "ldpc_decode")
+    decode.launches += 1
+    return out, iters
+
+
+def decode_plain(llrs: torch.Tensor, bg: int, z: int, nof_iterations: int = 6,
+                 early_stop: bool = False, bits_only: bool = False,
+                 n_cb: int | None = None):
+    """Plain torch version of ``decode`` (same arguments), on the device of
+    llrs."""
+    plan = decode_plan(bg, z, llrs.shape[1], n_cb)
+    app, iters = layered_min_sum(decode_buffer(llrs, plan), plan, nof_iterations, early_stop)
+    if bits_only:
+        return hard_bits(app, plan), None, iters
+    full = torch.zeros((app.shape[0], plan.n * plan.z), dtype=torch.float32, device=app.device)
+    full[:, : plan.ncols * plan.z] = app
+    return hard_bits(app, plan), full, iters
+
+
+def decode(llrs: torch.Tensor, bg: int, z: int, nof_iterations: int = 6,
+           early_stop: bool = False, bits_only: bool = False, n_cb: int | None = None):
+    """Decode rate-dematched codeword buffers: (C, N) int8 or float32 LLRs
+    (N = (n-2)*Z, the punctured 2Z prefix left out) -> (bits (C, Kb*Z)
+    uint8, a-posteriori (C, n*Z) float32 or None with ``bits_only``,
+    iterations run (C,) int32).
+
+    n_cb: the LBRM circular-buffer length; only the check rows that reach
+    the message bits run, and the a-posteriori columns they leave out read
+    0.  Early stop is per codeblock, as in ``decode_dematch``.
+
+    CUDA tensor: kernel K2 (one launch); CPU tensor: the plain version."""
+    if llrs.dim() != 2 or llrs.dtype not in (torch.int8, torch.float32):
+        raise ValueError(f"decode: want (C, N) int8 or float32, got "
+                         f"{tuple(llrs.shape)} {llrs.dtype}")
+    if llrs.device.type == "cpu":
+        return decode_plain(llrs, bg, z, nof_iterations, early_stop, bits_only, n_cb)
+    if llrs.device.type != "cuda":
+        raise ValueError(f"decode: unsupported device {llrs.device}")
+    plan = decode_plan(bg, z, llrs.shape[1], n_cb)
+    out, iters = _launch_decode(llrs, plan, nof_iterations, early_stop, bits_only)
+    if bits_only:
+        return out, None, iters
+    return hard_bits(out, plan), out, iters
+
+
+decode.launches = 0

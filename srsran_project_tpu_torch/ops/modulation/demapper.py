@@ -1,7 +1,8 @@
 """Soft demapping: exact per-axis max-log LLRs, and int8 quantization.
 
 Port of ``srsran_project_tpu/ops/modulation/demapper.py`` (closed form
-``_axis_llrs_closed``, ``demap_soft`` for square QAM, ``quantize_llr``).
+``_axis_llrs_closed``, ``demap_soft`` for QPSK and square QAM,
+``quantize_llr``).
 LLR sign convention: positive = bit 0.  ``torch.round``, like
 ``jnp.round``, rounds half to even.
 """
@@ -37,6 +38,10 @@ def demap_soft(symbols: torch.Tensor, noise_var: torch.Tensor, mod: Modulation) 
     float32 LLRs, in the mapper's bit order (I/Q interleaved)."""
     qm = check_square_qam(mod)
     shape = symbols.shape
+    if qm == 2:  # QPSK: the max-log LLR is linear, 2 sqrt(2) y / noise_var
+        c = float(np.float32(2.0 * np.sqrt(2.0)))
+        both = torch.stack([c * symbols.real / noise_var, c * symbols.imag / noise_var], dim=-1)
+        return both.reshape(shape[:-1] + (shape[-1] * 2,))
     levels, labels = pam_levels(mod)
     inv_nv = 1.0 / noise_var
     li = _axis_llrs_closed(symbols.real, levels, labels) * inv_nv  # bits 0, 2, ...

@@ -76,10 +76,11 @@ def pam_levels(mod: Modulation):
 
 
 def check_square_qam(mod: Modulation) -> int:
-    """Qm of a square QAM; other schemes are not ported yet."""
-    if mod not in (Modulation.QAM16, Modulation.QAM64, Modulation.QAM256):
+    """Qm of a square QAM (QPSK included); BPSK and pi/2-BPSK are not
+    ported yet."""
+    if mod not in (Modulation.QPSK, Modulation.QAM16, Modulation.QAM64, Modulation.QAM256):
         raise NotImplementedError(
-            f"{mod.name}: only 16/64/256QAM are ported (ROADMAP Q1.8)")
+            f"{mod.name}: only QPSK and 16/64/256QAM are ported (ROADMAP Q1.8)")
     return int(mod)
 
 
@@ -88,6 +89,9 @@ def map_bits(bits: torch.Tensor, mod: Modulation) -> torch.Tensor:
     qm = check_square_qam(mod)
     e = bits.shape[-1]
     group = bits.to(torch.float32).reshape(bits.shape[:-1] + (e // qm, qm))
+    if qm == 2:
+        s2 = float(np.float32(1.0 / np.sqrt(2)))
+        return torch.complex((1.0 - 2.0 * group[..., 0]) * s2, (1.0 - 2.0 * group[..., 1]) * s2)
     m = qm // 2
 
     def pam(axis_bits):

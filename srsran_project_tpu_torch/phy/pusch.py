@@ -1,12 +1,19 @@
-"""PUSCH receiver front end: resource grid -> descrambled int8 LLRs.
+"""PUSCH receiver: resource grid -> transport block, and the loopback
+transmitter.
 
-Port of ``srsran_project_tpu/phy/pusch.py``, flagship path: the fast
-estimator with second-difference noise (``_estimate_stage``), per-
-subcarrier 4x4 MMSE weights applied across the data symbols
-(``_equalize_stage``, kernel K3), and the float max-log demapper with
-int8 quantization, descrambling and post-equalization SINR
-(``_demap_stage``).  Every function takes a leading slot-batch dimension
-(B, ...).  Field values outside this path raise NotImplementedError.
+Port of ``srsran_project_tpu/phy/pusch.py``: the fast estimator with
+second-difference noise (``_estimate_stage``, per-grant pilots through
+``r_override``), per-subcarrier MMSE weights (4x4: kernel K3; rank 1 on
+any number of ports) applied across the data symbols
+(``_equalize_stage``), the float max-log demapper with int8 quantization,
+descrambling and post-equalization SINR (``_demap_stage``), and the
+back end with HARQ (``finish``).  ``process`` decodes one grant per slot,
+``process_multi`` N equal-config grants of one slot grid in one batch.
+The plane path (``demapper="planes"``) runs apply + demap + quantize +
+descramble in kernel K4 straight into the decoder's bit-planes
+(``_front_end_planes``).  Every function takes a leading batch dimension
+(B, ...): slots, or the grants of a slot.  Field values outside these
+paths raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -22,26 +29,28 @@ from srsran_project_tpu.ran import dmrs as dmrs_mod
 
 from ..ops import scrambling
 from ..ops._tables import device_table
-from ..ops.equalizer import mmse_weights_4x4
+from ..ops.demap_planes import demap_planes
+from ..ops.equalizer import mmse_weights_4x4, mmse_weights_rank1
 from ..ops.estimator import estimate_channel
 from ..ops.modulation import Modulation, demap_soft, quantize_llr
 from ..ops.modulation.evm import evm
+from . import pdsch as pdsch_mod
 from .pdsch import check_flagship_alloc
-from .sch import SchConfig
+from .sch import SchConfig, _fused_decode_ok, decode_transport_block
 
-# Field -> (the value this port runs, the ROADMAP item that ports the rest).
+# Field -> (the values this port runs, the ROADMAP item that ports the rest).
 _SLICE_ONLY = {
-    "equalizer": ("mmse", "Q1.8"),
-    "sinr_method": ("post_equalization", "Q1.8"),
-    "noise_method": ("second_difference", "Q1.8"),
-    "estimator": ("fast", "Q1.8"),
-    "demapper": ("float", "Q1.8 / Q2 K4"),
-    "ldpc_decoder": ("auto", "Q1.8"),
-    "cfo_compensation": (False, "Q1.8"),
-    "uci": (None, "Q1.8"),
-    "ptrs_enabled": (False, "Q1.8"),
-    "transform_precoding": (False, "Q1.8"),
-    "compute_ta": (False, "Q1.8"),
+    "equalizer": (("mmse",), "Q1.8"),
+    "sinr_method": (("post_equalization",), "Q1.8"),
+    "noise_method": (("second_difference",), "Q1.8"),
+    "estimator": (("fast",), "Q1.8"),
+    "demapper": (("float", "planes"), "Q1.8"),
+    "ldpc_decoder": (("auto",), "Q1.8"),
+    "cfo_compensation": ((False,), "Q1.8"),
+    "uci": ((None,), "Q1.8"),
+    "ptrs_enabled": ((False,), "Q1.8"),
+    "transform_precoding": ((False,), "Q1.8"),
+    "compute_ta": ((False,), "Q1.8"),
 }
 
 
@@ -86,10 +95,19 @@ class PuschConfig:
 
     def __post_init__(self):
         for name, (ported, item) in _SLICE_ONLY.items():
-            if getattr(self, name) != ported:
+            if getattr(self, name) not in ported:
                 raise NotImplementedError(
                     f"PuschConfig.{name}={getattr(self, name)!r} is not ported yet "
-                    f"(ROADMAP {item}); the port runs {name}={ported!r}")
+                    f"(ROADMAP {item}); the port runs {name} in {ported!r}")
+
+    @classmethod
+    def from_reference(cls, ref) -> "PuschConfig":
+        """Copy a reference (JAX package) ``PuschConfig`` field by field, by
+        attribute access only; the modulation converts by value, the
+        allocation is the shared JAX-free class."""
+        kw = {f.name: getattr(ref, f.name) for f in dataclasses.fields(cls)}
+        kw["modulation"] = Modulation(int(kw["modulation"]))
+        return cls(**kw)
 
     @functools.cached_property
     def g_total(self) -> int:
@@ -149,10 +167,13 @@ def _estimate_table(cfg: PuschConfig, which: int) -> np.ndarray:
 _est_on = device_table(_estimate_table)
 
 
-def _estimate_stage(grid: torch.Tensor, cfg: PuschConfig):
+def _estimate_stage(grid: torch.Tensor, cfg: PuschConfig, r_override=None):
     """(B, P, nsym, nsc) grid -> (gflat (B, P, nsym*nsc), h (B, P, nof_sc,
     nl), noise_var (B,)): pilot gather, all port/layer channel estimates,
-    second-difference noise."""
+    second-difference noise.  ``r_override`` (B, nl, nsym_d, Np) replaces
+    the config's DM-RS pilot values per batch element (the grants of a
+    multi-UE slot share a compact config, but their pilots follow each
+    grant's absolute CRB)."""
     a = cfg.alloc
     nl, npr = cfg.nof_layers, cfg.nof_rx_ports
     nsym_d = len(a.dmrs_symbols)
@@ -161,17 +182,17 @@ def _estimate_stage(grid: torch.Tensor, cfg: PuschConfig):
     _, _, _, pair_pos = _estimate_constants(cfg)
     idx_all = _est_on(dev, cfg, 0)
     wf_all = _est_on(dev, cfg, 1)
-    r_all = _est_on(dev, cfg, 2)
+    r_all = (_est_on(dev, cfg, 2)[None] if r_override is None else r_override)[:, :, None]
     gflat = grid.reshape(b, npr, -1)
     y_p = gflat[:, :, idx_all].reshape(b, npr, nl, nsym_d, -1).transpose(1, 2)  # (B, nl, P, ...)
-    h_l = estimate_channel(y_p, r_all[:, None], wf_all[:, None, None, :], pair_pos, a.nof_sc)
+    h_l = estimate_channel(y_p, r_all, wf_all[:, None, None, :], pair_pos, a.nof_sc)
     h = h_l.permute(0, 2, 3, 1)  # (B, P, nof_sc, nl)
 
     # Noise from (1, -2, 1) second differences of the OCC-despread pair
     # estimates (co-CDM layer removed exactly, channel level and slope
     # cancelled; the bulk delay is derotated first so curvature from a
     # fast phase ramp does not read as noise).
-    ls = y_p * r_all[:, None].conj() * wf_all[:, None, None, :]
+    ls = y_p * r_all.conj() * wf_all[:, None, None, :]
     pair = ls.reshape(ls.shape[:-1] + (ls.shape[-1] // 2, 2))
     h_pair = pair.mean(dim=-1).mean(dim=-2)  # (B, nl, P, NpPairs)
     npair = h_pair.shape[-1]
@@ -185,25 +206,42 @@ def _estimate_stage(grid: torch.Tensor, cfg: PuschConfig):
     return gflat, h, torch.clamp_min(nv, 1e-10)
 
 
-def _equalize_stage(gflat: torch.Tensor, h: torch.Tensor, noise_var: torch.Tensor,
-                    cfg: PuschConfig):
-    """Per-subcarrier 4x4 MMSE weights (kernel K3) applied to every data
-    symbol -> (x_hat (B, ndata, nl) complex64, eq_nvar (B, ndata, nl))."""
+def _data_rows(gflat: torch.Tensor, cfg: PuschConfig) -> torch.Tensor:
+    """(B, P, nsym*nsc) grid -> (B, P, nsym_d, nof_sc) data symbols of the
+    allocation (full rows: the DM-RS symbols carry no data)."""
     a = cfg.alloc
-    nl, npr = cfg.nof_layers, cfg.nof_rx_ports
-    if (nl, npr) != (4, 4):
-        raise NotImplementedError(f"{npr}x{nl} equalization: only 4x4 MMSE is ported "
-                                  "(ROADMAP Q1.8)")
-    b = gflat.shape[0]
-    g3 = gflat.reshape(b, npr, cfg.nof_grid_symbols, cfg.nof_grid_sc)
+    g3 = gflat.reshape(gflat.shape[0], cfg.nof_rx_ports, cfg.nof_grid_symbols, cfg.nof_grid_sc)
     data_syms = [s for s in range(a.sym_start, a.sym_start + a.sym_count)
                  if s not in a.dmrs_symbols]
-    y = g3[:, :, data_syms, a.sc_start : a.sc_start + a.nof_sc]  # (B, P, nsym_d, nof_sc)
-    w, eq_sc = mmse_weights_4x4(h.transpose(1, 2).contiguous(), noise_var)
+    return g3[:, :, data_syms, a.sc_start : a.sc_start + a.nof_sc]
+
+
+def _weights(h: torch.Tensor, noise_var: torch.Tensor, cfg: PuschConfig):
+    """(B, P, nof_sc, nl) channels -> per-subcarrier MMSE weights (B,
+    nof_sc, nl, P) and post-equalization noise (B, nof_sc, nl): kernel K3
+    for 4x4, the rank-1 algebra for one layer."""
+    nl, npr = cfg.nof_layers, cfg.nof_rx_ports
+    hs = h.transpose(1, 2).contiguous()  # (B, nof_sc, P, nl)
+    if (nl, npr) == (4, 4):
+        return mmse_weights_4x4(hs, noise_var)
+    if nl == 1:
+        return mmse_weights_rank1(hs, noise_var)
+    raise NotImplementedError(f"{npr}x{nl} equalization: only 4x4 and rank-1 MMSE are "
+                              "ported (ROADMAP Q1.8)")
+
+
+def _equalize_stage(gflat: torch.Tensor, h: torch.Tensor, noise_var: torch.Tensor,
+                    cfg: PuschConfig):
+    """Per-subcarrier MMSE weights applied to every data symbol ->
+    (x_hat (B, ndata, nl) complex64, eq_nvar (B, ndata, nl))."""
+    nl, npr = cfg.nof_layers, cfg.nof_rx_ports
+    y = _data_rows(gflat, cfg)  # (B, P, nsym_d, nof_sc)
+    b, _, nsym_d, nsc = y.shape
+    w, eq_sc = _weights(h, noise_var, cfg)
     # x[b, s, n, l] = sum_p w[b, n, l, p] y[b, p, s, n]
     x = torch.stack([sum(w[:, None, :, l, p] * y[:, p] for p in range(npr))
                      for l in range(nl)], dim=-1)  # (B, nsym_d, nof_sc, nl)
-    eq_nvar = eq_sc[:, None].expand(b, len(data_syms), a.nof_sc, nl)
+    eq_nvar = eq_sc[:, None].expand(b, nsym_d, nsc, nl)
     return x.reshape(b, -1, nl), eq_nvar.reshape(b, -1, nl)
 
 
@@ -229,3 +267,132 @@ def _front_end(grid: torch.Tensor, rnti: torch.Tensor, cfg: PuschConfig):
     x_hat, eq_nvar = _equalize_stage(gflat, h, noise_var, cfg)
     llr_i8, sinr = _demap_stage(x_hat, eq_nvar, rnti, cfg)
     return llr_i8, noise_var, sinr
+
+
+def transmit(tb_bits: torch.Tensor, rnti: torch.Tensor, cfg: PuschConfig,
+             precoding: torch.Tensor | None = None) -> torch.Tensor:
+    """UE-side PUSCH transmitter for loopback (no UCI): SCH encode + PUSCH
+    scrambling + modulation + DM-RS.  (..., A) TB bits and (...,) RNTIs ->
+    (..., P, nsym, nsc) grids, P = precoding's columns (default: one port
+    per layer, nof_layers x nof_rx_ports identity)."""
+    from .sch import encode_transport_block
+
+    cw = encode_transport_block(tb_bits, cfg.sch)
+    scr = scrambling.scramble_bits(cw, _pusch_c_init(rnti, cfg.n_id))
+    if precoding is None:
+        precoding = torch.eye(cfg.nof_layers, cfg.nof_rx_ports, dtype=torch.complex64)
+    tx_cfg = pdsch_mod.PdschConfig(
+        tbs=cfg.tbs, target_code_rate=cfg.target_code_rate, modulation=cfg.modulation,
+        alloc=cfg.alloc, nof_layers=cfg.nof_layers, nof_ports=precoding.shape[-1],
+        nof_grid_symbols=cfg.nof_grid_symbols, nof_grid_sc=cfg.nof_grid_sc,
+        slot_in_frame=cfg.slot_in_frame, dmrs_scrambling_id=cfg.dmrs_scrambling_id,
+        n_scid=cfg.n_scid)
+    return pdsch_mod._grid_chain(scr, precoding.to(device=cw.device, dtype=torch.complex64),
+                                 tx_cfg)
+
+
+def finish(llr_i8: torch.Tensor, noise_var: torch.Tensor, snr_acc: torch.Tensor,
+           cfg: PuschConfig, harq_buffer: torch.Tensor | None = None) -> dict:
+    """Back half of ``process``: LDPC decode (with the HARQ combine when a
+    buffer is given) + result dict, from (B, G) descrambled LLRs."""
+    tb, ok, harq = decode_transport_block(llr_i8, cfg.sch, cfg.nof_ldpc_iterations,
+                                          harq_buffer, early_stop=cfg.ldpc_early_stop)
+    return {
+        "tb_bits": tb,
+        "tb_crc_ok": ok,
+        "harq_buffer": harq,
+        "noise_var": noise_var,
+        "snr_db": 10.0 * torch.log10(torch.clamp_min(snr_acc, 1e-12)),
+    }
+
+
+def process(grid: torch.Tensor, rnti: torch.Tensor, cfg: PuschConfig,
+            harq_buffer: torch.Tensor | None = None) -> dict:
+    """Decode one PUSCH grant per slot: (B, P, nsym, nsc) grids, (B,) RNTIs
+    and optional (B, C, N) HARQ buffers -> dict of tb_bits (B, A),
+    tb_crc_ok (B,), harq_buffer (B, C, N), noise_var (B,), snr_db (B,)."""
+    llr_i8, noise_var, snr_acc = _front_end(grid, rnti, cfg)
+    return finish(llr_i8, noise_var, snr_acc, cfg, harq_buffer=harq_buffer)
+
+
+def _multi_front_end(grid: torch.Tensor, rntis: torch.Tensor, first_scs, r_batch: torch.Tensor,
+                     cfg: PuschConfig):
+    """Front end of N equal-config grants of one (P, nsym, nsc_total) slot
+    grid: each grant's window of cfg.nof_grid_sc subcarriers from its first
+    subcarrier, stacked into one batch -> (llr_i8 (N, G), noise_var (N,),
+    SINR (N,))."""
+    w = cfg.nof_grid_sc
+    win = torch.stack([grid[:, :, sc0 : sc0 + w] for sc0 in first_scs])
+    check_flagship_alloc(cfg.alloc)
+    gflat, h, noise_var = _estimate_stage(win, cfg, r_override=r_batch)
+    x_hat, eq_nvar = _equalize_stage(gflat, h, noise_var, cfg)
+    llr_i8, sinr = _demap_stage(x_hat, eq_nvar, rntis, cfg)
+    return llr_i8, noise_var, sinr
+
+
+@functools.lru_cache(maxsize=None)
+def _multi_pilot_bank(cfg: PuschConfig, first_rbs: tuple) -> np.ndarray:
+    """Per-grant DM-RS pilot values for a batch of PRB offsets (N, nl,
+    nsym_d, Np): the only per-UE constant of the shared compact config (the
+    Gold sequence index follows the absolute CRB)."""
+    rs = []
+    for rb0 in first_rbs:
+        cfg_i = dataclasses.replace(cfg, alloc=dataclasses.replace(cfg.alloc, crb_start=int(rb0)))
+        rs.append(_estimate_constants(cfg_i)[2])
+    return np.stack(rs)
+
+
+_pilot_bank_on = device_table(_multi_pilot_bank)
+
+
+def process_multi(grid: torch.Tensor, rntis, first_rbs, cfg: PuschConfig,
+                  harq_buffers: torch.Tensor | None = None) -> dict:
+    """Decode N equal-config grants of one slot grid in one batch: grid
+    (P, nsym, nsc_total), rntis (N,), first_rbs a length-N sequence of PRB
+    offsets of compact (rb_start = 0) windows sharing ``cfg``, optional
+    (N, C, N_cb) HARQ buffers.  Returns the dict of ``process`` stacked
+    over the grants."""
+    first_rbs = tuple(int(r) for r in first_rbs)
+    dev = grid.device
+    rntis = torch.as_tensor(rntis, dtype=torch.int64, device=dev)
+    llr_i8, noise_var, snr_acc = _multi_front_end(
+        grid, rntis, [12 * r for r in first_rbs], _pilot_bank_on(dev, cfg, first_rbs), cfg)
+    return finish(llr_i8, noise_var, snr_acc, cfg, harq_buffer=harq_buffers)
+
+
+def _demap_planes_ok(cfg: PuschConfig) -> bool:
+    """Gate of the plane path (kernel K4 + K1 in plane layout): opted in
+    with ``demapper="planes"``, no repetition, square 16/64/256QAM and
+    full-row data symbols.  Unlike the reference, the gate does not ask
+    which device runs it: the device follows the input tensor."""
+    return (cfg.demapper == "planes"
+            and _fused_decode_ok(cfg.sch)
+            and cfg.modulation in (Modulation.QAM16, Modulation.QAM64, Modulation.QAM256)
+            and pdsch_mod.uniform_data_rows(cfg.alloc))
+
+
+def _plane_inputs(grid: torch.Tensor, rnti: torch.Tensor, cfg: PuschConfig):
+    """(B, P, nsym, nsc) grids and (B,) RNTIs -> ((data rows y, MMSE
+    weights, eq_nvar, descrambling signs in plane layout): the inputs of
+    ``demap_planes``, noise_var (B,)), with the estimate and the weights
+    as in ``_front_end``."""
+    check_flagship_alloc(cfg.alloc)
+    gflat, h, noise_var = _estimate_stage(grid, cfg)
+    y = _data_rows(gflat, cfg).contiguous()
+    w, eq_sc = _weights(h, noise_var, cfg)
+    qm, g = cfg.sch.qm, cfg.g_total
+    c = scrambling.gold_sequence(_pusch_c_init(rnti, cfg.n_id), g)
+    signs = (1.0 - 2.0 * c.to(torch.float32)).reshape(-1, g // qm, qm).transpose(1, 2)
+    return (y, w, eq_sc, signs.contiguous()), noise_var
+
+
+def _front_end_planes(grid: torch.Tensor, rnti: torch.Tensor, cfg: PuschConfig):
+    """(B, P, nsym, nsc) grids and (B,) RNTIs -> (descrambled int8 LLR
+    bit-planes (B, qm, G/qm), noise_var (B,), post-equalization SINR
+    (B,)): ``_plane_inputs``, then kernel K4 applies the weights, demaps,
+    quantizes and descrambles straight into the planes
+    ``sch.decode_from_planes`` reads."""
+    ins, noise_var = _plane_inputs(grid, rnti, cfg)
+    planes, err2 = demap_planes(*ins, cfg.modulation, cfg.llr_range_limit)
+    snr = 1.0 / torch.clamp_min(err2.mean(dim=(1, 2)), 1e-12)
+    return planes, noise_var, snr

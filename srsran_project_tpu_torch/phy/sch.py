@@ -1,10 +1,11 @@
 """Shared-channel transport coding: TB bits <-> codeword bits / LLRs.
 
-Port of ``srsran_project_tpu/phy/sch.py``, hot path only: the encoder
-chain (segment + CRC, LDPC encode with LBRM-truncated parity, per-E-group
-rate match) and the fused decode (one K1 launch per E-group, then
-desegment + CRC).  HARQ combining, repetition geometry and the two-stage
-decode (kernel K2) are not ported yet (ROADMAP Q1.8, Q2).
+Port of ``srsran_project_tpu/phy/sch.py``: the encoder chain (segment +
+CRC, LDPC encode with LBRM-truncated parity, per-E-group rate match), the
+fused decode (one K1 launch per E-group, then desegment + CRC), its
+plane-layout twin ``decode_from_planes``, and the two-stage decode for
+HARQ retransmissions and repetition geometry (rate dematch + HARQ
+combine, then one K2 launch).
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import torch
 from ..ops.ldpc import encoder as ldpc_encoder
 from ..ops.ldpc import rate_match as rm
 from ..ops.ldpc import segmenter
-from ..ops.ldpc.decoder import decode_dematch
+from ..ops.ldpc.decoder import decode, decode_dematch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -135,14 +136,78 @@ def _desegment_stage(bits: torch.Tensor, cfg: SchConfig, lead_shape: tuple):
     return segmenter.desegment_rx(bits.reshape(tuple(lead_shape) + (seg.nof_codeblocks, -1)), seg)
 
 
+def _dematch_stage(llrs: torch.Tensor, harq_buffer, cfg: SchConfig) -> torch.Tensor:
+    """Rate dematch per E-group, then the HARQ combine when a buffer is
+    given: (..., G) int8 LLRs -> the new (..., C, N) int8 HARQ buffer, which
+    is also the two-stage decoder's input."""
+    seg = cfg.seg
+    dematched = []
+    off = 0
+    for _start, count, e in _e_groups(cfg.cb_e_bits):
+        span = llrs[..., off : off + count * e]
+        dematched.append(rm.rate_dematch(
+            span.reshape(span.shape[:-1] + (count, e)), seg.base_graph, seg.lifting_size,
+            seg.nof_payload_bits_per_cb, e, cfg.rv, cfg.qm, cfg.n_cb))
+        off += count * e
+    buf = torch.cat(dematched, dim=-2)
+    if harq_buffer is not None:
+        buf = rm.combine_harq(harq_buffer, buf)
+    return buf
+
+
 def decode_transport_block(llrs: torch.Tensor, cfg: SchConfig, nof_iterations: int = 6,
+                           harq_buffer: torch.Tensor | None = None,
                            early_stop: bool = False):
     """Codeword LLRs (..., G) int8 -> (tb_bits (..., A) uint8,
-    tb_crc_ok (...,) bool): the fused hot path of the reference."""
+    tb_crc_ok (...,) bool, new HARQ buffer (..., C, N) int8).
+
+    harq_buffer holds the combined buffer LLRs of earlier transmissions
+    (None for new data).  New data without repetition decodes through the
+    fused K1 path and still returns its buffer; a retransmission or a
+    repetition geometry takes the two-stage path: dematch + combine, then
+    one K2 launch over every codeblock."""
     if llrs.dtype != torch.int8:
         raise ValueError(f"decode_transport_block: want int8 LLRs, got {llrs.dtype}")
-    if not _fused_decode_ok(cfg):
-        raise NotImplementedError("repetition geometry needs the two-stage decode "
-                                  "(kernel K2, ROADMAP Q1.8 / Q2)")
-    bits, _iters = _fused_decode(llrs, cfg, nof_iterations, early_stop)
-    return _desegment_stage(bits, cfg, llrs.shape[:-1])
+    new_harq = _dematch_stage(llrs, harq_buffer, cfg)
+    if harq_buffer is None and _fused_decode_ok(cfg):
+        bits, _iters = _fused_decode(llrs, cfg, nof_iterations, early_stop)
+    else:
+        seg = cfg.seg
+        bits = decode(new_harq.reshape((-1,) + new_harq.shape[-1:]), seg.base_graph,
+                      seg.lifting_size, nof_iterations, early_stop=early_stop,
+                      bits_only=True, n_cb=cfg.n_cb)[0]
+    tb, ok = _desegment_stage(bits, cfg, llrs.shape[:-1])
+    return tb, ok, new_harq
+
+
+def decode_from_planes(planes: torch.Tensor, cfg: SchConfig, nof_iterations: int = 6,
+                       early_stop: bool = False):
+    """Decode straight from (B, qm, G/qm) de-interleave bit-planes (the
+    output of ``pusch._front_end_planes``): each E-group's codeblocks are a
+    strided view of the planes that K1 reads in place, one launch per
+    E-group.  New data without repetition only (no HARQ buffer).  Returns
+    (tb_bits (B, A), tb_crc_ok (B,))."""
+    seg = cfg.seg
+    n_cb = cfg.n_cb or seg.full_codeword_bits
+    b = planes.shape[0]
+    bits_groups = []
+    for view, e in _plane_groups(planes, cfg):
+        bits_g, _iters = decode_dematch(
+            view, seg.base_graph, seg.lifting_size, seg.nof_payload_bits_per_cb, e, cfg.rv,
+            cfg.qm, n_cb, nof_iterations, early_stop=early_stop)
+        bits_groups.append(bits_g.reshape(b, view.shape[2], -1))
+    bits = torch.cat(bits_groups, dim=1)
+    return _desegment_stage(bits.reshape(-1, bits.shape[-1]), cfg, (b,))
+
+
+def _plane_groups(planes: torch.Tensor, cfg: SchConfig) -> list:
+    """Per E-group of (B, qm, G/qm) bit-planes: (its codeblocks as a
+    (B, qm, count, E/qm) view of the planes, E)."""
+    qm = cfg.qm
+    out = []
+    off = 0
+    for _start, count, e in _e_groups(cfg.cb_e_bits):
+        j0, j1 = off // qm, (off + count * e) // qm
+        out.append((planes[:, :, j0:j1].unflatten(2, (count, e // qm)), e))
+        off += count * e
+    return out

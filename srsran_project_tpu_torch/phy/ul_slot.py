@@ -1,0 +1,151 @@
+"""Heterogeneous multi-UE uplink slot.
+
+Port of ``srsran_project_tpu/phy/ul_slot.py``, PUSCH part: one slot
+carries PUSCH grants of different MCS, widths and layer counts, each with
+an optional HARQ buffer.  Grants are grouped by their compact window
+config; each group runs one batched front end and one rate dematch + HARQ
+combine, and the LDPC decode batches every group's codeblocks per (base
+graph, Z, iterations, early stop, n_cb) into ONE launch of kernel K2.
+Then desegment + CRC per group, and the results scatter back to input
+order.  PUCCH F0/F1/F2 occasions, UCI on PUSCH and PT-RS are not ported
+yet (ROADMAP Q1.8, Q1.9).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..ops.ldpc.decoder import decode
+from . import pusch as pusch_mod
+from .pusch import PuschConfig
+from .sch import _dematch_stage, _desegment_stage
+
+
+@dataclasses.dataclass
+class UlSlotPdu:
+    """One PUSCH grant of the heterogeneous slot."""
+
+    rnti: int
+    first_rb: int
+    config: PuschConfig  # compact window config (rb_start=0)
+    harq_buffer: torch.Tensor | None = None  # (C, N) int8 for retransmissions
+
+    @classmethod
+    def from_reference(cls, ref, device: torch.device | str = "cpu") -> "UlSlotPdu":
+        """Copy a reference (JAX package) ``UlSlotPdu``: its config through
+        ``PuschConfig.from_reference``, its HARQ buffer (numpy or JAX
+        array) as an int8 tensor on ``device``."""
+        buf = ref.harq_buffer
+        if buf is not None:
+            buf = torch.from_numpy(np.array(buf, dtype=np.int8)).to(device)
+        return cls(rnti=int(ref.rnti), first_rb=int(ref.first_rb),
+                   config=PuschConfig.from_reference(ref.config), harq_buffer=buf)
+
+
+def _slot_front(grid: torch.Tensor, groups: dict, pdus: list):
+    """Per config group: batched front end + rate dematch + HARQ combine.
+    Returns per group (codeword buffers (Ni, C, N) int8, noise_var (Ni,),
+    SINR (Ni,))."""
+    dev = grid.device
+    outs = []
+    for cfg, idxs in groups.items():
+        first_rbs = tuple(int(pdus[i].first_rb) for i in idxs)
+        rntis = torch.tensor([int(pdus[i].rnti) for i in idxs], dtype=torch.int64, device=dev)
+        llrs, nvs, snrs = pusch_mod._multi_front_end(
+            grid, rntis, [12 * r for r in first_rbs], pusch_mod._pilot_bank_on(dev, cfg, first_rbs),
+            cfg)
+        outs.append((_dematch_stage(llrs, _harq_stack(cfg, idxs, pdus, dev), cfg.sch),
+                     nvs, snrs))
+    return outs
+
+
+def _harq_stack(cfg: PuschConfig, idxs: list, pdus: list, dev: torch.device):
+    """(Ni, C, N) int8 HARQ buffers of a group, zeros for its new-data
+    grants; None when every grant of the group is new data."""
+    bufs = [pdus[i].harq_buffer for i in idxs]
+    known = [b for b in bufs if b is not None]
+    if not known:
+        return None
+    zeros = torch.zeros((cfg.sch.seg.nof_codeblocks, known[0].shape[-1]), dtype=torch.int8,
+                        device=dev)
+    return torch.stack([zeros if b is None else b.to(dev) for b in bufs])
+
+
+def _slot_finish(bits_g: list, cfgs: tuple, lead_ns: tuple):
+    """Desegment + TB CRC for every group."""
+    return [_desegment_stage(bits, cfg.sch, (n,)) for bits, cfg, n in zip(bits_g, cfgs, lead_ns)]
+
+
+def _decode_group(llr_i8: torch.Tensor, bg: int, z: int, nof_iterations: int,
+                  early_stop: bool, n_cb: int | None = None) -> torch.Tensor:
+    """(C', N) int8 codeword-buffer LLRs of every grant of a code group ->
+    (C', K) bits, in one decode (one K2 launch on the card)."""
+    return decode(llr_i8, bg, z, nof_iterations, early_stop=early_stop, bits_only=True,
+                  n_cb=n_cb)[0]
+
+
+def _config_groups(pdus: list) -> dict:
+    """PuschConfig (with crb_start 0) -> indices of the PDUs that share it."""
+    groups: dict[PuschConfig, list[int]] = {}
+    for i, pdu in enumerate(pdus):
+        c = pdu.config
+        # Everything but the absolute CRB (which only seeds the DM-RS,
+        # passed per grant) is shared by equal grants at other offsets.
+        key = dataclasses.replace(c, alloc=dataclasses.replace(c.alloc, crb_start=0))
+        groups.setdefault(key, []).append(i)
+    return groups
+
+
+def _code_groups(cfgs: tuple, fronts: list) -> list:
+    """Per code group ((base graph, Z, iterations, early stop, n_cb)): its
+    key, the config groups in it, their codeblock counts and their
+    codeword buffers concatenated to (C', N) int8, the input of its one
+    ``_decode_group``."""
+    by_code: dict[tuple, list[int]] = {}
+    for gi, cfg in enumerate(cfgs):
+        seg = cfg.sch.seg
+        key = (seg.base_graph, seg.lifting_size, cfg.nof_ldpc_iterations,
+               cfg.ldpc_early_stop, cfg.sch.n_cb)
+        by_code.setdefault(key, []).append(gi)
+    out = []
+    for key, gis in by_code.items():
+        flats = [fronts[gi][0].reshape((-1,) + fronts[gi][0].shape[-1:]) for gi in gis]
+        out.append((key, gis, [f.shape[0] for f in flats], torch.cat(flats)))
+    return out
+
+
+def process_slot(grid: torch.Tensor, pdus: list, f1_cfgs=(), f0_cfgs=(), f2_cfgs=()):
+    """Decode the PUSCH grants of a heterogeneous multi-UE UL slot.
+
+    grid: (P, nsym, nof_grid_sc) received slot grid; pdus: list[UlSlotPdu]
+    with mixed configs.  Returns (results, [], []) as the reference does
+    without PUCCH: results[i] is a dict per input PDU (tb_bits, tb_crc_ok,
+    harq_buffer, noise_var, snr_db)."""
+    if f1_cfgs or f0_cfgs or f2_cfgs:
+        raise NotImplementedError("PUCCH F0/F1/F2 in the slot is not ported yet "
+                                  "(ROADMAP Q1.9)")
+    groups = _config_groups(pdus)
+    cfgs = tuple(groups)
+    fronts = _slot_front(grid, groups, pdus)
+
+    bits_g: list = [None] * len(cfgs)
+    for (bg, z, iters, es, n_cb), gis, sizes, llrs in _code_groups(cfgs, fronts):
+        bits_all = _decode_group(llrs, bg, z, iters, es, n_cb=n_cb)
+        for gi, part in zip(gis, bits_all.split(sizes)):
+            bits_g[gi] = part
+
+    finished = _slot_finish(bits_g, cfgs, tuple(len(idxs) for idxs in groups.values()))
+    results: list = [None] * len(pdus)
+    for idxs, (harq, nvs, snrs), (tb, ok) in zip(groups.values(), fronts, finished):
+        for k, i in enumerate(idxs):
+            results[i] = {
+                "tb_bits": tb[k],
+                "tb_crc_ok": ok[k],
+                "harq_buffer": harq[k],
+                "noise_var": nvs[k],
+                "snr_db": 10.0 * torch.log10(torch.clamp_min(snrs[k], 1e-12)),
+            }
+    return results, [], []

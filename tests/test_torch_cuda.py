@@ -1,5 +1,6 @@
 """The port's CUDA kernels on the card against their plain torch versions,
-and the 24-PRB 4x4 slice on the card against the port's CPU path.
+and the 24-PRB 4x4 slice and the small multi-UE slot on the card against
+the port's CPU path.
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without
 one.  The file imports no JAX, so it also runs on a GPU host that has
@@ -7,21 +8,25 @@ none; there, skip the suite's conftest (which pins JAX to the CPU):
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
-Tolerances: K1 bits and iteration counts exact (both sides compute every
-float operation separately rounded, in the same order); K3 as
-tests/test_torch_equalizer.py; IQ 1e-4 x RMS and int8 LLRs within +-1
-(cuFFT and pocketfft round differently); TB bits and CRC exact.
+Tolerances: K1 and K2 bits, a-posteriori LLRs and iteration counts exact,
+and K4 planes exact with err2 at rtol 1e-6 (both sides round the same
+float operations in the same order); K3 as tests/test_torch_equalizer.py;
+IQ 1e-4 x RMS and int8 LLRs within +-1 (cuFFT and pocketfft round
+differently); TB bits and CRC exact; noise_var and SINR 1e-3 relative;
+HARQ buffers within +-2 (two +-1 LLRs combined).
 """
 
 import numpy as np
 import pytest
 import torch
-from torch_parity import cuda_device, to_np, to_torch  # noqa: F401
+from torch_parity import RETX_UE, SLOT_PLAN, cuda_device, small_slot, to_np, to_torch  # noqa: F401
 
 from srsran_project_tpu_torch.models import cell
+from srsran_project_tpu_torch.ops import demap_planes as dp
 from srsran_project_tpu_torch.ops import equalizer, ofdm
 from srsran_project_tpu_torch.ops.ldpc import decoder
-from srsran_project_tpu_torch.phy import pusch, sch
+from srsran_project_tpu_torch.ops.modulation import Modulation
+from srsran_project_tpu_torch.phy import pusch, sch, ul_slot
 
 pytestmark = pytest.mark.cuda
 
@@ -105,3 +110,103 @@ def test_slice_on_card_matches_cpu(cuda_device):  # noqa: F811
     llr_g, _, _ = pusch._front_end(grid.to(cuda_device), rnti.to(cuda_device), cfg.pusch_cfg)
     diff = (llr_g.cpu().int() - llr_c.int()).abs()
     assert int(diff.max()) <= 1 and float((diff == 0).float().mean()) >= 0.999
+
+
+K2_CASES = [
+    pytest.param(dict(tbs=9000, target_code_rate=0.45, qm=8, nof_layers=2,
+                      nof_total_bits=20032, rv=0, tbs_lbrm_bytes=None), id="bg1-full-graph"),
+    pytest.param(dict(tbs=9000, target_code_rate=0.45, qm=8, nof_layers=2,
+                      nof_total_bits=20032, rv=0, tbs_lbrm_bytes=2000), id="bg1-lbrm"),
+    pytest.param(dict(tbs=300, target_code_rate=0.1, qm=2, nof_layers=1,
+                      nof_total_bits=4000, rv=0, tbs_lbrm_bytes=None), id="bg2-repetition"),
+]
+
+
+@pytest.mark.parametrize("f32", [False, True], ids=["int8", "f32"])
+@pytest.mark.parametrize("kw", K2_CASES)
+def test_k2_matches_plain(cuda_device, kw, f32):  # noqa: F811
+    cfg = sch.SchConfig(**kw)
+    seg = cfg.seg
+    llrs = torch.stack([_noisy_llrs(cfg, 8), _noisy_llrs(cfg, 9)])
+    buf = sch._dematch_stage(llrs, None, cfg).reshape(-1, seg.full_codeword_bits)
+    if f32:
+        buf = buf.to(torch.float32) * 0.37
+    for bits_only in (True, False):
+        for early_stop in (False, True):
+            args = (seg.base_graph, seg.lifting_size, 6, early_stop, bits_only, cfg.n_cb)
+            before = decoder.decode.launches
+            bits_k, app_k, it_k = decoder.decode(buf.to(cuda_device), *args)
+            assert decoder.decode.launches == before + 1
+            bits_p, app_p, it_p = decoder.decode(buf, *args)
+            np.testing.assert_array_equal(to_np(bits_k), to_np(bits_p))
+            np.testing.assert_array_equal(to_np(it_k), to_np(it_p))
+            if not bits_only:
+                np.testing.assert_array_equal(to_np(app_k), to_np(app_p))
+
+
+@pytest.mark.parametrize("mod, p, l", [(Modulation.QAM256, 4, 4), (Modulation.QAM64, 4, 1),
+                                       (Modulation.QPSK, 2, 1)])
+def test_k4_matches_plain(cuda_device, mod, p, l):  # noqa: F811
+    rng = np.random.default_rng(11)
+    b, s, n, qm = 2, 12, 3276, int(mod)
+    y = (rng.standard_normal((b, p, s, n)) + 1j * rng.standard_normal((b, p, s, n)))
+    w = (rng.standard_normal((b, n, l, p)) + 1j * rng.standard_normal((b, n, l, p))) * 0.3
+    ev = (0.05 + rng.random((b, n, l))).astype(np.float32)
+    signs = (1.0 - 2.0 * rng.integers(0, 2, size=(b, qm, s * n * l))).astype(np.float32)
+    ins = [to_torch(y.astype(np.complex64)), to_torch(w.astype(np.complex64)), to_torch(ev),
+           to_torch(signs)]
+    before = dp.demap_planes.launches
+    planes_k, err_k = dp.demap_planes(*[t.to(cuda_device) for t in ins], mod)
+    assert dp.demap_planes.launches == before + 1
+    planes_p, err_p = dp.demap_planes_plain(*[t.to(cuda_device) for t in ins], mod)
+    np.testing.assert_array_equal(to_np(planes_k), to_np(planes_p))
+    np.testing.assert_allclose(to_np(err_k), to_np(err_p), rtol=1e-6)
+
+
+def test_k1_plane_layout_on_card(cuda_device):  # noqa: F811
+    cfg = sch.SchConfig(**K1_CASES[0].values[0])
+    seg = cfg.seg
+    llrs = torch.stack([_noisy_llrs(cfg, 6), _noisy_llrs(cfg, 7)])
+    planes = llrs.reshape(2, -1, cfg.qm).transpose(1, 2).contiguous().to(cuda_device)
+    off = 0
+    for _s, count, e in sch._e_groups(cfg.cb_e_bits):
+        args = (seg.base_graph, seg.lifting_size, seg.nof_payload_bits_per_cb, e, cfg.rv,
+                cfg.qm, seg.full_codeword_bits, 6, True)
+        view = planes[:, :, off // cfg.qm : (off + count * e) // cfg.qm].unflatten(
+            2, (count, e // cfg.qm))
+        before = decoder.decode_dematch.plane_launches
+        bits_v, it_v = decoder.decode_dematch(view, *args)
+        assert decoder.decode_dematch.plane_launches == before + 1
+        span = llrs[:, off : off + count * e].reshape(-1, e).contiguous()
+        bits_s, it_s = decoder.decode_dematch(span.to(cuda_device), *args)
+        np.testing.assert_array_equal(to_np(bits_v), to_np(bits_s))
+        np.testing.assert_array_equal(to_np(it_v), to_np(it_s))
+        off += count * e
+
+
+def test_ul_slot_on_card_matches_cpu(cuda_device):  # noqa: F811
+    """The small multi-UE slot and its retransmission: one K2 launch per
+    code group and no K1 launch; TB bits and CRC equal to the CPU run."""
+    harq = {"cpu": None, "cuda": None}
+    for rv, noise_seed in ((None, 0), (2, 1)):
+        cfgs, tbs, grid = small_slot(rv_retx=rv, noise_seed=noise_seed)
+        outs = {}
+        for dev in ("cpu", cuda_device):
+            key = "cpu" if dev == "cpu" else "cuda"
+            pdus = [ul_slot.UlSlotPdu(rnti=r, first_rb=rb0, config=c,
+                                      harq_buffer=harq[key] if i == RETX_UE else None)
+                    for i, ((r, rb0, _n, _m), c) in enumerate(zip(SLOT_PLAN, cfgs))]
+            k1, k2 = decoder.decode_dematch.launches, decoder.decode.launches
+            outs[key], _, _ = ul_slot.process_slot(grid.to(dev), pdus)
+            if key == "cuda":
+                assert decoder.decode_dematch.launches == k1
+                assert decoder.decode.launches - k2 == 3
+            harq[key] = outs[key][RETX_UE]["harq_buffer"]
+        for i, (rc, rg, tb) in enumerate(zip(outs["cpu"], outs["cuda"], tbs)):
+            want_ok = rv is not None or i != RETX_UE
+            assert bool(rg["tb_crc_ok"]) == bool(rc["tb_crc_ok"]) == want_ok, i
+            np.testing.assert_array_equal(to_np(rg["tb_bits"]), to_np(rc["tb_bits"]))
+            for k in ("noise_var", "snr_db"):
+                assert abs(float(rg[k]) / float(rc[k]) - 1) <= 1e-3, (i, k)
+            d = (rg["harq_buffer"].cpu().int() - rc["harq_buffer"].int()).abs()
+            assert int(d.max()) <= 2, (i, int(d.max()))

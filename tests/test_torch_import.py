@@ -99,7 +99,7 @@ def test_cell_config_twin(make):
 
 
 @pytest.mark.parametrize("field, value", [
-    ("demapper", "planes"), ("demapper", "reference"), ("ldpc_decoder", "reference_i8"),
+    ("equalizer", "mmse_ref"), ("demapper", "reference"), ("ldpc_decoder", "reference_i8"),
     ("equalizer", "zf"), ("sinr_method", "channel_estimator"),
     ("noise_method", "pair_residual"), ("cfo_compensation", True),
 ])

@@ -44,7 +44,7 @@ def test_early_stop_tb_and_crc_match():
     bits_j, iters_j = jsch._fused_decode(jnp.asarray(llrs), cfg_j, 6, early_stop=True,
                                          interpret=True)
     tb_j, ok_j = jsch._desegment_stage(bits_j, cfg_j, (2,))
-    tb_t, ok_t = tsch.decode_transport_block(to_torch(llrs), cfg_t, 6, early_stop=True)
+    tb_t, ok_t, _ = tsch.decode_transport_block(to_torch(llrs), cfg_t, 6, early_stop=True)
     np.testing.assert_array_equal(to_np(tb_t), np.asarray(tb_j))
     np.testing.assert_array_equal(to_np(ok_t), np.asarray(ok_j))
     assert to_np(ok_t).all()
@@ -70,13 +70,15 @@ def test_early_stop_per_codeblock_counts():
 
 
 def test_repetition_raises():
+    """K1 refuses a repetition geometry; decode_transport_block takes the
+    two-stage path (K2) for it instead (tests/test_torch_harq.py)."""
     kw = dict(tbs=300, target_code_rate=0.1, qm=2, nof_layers=1, nof_total_bits=4000,
               rv=0, tbs_lbrm_bytes=None)
     cfg = tsch.SchConfig(**kw)
     assert not tsch._fused_decode_ok(cfg) and not jsch._fused_decode_ok(jsch.SchConfig(**kw))
     llrs = torch.zeros((cfg.nof_total_bits,), dtype=torch.int8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsch.decode_transport_block(llrs, cfg)
+    tb, ok, harq = tsch.decode_transport_block(llrs, cfg)
+    assert tb.shape == (300,) and harq.shape == (1, cfg.seg.full_codeword_bits)
     seg = cfg.seg
     e = cfg.cb_e_bits[0]
     with pytest.raises(ValueError, match="no-repetition"):
