@@ -15,7 +15,7 @@ read just after:
 
 1. the flagship cell (273 PRB, 30 kHz, 4x4, 256QAM r~0.926, LBRM): 8 random
    transport blocks -> ``encode_slot`` -> AWGN at 30 dB -> ``decode_slot``
-   (kernels K1 and K3);
+   (kernel K1, one launch over both E-groups, and K3);
 2. a heterogeneous 8-UE uplink slot on the same 273-PRB carrier with 4 RX
    ports -> ``ul_slot.process_slot`` (kernel K2 once per code group, and
    K3): two 4-layer 256QAM grants, four rank-1 64QAM grants and two
@@ -23,17 +23,23 @@ read just after:
    then the same grid again with UE 3 retransmitted at rv 2 and its HARQ
    buffer attached: UE 3 is attenuated so that rv 0 fails its CRC and the
    rv 0 + rv 2 combine passes.  On each pass K2 is held against its plain
-   version on every code group's buffers;
+   version on every code group's buffers (BG1 Z=384 and Z=288 on the
+   untruncated graph, BG2 Z=36);
 3. the flagship decode with ``demapper="planes"`` on the slots of path 1
-   (kernels K3, K4 and K1 reading the bit-plane layout), whose TB bits must
-   equal the float path's; K4 and K1 are held against their plain
-   versions on that batch's own tensors.
+   (kernels K3, K4 and one K1 launch reading the bit-plane layout), whose
+   TB bits must equal the float path's; K4 and K1 are held against their
+   plain versions on that batch's own tensors.
 
-Every CRC and every bit is checked.  It then times each path per slot,
-the flagship decode's stages, and each kernel against its plain version.
+Every CRC and every bit is checked.  It then times each path per slot and
+the flagship decode's stages (CUDA events around eager calls, host
+included), each kernel's device time (``kernel_ms``: calls queued behind a
+sleep kernel, so they run back to back) and its plain version's time
+(events, host included).
 
-Output: progress and timing lines, then one JSON line with the kernels,
-the card's name and power limit, and as the LAST line
+Output: progress and timing lines, then one JSON line with the kernels
+(time, plain version's time, the bound computed from this run's inputs,
+launches per path; for K1 and K2 also the resident blocks per SM), the
+card's name and power limit, and as the LAST line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Any failed check raises (non-zero exit, no result line).  There is no CPU
 path: without a CUDA device the script exits non-zero.  JAX is never
@@ -99,6 +105,58 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def kernel_ms(fn, reps: int = 20) -> float:
+    """Mean device time of one kernel call fn() in ms, without the host's
+    share: a sleep kernel holds the stream while the host queues a warm-up
+    and `reps` calls, so they run back to back between the CUDA events."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)  # about 25 ms at 2 GHz, longer than the queueing
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+# The H100 SXM's published peaks (NVIDIA data sheet, 700 W): HBM3 bytes/s
+# and float32 operations/s outside the tensor cores.
+PEAK_BYTES_S = 3.35e12
+PEAK_F32_S = 67e12
+# No single PyTorch call computes any of the four kernels' functions
+# (min-sum decoding, 4x4 MMSE weights with their post-equalization noise,
+# fused apply + max-log demap + quantize + descramble), so library_ms is
+# null for all.
+LIBRARY_MS = None
+
+
+def bound(nbytes: float, ops: float) -> tuple[float, str]:
+    """(the least time in ms the card could take: the larger of bytes
+    moved over HBM's rate and float32 operations over its peak, which of
+    the two bounds it)."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_F32_S
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def ldpc_bound(plan, iters, inputs, outputs) -> tuple[float, str]:
+    """K1 and K2: each input and output once; 9 float32 operations per
+    edge, z and iteration run (v = APP - r, the three-operation running
+    two-minimum update, the argmin, sign and hard-decision compares, the
+    fused multiply-add as 2) and 2 per check row (0.8 m1, 0.8 m2), at the
+    iterations each codeblock ran."""
+    per_iter = (9 * plan.total_edges + 2 * len(plan.layers)) * plan.z
+    return bound(nbytes(*inputs, *outputs), per_iter * float(iters.sum()))
 
 
 # ---- launch counters ---------------------------------------------------------
@@ -207,41 +265,61 @@ def ul_grid(ues, noise, device, retx_rv: int | None = None):
     return grid, cfgs
 
 
-def check_code_groups(grid, pdus, name: str) -> float:
-    """K2 against its plain version on the very buffers ``process_slot``
-    hands it for ``grid`` and ``pdus``: per code group, bits and
-    iteration counts equal at the path's settings (bits only, as the path
-    calls it), and a-posteriori LLRs equal with bits_only=False.  Returns
-    the largest a-posteriori difference."""
+# K2's checks: (iterations, early stop), each with bits only and with the
+# a-posteriori LLRs.
+K2_SETTINGS = ((0, False), (1, False), (6, False), (6, True))
+
+
+def check_k2(llrs, bg: int, z: int, n_cb, name: str) -> float:
+    """K2 against its plain version on (C, N) buffers at every K2_SETTINGS:
+    bits, per-codeblock iterations and a-posteriori LLRs equal (bitwise).
+    Returns the largest a-posteriori difference."""
     import torch
 
     from srsran_project_tpu_torch.ops.ldpc import decoder
-    from srsran_project_tpu_torch.phy import ul_slot
 
-    groups = ul_slot._config_groups(pdus)
-    cfgs = tuple(groups)
-    fronts = ul_slot._slot_front(grid, groups, pdus)
+    plan = decoder.decode_plan(bg, z, llrs.shape[-1], n_cb)
     err = 0.0
-    for (bg, z, iters, early, n_cb), _gis, _sizes, llrs in ul_slot._code_groups(cfgs, fronts):
-        args = (llrs, bg, z, iters, early)
+    for iters, early in K2_SETTINGS:
         for bits_only in (True, False):
-            bits_k, app_k, it_k = decoder.decode(*args, bits_only, n_cb)
-            bits_p, app_p, it_p = decoder.decode_plain(*args, bits_only, n_cb)
+            args = (llrs, bg, z, iters, early, bits_only, n_cb)
+            bits_k, app_k, it_k = decoder.decode(*args)
+            bits_p, app_p, it_p = decoder.decode_plain(*args)
             torch.cuda.synchronize()
-            what = f"K2 {name} BG{bg} Z={z} C={llrs.shape[0]} bits_only={bits_only}"
+            what = (f"K2 {name} BG{bg} Z={z} C={llrs.shape[0]} iterations={iters} "
+                    f"early_stop={early} bits_only={bits_only}")
             if not torch.equal(bits_k, bits_p):
                 fail(f"{what}: {int((bits_k != bits_p).sum())} bits differ from the plain "
                      f"version")
             if not torch.equal(it_k, it_p):
                 fail(f"{what}: iteration counts differ from the plain version")
+            if not early and not bool((it_k == iters).all()):
+                fail(f"{what}: fixed-budget iteration count is not {iters}")
             if not bits_only:
                 err = max(err, float((app_k - app_p).abs().max()))
-                if not torch.equal(app_k, app_p):
+                if not torch.equal(app_k.view(torch.int32), app_p.view(torch.int32)):
                     fail(f"{what}: a-posteriori LLRs differ (max {err:.3e})")
-        print(f"# K2 {name} BG{bg} Z={z} C={llrs.shape[0]} n_cb={n_cb} early_stop={early}: "
-              f"bits, iterations (mean {it_k.float().mean().item():.2f}) and a-posteriori "
-              f"LLRs equal the plain version")
+    print(f"# K2 {name} BG{bg} Z={z} C={llrs.shape[0]} rows={len(plan.layers)} n_cb={n_cb} "
+          f"{plan.shared_bytes} B shared: bits, iterations (mean "
+          f"{it_k.float().mean().item():.2f} with early stop) and a-posteriori LLRs equal the "
+          f"plain version at {len(K2_SETTINGS)} settings")
     return err
+
+
+def check_code_groups(grid, pdus, name: str) -> tuple[float, list]:
+    """K2 against its plain version on the very buffers ``process_slot``
+    hands it for ``grid`` and ``pdus``, per code group.  Returns the
+    largest a-posteriori difference and the groups as "BG<bg> Z=<z>"."""
+    from srsran_project_tpu_torch.phy import ul_slot
+
+    groups = ul_slot._config_groups(pdus)
+    cfgs = tuple(groups)
+    fronts = ul_slot._slot_front(grid, groups, pdus)
+    err, geometries = 0.0, []
+    for (bg, z, _iters, _early, n_cb), _gis, _sizes, llrs in ul_slot._code_groups(cfgs, fronts):
+        err = max(err, check_k2(llrs, bg, z, n_cb, name))
+        geometries.append(f"BG{bg} Z={z}")
+    return err, geometries
 
 
 def ul_slot_phase(card: str) -> tuple[dict, float]:
@@ -273,7 +351,11 @@ def ul_slot_phase(card: str) -> tuple[dict, float]:
         if len(codes) != 3:
             fail(f"ul_slot pass {p}: {len(codes)} code groups, want 3")
         expect_counts(f"ul_slot pass {p}", got, {"decode": len(codes), "mmse_weights_4x4": 1})
-        k2_err = max(k2_err, check_code_groups(grid, pdus, f"ul_slot pass {p}"))
+        err, geometries = check_code_groups(grid, pdus, f"ul_slot pass {p}")
+        want = ["BG1 Z=384", "BG1 Z=288", "BG2 Z=36"]
+        if sorted(geometries) != sorted(want):
+            fail(f"ul_slot pass {p}: K2 code groups {geometries}, want {want}")
+        k2_err = max(k2_err, err)
         if counts is None:
             counts = got
             first = (grid, pdus)
@@ -342,94 +424,88 @@ def kernel_phase(card: str):
     seg = cfg.seg
     n_cb = cfg.n_cb or seg.full_codeword_bits
 
-    # K1: int8 LLRs around a valid flagship codeword, per E-group, read as
-    # the (C, E) stream and as (1, qm, C, E/qm) views of the bit-planes.
-    llr = noisy_llrs(cfg, rng, dev)
+    # K1: int8 LLRs around a valid flagship codeword, read as the (1, G)
+    # stream and as the (1, qm, G/qm) bit-planes, both E-groups in one
+    # launch, against the plain version of each group (its (C, E) spans).
+    llr = noisy_llrs(cfg, rng, dev)[None]
     planes = llr.reshape(1, -1, cfg.qm).transpose(1, 2).contiguous()
-    groups = []
-    off = 0
-    for view, e in sch_mod._plane_groups(planes, cfg):
-        count = view.shape[2]
-        groups.append((llr[off : off + count * e].reshape(count, e).contiguous(), view, e))
-        off += count * e
-    args = (seg.base_graph, seg.lifting_size, seg.nof_payload_bits_per_cb)
+    e_groups = tuple((count, e) for _s, count, e in sch_mod._e_groups(cfg.cb_e_bits))
+    args = (seg.base_graph, seg.lifting_size, seg.nof_payload_bits_per_cb, cfg.rv, cfg.qm, n_cb)
 
-    def k1(span, e, iters, early):
-        return decoder.decode_dematch(span, *args, e, cfg.rv, cfg.qm, n_cb, iters, early)
+    def k1(src, iters, early):
+        return decoder.decode_dematch_groups(src, e_groups, *args, iters, early)
 
-    def k1_plain(span, e, iters, early):
-        return decoder.decode_dematch_plain(span, *args, e, cfg.rv, cfg.qm, n_cb, iters, early)
+    def k1_plain(iters, early, src=llr):
+        """The plain version of each E-group's view of src (stream or
+        planes: the stream's views reshape in the plain version to its
+        (C, E) spans, the planes' views transpose back to them)."""
+        outs = [decoder.decode_dematch_plain(v, seg.base_graph, seg.lifting_size,
+                                             seg.nof_payload_bits_per_cb, e, cfg.rv, cfg.qm,
+                                             n_cb, iters, early)
+                for v, (_c, e) in zip(decoder.group_views(src, e_groups, cfg.qm), e_groups)]
+        return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs])
 
     k1_err = 0
-    for span, view, e in groups:
-        for early in (False, True):
-            bits_k, it_k = k1(span, e, 6, early)
-            bits_p, it_p = k1_plain(span, e, 6, early)
-            bits_v, it_v = k1(view, e, 6, early)
+    for early in (False, True):
+        bits_p, it_p = k1_plain(6, early)
+        for layout, src in (("stream", llr), ("planes", planes)):
+            before = decoder.decode_dematch.launches
+            bits_k, it_k = k1(src, 6, early)
             torch.cuda.synchronize()
+            if decoder.decode_dematch.launches != before + 1:
+                fail(f"K1 {layout}: {decoder.decode_dematch.launches - before} launches for "
+                     f"{len(e_groups)} E-groups, want 1")
             nbad = int((bits_k != bits_p).sum())
             k1_err = max(k1_err, int((bits_k.int() - bits_p.int()).abs().max()))
             if nbad:
-                fail(f"K1 E={e} early_stop={early}: {nbad} bits differ from the plain version")
-            if early and not torch.equal(it_k, it_p):
-                fail(f"K1 E={e}: per-codeblock iteration counts differ from the plain version")
+                fail(f"K1 {layout} early_stop={early}: {nbad} bits differ from the plain version")
+            if not torch.equal(it_k, it_p):
+                fail(f"K1 {layout} early_stop={early}: per-codeblock iteration counts differ "
+                     f"from the plain version")
             if not early and not bool((it_k == 6).all()):
                 fail("K1: fixed-budget iteration count is not 6")
-            if not (torch.equal(bits_v, bits_k) and torch.equal(it_v, it_k)):
-                fail(f"K1 E={e} early_stop={early}: the plane layout differs from the stream")
-        print(f"# K1 E={e} C={span.shape[0]}: bits equal (6 iterations; early stop: bits and "
-              f"iterations equal, mean {it_k.float().mean().item():.2f} iterations); plane "
-              f"layout equal to the stream")
-    k1_ms = sum(cuda_ms(lambda s=s, e=e: k1(s, e, 6, True), reps=20) for s, _v, e in groups)
-    k1_plain_ms = sum(cuda_ms(lambda s=s, e=e: k1_plain(s, e, 6, True), reps=3)
-                      for s, _v, e in groups)
-    k1v_ms = sum(cuda_ms(lambda v=v, e=e: k1(v, e, 6, True), reps=20) for _s, v, e in groups)
-    k1v_plain_ms = sum(cuda_ms(lambda v=v, e=e: k1_plain(v, e, 6, True), reps=3)
-                       for _s, v, e in groups)
-    print(f"# [{card}] K1 decode_dematch, flagship slot (2 E-groups, early stop): "
-          f"kernel {k1_ms:.4f} ms, plain torch {k1_plain_ms:.4f} ms; plane layout: "
-          f"kernel {k1v_ms:.4f} ms, plain torch {k1v_plain_ms:.4f} ms")
+    k1_plan = decoder.dematch_decode_plan(seg.base_graph, seg.lifting_size,
+                                          seg.nof_payload_bits_per_cb, e_groups[0][1], cfg.rv,
+                                          cfg.qm, n_cb)
+    k1_geo = {"blocks_per_sm": decoder.blocks_per_sm(k1_plan)}
+    print(f"# K1 E-groups {e_groups} C={it_k.numel()} in one launch, stream and planes: bits and "
+          f"iterations equal the plain version per group (6 iterations; early stop, mean "
+          f"{it_k.float().mean().item():.2f}); {k1_plan.shared_bytes} B shared, "
+          f"{k1_geo['blocks_per_sm']} block(s) per SM")
+    k1_ms = kernel_ms(lambda: k1(llr, 6, True))
+    k1v_ms = kernel_ms(lambda: k1(planes, 6, True))
+    k1_plain_ms = cuda_ms(lambda: k1_plain(6, True), reps=3)
+    k1v_plain_ms = cuda_ms(lambda: k1_plain(6, True, planes), reps=3)
+    k1_bound = ldpc_bound(k1_plan, it_k, (llr,), (bits_k, it_k))
+    print(f"# [{card}] K1 decode_dematch, flagship slot (2 E-groups in one launch, early stop): "
+          f"kernel {k1_ms:.4f} ms, planes {k1v_ms:.4f} ms, plain torch {k1_plain_ms:.4f} ms, "
+          f"on the planes {k1v_plain_ms:.4f} ms; bound {k1_bound[0]:.5f} ms ({k1_bound[1]})")
 
     # K2: the flagship's dematched buffers (LBRM-truncated graph) and those
     # of the uplink slot's group A (41 codeblocks, untruncated BG1 graph).
     cfg_a = ul_config(*UL_GROUPS[0][1:], 0).sch
     k2_cases = []
-    for name, c, lead in (("flagship", cfg, llr), ("group A", cfg_a, None)):
-        src = lead if lead is not None else noisy_llrs(c, rng, dev)
-        buf = sch_mod._dematch_stage(src, None, c)
+    for name, c, src in (("flagship", cfg, llr[0]), ("group A", cfg_a, None)):
+        buf = sch_mod._dematch_stage(src if src is not None else noisy_llrs(c, rng, dev), None, c)
         k2_cases.append((name, c, buf))
     k2_err = 0.0
+    k2_geo = {}
     for name, c, buf in k2_cases:
-        kargs = (c.seg.base_graph, c.seg.lifting_size, 6)
-        for bits_only in (True, False):
-            for early in (False, True):
-                bits_k, app_k, it_k = decoder.decode(buf, *kargs, early, bits_only, c.n_cb)
-                bits_p, app_p, it_p = decoder.decode_plain(buf, *kargs, early, bits_only,
-                                                            c.n_cb)
-                torch.cuda.synchronize()
-                if not torch.equal(bits_k, bits_p):
-                    fail(f"K2 {name} early_stop={early} bits_only={bits_only}: "
-                         f"{int((bits_k != bits_p).sum())} bits differ from the plain version")
-                if not torch.equal(it_k, it_p):
-                    fail(f"K2 {name} early_stop={early}: iteration counts differ")
-                if not early and not bool((it_k == 6).all()):
-                    fail(f"K2 {name}: fixed-budget iteration count is not 6")
-                if not bits_only:
-                    k2_err = max(k2_err, float((app_k - app_p).abs().max()))
-                    if not torch.equal(app_k, app_p):
-                        fail(f"K2 {name} early_stop={early}: a-posteriori LLRs differ "
-                             f"(max {k2_err:.3e})")
+        k2_err = max(k2_err, check_k2(buf, c.seg.base_graph, c.seg.lifting_size, c.n_cb, name))
         plan = decoder.decode_plan(c.seg.base_graph, c.seg.lifting_size, buf.shape[-1], c.n_cb)
-        print(f"# K2 {name} C={buf.shape[0]} Z={c.seg.lifting_size} rows={len(plan.layers)}: "
-              f"bits, iterations (mean {it_k.float().mean().item():.2f} with early stop) "
-              f"and a-posteriori LLRs equal")
+        k2_geo[name] = {"blocks_per_sm": decoder.blocks_per_sm(plan)}
     k2_times = {}
     for name, c, buf in k2_cases:
         kargs = (c.seg.base_graph, c.seg.lifting_size, 6, True, True, c.n_cb)
-        k2_times[name] = (cuda_ms(lambda b=buf, a=kargs: decoder.decode(b, *a), reps=20),
-                          cuda_ms(lambda b=buf, a=kargs: decoder.decode_plain(b, *a), reps=3))
+        plan = decoder.decode_plan(c.seg.base_graph, c.seg.lifting_size, buf.shape[-1], c.n_cb)
+        bits, _, its = decoder.decode(buf, *kargs)
+        k2_times[name] = (kernel_ms(lambda b=buf, a=kargs: decoder.decode(b, *a)),
+                          cuda_ms(lambda b=buf, a=kargs: decoder.decode_plain(b, *a), reps=3),
+                          ldpc_bound(plan, its, (buf,), (bits, its)))
     print(f"# [{card}] K2 decode (bits only, early stop): " + "; ".join(
-        f"{n} kernel {k:.4f} ms, plain torch {p:.4f} ms" for n, (k, p) in k2_times.items()))
+        f"{n} kernel {k:.4f} ms, plain torch {p:.4f} ms, bound {bd[0]:.5f} ms ({bd[1]}), "
+        f"{k2_geo[n]['blocks_per_sm']} block(s) per SM"
+        for n, (k, p, bd) in k2_times.items()))
 
     # K3: random 4x4 channels at the flagship's 3276 subcarriers.
     nsc, nv = 3276, 0.013
@@ -453,10 +529,13 @@ def kernel_phase(card: str):
         fail(f"K3 vs float64 oracle: {o_err:.3e} > 1e-2")
     print(f"# K3 nsc={nsc}: vs plain max|dW| {k3_err:.3e}, max|d eq_nvar| {ev_err:.3e}; "
           f"vs f64 oracle {o_err:.3e}")
-    k3_ms = cuda_ms(lambda: equalizer.mmse_weights_4x4(h, nv_t), reps=50)
+    k3_ms = kernel_ms(lambda: equalizer.mmse_weights_4x4(h, nv_t), reps=50)
     k3_plain_ms = cuda_ms(lambda: equalizer.equalize_weights(h, nv_t), reps=10)
+    # About 1.5k float32 operations a subcarrier (csrc/mmse_weights_4x4.cu).
+    k3_bound = bound(nbytes(h, nv_t, w_k, ev_k), 1500.0 * nsc)
     print(f"# [{card}] K3 mmse_weights_4x4, one slot (3276 subcarriers): "
-          f"kernel {k3_ms:.4f} ms, plain torch {k3_plain_ms:.4f} ms")
+          f"kernel {k3_ms:.4f} ms, plain torch {k3_plain_ms:.4f} ms, bound {k3_bound[0]:.5f} ms "
+          f"({k3_bound[1]})")
 
     # K4: one flagship slot's data symbols (4 ports, 12 data symbols, 3276
     # subcarriers, 4 layers, 256QAM), random weights, noise and signs.
@@ -476,33 +555,37 @@ def kernel_phase(card: str):
     if k4_err or not rel <= 1e-6:
         fail(f"K4 vs plain: planes max |d| {k4_err}, err2 max relative {rel:.3e} (limit 1e-6)")
     print(f"# K4 {tuple(planes_k.shape)}: planes equal, err2 max relative {rel:.3e}")
-    k4_ms = cuda_ms(lambda: dp.demap_planes(*ins, Modulation.QAM256), reps=50)
+    k4_ms = kernel_ms(lambda: dp.demap_planes(*ins, Modulation.QAM256), reps=50)
     k4_plain_ms = cuda_ms(lambda: dp.demap_planes_plain(*ins, Modulation.QAM256), reps=10)
+    # Float32 operations a lane: 8 per port (the complex apply), 8 per PAM
+    # level (the distances and label min trees of both axes), 4 per bit.
+    lanes = s * nsc * l
+    k4_bound = bound(nbytes(*ins, planes_k, err_k),
+                     lanes * (8.0 * p + 8.0 * 2 ** (qm // 2) + 4.0 * qm))
     print(f"# [{card}] K4 demap_planes, one flagship slot: kernel {k4_ms:.4f} ms, "
-          f"plain torch {k4_plain_ms:.4f} ms")
+          f"plain torch {k4_plain_ms:.4f} ms, bound {k4_bound[0]:.5f} ms ({k4_bound[1]})")
 
-    k2_ms, k2_plain_ms = k2_times["group A"]
+    k2_ms, k2_plain_ms, k2_bound = k2_times["group A"]
+
+    def entry(name, src, replaces, err, ms, plain_ms, bd, **extra):
+        return {"name": name, "route": "cuda", "source": f"srsran_project_tpu_torch/csrc/{src}",
+                "replaces": replaces, "max_abs_err": float(err), "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bd[0], "bound_by": bd[1], "library_ms": LIBRARY_MS, **extra}
+
+    k1_src, k1_tpu = "ldpc_decode_dematch.cu", "srsran_project_tpu/ops/ldpc/decoder_pallas.py:322"
     return [
-        {"name": "decode_dematch", "route": "cuda",
-         "source": "srsran_project_tpu_torch/csrc/ldpc_decode_dematch.cu",
-         "replaces": "srsran_project_tpu/ops/ldpc/decoder_pallas.py:322",
-         "max_abs_err": float(k1_err), "ms": k1_ms, "plain_ms": k1_plain_ms},
-        {"name": "decode_dematch_planes", "route": "cuda",
-         "source": "srsran_project_tpu_torch/csrc/ldpc_decode_dematch.cu",
-         "replaces": "srsran_project_tpu/ops/ldpc/decoder_pallas.py:322",
-         "max_abs_err": float(k1_err), "ms": k1v_ms, "plain_ms": k1v_plain_ms},
-        {"name": "decode", "route": "cuda",
-         "source": "srsran_project_tpu_torch/csrc/ldpc_decode.cu",
-         "replaces": "srsran_project_tpu/ops/ldpc/decoder_pallas.py:172",
-         "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms},
-        {"name": "mmse_weights_4x4", "route": "cuda",
-         "source": "srsran_project_tpu_torch/csrc/mmse_weights_4x4.cu",
-         "replaces": "srsran_project_tpu/ops/equalizer_pallas.py:132",
-         "max_abs_err": k3_err, "ms": k3_ms, "plain_ms": k3_plain_ms},
-        {"name": "demap_planes", "route": "cuda",
-         "source": "srsran_project_tpu_torch/csrc/demap_planes.cu",
-         "replaces": "srsran_project_tpu/ops/demap_pallas.py:45",
-         "max_abs_err": float(k4_err), "ms": k4_ms, "plain_ms": k4_plain_ms},
+        entry("decode_dematch", k1_src, k1_tpu, k1_err, k1_ms, k1_plain_ms, k1_bound, **k1_geo),
+        entry("decode_dematch_planes", k1_src, k1_tpu, k1_err, k1v_ms, k1v_plain_ms, k1_bound,
+              **k1_geo),
+        entry("decode", "ldpc_decode.cu", "srsran_project_tpu/ops/ldpc/decoder_pallas.py:172",
+              k2_err, k2_ms, k2_plain_ms, k2_bound, **k2_geo["group A"],
+              flagship_ms=k2_times["flagship"][0], flagship_bound_ms=k2_times["flagship"][2][0],
+              flagship_blocks_per_sm=k2_geo["flagship"]["blocks_per_sm"]),
+        entry("mmse_weights_4x4", "mmse_weights_4x4.cu",
+              "srsran_project_tpu/ops/equalizer_pallas.py:132", k3_err, k3_ms, k3_plain_ms,
+              k3_bound),
+        entry("demap_planes", "demap_planes.cu", "srsran_project_tpu/ops/demap_pallas.py:45",
+              k4_err, k4_ms, k4_plain_ms, k4_bound),
     ]
 
 
@@ -545,9 +628,9 @@ def slice_phase(card: str):
     out = cell.decode_slot(rx, RNTI, cfg)
     torch.cuda.synchronize()
     launches = read_counts()
-    nof_groups = len(sch_mod._e_groups(cfg.pusch_cfg.sch.cb_e_bits))
-    expect_counts("flagship decode", launches,
-                  {"decode_dematch": nof_groups, "mmse_weights_4x4": 1})
+    if len(sch_mod._e_groups(cfg.pusch_cfg.sch.cb_e_bits)) != 2:
+        fail("flagship: want two E-groups, decoded by one K1 launch")
+    expect_counts("flagship decode", launches, {"decode_dematch": 1, "mmse_weights_4x4": 1})
     check_flagship(out, tb, cfg, "flagship")
 
     # Timing: per-slot encode and decode at batch 1 and 8 (device time
@@ -566,7 +649,8 @@ def slice_phase(card: str):
     gflat, h, nv = pusch._estimate_stage(grid, pc)
     x_hat, eq_nvar = pusch._equalize_stage(gflat, h, nv, pc)
     llr_i8, _ = pusch._demap_stage(x_hat, eq_nvar, rnti_t, pc)
-    bits, _ = sch_mod._fused_decode(llr_i8, pc.sch, pc.nof_ldpc_iterations, True)
+    bits, iters = sch_mod._fused_decode(llr_i8, pc.sch, pc.nof_ldpc_iterations, True)
+    check_k1_batch(llr_i8, bits, iters, pc, "flagship")
     stages = {
         "ofdm_demod": lambda: ofdm.demodulate_slot(rx, cfg.nof_rb, cfg.scs, cfg.dft_size,
                                                    cfg.cp, 0, f_center_hz=cfg.f_center_hz),
@@ -580,6 +664,36 @@ def slice_phase(card: str):
     print(f"# [{card}] decode stages at batch {NOF_SLOTS}, ms/slot: "
           + ", ".join(f"{k} {v:.4f}" for k, v in parts.items()))
     return launches, (rx, tb, out["tb_bits"])
+
+
+def check_k1_batch(llrs, bits_k, it_k, pc, path: str) -> None:
+    """K1's output for a whole batch, (B*C, K) bits and (B*C,) iterations
+    from ONE launch over both E-groups of ``llrs`` (the (B, G) stream or
+    the (B, qm, G/qm) planes), against the plain version of each group's
+    (B, qm, count, E/qm) view: bits and iterations equal."""
+    import torch
+
+    from srsran_project_tpu_torch.ops.ldpc import decoder
+    from srsran_project_tpu_torch.phy import sch as sch_mod
+
+    seg = pc.sch.seg
+    n_cb = pc.sch.n_cb or seg.full_codeword_bits
+    e_groups = [(count, e) for _s, count, e in sch_mod._e_groups(pc.sch.cb_e_bits)]
+    args = (seg.base_graph, seg.lifting_size, seg.nof_payload_bits_per_cb, pc.sch.rv,
+            pc.sch.qm, n_cb, pc.nof_ldpc_iterations, pc.ldpc_early_stop)
+    b = llrs.shape[0]
+    outs = [decoder.decode_dematch_plain(v, *args[:3], e, *args[3:])
+            for v, (_c, e) in zip(decoder.group_views(llrs, e_groups, pc.sch.qm), e_groups)]
+    bits_p = torch.cat([o[0].reshape(b, c, -1) for o, (c, _e) in zip(outs, e_groups)], dim=1)
+    it_p = torch.cat([o[1].reshape(b, c) for o, (c, _e) in zip(outs, e_groups)], dim=1)
+    torch.cuda.synchronize()
+    what = f"{path} K1 {tuple(llrs.shape)} E-groups {e_groups}"
+    if not (torch.equal(bits_k, bits_p.reshape(bits_k.shape))
+            and torch.equal(it_k, it_p.reshape(-1))):
+        fail(f"{what}: {int((bits_k != bits_p.reshape(bits_k.shape)).sum())} bits differ from "
+             f"the plain version, iterations equal {torch.equal(it_k, it_p.reshape(-1))}")
+    print(f"# {what} in one launch: bits and iterations (mean "
+          f"{it_k.float().mean().item():.2f}) equal the plain version per group")
 
 
 def check_flagship(out: dict, tb, cfg, path: str) -> None:
@@ -610,7 +724,6 @@ def plane_phase(card: str, rx, tb, float_bits) -> tuple[dict, dict]:
     from srsran_project_tpu_torch.models import cell
     from srsran_project_tpu_torch.ops import demap_planes as dp
     from srsran_project_tpu_torch.ops import ofdm
-    from srsran_project_tpu_torch.ops.ldpc import decoder
     from srsran_project_tpu_torch.phy import pusch, sch as sch_mod
 
     cfg = cell.CellConfig(demapper="planes")
@@ -620,8 +733,7 @@ def plane_phase(card: str, rx, tb, float_bits) -> tuple[dict, dict]:
     out = cell.decode_slot(rx, RNTI, cfg)
     torch.cuda.synchronize()
     launches = read_counts()
-    nof_groups = len(sch_mod._e_groups(pc.sch.cb_e_bits))
-    expect_counts("plane decode", launches, {"decode_dematch_planes": nof_groups,
+    expect_counts("plane decode", launches, {"decode_dematch_planes": 1,
                                              "mmse_weights_4x4": 1, "demap_planes": 1})
     check_flagship(out, tb, cfg, "plane path")
     if not torch.equal(out["tb_bits"], float_bits):
@@ -643,20 +755,10 @@ def plane_phase(card: str, rx, tb, float_bits) -> tuple[dict, dict]:
              f"err2 max relative {rel:.3e} (limit 1e-6)")
     print(f"# plane path K4 {tuple(planes_k.shape)}: planes equal the plain version, err2 "
           f"max relative {rel:.3e}")
-    seg = pc.sch.seg
-    n_cb = pc.sch.n_cb or seg.full_codeword_bits
-    for view, e in sch_mod._plane_groups(planes_k, pc.sch):
-        args = (view, seg.base_graph, seg.lifting_size, seg.nof_payload_bits_per_cb, e,
-                pc.sch.rv, pc.sch.qm, n_cb, pc.nof_ldpc_iterations, pc.ldpc_early_stop)
-        bits_k, it_k = decoder.decode_dematch(*args)
-        bits_p, it_p = decoder.decode_dematch_plain(*args)
-        torch.cuda.synchronize()
-        if not (torch.equal(bits_k, bits_p) and torch.equal(it_k, it_p)):
-            fail(f"plane path K1 {tuple(view.shape)} E={e}: "
-                 f"{int((bits_k != bits_p).sum())} bits differ from the plain version, "
-                 f"iterations equal {torch.equal(it_k, it_p)}")
-        print(f"# plane path K1 {tuple(view.shape)} E={e}: bits and iterations (mean "
-              f"{it_k.float().mean().item():.2f}) equal the plain version")
+    # K1: one launch over both E-groups of the batch's planes.
+    bits_k, it_k = sch_mod._decode_groups(planes_k, pc.sch, pc.nof_ldpc_iterations,
+                                          pc.ldpc_early_stop)
+    check_k1_batch(planes_k, bits_k, it_k, pc, "plane path")
 
     for b in (1, NOF_SLOTS):
         dec = cuda_ms(lambda: cell.decode_slot(rx[:b], RNTI, cfg), reps=5) / b
@@ -689,22 +791,23 @@ def main() -> int:
     print(f"# kernels ready in {time.perf_counter() - t0:.1f} s: {cuda_lib.build_dir()}")
     for log in sorted(cuda_lib.build_dir().glob("*.log")):
         for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "entry function" in line:
                 print(f"#   ptxas {log.stem}: {line.strip()}")
 
     kernels = kernel_phase(card)
-    counts, (rx, tb, float_bits) = slice_phase(card)
-    launches = {"decode_dematch": counts["decode_dematch"],
-                "mmse_weights_4x4": counts["mmse_weights_4x4"]}
-    counts, k2_err = ul_slot_phase(card)
-    launches["decode"] = counts["decode"]
+    per_path = {}
+    per_path["flagship"], (rx, tb, float_bits) = slice_phase(card)
+    per_path["ul_slot"], k2_err = ul_slot_phase(card)
     errs = {"decode": k2_err}
-    counts, plane_errs = plane_phase(card, rx, tb, float_bits)
+    per_path["plane"], plane_errs = plane_phase(card, rx, tb, float_bits)
     errs.update(plane_errs)
-    launches["decode_dematch_planes"] = counts["decode_dematch_planes"]
-    launches["demap_planes"] = counts["demap_planes"]
+    # Each kernel's launches on the path it serves (one call of it), and
+    # on every path.
+    home = {"decode_dematch": "flagship", "mmse_weights_4x4": "flagship", "decode": "ul_slot",
+            "decode_dematch_planes": "plane", "demap_planes": "plane"}
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        k["launches"] = per_path[home[k["name"]]][k["name"]]
+        k["launches_per_path"] = {path: c[k["name"]] for path, c in per_path.items()}
         k["max_abs_err"] = max(k["max_abs_err"], errs.get(k["name"], 0.0))
     print(f"# chip_smoke took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

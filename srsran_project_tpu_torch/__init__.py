@@ -7,10 +7,12 @@ every port function is tested against.
 
 Rules of the package:
 
-* it imports ``torch`` and numpy, and never ``jax`` (the machine with the
-  card has no JAX); from ``srsran_project_tpu`` it reuses only the
-  JAX-free host modules ``ran.constants``, ``ran.dmrs``, ``ran.tbs``,
-  ``phy.allocation`` and ``ops.ldpc.graphs``;
+* it imports ``torch`` and numpy, never ``jax`` (the machine with the
+  card has no JAX), and nothing of ``srsran_project_tpu``, not even a
+  module there that imports no JAX: it keeps its own copies of the host
+  modules it needs (``ran.constants``, ``ran.dmrs``, ``ran.tbs``,
+  ``phy.allocation``, ``ops.ldpc.graphs`` with its ``_bg_tables.npz``),
+  which the tests hold equal to the reference's value for value;
 * the device follows the input tensor: a CUDA tensor goes to the
   hand-written kernel (``csrc/``), a CPU tensor to the kernel's plain
   torch version beside it, with no fallback between the two;
@@ -19,9 +21,12 @@ Rules of the package:
 
 Subpackages
 -----------
-ops      crc, scrambling, ldpc (segment/encode/rate match, K1 decode),
-         modulation (map/demap/evm), ofdm, estimator, equalizer (K3)
-phy      shared-channel coding (sch), PDSCH bit/grid chains, PUSCH front end
+ran      constants, TBS, DM-RS geometry (copies of the reference's)
+ops      crc, scrambling, ldpc (graphs, segment/encode/rate match, K1 and
+         K2 decode), modulation (map/demap/evm), ofdm, estimator,
+         equalizer (K3), demap_planes (K4)
+phy      allocation, shared-channel coding (sch), PDSCH bit/grid chains,
+         PUSCH front end, the multi-UE uplink slot (ul_slot)
 models   the flagship cell: encode_slot / decode_slot
 csrc     CUDA C++ sources of the Hopper kernels (built at first use)
 """

@@ -17,14 +17,13 @@ import functools
 
 import torch
 
-from srsran_project_tpu.phy.allocation import Allocation
-from srsran_project_tpu.ran import tbs as tbs_mod
-from srsran_project_tpu.ran.constants import NRE, CyclicPrefix, SubcarrierSpacing, min_dft_size
-
 from ..ops import ofdm
 from ..ops.modulation import Modulation
 from ..phy import pdsch, pusch
+from ..phy.allocation import Allocation
 from ..phy.sch import _desegment_stage, _fused_decode, decode_from_planes
+from ..ran import tbs as tbs_mod
+from ..ran.constants import NRE, CyclicPrefix, SubcarrierSpacing, min_dft_size
 
 
 @dataclasses.dataclass(frozen=True)

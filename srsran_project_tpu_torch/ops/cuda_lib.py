@@ -35,23 +35,25 @@ _L = ctypes.c_longlong
 _F = ctypes.c_float
 # Source -> {C entry point: argument types} (pointers and the stream as void*).
 _SIGNATURES = {
-    "ldpc_decode_dematch.cu": {"ldpc_decode_dematch": (
-        _P, _I, _I,  # llrs int8, C, codeblocks per outer index
-        _L, _L, _L, _L,  # strides: outer, plane, inner, element
-        _P, _I,  # copy plan (n, 4) int32, n
-        _I, _I,  # filler range [f_start, f_end) in buffer coordinates
-        _P, _P, _I, _I,  # edges (total, 2) int32, layer offsets (L+1,), L, total
-        _I, _I, _I,  # z, ncols, kb
-        _I, _I,  # nof_iterations, early_stop
-        _P, _P, _P,  # r scratch (C, total*Z) f32, bits (C, kb*Z) u8, iters (C,) i32
-        _P)},  # stream
-    "ldpc_decode.cu": {"ldpc_decode": (
-        _P, _I, _I, _L, _I,  # llrs, is f32, C, row stride, width read
-        _P, _P, _I, _I,  # edges (total, 2) int32, layer offsets (L+1,), L, total
-        _I, _I, _I, _I,  # z, ncols, kb, n
-        _I, _I, _I,  # nof_iterations, early_stop, bits_only
-        _P, _P, _P,  # r scratch, bits u8 or a-posteriori f32, iters (C,) i32
-        _P)},  # stream
+    "ldpc_decode_dematch.cu": {
+        "ldpc_decode_dematch": (
+            _P, _I, _I, _I,  # E-group table (n, 10) int64 on the host, n, blocks, C per TB
+            _P, _I, _I,  # copy plans (rows, 4) int32, filler range [f_start, f_end)
+            _P, _P, _I, _I,  # edges (total, 2) int32, layer offsets (L+1,), L, total
+            _I, _I, _I,  # z, ncols, kb
+            _I, _I,  # nof_iterations, early_stop
+            _P, _P, _P,  # state records (C, L, Z, 4) i32, bits (C, kb*Z) u8, iters (C,) i32
+            _P),  # stream
+        "ldpc_decode_dematch_blocks_per_sm": (_I, _I, _I, _I, _P)},
+    "ldpc_decode.cu": {
+        "ldpc_decode": (
+            _P, _I, _I, _L, _I,  # llrs, is f32, C, row stride, width read
+            _P, _P, _I, _I,  # edges (total, 2) int32, layer offsets (L+1,), L, total
+            _I, _I, _I, _I,  # z, ncols, kb, n
+            _I, _I, _I,  # nof_iterations, early_stop, bits_only
+            _P, _P, _P,  # state records, bits u8 or a-posteriori f32, iters (C,) i32
+            _P),  # stream
+        "ldpc_decode_blocks_per_sm": (_I, _I, _I, _I, _P)},
     "mmse_weights_4x4.cu": {"mmse_weights_4x4": (
         _P, _P, _I, _I,  # h (n, 4, 4) c64, nv (n / rows_per_nv,) f32, n, rows_per_nv
         _P, _P,  # w (n, 4, 4) c64, eq_nvar (n, 4) f32

@@ -10,12 +10,15 @@ iff the a-posteriori LLR < 0.  Only the check rows that can reach the
 message bits run (``_active_layers``: 46 -> 16 rows at the flagship's LBRM
 n_cb, bit-exact for the message).
 
-``decode_dematch`` (K1) and ``decode`` (K2) are the entry points: a CUDA
-tensor launches the hand-written kernel (``csrc/ldpc_decode_dematch.cu``,
-``csrc/ldpc_decode.cu``; both run the layer loop of
-``csrc/ldpc_layered.cuh``), a CPU tensor runs the plain torch version
-(``decode_dematch_plain``, ``decode_plain``: ``assemble_buffer`` or
-``decode_buffer``, then ``layered_min_sum``).
+``decode_dematch_groups`` (K1 over every E-group of a batch of transport
+blocks), ``decode_dematch`` (K1 over one E-group) and ``decode`` (K2) are
+the entry points: a CUDA tensor launches the hand-written kernel, once
+per call (``csrc/ldpc_decode_dematch.cu``, ``csrc/ldpc_decode.cu``; both
+run the layer loop of ``csrc/ldpc_layered.cuh``), a CPU tensor runs the
+plain torch version (``decode_dematch_plain``, ``decode_plain``:
+``assemble_buffer`` or ``decode_buffer``, then ``layered_min_sum``).  The
+kernels keep the check messages in an exact compressed form, one 16-byte
+record per (check row, z) in a global scratch.
 
 Two fixed choices keep the two bit-exact with each other and with the
 reference at a fixed iteration budget:
@@ -36,22 +39,27 @@ reference at a fixed iteration budget:
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
 
 import numpy as np
 import torch
 
-from srsran_project_tpu.ops.ldpc import graphs
-
 from .. import cuda_lib
 from .._tables import device_table
+from . import graphs
 from .rate_match import _chunk_segments
 
 SCALING = 0.8
 INPUT_CLAMP = 64.0
 _BIG = 3.0e38
-MAX_ROW_DEGREE = 32  # bound of the kernel's per-thread edge array
+# The check-row degrees of BG1 and BG2, each unrolled in the kernels'
+# update_row<D> (csrc/ldpc_layered.cuh); at most 27 sign bits fit in a
+# row's state word beside its 5-bit argmin.
+ROW_DEGREES = (3, 4, 5, 6, 7, 8, 9, 10, 19)
+MAX_GROUPS = 2  # E-groups one K1 launch takes (ldpc_decode_dematch.cu kMaxGroups): a TB has
+# at most two distinct E (TS 38.212 5.4.2.1)
 
 
 def _edge_plan(bg: int, z: int, nof_layers: int):
@@ -89,6 +97,10 @@ def _dematch_plane_plan(bg: int, z: int, k_prime: int, e: int, rv: int,
     return tuple(plan)
 
 
+def _round16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
 @dataclasses.dataclass(frozen=True)
 class LayeredPlan:
     """The check rows a decode runs and the a-posteriori columns it holds."""
@@ -101,6 +113,14 @@ class LayeredPlan:
     @property
     def total_edges(self) -> int:
         return sum(len(edges) for edges in self.layers)
+
+    @property
+    def shared_bytes(self) -> int:
+        """A kernel block's dynamic shared memory (``ldpc::shared_bytes``
+        in csrc/ldpc_layered.cuh): the edge table (8 bytes an edge) and
+        layer offsets, then the a-posteriori columns."""
+        app = _round16(8 * self.total_edges + 4 * (len(self.layers) + 1))
+        return app + _round16(4 * self.ncols * self.z)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -157,7 +177,9 @@ def decode_plan(bg: int, z: int, width: int, n_cb: int | None = None) -> DecodeP
 
 def _layers(bg: int, z: int, nof_layers: int) -> tuple:
     layers, _ = _edge_plan(bg, z, nof_layers)
-    assert max(len(edges) for edges in layers) <= MAX_ROW_DEGREE
+    # The kernels fetch the next layer's state while a layer runs: two
+    # layers at least, so that it is never the one being updated.
+    assert len(layers) >= 2 and {len(edges) for edges in layers} <= set(ROW_DEGREES)
     return tuple(tuple(edges) for edges in layers)
 
 
@@ -281,40 +303,97 @@ def hard_bits(app: torch.Tensor, plan: LayeredPlan) -> torch.Tensor:
 
 # ---- the CUDA kernels -----------------------------------------------------
 
-_copies_on = device_table(
-    lambda plan: np.asarray(plan.copies, np.int32).reshape(-1, 4))
 _edges_on = device_table(
-    lambda plan: np.asarray([cs for edges in plan.layers for cs in edges], np.int32))
+    lambda plan: np.asarray([(col * plan.z, shift) for edges in plan.layers
+                             for col, shift in edges], np.int32))
 _layer_off_on = device_table(
     lambda plan: np.cumsum([0] + [len(edges) for edges in plan.layers]).astype(np.int32))
+_copies_on = device_table(
+    lambda plans: np.concatenate([np.asarray(p.copies, np.int32).reshape(-1, 4)
+                                  for p in plans]))
 
 
 def _graph_args(plan: LayeredPlan, dev: torch.device) -> tuple:
-    """The graph arguments both kernels take: edges, layer offsets, counts."""
+    """The graph arguments both kernels take: edges (col * Z, shift),
+    layer offsets, counts."""
     return (_edges_on(dev, plan).data_ptr(), _layer_off_on(dev, plan).data_ptr(),
             len(plan.layers), plan.total_edges, plan.z, plan.ncols, plan.kb)
 
 
-def _launch_dematch(planes: torch.Tensor, plan: DematchDecodePlan, nof_iterations: int,
-                    early_stop: bool, plane_layout: bool):
-    """K1 on a (B, qm, count, E/qm) int8 view of any strides: codeblock
-    o*count + i reads plane b, element j at planes[o, b, i, j]."""
+def _state_scratch(plan: LayeredPlan, c: int, dev: torch.device) -> torch.Tensor:
+    """The (C, L, Z, 4) int32 check-message records, uninitialized (a
+    kernel reads a record only after writing it)."""
+    return torch.empty((c, len(plan.layers), plan.z, 4), dtype=torch.int32, device=dev)
+
+
+def blocks_per_sm(plan: LayeredPlan) -> int:
+    """Resident blocks per SM of K1 (a ``DematchDecodePlan``) or K2 (a
+    ``DecodePlan``) at this plan's shared memory, by the CUDA occupancy
+    calculator on the current device."""
     lib = cuda_lib.library()
-    dev = planes.device
-    outer, _, per, _ = planes.shape
-    c, z = outer * per, plan.z
-    copies = _copies_on(dev, plan)
-    r = torch.empty((c, plan.total_edges * z), dtype=torch.float32, device=dev)
-    bits = torch.empty((c, plan.kb * z), dtype=torch.uint8, device=dev)
+    fn = (lib.ldpc_decode_dematch_blocks_per_sm if isinstance(plan, DematchDecodePlan)
+          else lib.ldpc_decode_blocks_per_sm)
+    out = ctypes.c_int(0)
+    cuda_lib.check(fn(len(plan.layers), plan.total_edges, plan.z, plan.ncols,
+                      ctypes.byref(out)), "blocks_per_sm")
+    return out.value
+
+
+def group_views(llrs: torch.Tensor, groups, qm: int) -> list:
+    """The E-groups of a batch of transport blocks as (B, qm, count, E/qm)
+    int8 views, codeblock i of TB o reading plane b, element j at
+    view[o, b, i, j].  llrs: the stream (B, G), plane b element j of a
+    codeblock = its LLR j*qm + b; or the de-interleave planes (B, qm, G/qm)
+    (``pusch._front_end_planes``).  groups: ((count, e), ...) in codeblock
+    order."""
+    views = []
+    off = 0
+    for count, e in groups:
+        if llrs.dim() == 2:
+            s0, s1 = llrs.stride()
+            views.append(llrs.as_strided((llrs.shape[0], qm, count, e // qm),
+                                         (s0, s1, e * s1, qm * s1),
+                                         llrs.storage_offset() + off * s1))
+        else:
+            views.append(llrs[:, :, off // qm : (off + count * e) // qm].unflatten(
+                2, (count, e // qm)))
+        off += count * e
+    return views
+
+
+def _launch_dematch(views: list, plans: tuple, nof_iterations: int, early_stop: bool,
+                    plane_layout: bool):
+    """K1, one launch over every view (``group_views``): bits (B*C, Kb*Z)
+    and iterations (B*C,) in TB order, C the codeblocks of all views."""
+    if not 1 <= len(views) <= MAX_GROUPS:
+        raise ValueError(f"decode_dematch: 1 to {MAX_GROUPS} E-groups a launch, "
+                         f"got {len(views)}")
+    lib = cuda_lib.library()
+    plan = plans[0]
+    dev = views[0].device
+    b = views[0].shape[0]
+    cbs = sum(v.shape[2] for v in views)
+    c = b * cbs
+    bits = torch.empty((c, plan.kb * plan.z), dtype=torch.uint8, device=dev)
     iters = torch.empty((c,), dtype=torch.int32, device=dev)
     if c == 0:
         return bits, iters
+    rows = []
+    blk0 = start = copy_off = 0
+    for view, p in zip(views, plans):
+        count = view.shape[2]
+        rows += [view.data_ptr(), *view.stride(), blk0, count, start, copy_off,
+                 len(p.copies)]
+        blk0 += b * count
+        start += count
+        copy_off += len(p.copies)
+    table = (ctypes.c_longlong * len(rows))(*rows)
+    rec = _state_scratch(plan, c, dev)
     with torch.cuda.device(dev):
         status = lib.ldpc_decode_dematch(
-            planes.data_ptr(), c, per, *planes.stride(),
-            copies.data_ptr(), copies.shape[0], plan.f_start, plan.f_end,
-            *_graph_args(plan, dev), nof_iterations, int(early_stop),
-            r.data_ptr(), bits.data_ptr(), iters.data_ptr(),
+            table, len(views), c, cbs, _copies_on(dev, plans).data_ptr(),
+            plan.f_start, plan.f_end, *_graph_args(plan, dev), nof_iterations,
+            int(early_stop), rec.data_ptr(), bits.data_ptr(), iters.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     cuda_lib.check(status, "ldpc_decode_dematch")
     decode_dematch.launches += 1
@@ -335,6 +414,53 @@ def decode_dematch_plain(llrs: torch.Tensor, bg: int, z: int, k_prime: int, e: i
     return hard_bits(app, plan), iters
 
 
+def _dematch(views: list, es: list, bg, z, k_prime, rv, qm, n_cb, nof_iterations,
+             early_stop, plane_layout: bool):
+    """K1 over (B, qm, count, E/qm) views on a CUDA device, the plain
+    version per view on the CPU; (bits (B*C, Kb*Z), iterations (B*C,))."""
+    for v, e in zip(views, es):
+        if v.dtype != torch.int8 or v.dim() != 4 or v.shape[1] != qm or v.shape[3] != e // qm:
+            raise ValueError(f"decode_dematch: want (B, {qm}, count, {e // qm}) int8 views, "
+                             f"got {tuple(v.shape)} {v.dtype}")
+    if len({(v.shape[0], v.device) for v in views}) != 1:
+        raise ValueError("decode_dematch: every E-group needs the same batch and device")
+    dev = views[0].device
+    if dev.type == "cpu":
+        b = views[0].shape[0]
+        outs = [decode_dematch_plain(v, bg, z, k_prime, e, rv, qm, n_cb, nof_iterations,
+                                     early_stop) for v, e in zip(views, es)]
+        bits = torch.cat([o[0].reshape(b, v.shape[2], -1) for o, v in zip(outs, views)], dim=1)
+        iters = torch.cat([o[1].reshape(b, -1) for o in outs], dim=1)
+        return bits.reshape(-1, bits.shape[-1]), iters.reshape(-1)
+    if dev.type != "cuda":
+        raise ValueError(f"decode_dematch: unsupported device {dev}")
+    plans = tuple(dematch_decode_plan(bg, z, k_prime, e, rv, qm, n_cb) for e in es)
+    return _launch_dematch(views, plans, nof_iterations, early_stop, plane_layout)
+
+
+def decode_dematch_groups(llrs: torch.Tensor, groups, bg: int, z: int, k_prime: int, rv: int,
+                          qm: int, n_cb: int | None = None, nof_iterations: int = 6,
+                          early_stop: bool = False):
+    """Rate dematch + decode of every E-group of a batch of transport
+    blocks -> (bits (B*C, Kb*Z) uint8, iterations run (B*C,) int32), rows
+    in TB order (TB o, codeblock i at row o*C + i).
+
+    llrs: int8, the stream (B, G) in transmission order or the
+    de-interleave planes (B, qm, G/qm) of ``pusch._front_end_planes``;
+    groups: ((count, e), ...), the E-groups in codeblock order
+    (``sch._e_groups``).  CUDA tensor: kernel K1, ONE launch for all the
+    groups, reading either layout in place through strides
+    (``decode_dematch.plane_launches`` counts the plane-layout ones); CPU
+    tensor: the plain version, per group."""
+    groups = tuple((int(count), int(e)) for count, e in groups)
+    g = sum(count * e for count, e in groups)
+    if llrs.dim() not in (2, 3) or llrs.shape[-1] * (1 if llrs.dim() == 2 else qm) != g:
+        raise ValueError(f"decode_dematch_groups: want (B, {g}) or (B, {qm}, {g // qm}), "
+                         f"got {tuple(llrs.shape)}")
+    return _dematch(group_views(llrs, groups, qm), [e for _c, e in groups], bg, z, k_prime,
+                    rv, qm, n_cb, nof_iterations, early_stop, llrs.dim() == 3)
+
+
 def decode_dematch(llrs: torch.Tensor, bg: int, z: int, k_prime: int, e: int, rv: int,
                    qm: int, n_cb: int | None = None, nof_iterations: int = 6,
                    early_stop: bool = False):
@@ -346,25 +472,16 @@ def decode_dematch(llrs: torch.Tensor, bg: int, z: int, k_prime: int, e: int, rv
     a (B, qm, count, E/qm) view (C = B*count, codeblock o*count + i) of
     ``pusch._front_end_planes``' (B, qm, G/qm) output, any strides.
 
-    CUDA tensor: kernel K1 (one launch, reading either layout through
-    strides; ``decode_dematch.plane_launches`` counts the plane-layout
-    ones); CPU tensor: the plain version."""
-    plan = dematch_decode_plan(bg, z, k_prime, e, rv, qm, n_cb)
+    CUDA tensor: kernel K1 (one launch, the one-group case of
+    ``decode_dematch_groups``); CPU tensor: the plain version."""
+    dematch_decode_plan(bg, z, k_prime, e, rv, qm, n_cb)  # raises on repetition
     stream = llrs.dim() == 2 and llrs.shape[1] == e
-    if llrs.dtype != torch.int8 or not (stream or (
-            llrs.dim() == 4 and llrs.shape[1] == qm and llrs.shape[3] == e // qm)):
+    if llrs.dtype != torch.int8 or not (stream or llrs.dim() == 4):
         raise ValueError(f"decode_dematch: want (C, {e}) or (B, {qm}, count, {e // qm}) "
                          f"int8, got {tuple(llrs.shape)} {llrs.dtype}")
-    if llrs.device.type == "cpu":
-        return decode_dematch_plain(llrs, bg, z, k_prime, e, rv, qm, n_cb, nof_iterations,
-                                    early_stop)
-    if llrs.device.type != "cuda":
-        raise ValueError(f"decode_dematch: unsupported device {llrs.device}")
-    planes = llrs
-    if stream:  # plane b, element j = llrs[cb, j*qm + b]
-        s0, s1 = llrs.stride()
-        planes = llrs.as_strided((llrs.shape[0], qm, 1, e // qm), (s0, s1, 0, qm * s1))
-    return _launch_dematch(planes, plan, nof_iterations, early_stop, not stream)
+    views = group_views(llrs, ((1, e),), qm) if stream else [llrs]
+    return _dematch(views, [e], bg, z, k_prime, rv, qm, n_cb, nof_iterations, early_stop,
+                    not stream)
 
 
 decode_dematch.launches = 0
@@ -378,7 +495,6 @@ def _launch_decode(llrs: torch.Tensor, plan: DecodePlan, nof_iterations: int,
     lib = cuda_lib.library()
     dev = llrs.device
     c, z = llrs.shape[0], plan.z
-    r = torch.empty((c, plan.total_edges * z), dtype=torch.float32, device=dev)
     if bits_only:
         out = torch.empty((c, plan.kb * z), dtype=torch.uint8, device=dev)
     else:
@@ -386,12 +502,13 @@ def _launch_decode(llrs: torch.Tensor, plan: DecodePlan, nof_iterations: int,
     iters = torch.empty((c,), dtype=torch.int32, device=dev)
     if c == 0:
         return out, iters
+    rec = _state_scratch(plan, c, dev)
     with torch.cuda.device(dev):
         status = lib.ldpc_decode(
             llrs.data_ptr(), int(llrs.dtype == torch.float32), c, llrs.stride(0),
             plan.width_in, *_graph_args(plan, dev), plan.n, nof_iterations,
-            int(early_stop), int(bits_only), r.data_ptr(), out.data_ptr(),
-            iters.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+            int(early_stop), int(bits_only), rec.data_ptr(), out.data_ptr(), iters.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
     cuda_lib.check(status, "ldpc_decode")
     decode.launches += 1
     return out, iters

@@ -16,7 +16,7 @@ import functools
 import numpy as np
 import torch
 
-from srsran_project_tpu.ops.ldpc.graphs import LdpcGraph, get_graph
+from .graphs import LdpcGraph, get_graph
 
 from .._tables import device_table
 

@@ -18,7 +18,7 @@ import functools
 import numpy as np
 import torch
 
-from srsran_project_tpu.ops.ldpc import graphs
+from . import graphs
 
 # Redundancy-version starting offsets k0 = floor(num * N_cb / (den * Z)) * Z
 # (TS 38.212 Table 5.4.2.1-2).

@@ -12,7 +12,7 @@ import dataclasses
 
 import torch
 
-from srsran_project_tpu.ops.ldpc import graphs
+from . import graphs
 
 from .. import crc as crc_mod
 

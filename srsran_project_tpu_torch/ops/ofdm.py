@@ -17,7 +17,7 @@ import functools
 import numpy as np
 import torch
 
-from srsran_project_tpu.ran.constants import (
+from ..ran.constants import (
     NRE,
     CyclicPrefix,
     SubcarrierSpacing,

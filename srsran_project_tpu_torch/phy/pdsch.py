@@ -15,12 +15,11 @@ import functools
 import numpy as np
 import torch
 
-from srsran_project_tpu.phy import allocation as alloc_mod
-from srsran_project_tpu.ran import dmrs as dmrs_mod
-
 from ..ops import scrambling
 from ..ops._tables import device_table
 from ..ops.modulation import Modulation, map_bits
+from ..ran import dmrs as dmrs_mod
+from . import allocation as alloc_mod
 from .sch import SchConfig, encode_transport_block
 
 

@@ -24,9 +24,6 @@ import functools
 import numpy as np
 import torch
 
-from srsran_project_tpu.phy import allocation as alloc_mod
-from srsran_project_tpu.ran import dmrs as dmrs_mod
-
 from ..ops import scrambling
 from ..ops._tables import device_table
 from ..ops.demap_planes import demap_planes
@@ -34,6 +31,8 @@ from ..ops.equalizer import mmse_weights_4x4, mmse_weights_rank1
 from ..ops.estimator import estimate_channel
 from ..ops.modulation import Modulation, demap_soft, quantize_llr
 from ..ops.modulation.evm import evm
+from ..ran import dmrs as dmrs_mod
+from . import allocation as alloc_mod
 from . import pdsch as pdsch_mod
 from .pdsch import check_flagship_alloc
 from .sch import SchConfig, _fused_decode_ok, decode_transport_block
@@ -103,10 +102,12 @@ class PuschConfig:
     @classmethod
     def from_reference(cls, ref) -> "PuschConfig":
         """Copy a reference (JAX package) ``PuschConfig`` field by field, by
-        attribute access only; the modulation converts by value, the
-        allocation is the shared JAX-free class."""
+        attribute access only; the modulation converts by value, and the
+        allocation is rebuilt as the port's own ``Allocation`` from the
+        reference's fields."""
         kw = {f.name: getattr(ref, f.name) for f in dataclasses.fields(cls)}
         kw["modulation"] = Modulation(int(kw["modulation"]))
+        kw["alloc"] = alloc_mod.Allocation.from_fields(kw["alloc"])
         return cls(**kw)
 
     @functools.cached_property

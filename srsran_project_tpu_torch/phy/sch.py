@@ -2,8 +2,8 @@
 
 Port of ``srsran_project_tpu/phy/sch.py``: the encoder chain (segment +
 CRC, LDPC encode with LBRM-truncated parity, per-E-group rate match), the
-fused decode (one K1 launch per E-group, then desegment + CRC), its
-plane-layout twin ``decode_from_planes``, and the two-stage decode for
+fused decode (one K1 launch over every E-group, then desegment + CRC),
+its plane-layout twin ``decode_from_planes``, and the two-stage decode for
 HARQ retransmissions and repetition geometry (rate dematch + HARQ
 combine, then one K2 launch).
 """
@@ -18,7 +18,7 @@ import torch
 from ..ops.ldpc import encoder as ldpc_encoder
 from ..ops.ldpc import rate_match as rm
 from ..ops.ldpc import segmenter
-from ..ops.ldpc.decoder import decode, decode_dematch
+from ..ops.ldpc.decoder import decode, decode_dematch_groups
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,28 +106,23 @@ def _fused_decode_ok(cfg: SchConfig) -> bool:
     return max(cfg.cb_e_bits) <= usable
 
 
-def _fused_decode(llrs: torch.Tensor, cfg: SchConfig, nof_iterations: int, early_stop: bool):
-    """Rate dematch + LDPC decode, one ``decode_dematch`` call per E-group
-    (the de-stream -> buffer map is E-specific).  llrs (..., G) int8 ->
-    (bits (lead*C, K) uint8, iterations (lead*C,) int32), rows ordered as
-    the reference's."""
+def _decode_groups(llrs: torch.Tensor, cfg: SchConfig, nof_iterations: int,
+                   early_stop: bool):
+    """One ``decode_dematch_groups`` call over every E-group (the
+    de-stream -> buffer map is E-specific): (B, G) stream or (B, qm, G/qm)
+    planes -> (bits (B*C, K) uint8, iterations (B*C,) int32)."""
     seg = cfg.seg
-    n_cb = cfg.n_cb or seg.full_codeword_bits
-    lead = llrs.shape[:-1]
-    bits_groups, iters_groups = [], []
-    off = 0
-    for _start, count, e in _e_groups(cfg.cb_e_bits):
-        span = llrs[..., off : off + count * e].reshape(-1, e)
-        bits_g, iters_g = decode_dematch(
-            span.contiguous(), seg.base_graph, seg.lifting_size,
-            seg.nof_payload_bits_per_cb, e, cfg.rv, cfg.qm, n_cb, nof_iterations,
-            early_stop=early_stop)
-        bits_groups.append(bits_g.reshape(lead + (count, -1)))
-        iters_groups.append(iters_g.reshape(lead + (count,)))
-        off += count * e
-    bits = torch.cat(bits_groups, dim=-2)
-    iters = torch.cat(iters_groups, dim=-1)
-    return bits.reshape((-1,) + bits.shape[-1:]), iters.reshape(-1)
+    return decode_dematch_groups(
+        llrs, tuple((count, e) for _start, count, e in _e_groups(cfg.cb_e_bits)),
+        seg.base_graph, seg.lifting_size, seg.nof_payload_bits_per_cb, cfg.rv, cfg.qm,
+        cfg.n_cb or seg.full_codeword_bits, nof_iterations, early_stop=early_stop)
+
+
+def _fused_decode(llrs: torch.Tensor, cfg: SchConfig, nof_iterations: int, early_stop: bool):
+    """Rate dematch + LDPC decode of every E-group in one K1 launch, reading
+    the LLRs in place.  llrs (..., G) int8 -> (bits (lead*C, K) uint8,
+    iterations (lead*C,) int32), rows ordered as the reference's."""
+    return _decode_groups(llrs.reshape(-1, llrs.shape[-1]), cfg, nof_iterations, early_stop)
 
 
 def _desegment_stage(bits: torch.Tensor, cfg: SchConfig, lead_shape: tuple):
@@ -184,30 +179,8 @@ def decode_from_planes(planes: torch.Tensor, cfg: SchConfig, nof_iterations: int
                        early_stop: bool = False):
     """Decode straight from (B, qm, G/qm) de-interleave bit-planes (the
     output of ``pusch._front_end_planes``): each E-group's codeblocks are a
-    strided view of the planes that K1 reads in place, one launch per
-    E-group.  New data without repetition only (no HARQ buffer).  Returns
+    strided view of the planes, and one K1 launch reads them all in place.
+    New data without repetition only (no HARQ buffer).  Returns
     (tb_bits (B, A), tb_crc_ok (B,))."""
-    seg = cfg.seg
-    n_cb = cfg.n_cb or seg.full_codeword_bits
-    b = planes.shape[0]
-    bits_groups = []
-    for view, e in _plane_groups(planes, cfg):
-        bits_g, _iters = decode_dematch(
-            view, seg.base_graph, seg.lifting_size, seg.nof_payload_bits_per_cb, e, cfg.rv,
-            cfg.qm, n_cb, nof_iterations, early_stop=early_stop)
-        bits_groups.append(bits_g.reshape(b, view.shape[2], -1))
-    bits = torch.cat(bits_groups, dim=1)
-    return _desegment_stage(bits.reshape(-1, bits.shape[-1]), cfg, (b,))
-
-
-def _plane_groups(planes: torch.Tensor, cfg: SchConfig) -> list:
-    """Per E-group of (B, qm, G/qm) bit-planes: (its codeblocks as a
-    (B, qm, count, E/qm) view of the planes, E)."""
-    qm = cfg.qm
-    out = []
-    off = 0
-    for _start, count, e in _e_groups(cfg.cb_e_bits):
-        j0, j1 = off // qm, (off + count * e) // qm
-        out.append((planes[:, :, j0:j1].unflatten(2, (count, e // qm)), e))
-        off += count * e
-    return out
+    bits, _iters = _decode_groups(planes, cfg, nof_iterations, early_stop)
+    return _desegment_stage(bits, cfg, (planes.shape[0],))

@@ -34,7 +34,7 @@ class UlSlotPdu:
     harq_buffer: torch.Tensor | None = None  # (C, N) int8 for retransmissions
 
     @classmethod
-    def from_reference(cls, ref, device: torch.device | str = "cpu") -> "UlSlotPdu":
+    def from_reference(cls, ref, device: torch.device | str = "cuda") -> "UlSlotPdu":
         """Copy a reference (JAX package) ``UlSlotPdu``: its config through
         ``PuschConfig.from_reference``, its HARQ buffer (numpy or JAX
         array) as an int8 tensor on ``device``."""

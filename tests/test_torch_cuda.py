@@ -97,7 +97,7 @@ def test_slice_on_card_matches_cpu(cuda_device):  # noqa: F811
 
     k1, k3 = decoder.decode_dematch.launches, equalizer.mmse_weights_4x4.launches
     out_g = cell.decode_slot(rx.to(cuda_device), rnti.to(cuda_device), cfg)
-    assert decoder.decode_dematch.launches - k1 == len(sch._e_groups(cfg.pusch_cfg.sch.cb_e_bits))
+    assert decoder.decode_dematch.launches - k1 == 1  # every E-group in one launch
     assert equalizer.mmse_weights_4x4.launches - k3 == 1
     out_c = cell.decode_slot(rx, rnti, cfg)
     np.testing.assert_array_equal(to_np(out_g["tb_bits"]), to_np(tb))
@@ -119,6 +119,10 @@ K2_CASES = [
                       nof_total_bits=20032, rv=0, tbs_lbrm_bytes=2000), id="bg1-lbrm"),
     pytest.param(dict(tbs=300, target_code_rate=0.1, qm=2, nof_layers=1,
                       nof_total_bits=4000, rv=0, tbs_lbrm_bytes=None), id="bg2-repetition"),
+    # BG1 Z=384 on the untruncated graph: 46 check rows, 107 KB of shared
+    # memory a block.
+    pytest.param(dict(tbs=8000, target_code_rate=0.9, qm=2, nof_layers=1,
+                      nof_total_bits=9000, rv=0, tbs_lbrm_bytes=None), id="bg1-z384-full-graph"),
 ]
 
 
@@ -131,17 +135,19 @@ def test_k2_matches_plain(cuda_device, kw, f32):  # noqa: F811
     buf = sch._dematch_stage(llrs, None, cfg).reshape(-1, seg.full_codeword_bits)
     if f32:
         buf = buf.to(torch.float32) * 0.37
+        buf[:, ::5] = -0.0
     for bits_only in (True, False):
-        for early_stop in (False, True):
-            args = (seg.base_graph, seg.lifting_size, 6, early_stop, bits_only, cfg.n_cb)
+        for iters, early_stop in ((0, False), (1, False), (6, False), (6, True)):
+            args = (seg.base_graph, seg.lifting_size, iters, early_stop, bits_only, cfg.n_cb)
             before = decoder.decode.launches
             bits_k, app_k, it_k = decoder.decode(buf.to(cuda_device), *args)
             assert decoder.decode.launches == before + 1
             bits_p, app_p, it_p = decoder.decode(buf, *args)
             np.testing.assert_array_equal(to_np(bits_k), to_np(bits_p))
             np.testing.assert_array_equal(to_np(it_k), to_np(it_p))
-            if not bits_only:
-                np.testing.assert_array_equal(to_np(app_k), to_np(app_p))
+            if not bits_only:  # bitwise: -0.0 and +0.0 differ
+                np.testing.assert_array_equal(to_np(app_k.view(torch.int32)),
+                                              to_np(app_p.view(torch.int32)))
 
 
 @pytest.mark.parametrize("mod, p, l", [(Modulation.QAM256, 4, 4), (Modulation.QAM64, 4, 1),
@@ -182,6 +188,44 @@ def test_k1_plane_layout_on_card(cuda_device):  # noqa: F811
         np.testing.assert_array_equal(to_np(bits_v), to_np(bits_s))
         np.testing.assert_array_equal(to_np(it_v), to_np(it_s))
         off += count * e
+
+
+TWO_E_GROUPS = dict(tbs=9000, target_code_rate=0.45, qm=8, nof_layers=2, nof_total_bits=20048,
+                    rv=0, tbs_lbrm_bytes=None)
+
+
+@pytest.mark.parametrize("early_stop", [False, True])
+@pytest.mark.parametrize("layout", ["stream", "planes"])
+@pytest.mark.parametrize("kw", [TWO_E_GROUPS, dict(TWO_E_GROUPS, tbs_lbrm_bytes=2000)],
+                         ids=["full", "lbrm"])
+def test_k1_grouped_matches_plain(cuda_device, kw, layout, early_stop):  # noqa: F811
+    """Both E-groups of a batch of 3 TBs in ONE K1 launch, against the CPU
+    path's one plain call per group: bits and iterations equal."""
+    cfg = sch.SchConfig(**kw)
+    llrs = torch.stack([_noisy_llrs(cfg, s) for s in (6, 7, 8)])
+    src = llrs if layout == "stream" else llrs.reshape(3, -1, cfg.qm).transpose(1, 2)
+    assert len(sch._e_groups(cfg.cb_e_bits)) == 2
+    before = (decoder.decode_dematch.launches, decoder.decode_dematch.plane_launches)
+    bits_k, it_k = sch._decode_groups(src.contiguous().to(cuda_device), cfg, 6, early_stop)
+    assert decoder.decode_dematch.launches == before[0] + 1
+    assert decoder.decode_dematch.plane_launches == before[1] + (layout == "planes")
+    bits_p, it_p = sch._decode_groups(src, cfg, 6, early_stop)
+    np.testing.assert_array_equal(to_np(bits_k), to_np(bits_p))
+    np.testing.assert_array_equal(to_np(it_k), to_np(it_p))
+
+
+def test_blocks_per_sm_on_card(cuda_device):  # noqa: F811
+    """The occupancy the kernels' shared memory and registers allow: the
+    flagship's K1 plan (59,760 B) two 384-thread blocks per SM; K2 on the
+    untruncated BG1 graph at Z=384 (107 KB) at least one."""
+    fl = cell.CellConfig().pusch_cfg.sch
+    seg = fl.seg
+    e = fl.cb_e_bits[0]
+    k1 = decoder.dematch_decode_plan(seg.base_graph, seg.lifting_size,
+                                     seg.nof_payload_bits_per_cb, e, fl.rv, fl.qm, fl.n_cb)
+    assert (k1.shared_bytes, decoder.blocks_per_sm(k1)) == (59760, 2)
+    full = decoder.decode_plan(1, 384, 66 * 384, None)
+    assert len(full.layers) == 46 and decoder.blocks_per_sm(full) >= 1
 
 
 def test_ul_slot_on_card_matches_cpu(cuda_device):  # noqa: F811

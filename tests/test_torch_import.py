@@ -44,23 +44,161 @@ CELLS = [
 ]
 
 
-def test_package_imports_no_jax():
-    """Every module of the port, imported in a fresh interpreter, leaves
-    jax out of sys.modules."""
-    code = (
-        "import importlib, pkgutil, sys\n"
-        "import srsran_project_tpu_torch as p\n"
-        "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
-        "for n in names:\n"
-        "    importlib.import_module(n)\n"
-        "assert len(names) >= 20, names\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib')))\n"
-        "assert not bad, bad\n"
-        "print(len(names))\n")
+# Run in a fresh interpreter with the target's files as arguments: every
+# absolute import in them (those inside functions too) must name neither
+# jax nor the JAX package; then the files are loaded (a package's modules
+# imported, a script executed as a module, not as __main__) together with
+# every installed module they name, and sys.modules must hold neither.
+_IMPORT_CHECK = """
+import ast, importlib, importlib.util, pathlib, pkgutil, sys
+FORBIDDEN = ("jax", "jaxlib", "srsran_project_tpu")
+def forbidden(name):
+    return name.split(".")[0] in FORBIDDEN
+files = [pathlib.Path(f) for f in sys.argv[1:]]
+named = set()
+for f in files:
+    for node in ast.walk(ast.parse(f.read_text())):
+        if isinstance(node, ast.Import):
+            named.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            named.add(node.module)
+bad = sorted(n for n in named if forbidden(n))
+assert not bad, ("imports", bad)
+if files[0].name == "__init__.py":
+    import srsran_project_tpu_torch as p
+    loaded = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + ".")]
+    for n in loaded:
+        importlib.import_module(n)
+    assert len(loaded) >= 25, loaded
+else:
+    spec = importlib.util.spec_from_file_location(files[0].stem, files[0])
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+for n in sorted(named):
+    if importlib.util.find_spec(n.split(".")[0]) is not None:
+        importlib.import_module(n)
+bad = sorted(m for m in sys.modules if forbidden(m))
+assert not bad, ("sys.modules", bad)
+"""
+
+
+def _import_targets(name: str) -> list[str]:
+    if name == "package":
+        pkg = os.path.join(REPO, "srsran_project_tpu_torch")
+        files = [os.path.join(d, f) for d, _, fs in os.walk(pkg) for f in fs if f.endswith(".py")]
+        return sorted(files, key=lambda f: not f.endswith(os.path.join(pkg, "__init__.py")))
+    return [os.path.join(REPO, name)]
+
+
+@pytest.mark.parametrize("target", ["package", "chip_smoke.py", "tools/profile_torch_paths.py"])
+def test_package_imports_no_jax(target):
+    """The port's package, chip_smoke.py and the profiler script name
+    neither jax nor anything of srsran_project_tpu in any import, and
+    loading them (with every module they name) in a fresh interpreter
+    leaves both out of sys.modules."""
     env = dict(os.environ, PYTHONPATH=REPO)
-    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
-                          capture_output=True, text=True, timeout=120)
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_CHECK, *_import_targets(target)],
+                          cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+# ---- the port's copies of the JAX package's host modules --------------------
+
+@pytest.mark.parametrize("bg", [graphs.BG1, graphs.BG2])
+def test_graph_tables_copy(bg):
+    """ops/ldpc/graphs.py: every lifted graph, and the selection rules."""
+    from srsran_project_tpu_torch.ops.ldpc import graphs as tgraphs
+
+    assert tgraphs.ALL_LIFTING_SIZES == graphs.ALL_LIFTING_SIZES
+    for z in graphs.ALL_LIFTING_SIZES:
+        jg, tg = graphs.get_graph(bg, z), tgraphs.get_graph(bg, z)
+        assert (tg.bg, tg.z, tg.m, tg.n, tg.kb) == (jg.bg, jg.z, jg.m, jg.n, jg.kb)
+        np.testing.assert_array_equal(tg.shifts, jg.shifts)
+        assert tg.shifts.dtype == jg.shifts.dtype
+    for a in (100, 292, 293, 600, 3824, 3825, 20000):
+        for rate in (0.2, 0.25, 0.5, 0.67, 0.7, 0.93):
+            assert tgraphs.select_base_graph(a, rate) == graphs.select_base_graph(a, rate)
+    for a in (100, 292, 600, 3000, 3824):
+        for c in (1, 2, 5):
+            assert tgraphs.base_graph_kb(bg, a) == graphs.base_graph_kb(bg, a)
+            assert (tgraphs.select_lifting_size(bg, a, c)
+                    == graphs.select_lifting_size(bg, a, c))
+
+
+def test_tbs_and_constants_copy():
+    """ran/tbs.py and ran/constants.py."""
+    from srsran_project_tpu.ran import constants as jconst
+    from srsran_project_tpu.ran import tbs as jtbs
+    from srsran_project_tpu_torch.ran import constants as tconst
+    from srsran_project_tpu_torch.ran import tbs as ttbs
+
+    assert (ttbs._TABLES, ttbs._TP_TABLES) == (jtbs._TABLES, jtbs._TP_TABLES)
+    for table, rows in jtbs._TABLES.items():
+        for mcs in range(len(rows)):
+            assert ttbs.mcs_to_qm_rate(mcs, table) == jtbs.mcs_to_qm_rate(mcs, table)
+    for table, rows in jtbs._TP_TABLES.items():
+        for mcs in range(len(rows)):
+            for pi2 in (False, True):
+                assert (ttbs.mcs_to_qm_rate(mcs, table, True, pi2)
+                        == jtbs.mcs_to_qm_rate(mcs, table, True, pi2)), (table, mcs, pi2)
+    for nof_prb in (1, 6, 24, 52, 106, 273):
+        for nsym, dmrs_re in ((13, 12), (12, 6), (4, 12)):
+            for qm, rate in ((2, 0.12), (4, 0.48), (6, 0.55), (8, 0.926)):
+                for nl in (1, 2, 4):
+                    args = (nof_prb, nsym, dmrs_re, rate, qm, nl)
+                    assert ttbs.calculate_tbs(*args) == jtbs.calculate_tbs(*args), args
+    assert ttbs.TBS_TABLE == jtbs.TBS_TABLE
+    for name in ("NRE", "MAX_RB", "MAX_PORTS", "MAX_LAYERS", "KAPPA", "T_C"):
+        assert getattr(tconst, name) == getattr(jconst, name)
+    for scs in jconst.SubcarrierSpacing:
+        ts = tconst.SubcarrierSpacing(int(scs))
+        assert ts.name == scs.name
+        assert tconst.nof_slots_per_frame(ts) == jconst.nof_slots_per_frame(scs)
+        for cp in jconst.CyclicPrefix:
+            tcp = tconst.CyclicPrefix(int(cp))
+            assert tconst.nof_symbols_per_slot(tcp) == jconst.nof_symbols_per_slot(cp)
+            for nof_rb in (24, 106, 273):
+                dft = jconst.min_dft_size(nof_rb)
+                assert tconst.min_dft_size(nof_rb) == dft
+                assert tconst.cp_lengths(ts, dft, tcp) == jconst.cp_lengths(scs, dft, cp)
+                assert tconst.sampling_rate_hz(ts, dft) == jconst.sampling_rate_hz(scs, dft)
+
+
+def test_dmrs_and_allocation_copy():
+    """ran/dmrs.py (masks, pilots, c_init) and phy/allocation.py (RE and
+    pilot indices), on the flagship's and the multi-UE slot's allocations."""
+    from srsran_project_tpu.phy import allocation as jalloc
+    from srsran_project_tpu.ran import dmrs as jdmrs
+    from srsran_project_tpu_torch.phy import allocation as talloc
+    from srsran_project_tpu_torch.ran import dmrs as tdmrs
+
+    for ct in (1, 2):
+        assert tdmrs.pilots_per_prb(ct) == jdmrs.pilots_per_prb(ct)
+        for ncdm in (1, 2, 3)[: 2 if ct == 1 else 3]:
+            np.testing.assert_array_equal(tdmrs.data_subcarrier_mask(ct, ncdm),
+                                          jdmrs.data_subcarrier_mask(ct, ncdm))
+            assert tdmrs.sch_to_dmrs_beta(ncdm) == jdmrs.sch_to_dmrs_beta(ncdm)
+        for port in range(4):
+            assert tdmrs.cdm_group(ct, port) == jdmrs.cdm_group(ct, port)
+            for a, b in zip(tdmrs.pilot_subcarriers(ct, port, 24, 3),
+                            jdmrs.pilot_subcarriers(ct, port, 24, 3)):
+                np.testing.assert_array_equal(a, b)
+    for slot, sym, n_id, n_scid in ((0, 2, 0, 0), (7, 11, 1007, 1), (19, 3, 65535, 0)):
+        assert (tdmrs.dmrs_c_init(slot, sym, n_id, n_scid)
+                == jdmrs.dmrs_c_init(slot, sym, n_id, n_scid))
+    for kw in (dict(rb_start=0, rb_count=273, sym_start=1, sym_count=13, dmrs_symbols=(2,)),
+               dict(rb_start=0, rb_count=24, sym_start=1, sym_count=13, dmrs_symbols=(2,),
+                    crb_start=160),
+               dict(rb_start=4, rb_count=8, sym_start=0, sym_count=14, dmrs_symbols=(2, 11),
+                    nof_cdm_groups_without_data=1)):
+        ja, ta = jalloc.Allocation(**kw), talloc.Allocation(**kw)
+        assert talloc.Allocation.from_fields(ja) == ta
+        assert talloc.nof_data_re(ta) == jalloc.nof_data_re(ja)
+        np.testing.assert_array_equal(talloc.data_re_indices(ta, 14, 3276),
+                                      jalloc.data_re_indices(ja, 14, 3276))
+        for port in range(4):
+            for a, b in zip(talloc.pilot_re_indices(ta, port, 3276),
+                            jalloc.pilot_re_indices(ja, port, 3276)):
+                np.testing.assert_array_equal(a, b)
 
 
 def _fields(obj) -> dict:
@@ -68,11 +206,15 @@ def _fields(obj) -> dict:
 
 
 def _same_fields(ref, twin):
-    """Same field names; equal values (enums compared by value)."""
+    """Same field names; equal values (enums compared by value, nested
+    dataclasses such as the two packages' Allocation field by field)."""
     a, b = _fields(ref), _fields(twin)
     assert a.keys() == b.keys()
     for k in a:
         va, vb = a[k], b[k]
+        if dataclasses.is_dataclass(va):
+            _same_fields(va, vb)
+            continue
         if hasattr(va, "value"):
             va, vb = int(va), int(vb)
         assert va == vb, (k, va, vb)
@@ -85,7 +227,7 @@ def test_cell_config_twin(make):
     assert twin == make(tcell)
     _same_fields(ref, twin)
     assert (twin.dft_size, twin.nof_sc, twin.tbs) == (ref.dft_size, ref.nof_sc, ref.tbs)
-    assert twin.alloc == ref.alloc
+    _same_fields(ref.alloc, twin.alloc)
     for jc, tc in ((ref.pusch_cfg, twin.pusch_cfg), (ref.pdsch_cfg, twin.pdsch_cfg)):
         _same_fields(jc, tc)
         js, ts = jc.sch, tc.sch

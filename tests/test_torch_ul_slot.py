@@ -31,6 +31,7 @@ from srsran_project_tpu.ops.modulation import map_bits as jmap
 from srsran_project_tpu.ops.modulation.evm import evm as jevm
 from srsran_project_tpu.phy import pusch as jpusch
 from srsran_project_tpu.phy import ul_slot as jul
+from srsran_project_tpu.phy.allocation import Allocation as JAllocation
 from srsran_project_tpu_torch.ops.ldpc import rate_match as trm
 from srsran_project_tpu_torch.ops.modulation import Modulation, demap_soft, map_bits
 from srsran_project_tpu_torch.ops.modulation.evm import evm
@@ -66,7 +67,7 @@ def slots():
         cfgs, tbs, grid = small_slot(rv_retx=rv, noise_seed=noise_seed)
         jpdus = _jax_pdus(cfgs, harq_j)
         res_j, _, _ = jul.process_slot(jnp.asarray(to_np(grid)), jpdus)
-        tpdus = [tul.UlSlotPdu.from_reference(p) for p in jpdus]
+        tpdus = [tul.UlSlotPdu.from_reference(p, device="cpu") for p in jpdus]
         if harq_t is not None:  # the port's own buffer, not the reference's
             tpdus[RETX_UE].harq_buffer = harq_t
         res_t, _, _ = tul.process_slot(grid, tpdus)
@@ -202,7 +203,8 @@ def test_chip_smoke_retransmission_pair(atten_db):
     for p, rv in enumerate((0, 2)):
         tcfg = chip_smoke.ul_config(*ue["shape"], ue["first_rb"], rv)
         kw = {f.name: getattr(tcfg, f.name) for f in dataclasses.fields(tcfg)}
-        jcfg = jpusch.PuschConfig(**{**kw, "modulation": JModulation(int(tcfg.modulation))})
+        jcfg = jpusch.PuschConfig(**{**kw, "modulation": JModulation(int(tcfg.modulation)),
+                                     "alloc": JAllocation(**dataclasses.asdict(tcfg.alloc))})
         rx = noise[p][:, :, sc0 : sc0 + tcfg.nof_grid_sc]
         grid_j = np.asarray(jpusch.transmit(jnp.asarray(ue["tb"]), jnp.uint32(ue["rnti"]), jcfg,
                                             precoding=jnp.asarray(ue["channel"]))) + rx

@@ -45,19 +45,19 @@ RETX_ATTENUATION_DB = 14.0
 
 def slot_config(pusch_mod, modulation_cls, rb_count: int, mcs: int, first_rb: int, rv: int = 0,
                 nof_ports: int = SLOT_PORTS):
-    """The PuschConfig of one grant, in either package: the flagship's
-    symbols 1-13 with DM-RS on symbol 2, one layer, a compact window at
-    first_rb (crb_start)."""
-    from srsran_project_tpu.phy.allocation import Allocation
-    from srsran_project_tpu.ran import tbs as tbs_mod
-    from srsran_project_tpu.ran.constants import NRE
+    """The PuschConfig of one grant, in either package (with that
+    package's own Allocation): the flagship's symbols 1-13 with DM-RS on
+    symbol 2, one layer, a compact window at first_rb (crb_start)."""
+    from srsran_project_tpu_torch.ran import tbs as tbs_mod
+    from srsran_project_tpu_torch.ran.constants import NRE
 
     qm, rate = tbs_mod.mcs_to_qm_rate(mcs, "qam64")
     return pusch_mod.PuschConfig(
         tbs=tbs_mod.calculate_tbs(rb_count, 13, NRE, rate, qm, 1), target_code_rate=rate,
         modulation=modulation_cls(qm),
-        alloc=Allocation(rb_start=0, rb_count=rb_count, sym_start=1, sym_count=13,
-                         dmrs_symbols=(2,), crb_start=first_rb),
+        alloc=pusch_mod.alloc_mod.Allocation(rb_start=0, rb_count=rb_count, sym_start=1,
+                                             sym_count=13, dmrs_symbols=(2,),
+                                             crb_start=first_rb),
         nof_layers=1, nof_rx_ports=nof_ports, nof_grid_sc=rb_count * 12, rv=rv)
 
 

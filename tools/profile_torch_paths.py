@@ -12,8 +12,11 @@ It builds the port's kernels (as chip_smoke.py does), then
    around 10 calls after 2 warm-ups;
 2. runs torch.profiler over 5 calls of each path (after 3 warm-ups) and
    prints per call the wall time, the device-busy time (the sum of the
-   device kernels' self time), their share, the number of device kernels
-   and the six that take the most device time.
+   device kernels' self time), their share, the number of device kernels,
+   the six that take the most device time, and the device time and
+   launches of each of the port's own kernels (K1 ``decode_dematch_kernel``,
+   K2 ``decode_kernel``, K3 ``mmse_weights_4x4_kernel``, K4
+   ``demap_planes_kernel``).
 
 The inputs are chip_smoke.py's: its uplink slot plan (new data) and 8
 random flagship slots at about 30 dB.  Every line starts with ``#``; the
@@ -28,6 +31,9 @@ import sys
 import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# The port's kernels by the name of their __global__ function in csrc/.
+KERNELS = {"K1": "decode_dematch_kernel", "K2": "decode_kernel",
+           "K3": "mmse_weights_4x4_kernel", "K4": "demap_planes_kernel"}
 
 
 def main() -> int:
@@ -89,6 +95,16 @@ def main() -> int:
         print("#   top: " + "; ".join(
             f"{e.key[:60]} {e.self_device_time_total / (1e3 * reps):.4f} ms x{e.count // reps}"
             for e in top))
+        ours = []
+        for k, fn in KERNELS.items():
+            # Demangled names read "...::decode_kernel<true>(...)", mangled
+            # ones "...13decode_kernel..."; either way decode_kernel does
+            # not match decode_dematch_kernel.
+            hits = [e for e in dev_ev if f"::{fn}" in e.key or f"{len(fn)}{fn}" in e.key]
+            if hits:
+                ms = sum(e.self_device_time_total for e in hits) / (1e3 * reps)
+                ours.append(f"{k} {ms:.4f} ms x{sum(e.count for e in hits) / reps:g}")
+        print(f"#   kernels per call: {'; '.join(ours) or 'none'}")
     return 0
 
 
