@@ -38,7 +38,9 @@ sleep kernel, so they run back to back) and its plain version's time
 
 Output: progress and timing lines, then one JSON line with the kernels
 (time, plain version's time, the bound computed from this run's inputs,
-launches per path; for K1 and K2 also the resident blocks per SM), the
+launches per path; the resident blocks per SM, and for K3 and K4 the
+registers a thread and the same three numbers at 8 flagship slots, "b8_",
+K3 also at the uplink slot's group A, "group_a_"), the
 card's name and power limit, and as the LAST line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Any failed check raises (non-zero exit, no result line).  There is no CPU
@@ -50,6 +52,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -507,63 +510,23 @@ def kernel_phase(card: str):
         f"{k2_geo[n]['blocks_per_sm']} block(s) per SM"
         for n, (k, p, bd) in k2_times.items()))
 
-    # K3: random 4x4 channels at the flagship's 3276 subcarriers.
-    nsc, nv = 3276, 0.013
-    h_np = ((rng.standard_normal((nsc, 4, 4)) + 1j * rng.standard_normal((nsc, 4, 4)))
-            * 0.5).astype(np.complex64)
-    h = torch.from_numpy(h_np).to(dev)
-    nv_t = torch.tensor(nv, dtype=torch.float32, device=dev)
-    w_k, ev_k = equalizer.mmse_weights_4x4(h, nv_t)
-    w_p, ev_p = equalizer.equalize_weights(h, nv_t)
-    torch.cuda.synchronize()
-    k3_err = float((w_k - w_p).abs().max())
-    scale = max(1.0, float(w_p.abs().max()))
-    ev_err = float((ev_k - ev_p).abs().max())
-    if not (k3_err <= 1e-4 * scale and ev_err <= 1e-4):
-        fail(f"K3 vs plain: max|dW| {k3_err:.3e} (limit {1e-4 * scale:.3e}), "
-             f"max|d eq_nvar| {ev_err:.3e} (limit 1e-4)")
-    w64, ev64 = _mmse_oracle64(h_np, nv)
-    o_err = max(float(np.abs(w_k.cpu().numpy() - w64).max()),
-                float(np.abs(ev_k.cpu().numpy() - ev64).max()))
-    if not o_err <= 1e-2:
-        fail(f"K3 vs float64 oracle: {o_err:.3e} > 1e-2")
-    print(f"# K3 nsc={nsc}: vs plain max|dW| {k3_err:.3e}, max|d eq_nvar| {ev_err:.3e}; "
-          f"vs f64 oracle {o_err:.3e}")
-    k3_ms = kernel_ms(lambda: equalizer.mmse_weights_4x4(h, nv_t), reps=50)
-    k3_plain_ms = cuda_ms(lambda: equalizer.equalize_weights(h, nv_t), reps=10)
-    # About 1.5k float32 operations a subcarrier (csrc/mmse_weights_4x4.cu).
-    k3_bound = bound(nbytes(h, nv_t, w_k, ev_k), 1500.0 * nsc)
-    print(f"# [{card}] K3 mmse_weights_4x4, one slot (3276 subcarriers): "
-          f"kernel {k3_ms:.4f} ms, plain torch {k3_plain_ms:.4f} ms, bound {k3_bound[0]:.5f} ms "
-          f"({k3_bound[1]})")
-
-    # K4: one flagship slot's data symbols (4 ports, 12 data symbols, 3276
-    # subcarriers, 4 layers, 256QAM), random weights, noise and signs.
-    p, s, l, qm = 4, 12, 4, 8
-    y = rng.standard_normal((1, p, s, nsc, 2)) * 0.5
-    w = rng.standard_normal((1, nsc, l, p, 2)) * 0.5
-    ins = (torch.from_numpy((y[..., 0] + 1j * y[..., 1]).astype(np.complex64)).to(dev),
-           torch.from_numpy((w[..., 0] + 1j * w[..., 1]).astype(np.complex64)).to(dev),
-           torch.from_numpy((0.01 + 0.1 * rng.random((1, nsc, l))).astype(np.float32)).to(dev),
-           torch.from_numpy((1.0 - 2.0 * rng.integers(0, 2, size=(1, qm, s * nsc * l)))
-                            .astype(np.float32)).to(dev))
-    planes_k, err_k = dp.demap_planes(*ins, Modulation.QAM256)
-    planes_p, err_p = dp.demap_planes_plain(*ins, Modulation.QAM256)
-    torch.cuda.synchronize()
-    k4_err = int((planes_k.int() - planes_p.int()).abs().max())
-    rel = float(((err_k - err_p).abs() / err_p.abs().clamp_min(1e-30)).max())
-    if k4_err or not rel <= 1e-6:
-        fail(f"K4 vs plain: planes max |d| {k4_err}, err2 max relative {rel:.3e} (limit 1e-6)")
-    print(f"# K4 {tuple(planes_k.shape)}: planes equal, err2 max relative {rel:.3e}")
-    k4_ms = kernel_ms(lambda: dp.demap_planes(*ins, Modulation.QAM256), reps=50)
-    k4_plain_ms = cuda_ms(lambda: dp.demap_planes_plain(*ins, Modulation.QAM256), reps=10)
-    # Float32 operations a lane: 8 per port (the complex apply), 8 per PAM
-    # level (the distances and label min trees of both axes), 4 per bit.
-    lanes = s * nsc * l
-    k4_bound = bound(nbytes(*ins, planes_k, err_k),
-                     lanes * (8.0 * p + 8.0 * 2 ** (qm // 2) + 4.0 * qm))
-    print(f"# [{card}] K4 demap_planes, one flagship slot: kernel {k4_ms:.4f} ms, "
-          f"plain torch {k4_plain_ms:.4f} ms, bound {k4_bound[0]:.5f} ms ({k4_bound[1]})")
+    # K3 and K4 at one flagship slot, at the batch-8 decode's 8 slots, and
+    # K3 at the uplink slot's group A (2 grants of 80 PRB).
+    k3_shapes = {"b1": (1, 3276), "b8": (NOF_SLOTS, 3276), "group A": (2, 960)}
+    k3 = {name: check_k3(rng, dev, b, nsc, name) for name, (b, nsc) in k3_shapes.items()}
+    k3_err = max(r[3] for r in k3.values())
+    k3_occ = equalizer.occupancy()
+    print(f"# [{card}] K3 mmse_weights_4x4: " + "; ".join(
+        f"{name} {k3_shapes[name]} kernel {ms:.4f} ms, plain torch {pms:.4f} ms, bound "
+        f"{bd[0]:.5f} ms ({bd[1]})" for name, (ms, pms, bd, _e) in k3.items())
+        + f"; {k3_occ['registers']} registers, {k3_occ['blocks_per_sm']} blocks of 256 per SM")
+    k4 = {name: check_k4(rng, dev, b, name) for name, b in (("b1", 1), ("b8", NOF_SLOTS))}
+    k4_err = max(r[3] for r in k4.values())
+    k4_occ = dp.occupancy(Modulation.QAM256, 4)
+    print(f"# [{card}] K4 demap_planes, 256QAM x 4 layers: " + "; ".join(
+        f"{name} kernel {ms:.4f} ms, plain torch {pms:.4f} ms, bound {bd[0]:.5f} ms ({bd[1]})"
+        for name, (ms, pms, bd, _e) in k4.items())
+        + f"; {k4_occ['registers']} registers, {k4_occ['blocks_per_sm']} blocks of 128 per SM")
 
     k2_ms, k2_plain_ms, k2_bound = k2_times["group A"]
 
@@ -582,11 +545,136 @@ def kernel_phase(card: str):
               flagship_ms=k2_times["flagship"][0], flagship_bound_ms=k2_times["flagship"][2][0],
               flagship_blocks_per_sm=k2_geo["flagship"]["blocks_per_sm"]),
         entry("mmse_weights_4x4", "mmse_weights_4x4.cu",
-              "srsran_project_tpu/ops/equalizer_pallas.py:132", k3_err, k3_ms, k3_plain_ms,
-              k3_bound),
+              "srsran_project_tpu/ops/equalizer_pallas.py:132", k3_err, *k3["b1"][:3],
+              b8_ms=k3["b8"][0], b8_plain_ms=k3["b8"][1], b8_bound_ms=k3["b8"][2][0],
+              group_a_ms=k3["group A"][0], group_a_plain_ms=k3["group A"][1],
+              group_a_bound_ms=k3["group A"][2][0], **k3_occ),
         entry("demap_planes", "demap_planes.cu", "srsran_project_tpu/ops/demap_pallas.py:45",
-              k4_err, k4_ms, k4_plain_ms, k4_bound),
+              k4_err, *k4["b1"][:3], b8_ms=k4["b8"][0], b8_plain_ms=k4["b8"][1],
+              b8_bound_ms=k4["b8"][2][0], **k4_occ),
     ]
+
+
+def check_k3(rng, dev, batch: int, nsc: int, name: str):
+    """K3 against its plain version on random 4x4 channels of ``batch``
+    slots: W and eq_nvar bitwise equal, on the channel estimate's layout
+    ((B, L, P, nsc) in memory, handed over as its (B, nsc, P, L) view) and
+    on a contiguous copy; and near a float64 oracle.  Returns (kernel ms,
+    plain ms, bound) on the estimate's layout and the largest absolute
+    difference from the plain version."""
+    import torch
+
+    from srsran_project_tpu_torch.ops import equalizer
+
+    h_np = ((rng.standard_normal((batch, 4, 4, nsc)) + 1j * rng.standard_normal((batch, 4, 4, nsc)))
+            * 0.5).astype(np.complex64)  # (B, L, P, nsc)
+    h = torch.from_numpy(h_np).to(dev).permute(0, 3, 2, 1)  # (B, nsc, P, L) view
+    # One noise variance a slot, 1e-13 (clamped to 1e-12) to 1; 0.013 alone.
+    nv_np = np.geomspace(1e-13, 1.0, batch) if batch > 1 else np.array([0.013])
+    nv = torch.from_numpy(nv_np.astype(np.float32)).to(dev)
+    err = 0.0
+    for layout, hh in (("estimate layout", h), ("contiguous", h.contiguous())):
+        before = equalizer.mmse_weights_4x4.launches
+        w_k, ev_k = equalizer.mmse_weights_4x4(hh, nv)
+        w_p, ev_p = equalizer.equalize_weights(hh, nv)
+        torch.cuda.synchronize()
+        if equalizer.mmse_weights_4x4.launches != before + 1:
+            fail(f"K3 {name} {layout}: not one launch")
+        d = max_abs_diff((w_k, w_p), (ev_k, ev_p))
+        if not math.isfinite(d):
+            fail(f"K3 {name} {layout}: non-finite W or eq_nvar")
+        err = max(err, d)
+        if not (torch.equal(torch.view_as_real(w_k).view(torch.int32),
+                            torch.view_as_real(w_p).view(torch.int32))
+                and torch.equal(ev_k.view(torch.int32), ev_p.view(torch.int32))):
+            fail(f"K3 {name} {layout}: W / eq_nvar differ from the plain version (max|dW| "
+                 f"{float((w_k - w_p).abs().max()):.3e}, max|d eq_nvar| "
+                 f"{float((ev_k - ev_p).abs().max()):.3e})")
+    i = int(np.argmax(nv_np))  # the oracle's float32 gap grows as nv falls
+    w64, ev64 = _mmse_oracle64(h_np[i].transpose(2, 1, 0), float(nv[i]))
+    o_err = max(float(np.abs(w_k[i].cpu().numpy() - w64).max()),
+                float(np.abs(ev_k[i].cpu().numpy() - ev64).max()))
+    if not o_err <= 1e-2:
+        fail(f"K3 {name} vs float64 oracle: {o_err:.3e} > 1e-2")
+    print(f"# K3 {name} ({batch} x {nsc}): W and eq_nvar bitwise equal to the plain version on "
+          f"the estimate's layout and contiguous; vs f64 oracle {o_err:.3e} at nv {float(nv[i]):.3g}")
+    ms = kernel_ms(lambda: equalizer.mmse_weights_4x4(h, nv), reps=50)
+    plain_ms = cuda_ms(lambda: equalizer.equalize_weights(h, nv), reps=10)
+    # About 1.5k float32 operations a subcarrier: the gram about 510, the
+    # blocked inverse about 460, mu, W and eq_nvar about 600.
+    bd = bound(nbytes(h, nv, w_k, ev_k), 1500.0 * batch * nsc)
+    return ms, plain_ms, bd, err
+
+
+def check_k4(rng, dev, batch: int, name: str):
+    """K4 against its plain version at the flagship's shape (4 ports, 12
+    data symbols, 3276 subcarriers, 4 layers, 256QAM) for ``batch`` slots
+    of random weights, noise and Gold bits: planes and err2 bitwise equal.
+    Returns (kernel ms, plain ms, bound, largest absolute difference from
+    the plain version)."""
+    import torch
+
+    from srsran_project_tpu_torch.ops import demap_planes as dp
+    from srsran_project_tpu_torch.ops.modulation import Modulation
+
+    p, s, nsc, l, qm = 4, 12, 3276, 4, 8
+    y = rng.standard_normal((batch, p, s, nsc, 2)) * 0.5
+    w = rng.standard_normal((batch, nsc, l, p, 2)) * 0.5
+    ins = (torch.from_numpy((y[..., 0] + 1j * y[..., 1]).astype(np.complex64)).to(dev),
+           torch.from_numpy((w[..., 0] + 1j * w[..., 1]).astype(np.complex64)).to(dev),
+           torch.from_numpy((0.01 + 0.1 * rng.random((batch, nsc, l))).astype(np.float32)).to(dev),
+           torch.from_numpy(rng.integers(0, 2, size=(batch, s * nsc * l * qm), dtype=np.uint8))
+           .to(dev))
+    err = check_k4_on(ins, Modulation.QAM256, 20.0, f"K4 {name}")
+    planes_k, err_k = dp.demap_planes(*ins, Modulation.QAM256)
+    ms = kernel_ms(lambda: dp.demap_planes(*ins, Modulation.QAM256), reps=50)
+    plain_ms = cuda_ms(lambda: dp.demap_planes_plain(*ins, Modulation.QAM256), reps=10)
+    # Float32 operations a lane: 8 per port (the complex apply), 8 per PAM
+    # level (the distances and label min trees of both axes), 4 per bit.
+    lanes = batch * s * nsc * l
+    bd = bound(nbytes(*ins, planes_k, err_k),
+               lanes * (8.0 * p + 8.0 * 2 ** (qm // 2) + 4.0 * qm))
+    return ms, plain_ms, bd, err
+
+
+def check_k4_on(ins, mod, range_limit: float, what: str) -> float:
+    """K4 against its plain version on ``ins`` (y, w, eq_nvar, Gold bits):
+    one launch, planes and err2 bitwise equal.  Returns the largest
+    absolute difference of planes and err2 from the plain version."""
+    import torch
+
+    from srsran_project_tpu_torch.ops import demap_planes as dp
+
+    before = dp.demap_planes.launches
+    planes_k, err_k = dp.demap_planes(*ins, mod, range_limit)
+    planes_p, err_p = dp.demap_planes_plain(*ins, mod, range_limit)
+    torch.cuda.synchronize()
+    if dp.demap_planes.launches != before + 1:
+        fail(f"{what}: not one launch")
+    err = max_abs_diff((planes_k, planes_p), (err_k, err_p))
+    if not math.isfinite(err):
+        fail(f"{what}: non-finite err2")
+    if not (torch.equal(planes_k, planes_p)
+            and torch.equal(err_k.view(torch.int32), err_p.view(torch.int32))):
+        fail(f"{what} {tuple(planes_k.shape)}: planes max |d| "
+             f"{int((planes_k.int() - planes_p.int()).abs().max())}, err2 max |d| "
+             f"{float((err_k - err_p).abs().max()):.3e} against the plain version")
+    print(f"# {what} {tuple(planes_k.shape)}: planes and err2 bitwise equal to the plain version")
+    return err
+
+
+def max_abs_diff(*pairs) -> float:
+    """The largest |a - b| over the (kernel, plain) tensor pairs, in
+    float64; NaN if either side holds a value that is not finite."""
+    import torch
+
+    err = 0.0
+    for a, b in pairs:
+        if not (bool(torch.isfinite(a).all()) and bool(torch.isfinite(b).all())):
+            return math.nan
+        wide = torch.complex128 if a.is_complex() else torch.float64
+        err = max(err, float((a.to(wide) - b.to(wide)).abs().max()))
+    return err
 
 
 def _mmse_oracle64(h, nv):
@@ -666,11 +754,12 @@ def slice_phase(card: str):
     return launches, (rx, tb, out["tb_bits"])
 
 
-def check_k1_batch(llrs, bits_k, it_k, pc, path: str) -> None:
+def check_k1_batch(llrs, bits_k, it_k, pc, path: str) -> int:
     """K1's output for a whole batch, (B*C, K) bits and (B*C,) iterations
     from ONE launch over both E-groups of ``llrs`` (the (B, G) stream or
     the (B, qm, G/qm) planes), against the plain version of each group's
-    (B, qm, count, E/qm) view: bits and iterations equal."""
+    (B, qm, count, E/qm) view: bits and iterations equal.  Returns the
+    largest bit difference (0 after the check)."""
     import torch
 
     from srsran_project_tpu_torch.ops.ldpc import decoder
@@ -694,6 +783,7 @@ def check_k1_batch(llrs, bits_k, it_k, pc, path: str) -> None:
              f"the plain version, iterations equal {torch.equal(it_k, it_p.reshape(-1))}")
     print(f"# {what} in one launch: bits and iterations (mean "
           f"{it_k.float().mean().item():.2f}) equal the plain version per group")
+    return int(max_abs_diff((bits_k, bits_p.reshape(bits_k.shape))))
 
 
 def check_flagship(out: dict, tb, cfg, path: str) -> None:
@@ -745,25 +835,17 @@ def plane_phase(card: str, rx, tb, float_bits) -> tuple[dict, dict]:
                                 f_center_hz=cfg.f_center_hz)
     rntis = torch.full((rx.shape[0],), RNTI, dtype=torch.int64, device=rx.device)
     ins, _ = pusch._plane_inputs(grid, rntis, pc)
-    planes_k, err_k = dp.demap_planes(*ins, pc.modulation, pc.llr_range_limit)
-    planes_p, err_p = dp.demap_planes_plain(*ins, pc.modulation, pc.llr_range_limit)
-    torch.cuda.synchronize()
-    k4_err = int((planes_k.int() - planes_p.int()).abs().max())
-    rel = float(((err_k - err_p).abs() / err_p.abs().clamp_min(1e-30)).max())
-    if k4_err or not rel <= 1e-6:
-        fail(f"plane path K4 {tuple(planes_k.shape)} vs plain: planes max |d| {k4_err}, "
-             f"err2 max relative {rel:.3e} (limit 1e-6)")
-    print(f"# plane path K4 {tuple(planes_k.shape)}: planes equal the plain version, err2 "
-          f"max relative {rel:.3e}")
+    k4_err = check_k4_on(ins, pc.modulation, pc.llr_range_limit, "plane path K4")
+    planes_k, _ = dp.demap_planes(*ins, pc.modulation, pc.llr_range_limit)
     # K1: one launch over both E-groups of the batch's planes.
     bits_k, it_k = sch_mod._decode_groups(planes_k, pc.sch, pc.nof_ldpc_iterations,
                                           pc.ldpc_early_stop)
-    check_k1_batch(planes_k, bits_k, it_k, pc, "plane path")
+    k1_err = check_k1_batch(planes_k, bits_k, it_k, pc, "plane path")
 
     for b in (1, NOF_SLOTS):
         dec = cuda_ms(lambda: cell.decode_slot(rx[:b], RNTI, cfg), reps=5) / b
         print(f"# [{card}] plane path batch {b}: decode {dec:.4f} ms/slot")
-    return launches, {"demap_planes": float(k4_err), "decode_dematch_planes": 0.0}
+    return launches, {"demap_planes": k4_err, "decode_dematch_planes": k1_err}
 
 
 def main() -> int:

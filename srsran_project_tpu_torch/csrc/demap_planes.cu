@@ -5,28 +5,40 @@
 // (srsran_project_tpu/ops/demap_pallas.py).  Plain torch version and
 // wrapper: srsran_project_tpu_torch/ops/demap_planes.py (demap_planes).
 //
-// Design.  One thread per lane (slot b, data symbol s, subcarrier n,
-// layer l).  The thread forms x = sum_p w[b, n, l, p] y[b, p, s, n] with
-// the P-port complex multiply-adds in registers, evaluates per axis the
-// squared distances to the 2^m PAM levels and the min trees per bit label,
-// and writes each LLR, quantized (round half to even, clip +-120) and
-// multiplied by its +-1 descrambling sign, to plane bit at position
-// (s*nsc + n)*L + l, which is its de-interleave plane index.  It also
-// writes the lane's squared distance to the nearest constellation point,
-// from which the caller forms the decision-directed post-equalization
-// SINR.  The TPU kernel's lane expansion (y repeated L times, re/im split
-// into planes) was a Mosaic layout workaround and is left out: neighbouring
-// threads read neighbouring layers of one subcarrier's weights and share
-// one y value through L1.
+// Design.  One thread per (slot b, data symbol s, subcarrier n) handles the
+// L layers of that subcarrier.  The grid is (subcarrier blocks, data
+// symbols, slots), so a thread finds its indices without any division, and
+// offsets inside a slot are 32-bit.  (A thread that walked several symbols
+// of its subcarrier, keeping its weights in L1, was timed on an H100 and
+// lost at one slot; see PERF.md.)  The thread loads the P
+// values of y once (neighbouring threads, neighbouring subcarriers:
+// coalesced), the subcarrier's L x P weights (as float4 pairs when P is
+// even) and L noise values once, forms x_l = sum_p w[l][p] y[p] for every
+// layer, evaluates per axis the squared distances to the PAM levels and the
+// min tree of each bit label, and quantizes each LLR.  The constellation is
+// a template parameter:
+// its PAM levels and Gray labels are compile-time tables (Pam<M> below), so
+// every min tree unrolls into a fixed sequence of fminf, as the TPU kernel
+// unrolls them over Python constants.  It descrambles from the Gold
+// sequence c itself (uint8, stream order): plane bit t of lane j = (s*nsc +
+// n)*L + l is flipped where c[j*qm + t] is 1, and a subcarrier's L*qm bits
+// are contiguous in c, read with the widest aligned vector loads.  Negating
+// q equals the plain version's multiply by -1 exactly (|q| <= 120).  It
+// stores each plane's L int8 values as one word when L = 4 (a half word at
+// L = 2), and the lanes' squared distances to the nearest point (for the
+// decision-directed SINR) as one float4 when L = 4.
 //
-// What bounds it: memory.  Per lane it reads 8P + 4 + 4 qm bytes (y once
-// per L lanes) and writes qm + 4; the arithmetic is some hundred float
-// operations, far below the card's rate.
+// What bounds it: memory.  Per subcarrier and symbol it reads 8P bytes of y,
+// 8LP of weights and 4L of noise (both from cache after the first symbol) and L*qm
+// Gold bytes, and writes L*qm plane bytes and 4L of err2.  The arithmetic
+// is not small beside that: at 256QAM each axis of a lane takes 16
+// subtractions, 16 squares and 57 fminf for its distances and min trees.
 //
 // Numerics (bit-exact with the plain version): every multiply and add is
 // rounded on its own (__fmul_rn / __fadd_rn / __fsub_rn, and the library is
 // built with --fmad=false), in the plain version's order; 1/eq_nvar is an
-// IEEE division; rintf rounds half to even as torch.round does.
+// IEEE division; rintf rounds half to even as torch.round does; fminf over
+// non-negative squares is exact and does not depend on the order.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -35,36 +47,90 @@
 namespace {
 
 constexpr float kLlrMax = 120.0f;
+constexpr int kThreads = 128;
+constexpr int kMaxGrid = 65535;  // largest gridDim.y and gridDim.z
+
+// Per square QAM of 2M bits a symbol: the PAM levels of one axis, ascending,
+// and their Gray labels (bit t of a label is axis bit t), exactly as float32
+// values of ops/modulation/mapper.pam_levels.  Keep each table on its line:
+// tests/test_torch_demap_planes.py parses them and compares them with
+// pam_levels.
+template <int M>
+struct Pam;
+template <>
+struct Pam<1> {  // QPSK
+  __device__ static float level(int k) {
+    constexpr float kLevels[2] = {-0.707106769f, 0.707106769f};
+    return kLevels[k];
+  }
+  __device__ static int label(int k) {
+    constexpr int kLabels[2] = {1, 0};
+    return kLabels[k];
+  }
+};
+template <>
+struct Pam<2> {  // 16QAM
+  __device__ static float level(int k) {
+    constexpr float kLevels[4] = {-0.948683321f, -0.316227764f, 0.316227764f, 0.948683321f};
+    return kLevels[k];
+  }
+  __device__ static int label(int k) {
+    constexpr int kLabels[4] = {3, 1, 0, 2};
+    return kLabels[k];
+  }
+};
+template <>
+struct Pam<3> {  // 64QAM
+  __device__ static float level(int k) {
+    constexpr float kLevels[8] = {-1.08012342f, -0.77151674f, -0.462910056f, -0.154303357f, 0.154303357f, 0.462910056f, 0.77151674f, 1.08012342f};
+    return kLevels[k];
+  }
+  __device__ static int label(int k) {
+    constexpr int kLabels[8] = {7, 3, 1, 5, 4, 0, 2, 6};
+    return kLabels[k];
+  }
+};
+template <>
+struct Pam<4> {  // 256QAM
+  __device__ static float level(int k) {
+    constexpr float kLevels[16] = {-1.15044749f, -0.997054458f, -0.843661487f, -0.690268517f, -0.536875486f, -0.383482486f, -0.230089501f, -0.0766965002f, 0.0766965002f, 0.230089501f, 0.383482486f, 0.536875486f, 0.690268517f, 0.843661487f, 0.997054458f, 1.15044749f};
+    return kLevels[k];
+  }
+  __device__ static int label(int k) {
+    constexpr int kLabels[16] = {15, 7, 3, 11, 9, 1, 5, 13, 12, 4, 0, 8, 10, 2, 6, 14};
+    return kLabels[k];
+  }
+};
 
 struct Args {
   const float2* y;        // (B, P, nsym, nsc) complex64
   const float2* w;        // (B, nsc, L, P) complex64
   const float* eq_nvar;   // (B, nsc, L)
-  const float* signs;     // (B, qm, nsym * nsc * L)
-  const float* levels;    // (2^m,) PAM levels, ascending
-  const int* labels;      // (2^m,) bit labels, bit t of label = axis bit t
-  int batch, p, nsym, nsc, l, qm;
+  const uint8_t* c;       // (B, nsym * nsc * L * qm) Gold bits, stream order
+  int batch, p, nsym, nsc;
   float scale;            // LLR_MAX / range_limit
   int8_t* planes;         // (B, qm, nsym * nsc * L)
   float* err2;            // (B, nsym, nsc * L)
 };
 
+// Per-axis LLRs (m1 - m0 per bit label) of v into out; returns the squared
+// distance to the nearest level.
 template <int M>
-__device__ inline float axis_llrs(float v, const float* lv, const int* lab, float* out) {
+__device__ __forceinline__ float axis_llrs(float v, float* out) {
   constexpr int kLevels = 1 << M;
-  float d2[kLevels];
+  float d2[kLevels], dmin = 0.0f;
 #pragma unroll
   for (int k = 0; k < kLevels; ++k) {
-    const float t = __fsub_rn(v, lv[k]);
+    const float t = __fsub_rn(v, Pam<M>::level(k));
     d2[k] = __fmul_rn(t, t);
   }
 #pragma unroll
   for (int t = 0; t < M; ++t) {
     float m0 = 0.0f, m1 = 0.0f;
-    bool have0 = false, have1 = false;
+    bool have0 = false, have1 = false;  // resolved at compile time
 #pragma unroll
     for (int k = 0; k < kLevels; ++k) {
-      if ((lab[k] >> t) & 1) {
+      if ((Pam<M>::label(k) >> t) & 1) {
         m1 = have1 ? fminf(m1, d2[k]) : d2[k];
         have1 = true;
       } else {
@@ -73,104 +139,236 @@ __device__ inline float axis_llrs(float v, const float* lv, const int* lab, floa
       }
     }
     out[t] = __fsub_rn(m1, m0);
+    // Bit 0's two trees cover every level between them: their smaller
+    // minimum is the nearest level's distance, exactly (min is exact).
+    if (t == 0) dmin = fminf(m0, m1);
   }
-  float dmin = d2[0];
-#pragma unroll
-  for (int k = 1; k < kLevels; ++k) dmin = fminf(dmin, d2[k]);
   return dmin;
 }
 
-template <int M>
-__global__ void demap_planes_kernel(Args a) {
-  constexpr int kLevels = 1 << M;
-  const long long width = static_cast<long long>(a.nsc) * a.l;  // lanes per symbol
-  const long long per_slot = a.nsym * width;
-  const long long lane = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (lane >= a.batch * per_slot) return;
-  const int b = static_cast<int>(lane / per_slot);
-  const long long pos = lane % per_slot;  // (s*nsc + n)*L + l
-  const int s = static_cast<int>(pos / width);
-  const int n = static_cast<int>((pos % width) / a.l);
-  const int l = static_cast<int>(pos % a.l);
-
-  float lv[kLevels];
-  int lab[kLevels];
-#pragma unroll
-  for (int k = 0; k < kLevels; ++k) {
-    lv[k] = a.levels[k];
-    lab[k] = a.labels[k];
-  }
-
-  const float2* wl = a.w + ((static_cast<long long>(b) * a.nsc + n) * a.l + l) * a.p;
-  const float2* yb = a.y + static_cast<long long>(b) * a.p * a.nsym * a.nsc +
-                     static_cast<long long>(s) * a.nsc + n;
-  const long long y_port = static_cast<long long>(a.nsym) * a.nsc;
-  float2 wv = wl[0];
-  float2 yv = yb[0];
-  float xr = __fsub_rn(__fmul_rn(wv.x, yv.x), __fmul_rn(wv.y, yv.y));
-  float xi = __fadd_rn(__fmul_rn(wv.x, yv.y), __fmul_rn(wv.y, yv.x));
-  for (int p = 1; p < a.p; ++p) {
-    wv = wl[p];
-    yv = yb[p * y_port];
+// x += w y as the plain version forms it: port 0 sets x, later ports add
+// each part's two products in turn.
+__device__ __forceinline__ void apply_port(float& xr, float& xi, float2 wv, float2 yv,
+                                           bool first) {
+  if (first) {
+    xr = __fsub_rn(__fmul_rn(wv.x, yv.x), __fmul_rn(wv.y, yv.y));
+    xi = __fadd_rn(__fmul_rn(wv.x, yv.y), __fmul_rn(wv.y, yv.x));
+  } else {
     xr = __fsub_rn(__fadd_rn(xr, __fmul_rn(wv.x, yv.x)), __fmul_rn(wv.y, yv.y));
     xi = __fadd_rn(__fadd_rn(xi, __fmul_rn(wv.x, yv.y)), __fmul_rn(wv.y, yv.x));
   }
-  const float inv = 1.0f / fmaxf(a.eq_nvar[(static_cast<long long>(b) * a.nsc + n) * a.l + l],
-                                 1e-12f);
+}
 
-  float li[M], lq[M];
-  const float di = axis_llrs<M>(xr, lv, lab, li);
-  const float dq = axis_llrs<M>(xi, lv, lab, lq);
-  a.err2[lane] = __fadd_rn(di, dq);
+// The NB Gold bytes of one subcarrier (NB = L*qm, always even), packed four
+// to a word, loaded with the widest vector that NB's alignment allows.
+template <int NB>
+struct GoldBits {
+  static constexpr int kVec = NB % 16 == 0 ? 16 : NB % 8 == 0 ? 8 : NB % 4 == 0 ? 4 : 2;
+  uint32_t word[(NB + 3) / 4];
 
-  const long long plane_len = per_slot;
-  const float* sg = a.signs + static_cast<long long>(b) * a.qm * plane_len + pos;
-  int8_t* out = a.planes + static_cast<long long>(b) * a.qm * plane_len + pos;
+  __device__ __forceinline__ explicit GoldBits(const uint8_t* c) {
+    if constexpr (kVec == 16) {
 #pragma unroll
-  for (int t = 0; t < M; ++t) {
+      for (int i = 0; i < NB / 16; ++i) {
+        const uint4 v = reinterpret_cast<const uint4*>(c)[i];
+        word[4 * i] = v.x;
+        word[4 * i + 1] = v.y;
+        word[4 * i + 2] = v.z;
+        word[4 * i + 3] = v.w;
+      }
+    } else if constexpr (kVec == 8) {
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int bit = 2 * t + h;
-      const float llr = h ? lq[t] : li[t];
-      float q = rintf(__fmul_rn(__fmul_rn(llr, inv), a.scale));
-      q = fminf(fmaxf(q, -kLlrMax), kLlrMax);
-      out[bit * plane_len] = static_cast<int8_t>(__fmul_rn(q, sg[bit * plane_len]));
+      for (int i = 0; i < NB / 8; ++i) {
+        const uint2 v = reinterpret_cast<const uint2*>(c)[i];
+        word[2 * i] = v.x;
+        word[2 * i + 1] = v.y;
+      }
+    } else if constexpr (kVec == 4) {
+#pragma unroll
+      for (int i = 0; i < NB / 4; ++i) word[i] = reinterpret_cast<const uint32_t*>(c)[i];
+    } else {
+#pragma unroll
+      for (int i = 0; i < (NB + 3) / 4; ++i) word[i] = 0;
+#pragma unroll
+      for (int i = 0; i < NB / 2; ++i) {
+        const uint32_t v = reinterpret_cast<const uint16_t*>(c)[i];
+        word[i / 2] |= v << (16 * (i % 2));
+      }
     }
   }
+
+  __device__ __forceinline__ bool operator()(int k) const {
+    return (word[k / 4] >> (8 * (k % 4))) & 1u;
+  }
+};
+
+// L consecutive floats, as one vector where L allows.
+template <int L>
+__device__ __forceinline__ void load_lanes(const float* src, float* v) {
+  if constexpr (L == 4) {
+    const float4 x = *reinterpret_cast<const float4*>(src);
+    v[0] = x.x, v[1] = x.y, v[2] = x.z, v[3] = x.w;
+  } else if constexpr (L == 2) {
+    const float2 x = *reinterpret_cast<const float2*>(src);
+    v[0] = x.x, v[1] = x.y;
+  } else {
+#pragma unroll
+    for (int l = 0; l < L; ++l) v[l] = src[l];
+  }
+}
+
+template <int L>
+__device__ __forceinline__ void store_lanes(float* dst, const float* v) {
+  if constexpr (L == 4) {
+    *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+  } else if constexpr (L == 2) {
+    *reinterpret_cast<float2*>(dst) = make_float2(v[0], v[1]);
+  } else {
+#pragma unroll
+    for (int l = 0; l < L; ++l) dst[l] = v[l];
+  }
+}
+
+// The L int8 values of one plane, byte l of `packed` for layer l.
+template <int L>
+__device__ __forceinline__ void store_bytes(int8_t* dst, uint32_t packed) {
+  if constexpr (L == 4) {
+    *reinterpret_cast<uint32_t*>(dst) = packed;
+  } else if constexpr (L == 2) {
+    *reinterpret_cast<uint16_t*>(dst) = static_cast<uint16_t>(packed);
+  } else {
+#pragma unroll
+    for (int l = 0; l < L; ++l) dst[l] = static_cast<int8_t>(packed >> (8 * l));
+  }
+}
+
+template <int M, int L>
+__global__ void __launch_bounds__(kThreads) demap_planes_kernel(Args a) {
+  constexpr int kQm = 2 * M;
+  const int n = blockIdx.x * kThreads + threadIdx.x;
+  if (n >= a.nsc) return;
+  const int np = a.p, nsc = a.nsc;
+  const int y_port = a.nsym * nsc;
+  const int plane_len = a.nsym * nsc * L;
+  const int s = blockIdx.y;
+  const int row = s * nsc + n;  // (symbol, subcarrier) in the slot
+  for (int b = blockIdx.z; b < a.batch; b += gridDim.z) {
+    // Slot bases in 64 bits, offsets inside a slot in 32.
+    const size_t sc = static_cast<size_t>(b) * nsc + n;
+    const float2* y = a.y + static_cast<size_t>(b) * np * y_port + s * nsc + n;
+    const float2* w = a.w + sc * L * np;
+    const uint8_t* cb = a.c + static_cast<size_t>(b) * plane_len * kQm;
+    int8_t* out = a.planes + static_cast<size_t>(b) * kQm * plane_len;
+    float* err2 = a.err2 + static_cast<size_t>(b) * plane_len;
+    float inv[L];
+    load_lanes<L>(a.eq_nvar + sc * L, inv);
+#pragma unroll
+    for (int l = 0; l < L; ++l) inv[l] = 1.0f / fmaxf(inv[l], 1e-12f);
+
+    float xr[L], xi[L];
+#pragma unroll
+    for (int l = 0; l < L; ++l) xr[l] = xi[l] = 0.0f;
+    if ((np & 1) == 0) {
+      // An even P puts each pair of ports of a layer on 16 aligned bytes.
+      const float4* w4 = reinterpret_cast<const float4*>(w);
+      for (int p = 0; p < np; p += 2) {
+        const float2 y0 = y[p * y_port], y1 = y[(p + 1) * y_port];
+#pragma unroll
+        for (int l = 0; l < L; ++l) {
+          const float4 wv = w4[(l * np + p) / 2];
+          apply_port(xr[l], xi[l], make_float2(wv.x, wv.y), y0, p == 0);
+          apply_port(xr[l], xi[l], make_float2(wv.z, wv.w), y1, false);
+        }
+      }
+    } else {
+      for (int p = 0; p < np; ++p) {
+        const float2 yv = y[p * y_port];
+#pragma unroll
+        for (int l = 0; l < L; ++l) apply_port(xr[l], xi[l], w[l * np + p], yv, p == 0);
+      }
+    }
+
+    const GoldBits<L * kQm> gold(cb + row * L * kQm);
+    uint32_t packed[kQm];
+#pragma unroll
+    for (int t = 0; t < kQm; ++t) packed[t] = 0;
+    float err[L];
+#pragma unroll
+    for (int l = 0; l < L; ++l) {
+      float li[M], lq[M];
+      err[l] = __fadd_rn(axis_llrs<M>(xr[l], li), axis_llrs<M>(xi[l], lq));
+#pragma unroll
+      for (int bit = 0; bit < kQm; ++bit) {
+        const float llr = bit & 1 ? lq[bit / 2] : li[bit / 2];
+        float q = rintf(__fmul_rn(__fmul_rn(llr, inv[l]), a.scale));
+        q = fminf(fmaxf(q, -kLlrMax), kLlrMax);
+        if (gold(l * kQm + bit)) q = -q;
+        packed[bit] |= static_cast<uint32_t>(static_cast<uint8_t>(static_cast<int8_t>(q)))
+                       << (8 * l);
+      }
+    }
+#pragma unroll
+    for (int bit = 0; bit < kQm; ++bit) {
+      store_bytes<L>(out + bit * plane_len + row * L, packed[bit]);
+    }
+    store_lanes<L>(err2 + row * L, err);
+  }
+}
+
+using Kernel = void (*)(Args);
+
+// The instance for (qm, L), or nullptr.
+Kernel pick(int qm, int l) {
+  static const Kernel kTable[4][4] = {
+      {demap_planes_kernel<1, 1>, demap_planes_kernel<1, 2>, demap_planes_kernel<1, 3>,
+       demap_planes_kernel<1, 4>},
+      {demap_planes_kernel<2, 1>, demap_planes_kernel<2, 2>, demap_planes_kernel<2, 3>,
+       demap_planes_kernel<2, 4>},
+      {demap_planes_kernel<3, 1>, demap_planes_kernel<3, 2>, demap_planes_kernel<3, 3>,
+       demap_planes_kernel<3, 4>},
+      {demap_planes_kernel<4, 1>, demap_planes_kernel<4, 2>, demap_planes_kernel<4, 3>,
+       demap_planes_kernel<4, 4>}};
+  if (qm < 2 || qm > 8 || qm % 2 || l < 1 || l > 4) return nullptr;
+  return kTable[qm / 2 - 1][l - 1];
 }
 
 }  // namespace
 
-extern "C" int demap_planes(const void* y, const void* w, const void* eq_nvar,
-                            const void* signs, const void* levels, const void* labels,
+extern "C" int demap_planes(const void* y, const void* w, const void* eq_nvar, const void* c,
                             int batch, int p, int nsym, int nsc, int l, int qm, float scale,
                             void* planes, void* err2, void* stream) {
+  const Kernel kernel = pick(qm, l);
+  if (kernel == nullptr || nsym < 1 || nsym > kMaxGrid) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   Args a;
   a.y = static_cast<const float2*>(y);
   a.w = static_cast<const float2*>(w);
   a.eq_nvar = static_cast<const float*>(eq_nvar);
-  a.signs = static_cast<const float*>(signs);
-  a.levels = static_cast<const float*>(levels);
-  a.labels = static_cast<const int*>(labels);
+  a.c = static_cast<const uint8_t*>(c);
   a.batch = batch;
   a.p = p;
   a.nsym = nsym;
   a.nsc = nsc;
-  a.l = l;
-  a.qm = qm;
   a.scale = scale;
   a.planes = static_cast<int8_t*>(planes);
   a.err2 = static_cast<float*>(err2);
-  const long long lanes = static_cast<long long>(batch) * nsym * nsc * l;
-  const int threads = 256;
-  const unsigned blocks = static_cast<unsigned>((lanes + threads - 1) / threads);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (qm) {
-    case 2: demap_planes_kernel<1><<<blocks, threads, 0, s>>>(a); break;
-    case 4: demap_planes_kernel<2><<<blocks, threads, 0, s>>>(a); break;
-    case 6: demap_planes_kernel<3><<<blocks, threads, 0, s>>>(a); break;
-    case 8: demap_planes_kernel<4><<<blocks, threads, 0, s>>>(a); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const dim3 grid((nsc + kThreads - 1) / kThreads, nsym,
+                  batch < kMaxGrid ? batch : kMaxGrid);
+  void* args[] = {&a};
+  return static_cast<int>(cudaLaunchKernel(reinterpret_cast<const void*>(kernel), grid,
+                                           dim3(kThreads), args, 0,
+                                           static_cast<cudaStream_t>(stream)));
+}
+
+// Registers a thread and resident blocks per SM of the (qm, L) instance.
+extern "C" int demap_planes_occupancy(int qm, int l, int* registers, int* blocks) {
+  const Kernel kernel = pick(qm, l);
+  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, reinterpret_cast<const void*>(kernel));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *registers = attr.numRegs;
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, reinterpret_cast<const void*>(kernel), kThreads, 0));
 }

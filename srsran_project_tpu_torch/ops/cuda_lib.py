@@ -54,16 +54,20 @@ _SIGNATURES = {
             _P, _P, _P,  # state records, bits u8 or a-posteriori f32, iters (C,) i32
             _P),  # stream
         "ldpc_decode_blocks_per_sm": (_I, _I, _I, _I, _P)},
-    "mmse_weights_4x4.cu": {"mmse_weights_4x4": (
-        _P, _P, _I, _I,  # h (n, 4, 4) c64, nv (n / rows_per_nv,) f32, n, rows_per_nv
-        _P, _P,  # w (n, 4, 4) c64, eq_nvar (n, 4) f32
-        _P)},  # stream
-    "demap_planes.cu": {"demap_planes": (
-        _P, _P, _P, _P,  # y (B, P, S, N) c64, w (B, N, L, P) c64, eq_nvar, signs f32
-        _P, _P,  # PAM levels f32, bit labels int32
-        _I, _I, _I, _I, _I, _I, _F,  # B, P, S, N, L, qm, scale
-        _P, _P,  # planes (B, qm, S*N*L) int8, err2 (B, S, N*L) f32
-        _P)},  # stream
+    "mmse_weights_4x4.cu": {
+        "mmse_weights_4x4": (
+            _P, _L, _L, _L, _L,  # h (B, nsc, 4, 4) c64 and its element strides
+            _P, _I, _I,  # nv (B,) f32, B, nsc
+            _P, _P,  # w (B, nsc, 4, 4) c64, eq_nvar (B, nsc, 4) f32
+            _P),  # stream
+        "mmse_weights_4x4_occupancy": (_P, _P)},  # registers, blocks per SM
+    "demap_planes.cu": {
+        "demap_planes": (
+            _P, _P, _P, _P,  # y (B, P, S, N) c64, w (B, N, L, P) c64, eq_nvar f32, Gold bits u8
+            _I, _I, _I, _I, _I, _I, _F,  # B, P, S, N, L, qm, scale
+            _P, _P,  # planes (B, qm, S*N*L) int8, err2 (B, S, N*L) f32
+            _P),  # stream
+        "demap_planes_occupancy": (_I, _I, _P, _P)},  # qm, L, registers, blocks per SM
 }
 
 

@@ -13,27 +13,31 @@ data symbol s, subcarrier n, layer l):
   difference of the two min trees (the closed-form max-log LLR of
   ``demap_soft``);
 * q = clip(round(llr * (1 / max(eq_nvar, 1e-12)) * 120 / range_limit),
-  +-120), rounded half to even, times the +-1 descrambling sign, written
-  to plane bit at position (s*nsc + n)*L + l;
+  +-120), rounded half to even, times the descrambling sign 1 - 2c of its
+  Gold bit c[j*qm + t] (j = (s*nsc + n)*L + l), written to plane t at
+  position j;
 * the squared distance to the nearest constellation point (for the
   decision-directed post-equalization SINR).
 
 The TPU kernel's lane expansion (y repeated L times, re/im planes) was a
-Mosaic layout workaround and is left out.
+Mosaic layout workaround and is left out, and so are its f32 sign planes:
+the port reads the uint8 Gold sequence in stream order, a quarter of the
+bytes, with no transpose before the call.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
 
 from . import cuda_lib
-from ._tables import device_table
 from .modulation.demapper import LLR_MAX
 from .modulation.mapper import Modulation, pam_levels
 
 
-def _check(y, w, eq_nvar, signs, mod: Modulation):
+def _check(y, w, eq_nvar, c, mod: Modulation):
     """Validate the shapes and types -> (B, P, S, N, L, qm)."""
     if mod not in (Modulation.QPSK, Modulation.QAM16, Modulation.QAM64, Modulation.QAM256):
         raise NotImplementedError(f"demap_planes: {mod.name} is not a square QAM")
@@ -45,7 +49,7 @@ def _check(y, w, eq_nvar, signs, mod: Modulation):
     l = w.shape[2]
     want = {"y": (y, (b, p, s, n), torch.complex64), "w": (w, (b, n, l, p), torch.complex64),
             "eq_nvar": (eq_nvar, (b, n, l), torch.float32),
-            "signs": (signs, (b, qm, s * n * l), torch.float32)}
+            "c": (c, (b, s * n * l * qm), torch.uint8)}
     for name, (t, shape, dtype) in want.items():
         if tuple(t.shape) != shape or t.dtype != dtype or t.device != y.device:
             raise ValueError(f"demap_planes: {name} is {tuple(t.shape)} {t.dtype} on "
@@ -54,9 +58,9 @@ def _check(y, w, eq_nvar, signs, mod: Modulation):
 
 
 def demap_planes_plain(y: torch.Tensor, w: torch.Tensor, eq_nvar: torch.Tensor,
-                       signs: torch.Tensor, mod: Modulation, range_limit: float = 20.0):
+                       c: torch.Tensor, mod: Modulation, range_limit: float = 20.0):
     """Plain torch version of ``demap_planes`` (same arguments)."""
-    b, p_, s, n, l, qm = _check(y, w, eq_nvar, signs, mod)
+    b, p_, s, n, l, qm = _check(y, w, eq_nvar, c, mod)
     levels, labels = pam_levels(mod)
     lv = [float(np.float32(v)) for v in levels]
     yr, yi = y.real[:, :, :, :, None], y.imag[:, :, :, :, None]  # (B, P, S, N, 1)
@@ -87,41 +91,43 @@ def demap_planes_plain(y: torch.Tensor, w: torch.Tensor, eq_nvar: torch.Tensor,
 
     li, di = axis(xr)
     lq, dq = axis(xi)
-    sg = signs.reshape(b, qm, s, n, l)
+    # Bit t of lane j = (s*N + n)*L + l descrambles with c[j*qm + t].
+    sg = (1.0 - 2.0 * c.to(torch.float32)).reshape(b, s, n, l, qm)
     planes = torch.empty((b, qm, s, n, l), dtype=torch.int8, device=y.device)
     for t in range(qm // 2):
         for bit, llr in ((2 * t, li[t]), (2 * t + 1, lq[t])):
             q = torch.clamp(torch.round(llr * inv * scale), -LLR_MAX, LLR_MAX)
-            planes[:, bit] = (q * sg[:, bit]).to(torch.int8)
+            planes[:, bit] = (q * sg[..., bit]).to(torch.int8)
     return planes.reshape(b, qm, -1), (di + dq).reshape(b, s, n * l)
 
 
-_levels_on = device_table(lambda mod: pam_levels(mod)[0].astype(np.float32))
-_labels_on = device_table(
-    lambda mod: (pam_levels(mod)[1] << np.arange(pam_levels(mod)[1].shape[1])).sum(
-        axis=1).astype(np.int32))
-
-
 def demap_planes(y: torch.Tensor, w: torch.Tensor, eq_nvar: torch.Tensor,
-                 signs: torch.Tensor, mod: Modulation, range_limit: float = 20.0):
+                 c: torch.Tensor, mod: Modulation, range_limit: float = 20.0):
     """Fused equalize-apply + demap + quantize + descramble.
 
     y: (B, P, S, N) complex64 data symbols; w: (B, N, L, P) complex64
     per-subcarrier weights; eq_nvar: (B, N, L) f32 post-equalization noise;
-    signs: (B, qm, S*N*L) f32 descrambling signs (1 - 2c) in plane layout.
+    c: (B, S*N*L*qm) uint8 Gold sequence in stream order, as
+    ``scrambling.gold_sequence`` returns it (plane bit t of lane j
+    descrambles with c[j*qm + t]).
     Returns (planes (B, qm, S*N*L) int8, positive = bit 0, equal to the
     quantized, descrambled LLR stream re-laid as ``llr.reshape(-1, qm).T``;
     err2 (B, S, N*L) f32 squared distances to the nearest point).
 
-    CUDA tensor: kernel K4 (one launch); CPU tensor: the plain version."""
+    CUDA tensor: kernel K4 (one launch; 1-4 layers, contiguous 16-byte
+    aligned inputs); CPU tensor: the plain version."""
     if y.device.type == "cpu":
-        return demap_planes_plain(y, w, eq_nvar, signs, mod, range_limit)
+        return demap_planes_plain(y, w, eq_nvar, c, mod, range_limit)
     if y.device.type != "cuda":
         raise ValueError(f"demap_planes: unsupported device {y.device}")
-    b, p, s, n, l, qm = _check(y, w, eq_nvar, signs, mod)
-    for name, t in (("y", y), ("w", w), ("eq_nvar", eq_nvar), ("signs", signs)):
-        if not t.is_contiguous():
-            raise ValueError(f"demap_planes: {name} must be contiguous")
+    b, p, s, n, l, qm = _check(y, w, eq_nvar, c, mod)
+    if l > 4:
+        raise NotImplementedError(f"demap_planes: {l} layers (the kernel takes 1 to 4)")
+    if max(p, qm) * s * n * l >= 2 ** 31:
+        raise ValueError("demap_planes: a slot must hold fewer than 2^31 elements")
+    for name, t in (("y", y), ("w", w), ("eq_nvar", eq_nvar), ("c", c)):
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"demap_planes: {name} must be contiguous and 16-byte aligned")
     dev = y.device
     planes = torch.empty((b, qm, s * n * l), dtype=torch.int8, device=dev)
     err2 = torch.empty((b, s, n * l), dtype=torch.float32, device=dev)
@@ -130,8 +136,7 @@ def demap_planes(y: torch.Tensor, w: torch.Tensor, eq_nvar: torch.Tensor,
     lib = cuda_lib.library()
     with torch.cuda.device(dev):
         status = lib.demap_planes(
-            y.data_ptr(), w.data_ptr(), eq_nvar.data_ptr(), signs.data_ptr(),
-            _levels_on(dev, mod).data_ptr(), _labels_on(dev, mod).data_ptr(),
+            y.data_ptr(), w.data_ptr(), eq_nvar.data_ptr(), c.data_ptr(),
             b, p, s, n, l, qm, float(np.float32(LLR_MAX / range_limit)),
             planes.data_ptr(), err2.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     cuda_lib.check(status, "demap_planes")
@@ -140,3 +145,13 @@ def demap_planes(y: torch.Tensor, w: torch.Tensor, eq_nvar: torch.Tensor,
 
 
 demap_planes.launches = 0
+
+
+def occupancy(mod: Modulation, nof_layers: int) -> dict:
+    """K4's registers a thread and resident 128-thread blocks per SM for
+    one constellation and layer count, by the CUDA occupancy calculator
+    on the current device."""
+    regs, blocks = ctypes.c_int(0), ctypes.c_int(0)
+    cuda_lib.check(cuda_lib.library().demap_planes_occupancy(
+        int(mod), nof_layers, ctypes.byref(regs), ctypes.byref(blocks)), "demap_planes_occupancy")
+    return {"registers": regs.value, "blocks_per_sm": blocks.value}

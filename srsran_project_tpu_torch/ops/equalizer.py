@@ -18,6 +18,8 @@ every device.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from . import cuda_lib
@@ -131,24 +133,27 @@ def mmse_weights_4x4(h: torch.Tensor, noise_var: torch.Tensor):
     """4x4 MMSE weights: (..., nsc, 4, 4) complex64 h, (...,) noise_var ->
     (w (..., nsc, L, P) complex64, eq_nvar (..., nsc, L) float32).
 
+    h may be any strided view, such as ``h.transpose(1, 2)`` of the channel
+    estimate's (B, P, nsc, L): the kernel reads it through its strides.
+    The leading dimensions are merged with ``reshape``, a view wherever
+    they merge (one leading dimension always does).
+
     CUDA tensor: kernel K3 (one launch); CPU tensor: the plain version."""
     if h.device.type == "cpu":
         return equalize_weights(h, noise_var)
     if h.device.type != "cuda":
         raise ValueError(f"mmse_weights_4x4: unsupported device {h.device}")
-    nv = _check(h, noise_var).contiguous()
-    if not h.is_contiguous():
-        raise ValueError("mmse_weights_4x4: h must be contiguous")
+    nv = _check(h, noise_var).reshape(-1).contiguous()
     nsc = h.shape[-3]
-    n = h.numel() // (P * L)
     w = torch.empty(h.shape, dtype=torch.complex64, device=h.device)
     ev = torch.empty(h.shape[:-1], dtype=torch.float32, device=h.device)
-    if n == 0:
+    if w.numel() == 0:
         return w, ev
+    h4 = h.reshape(-1, nsc, P, L)
     lib = cuda_lib.library()
     with torch.cuda.device(h.device):
-        status = lib.mmse_weights_4x4(h.data_ptr(), nv.data_ptr(), n, nsc,
-                                      w.data_ptr(), ev.data_ptr(),
+        status = lib.mmse_weights_4x4(h4.data_ptr(), *h4.stride(), nv.data_ptr(), h4.shape[0],
+                                      nsc, w.data_ptr(), ev.data_ptr(),
                                       torch.cuda.current_stream(h.device).cuda_stream)
     cuda_lib.check(status, "mmse_weights_4x4")
     mmse_weights_4x4.launches += 1
@@ -156,6 +161,16 @@ def mmse_weights_4x4(h: torch.Tensor, noise_var: torch.Tensor):
 
 
 mmse_weights_4x4.launches = 0
+
+
+def occupancy() -> dict:
+    """K3's registers a thread and resident 256-thread blocks per SM, by
+    the CUDA occupancy calculator on the current device."""
+    regs, blocks = ctypes.c_int(0), ctypes.c_int(0)
+    cuda_lib.check(cuda_lib.library().mmse_weights_4x4_occupancy(ctypes.byref(regs),
+                                                                 ctypes.byref(blocks)),
+                   "mmse_weights_4x4_occupancy")
+    return {"registers": regs.value, "blocks_per_sm": blocks.value}
 
 
 def mmse_weights_rank1(h: torch.Tensor, noise_var: torch.Tensor):

@@ -222,11 +222,13 @@ def _weights(h: torch.Tensor, noise_var: torch.Tensor, cfg: PuschConfig):
     nof_sc, nl, P) and post-equalization noise (B, nof_sc, nl): kernel K3
     for 4x4, the rank-1 algebra for one layer."""
     nl, npr = cfg.nof_layers, cfg.nof_rx_ports
-    hs = h.transpose(1, 2).contiguous()  # (B, nof_sc, P, nl)
+    hs = h.transpose(1, 2)  # (B, nof_sc, P, nl)
     if (nl, npr) == (4, 4):
-        return mmse_weights_4x4(hs, noise_var)
+        return mmse_weights_4x4(hs, noise_var)  # K3 reads the view through its strides
     if nl == 1:
-        return mmse_weights_rank1(hs, noise_var)
+        # Elementwise torch keeps its input's layout: the copy makes w
+        # contiguous, as K4 takes it on the plane path.
+        return mmse_weights_rank1(hs.contiguous(), noise_var)
     raise NotImplementedError(f"{npr}x{nl} equalization: only 4x4 and rank-1 MMSE are "
                               "ported (ROADMAP Q1.8)")
 
@@ -374,17 +376,15 @@ def _demap_planes_ok(cfg: PuschConfig) -> bool:
 
 def _plane_inputs(grid: torch.Tensor, rnti: torch.Tensor, cfg: PuschConfig):
     """(B, P, nsym, nsc) grids and (B,) RNTIs -> ((data rows y, MMSE
-    weights, eq_nvar, descrambling signs in plane layout): the inputs of
-    ``demap_planes``, noise_var (B,)), with the estimate and the weights
-    as in ``_front_end``."""
+    weights, eq_nvar, the (B, G) uint8 Gold sequence in stream order): the
+    inputs of ``demap_planes``, noise_var (B,)), with the estimate and the
+    weights as in ``_front_end``."""
     check_flagship_alloc(cfg.alloc)
     gflat, h, noise_var = _estimate_stage(grid, cfg)
     y = _data_rows(gflat, cfg).contiguous()
     w, eq_sc = _weights(h, noise_var, cfg)
-    qm, g = cfg.sch.qm, cfg.g_total
-    c = scrambling.gold_sequence(_pusch_c_init(rnti, cfg.n_id), g)
-    signs = (1.0 - 2.0 * c.to(torch.float32)).reshape(-1, g // qm, qm).transpose(1, 2)
-    return (y, w, eq_sc, signs.contiguous()), noise_var
+    c = scrambling.gold_sequence(_pusch_c_init(rnti, cfg.n_id), cfg.g_total)
+    return (y, w, eq_sc, c), noise_var
 
 
 def _front_end_planes(grid: torch.Tensor, rnti: torch.Tensor, cfg: PuschConfig):

@@ -8,9 +8,9 @@ none; there, skip the suite's conftest (which pins JAX to the CPU):
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
-Tolerances: K1 and K2 bits, a-posteriori LLRs and iteration counts exact,
-and K4 planes exact with err2 at rtol 1e-6 (both sides round the same
-float operations in the same order); K3 as tests/test_torch_equalizer.py;
+Tolerances: K1 and K2 bits, a-posteriori LLRs and iteration counts exact;
+K3's W and eq_nvar and K4's planes and err2 bitwise (both sides round the
+same float operations in the same order);
 IQ 1e-4 x RMS and int8 LLRs within +-1 (cuFFT and pocketfft round
 differently); TB bits and CRC exact; noise_var and SINR 1e-3 relative;
 HARQ buffers within +-2 (two +-1 LLRs combined).
@@ -66,19 +66,29 @@ def test_k1_matches_plain(cuda_device, kw, early_stop):  # noqa: F811
         off += count * e
 
 
-def test_k3_matches_plain(cuda_device):  # noqa: F811
+@pytest.mark.parametrize("nsc", [3276, 97])
+@pytest.mark.parametrize("batch", [1, 3])
+@pytest.mark.parametrize("layout", ["contiguous", "strided"])
+def test_k3_matches_plain(cuda_device, layout, batch, nsc):  # noqa: F811
+    """K3 equals its plain version on the card bitwise (W and eq_nvar), on
+    a contiguous (B, nsc, P, L) input and on the (B, nsc, P, L) view of a
+    (B, P, nsc, L) estimate, noise variances from 1e-13 (clamped to 1e-12)
+    to 1."""
     rng = np.random.default_rng(7)
-    h = ((rng.standard_normal((2, 3276, 4, 4)) + 1j * rng.standard_normal((2, 3276, 4, 4)))
+    h = ((rng.standard_normal((batch, 4, nsc, 4)) + 1j * rng.standard_normal((batch, 4, nsc, 4)))
          * 0.5).astype(np.complex64)
-    nv = np.array([0.013, 0.5], np.float32)
+    nv = np.array([1e-13, 0.013, 1.0][-batch:], np.float32)
+    h_t = to_torch(h).to(cuda_device).transpose(1, 2)
+    if layout == "contiguous":
+        h_t = h_t.contiguous()
+    nv_t = to_torch(nv).to(cuda_device)
     before = equalizer.mmse_weights_4x4.launches
-    w_k, e_k = equalizer.mmse_weights_4x4(to_torch(h).to(cuda_device),
-                                          to_torch(nv).to(cuda_device))
+    w_k, e_k = equalizer.mmse_weights_4x4(h_t, nv_t)
     assert equalizer.mmse_weights_4x4.launches == before + 1
-    w_p, e_p = equalizer.equalize_weights(to_torch(h), to_torch(nv))
-    assert np.abs(to_np(w_k) - to_np(w_p)).max() <= 1e-4 * max(1.0, float(w_p.abs().max()))
-    e_p = to_np(e_p)
-    assert (np.abs(to_np(e_k) - e_p) <= 1e-4 * np.maximum(1.0, np.abs(e_p))).all()
+    w_p, e_p = equalizer.equalize_weights(h_t, nv_t)
+    np.testing.assert_array_equal(to_np(torch.view_as_real(w_k)).view(np.int32),
+                                  to_np(torch.view_as_real(w_p)).view(np.int32))
+    np.testing.assert_array_equal(to_np(e_k).view(np.int32), to_np(e_p).view(np.int32))
 
 
 def test_slice_on_card_matches_cpu(cuda_device):  # noqa: F811
@@ -150,23 +160,41 @@ def test_k2_matches_plain(cuda_device, kw, f32):  # noqa: F811
                                               to_np(app_p.view(torch.int32)))
 
 
-@pytest.mark.parametrize("mod, p, l", [(Modulation.QAM256, 4, 4), (Modulation.QAM64, 4, 1),
-                                       (Modulation.QPSK, 2, 1)])
-def test_k4_matches_plain(cuda_device, mod, p, l):  # noqa: F811
+@pytest.mark.parametrize("n", [97, 3276])
+@pytest.mark.parametrize("l, p", [(1, 4), (2, 4), (3, 3), (4, 4), (1, 2), (2, 2)],
+                         ids=lambda v: str(v))
+@pytest.mark.parametrize("mod", [Modulation.QPSK, Modulation.QAM16, Modulation.QAM64,
+                                 Modulation.QAM256], ids=lambda m: m.name)
+def test_k4_matches_plain(cuda_device, mod, l, p, n):  # noqa: F811
+    """K4 equals its plain version on the card bitwise, planes and err2,
+    for every square QAM at 1-4 layers, batch 3: 4 ports; 3 at 3 layers
+    (the odd-port path); and 2 ports at 1 and 2 layers (one port pair
+    per float4 of weights)."""
     rng = np.random.default_rng(11)
-    b, s, n, qm = 2, 12, 3276, int(mod)
+    b, s, qm = 3, 12, int(mod)
     y = (rng.standard_normal((b, p, s, n)) + 1j * rng.standard_normal((b, p, s, n)))
     w = (rng.standard_normal((b, n, l, p)) + 1j * rng.standard_normal((b, n, l, p))) * 0.3
     ev = (0.05 + rng.random((b, n, l))).astype(np.float32)
-    signs = (1.0 - 2.0 * rng.integers(0, 2, size=(b, qm, s * n * l))).astype(np.float32)
-    ins = [to_torch(y.astype(np.complex64)), to_torch(w.astype(np.complex64)), to_torch(ev),
-           to_torch(signs)]
+    c = rng.integers(0, 2, size=(b, s * n * l * qm), dtype=np.uint8)
+    ins = [to_torch(y.astype(np.complex64)).to(cuda_device),
+           to_torch(w.astype(np.complex64)).to(cuda_device), to_torch(ev).to(cuda_device),
+           to_torch(c).to(cuda_device)]
     before = dp.demap_planes.launches
-    planes_k, err_k = dp.demap_planes(*[t.to(cuda_device) for t in ins], mod)
+    planes_k, err_k = dp.demap_planes(*ins, mod)
     assert dp.demap_planes.launches == before + 1
-    planes_p, err_p = dp.demap_planes_plain(*[t.to(cuda_device) for t in ins], mod)
+    planes_p, err_p = dp.demap_planes_plain(*ins, mod)
     np.testing.assert_array_equal(to_np(planes_k), to_np(planes_p))
-    np.testing.assert_allclose(to_np(err_k), to_np(err_p), rtol=1e-6)
+    np.testing.assert_array_equal(to_np(err_k).view(np.int32), to_np(err_p).view(np.int32))
+
+
+def test_k3_k4_occupancy_on_card(cuda_device):  # noqa: F811
+    """The occupancy entry points answer for K3 and every K4 instance."""
+    k3 = equalizer.occupancy()
+    assert k3["registers"] > 0 and k3["blocks_per_sm"] >= 1
+    for mod in (Modulation.QPSK, Modulation.QAM16, Modulation.QAM64, Modulation.QAM256):
+        for l in (1, 2, 3, 4):
+            k4 = dp.occupancy(mod, l)
+            assert k4["registers"] > 0 and k4["blocks_per_sm"] >= 1, (mod, l, k4)
 
 
 def test_k1_plane_layout_on_card(cuda_device):  # noqa: F811

@@ -2,8 +2,10 @@
 the plane path of the flagship decode, against the JAX package.
 
 Tolerances:
-* K4's plain version against ``demap_planes_pallas`` in interpret mode:
-  planes within +-1 and equal on >= 99.9 % of positions, err2 at rtol
+* K4's plain version against ``demap_planes_pallas`` in interpret mode
+  (every square QAM at 1-4 layers; the port takes the uint8 Gold bits,
+  the reference the f32 sign planes made from the same bits): planes
+  within +-1 and equal on >= 99.9 % of positions, err2 at rtol
   1e-5 plus atol 1e-7.  XLA on the CPU contracts the reference's
   multiply-adds (the weights apply, the distance squares) into FMAs, the
   port rounds each on its own (ROADMAP Q3): the equalized symbol differs
@@ -17,6 +19,9 @@ Tolerances:
   exact against the reference's plane functions in interpret mode, and
   the planes within +-1 of theirs.
 """
+
+import pathlib
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -32,10 +37,12 @@ from srsran_project_tpu.ops.modulation import Modulation as JModulation
 from srsran_project_tpu.phy import pusch as jpusch
 from srsran_project_tpu.phy import sch as jsch
 from srsran_project_tpu_torch.models import cell as tcell
+from srsran_project_tpu_torch.ops import demap_planes as tdp
 from srsran_project_tpu_torch.ops import ofdm as tofdm
 from srsran_project_tpu_torch.ops.demap_planes import demap_planes
 from srsran_project_tpu_torch.ops.ldpc import decoder as tdec
 from srsran_project_tpu_torch.ops.modulation import Modulation
+from srsran_project_tpu_torch.ops.modulation.mapper import pam_levels
 from srsran_project_tpu_torch.phy import pusch as tpusch
 from srsran_project_tpu_torch.phy import sch as tsch
 
@@ -46,9 +53,13 @@ def _inputs(rng, b, p, l, s, n, qm):
     y = (rng.standard_normal((b, p, s, n)) + 1j * rng.standard_normal((b, p, s, n)))
     w = (rng.standard_normal((b, n, l, p)) + 1j * rng.standard_normal((b, n, l, p))) * 0.3
     ev = 0.05 + rng.random((b, n, l))
-    signs = 1.0 - 2.0 * rng.integers(0, 2, size=(b, qm, s * n * l))
-    return (y.astype(np.complex64), w.astype(np.complex64), ev.astype(np.float32),
-            signs.astype(np.float32))
+    c = rng.integers(0, 2, size=(b, s * n * l * qm), dtype=np.uint8)
+    return y.astype(np.complex64), w.astype(np.complex64), ev.astype(np.float32), c
+
+
+def _sign_planes(c, qm):
+    """The reference's f32 sign planes of one slot's Gold bits c (G,)."""
+    return (1.0 - 2.0 * c.astype(np.float32)).reshape(-1, qm).T.copy()
 
 
 def _close_planes(got, want):
@@ -56,21 +67,63 @@ def _close_planes(got, want):
     assert d.max() <= 1 and (d == 0).mean() >= 0.999, (d.max(), (d == 0).mean())
 
 
-@pytest.mark.parametrize("mod, p, l", [(Modulation.QAM16, 2, 2), (Modulation.QAM64, 1, 1),
-                                       (Modulation.QAM256, 4, 4)])
-def test_k4_plain_matches_pallas(mod, p, l):
-    rng = np.random.default_rng(int(mod))
-    b, s, n = 2, 5, 96
-    y, w, ev, signs = _inputs(rng, b, p, l, s, n, int(mod))
-    got, err2 = demap_planes(to_torch(y), to_torch(w), to_torch(ev), to_torch(signs), mod)
-    assert got.dtype == torch.int8 and got.shape == (b, int(mod), s * n * l)
+# Every square QAM at 1-4 layers, with as many ports as layers (P odd and
+# even); QAM64 x 4 layers puts a subcarrier's 24 Gold bits off any 16-byte
+# boundary.
+@pytest.mark.parametrize("l", [1, 2, 3, 4])
+@pytest.mark.parametrize("mod", [Modulation.QPSK, Modulation.QAM16, Modulation.QAM64,
+                                 Modulation.QAM256], ids=lambda m: m.name)
+def test_k4_plain_matches_pallas(mod, l):
+    p = l
+    rng = np.random.default_rng(int(mod) * 10 + l)
+    b, s, n, qm = 2, 5, 96, int(mod)
+    y, w, ev, c = _inputs(rng, b, p, l, s, n, qm)
+    got, err2 = demap_planes(to_torch(y), to_torch(w), to_torch(ev), to_torch(c), mod)
+    assert got.dtype == torch.int8 and got.shape == (b, qm, s * n * l)
     for k in range(b):
         want, want_err2 = demap_planes_pallas(
-            jnp.asarray(y[k]), jnp.asarray(w[k]), jnp.asarray(ev[k]), jnp.asarray(signs[k]),
-            JModulation(int(mod)), l, p, interpret=True)
+            jnp.asarray(y[k]), jnp.asarray(w[k]), jnp.asarray(ev[k]),
+            jnp.asarray(_sign_planes(c[k], qm)), JModulation(qm), l, p, interpret=True)
         _close_planes(to_np(got[k]), np.asarray(want))
         np.testing.assert_allclose(to_np(err2[k]), np.asarray(want_err2), rtol=1e-5,
                                    atol=1e-7)
+
+
+def test_k4_descrambles_with_gold_bits():
+    """Flipping Gold bit j*qm + t negates plane t at lane j and nothing
+    else (the (B, G) stream order of ``scrambling.gold_sequence``)."""
+    rng = np.random.default_rng(4)
+    b, p, l, s, n, qm = 1, 2, 3, 2, 10, 6
+    y, w, ev, c = _inputs(rng, b, p, l, s, n, qm)
+    base, _ = demap_planes(to_torch(y), to_torch(w), to_torch(ev), to_torch(c), Modulation.QAM64)
+    for j, t in ((0, 0), (7, 5), (s * n * l - 1, 3)):
+        c2 = c.copy()
+        c2[0, j * qm + t] ^= 1
+        got, _ = demap_planes(to_torch(y), to_torch(w), to_torch(ev), to_torch(c2),
+                              Modulation.QAM64)
+        want = base.clone()
+        want[0, t, j] = -want[0, t, j]
+        np.testing.assert_array_equal(to_np(got), to_np(want))
+
+
+_PAM_TABLE = re.compile(
+    r"struct Pam<(\d)> \{.*?kLevels\[\d+\] = \{([^}]*)\};.*?kLabels\[\d+\] = \{([^}]*)\};",
+    re.S)
+
+
+def test_k4_constellation_tables_match_pam_levels():
+    """K4's compile-time PAM levels and Gray labels (csrc/demap_planes.cu)
+    are pam_levels' float32 values, for every square QAM."""
+    src = (pathlib.Path(tdp.__file__).resolve().parent.parent / "csrc" / "demap_planes.cu")
+    tables = {int(m): (lv, lab) for m, lv, lab in _PAM_TABLE.findall(src.read_text())}
+    assert sorted(tables) == [1, 2, 3, 4]
+    for mod in (Modulation.QPSK, Modulation.QAM16, Modulation.QAM64, Modulation.QAM256):
+        levels, labels = pam_levels(mod)
+        lv, lab = tables[int(mod) // 2]
+        got = np.array([np.float32(x.strip().rstrip("f")) for x in lv.split(",")])
+        np.testing.assert_array_equal(got.view(np.int32), levels.astype(np.float32).view(np.int32))
+        want_lab = (labels << np.arange(labels.shape[1])).sum(axis=1)
+        np.testing.assert_array_equal([int(x) for x in lab.split(",")], want_lab)
 
 
 def test_k1_plane_layout_matches_stream():

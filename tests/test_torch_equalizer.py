@@ -75,6 +75,47 @@ def test_slot_batch_uses_each_slots_noise():
         np.testing.assert_array_equal(to_np(e[s]), to_np(e1))
 
 
+def test_strided_view_equals_contiguous_copy():
+    """The (B, nsc, P, L) view of the estimate's (B, P, nsc, L) channels,
+    as ``pusch._weights`` hands it over, gives bitwise the weights of its
+    contiguous copy: batch 3, 97 subcarriers (no multiple of K3's 64 a
+    block), one noise variance per slot."""
+    rng = np.random.default_rng(9)
+    h = ((rng.standard_normal((3, 4, 97, 4)) + 1j * rng.standard_normal((3, 4, 97, 4)))
+         * 0.5).astype(np.complex64)
+    nv = to_torch(np.array([1e-13, 0.013, 1.0], np.float32))
+    view = to_torch(h).transpose(1, 2)
+    assert not view.is_contiguous()
+    w_v, e_v = teq.mmse_weights_4x4(view, nv)
+    w_c, e_c = teq.mmse_weights_4x4(view.contiguous(), nv)
+    np.testing.assert_array_equal(to_np(torch.view_as_real(w_v)), to_np(torch.view_as_real(w_c)))
+    np.testing.assert_array_equal(to_np(e_v), to_np(e_c))
+
+
+def test_pusch_weights_pass_the_estimate_uncopied(monkeypatch):
+    """``pusch._weights`` hands K3 a view of the channel estimate, not a
+    copy: the kernel reads the estimate's layout through its strides."""
+    from srsran_project_tpu_torch.models import cell
+    from srsran_project_tpu_torch.phy import pusch
+
+    seen = []
+
+    def spy(h, nv):
+        seen.append(h)
+        return teq.mmse_weights_4x4(h, nv)
+
+    monkeypatch.setattr(pusch, "mmse_weights_4x4", spy)
+    cfg = cell.CellConfig(nof_rb=24, nof_ports=4, nof_layers=4).pusch_cfg
+    rng = np.random.default_rng(10)
+    h = to_torch((rng.standard_normal((2, 4, 288, 4)) + 1j * rng.standard_normal((2, 4, 288, 4)))
+                 .astype(np.complex64))  # (B, P, nsc, L)
+    w, e = pusch._weights(h, torch.tensor([0.01, 0.02]), cfg)
+    assert len(seen) == 1 and seen[0].data_ptr() == h.data_ptr()
+    assert seen[0].shape == (2, 288, 4, 4) and not seen[0].is_contiguous()
+    w_c, e_c = teq.mmse_weights_4x4(h.transpose(1, 2).contiguous(), torch.tensor([0.01, 0.02]))
+    assert torch.equal(w, w_c) and torch.equal(e, e_c)
+
+
 def test_rejects_bad_inputs():
     with pytest.raises(ValueError):
         teq.mmse_weights_4x4(torch.zeros((10, 4, 2), dtype=torch.complex64), torch.tensor(0.1))
