@@ -9,7 +9,7 @@ Run from the repository root on a machine with one NVIDIA Hopper card:
 It builds the port's CUDA kernels from ``srsran_project_tpu_torch/csrc``
 (into ``build/``, one ``nvcc`` per source, side by side), checks each
 kernel against its plain torch version on the card at the shapes of the
-paths below, then drives three paths through the port's public entry
+paths below, then drives four paths through the port's public entry
 points, each with every kernel launch counter set to 0 just before it and
 read just after:
 
@@ -28,9 +28,22 @@ read just after:
 3. the flagship decode with ``demapper="planes"`` on the slots of path 1
    (kernels K3, K4 and one K1 launch reading the bit-plane layout), whose
    TB bits must equal the float path's; K4 and K1 are held against their
-   plain versions on that batch's own tensors.
+   plain versions on that batch's own tensors;
+4. the whole uplink slot on the same carrier -> ``ul_slot.process_slot``
+   (K2 once per code group, K3 once): two 4-layer 256QAM grants with 2
+   HARQ-ACK bits (reserved, punctured), CSI part 1 of 40 bits and CSI part
+   2 of 400 bits (two polar segments); four rank-2 64QAM grants with 11
+   HARQ-ACK bits (short block, rate-matched) and CSI part 1 of 19 bits
+   (polar + CRC6 + PC bits); two rank-1 QPSK grants with repetition and 1
+   HARQ-ACK bit; and six PUCCH occasions: F2 with 22 and 6 UCI bits, F1
+   with 1 and 2 HARQ bits (one hopping), F0 with 1 HARQ bit and a positive
+   SR and with 2 HARQ bits.  The UE side is the port's own (``pusch.transmit``
+   with UCI, ``pucch.format0/1_generate``, ``pucch_f2.generate``).  K2 is
+   held against its plain version on the slot's code groups (BG1 Z=384,
+   Z=320, BG2 Z=36).
 
-Every CRC and every bit is checked.  It then times each path per slot and
+Every CRC, every TB and UCI bit, every ``_ok`` flag and every PUCCH value
+is checked, and each PUCCH metric against its DTX threshold.  It then times each path per slot and
 the flagship decode's stages (CUDA events around eager calls, host
 included), each kernel's device time (``kernel_ms``: calls queued behind a
 sleep kernel, so they run back to back) and its plain version's time
@@ -261,7 +274,7 @@ def ul_grid(ues, noise, device, retx_rv: int | None = None):
         cfg = ul_config(*ue["shape"], ue["first_rb"], rv)
         sub = pusch.transmit(torch.from_numpy(ue["tb"]).to(device),
                              torch.tensor(ue["rnti"], device=device), cfg,
-                             torch.from_numpy(ue["channel"]).to(device))
+                             precoding=torch.from_numpy(ue["channel"]).to(device))
         sc0 = 12 * ue["first_rb"]
         grid[:, :, sc0 : sc0 + cfg.nof_grid_sc] += sub
         cfgs.append(cfg)
@@ -392,6 +405,233 @@ def _fused_ok(cfg) -> bool:
     from srsran_project_tpu_torch.phy.sch import _fused_decode_ok
 
     return _fused_decode_ok(cfg.sch)
+
+
+# ---- the whole uplink slot ---------------------------------------------------
+
+# Path 4 on the same carrier and grant symbols: per group (UEs, layers,
+# bits per symbol, code rate, PRBs each, (HARQ-ACK, CSI part 1, CSI part 2)
+# payload bits on PUSCH), beta offset indices 9 (the defaults).
+UL4_GROUPS = (
+    (2, 4, 8, 948.0 / 1024.0, 80, (2, 40, 400)),  # A: UEs 0-1, PRB 0-159 (K3)
+    (4, 2, 6, 567.0 / 1024.0, 22, (11, 19, 0)),   # B: UEs 2-5, PRB 160-247
+    (2, 1, 2, 120.0 / 1024.0, 8, (1, 0, 0)),      # C: UEs 6-7, PRB 248-263, repetition
+)
+UL4_RNTI = 0x4701
+UL4_NID = 1  # PUCCH hopping / scrambling id
+# Per group: TBS, G_ack, reserved ACK bits, G_csi1, G_csi2, SCH data bits
+# (the JAX package's PuschConfig.uci_mux on these grants).
+UL4_MUX = ((344376, 32, 32, 192, 1376, 367072), (21000, 252, 0, 144, 0, 37620),
+           (272, 100, 198, 0, 0, 2304))
+
+
+def ul4_pucch():
+    """Path 4's PUCCH occasions: (F1 configs, F0 configs, F2 configs)."""
+    from srsran_project_tpu_torch.phy import pucch, pucch_f2
+
+    nsc = UL_NOF_PRB * 12
+    f2 = dict(start_symbol=12, nof_symbols=2, n_id=UL4_NID, n_id0=UL4_NID,
+              nof_rx_ports=UL_NOF_PORTS, nof_grid_sc=nsc)
+    f1 = dict(start_symbol=0, nof_symbols=14, occ_index=0, n_id=UL4_NID, nof_grid_sc=nsc)
+    f0 = dict(start_symbol=12, nof_symbols=2, initial_cyclic_shift=0, n_id=UL4_NID,
+              nof_grid_sc=nsc)
+    # F1 #1 starts on PRB 267, not on F1 #0's PRB: the F1 detector (the
+    # reference's) estimates the channel per subcarrier, so a second F1 on
+    # the same PRB, whatever its cyclic shift, adds its own d |h|^2 to the
+    # correlation and pulls rho under the DTX threshold.
+    return ((pucch.PucchFormat1Config(prb=266, initial_cyclic_shift=0, nof_harq_bits=1, **f1),
+             pucch.PucchFormat1Config(prb=267, initial_cyclic_shift=6, nof_harq_bits=2,
+                                      second_hop_prb=272, **f1)),
+            (pucch.PucchFormat0Config(prb=268, nof_harq_bits=1, sr_opportunity=True, **f0),
+             pucch.PucchFormat0Config(prb=269, nof_harq_bits=2, **f0)),
+            (pucch_f2.PucchFormat2Config(rb_start=264, rb_count=2, nof_uci_bits=22,
+                                         rnti=0x4711, **f2),
+             pucch_f2.PucchFormat2Config(rb_start=270, rb_count=2, nof_uci_bits=6,
+                                         rnti=0x4712, **f2)))
+
+
+def ul4_config(layers: int, qm: int, rate: float, nof_rb: int, uci: tuple, first_rb: int):
+    """A path-4 grant: ``ul_config`` with UCI on PUSCH."""
+    from srsran_project_tpu_torch.phy.pusch import UciOnPuschConfig
+
+    return dataclasses.replace(ul_config(layers, qm, rate, nof_rb, first_rb),
+                               uci=UciOnPuschConfig(*uci))
+
+
+def _unit_rows(rng, rows: int) -> np.ndarray:
+    """(rows, 4) complex64 channel: a random unitary matrix (4 rows),
+    orthonormal rows (2), a unit-norm row (1)."""
+    h = rng.standard_normal((UL_NOF_PORTS, rows, 2))
+    h = h[..., 0] + 1j * h[..., 1]
+    h = np.linalg.qr(h)[0] if rows > 1 else h / np.linalg.norm(h)
+    return h.T.astype(np.complex64)
+
+
+def ul4_plan(seed: int = SEED):
+    """Everything random about path 4, made with numpy from ``seed``: per UE
+    a dict of rnti, first_rb, shape, UCI sizes, TB bits, UCI payloads and
+    channel; per PUCCH occasion (in the order F1, F0, F2) its payload and
+    (1, 4) channel; the (4, 14, 3276) noise at SNR_DB per RE and port."""
+    rng = np.random.default_rng(seed + 4)
+    ues, rb = [], 0
+    for nof_ues, layers, qm, rate, nof_rb, uci in UL4_GROUPS:
+        for _ in range(nof_ues):
+            cfg = ul4_config(layers, qm, rate, nof_rb, uci, rb)
+            ues.append(dict(rnti=UL4_RNTI + len(ues), first_rb=rb,
+                            shape=(layers, qm, rate, nof_rb, uci),
+                            tb=rng.integers(0, 2, size=(cfg.tbs,), dtype=np.uint8),
+                            uci=[rng.integers(0, 2, size=(n,), dtype=np.uint8) if n else None
+                                 for n in uci],
+                            channel=_unit_rows(rng, layers)))
+            rb += nof_rb
+    f1, f0, f2 = ul4_pucch()
+    pucch = {"f1": [(rng.integers(0, 2, size=(c.nof_harq_bits,), dtype=np.uint8),
+                     _unit_rows(rng, 1)) for c in f1],
+             "f0": [(v, _unit_rows(rng, 1)) for v in (1, 2)],  # F0 #0 with a positive SR
+             "f2": [(rng.integers(0, 2, size=(c.nof_uci_bits,), dtype=np.uint8),
+                     _unit_rows(rng, 1)) for c in f2]}
+    sigma = np.sqrt(0.5 * 10 ** (-SNR_DB / 10))
+    noise = rng.standard_normal((UL_NOF_PORTS, 14, UL_NOF_PRB * 12, 2)) * sigma
+    return ues, pucch, (noise[..., 0] + 1j * noise[..., 1]).astype(np.complex64)
+
+
+def ul4_grid(ues, pucch_plan, noise, device):
+    """The received (4, 14, 3276) grid of path 4, built on ``device`` by the
+    port's own UE-side code (``pusch.transmit`` with UCI,
+    ``pucch.format0/1_generate``, ``pucch_f2.generate``), and each UE's
+    config."""
+    import torch
+
+    from srsran_project_tpu_torch.phy import pucch, pucch_f2, pusch
+
+    def on(x):
+        return torch.from_numpy(x).to(device)
+
+    grid = on(noise)
+    cfgs = []
+    for ue in ues:
+        cfg = ul4_config(*ue["shape"], ue["first_rb"])
+        sub = pusch.transmit(on(ue["tb"]), torch.tensor(ue["rnti"], device=device), cfg,
+                             *[None if u is None else on(u) for u in ue["uci"]],
+                             precoding=on(ue["channel"]))
+        sc0 = 12 * ue["first_rb"]
+        grid[:, :, sc0 : sc0 + cfg.nof_grid_sc] += sub
+        cfgs.append(cfg)
+    f1, f0, f2 = ul4_pucch()
+    for c, (bits, h) in zip(f1, pucch_plan["f1"]):
+        sig = pucch.format1_generate(c, bits, device=device)
+        for syms, _dmrs, _data, prb in pucch._f1_hops(c):
+            for s in syms:
+                grid[:, s, 12 * prb : 12 * prb + 12] += on(h[0])[:, None] * sig[s - c.start_symbol]
+    for c, (value, h) in zip(f0, pucch_plan["f0"]):
+        sig = pucch.format0_generate(c, value, sr=c.sr_opportunity, device=device)
+        for i in range(c.nof_symbols):
+            grid[:, c.start_symbol + i, 12 * c.prb : 12 * c.prb + 12] += on(h[0])[:, None] * sig[i]
+    for c, (bits, h) in zip(f2, pucch_plan["f2"]):
+        grid += on(h[0])[:, None, None] * pucch_f2.generate(c, bits, device=device)
+    return grid, cfgs
+
+
+def ul4_phase(card: str) -> tuple[dict, float]:
+    """Path 4: the 8-UE slot with UCI on PUSCH at ranks 1, 2 and 4 and six
+    PUCCH occasions (F0, F1, F2) through ``ul_slot.process_slot``, with
+    the launch counters read around it and K2 checked against its plain
+    version on the slot's code groups; returns the launch counts and K2's
+    largest a-posteriori difference."""
+    import torch
+
+    from srsran_project_tpu_torch.phy import pucch, ul_slot
+
+    dev = torch.device(DEVICE)
+    ues, pucch_plan, noise = ul4_plan()
+    grid, cfgs = ul4_grid(ues, pucch_plan, noise, dev)
+    f1, f0, f2 = ul4_pucch()
+    pdus = [ul_slot.UlSlotPdu(rnti=ue["rnti"], first_rb=ue["first_rb"], config=cfg)
+            for ue, cfg in zip(ues, cfgs)]
+    for g, (nof_ues, *_rest) in enumerate(UL4_GROUPS):
+        c = cfgs[sum(n for n, *_r in UL4_GROUPS[:g])]
+        m = c.uci_mux
+        got = (c.tbs, m.g_ack, m.g_ack_rvd, m.g_csi1, m.g_csi2, m.nof_data_bits)
+        if got != UL4_MUX[g]:
+            fail(f"ul_slot_uci group {'ABC'[g]}: (TBS, G_ack, reserved, G_csi1, G_csi2, data) "
+                 f"{got}, want {UL4_MUX[g]}")
+        print(f"# ul_slot_uci group {'ABC'[g]} ({nof_ues} UEs): TBS {got[0]}, G_ack {got[1]} "
+              f"(reserved {got[2]}), G_csi1 {got[3]}, G_csi2 {got[4]}, SCH data bits {got[5]}, "
+              f"{c.sch.seg.nof_codeblocks} codeblocks BG{c.sch.seg.base_graph} "
+              f"Z={c.sch.seg.lifting_size}")
+
+    def run():
+        return ul_slot.process_slot(grid, pdus, f1, f0, f2)
+
+    torch.cuda.synchronize()
+    reset_counts()
+    res, f1_out, f0_out, f2_out = run()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    expect_counts("ul_slot_uci", counts, {"decode": 3, "mmse_weights_4x4": 1})
+    k2_err, geometries = check_code_groups(grid, pdus, "ul_slot_uci")
+    want = ["BG1 Z=384", "BG1 Z=320", "BG2 Z=36"]
+    if sorted(geometries) != sorted(want):
+        fail(f"ul_slot_uci: K2 code groups {geometries}, want {want}")
+
+    for i, (r, ue) in enumerate(zip(res, ues)):
+        errs = int((r["tb_bits"].cpu().numpy() != ue["tb"]).sum())
+        flags = {}
+        for part, name in zip(ue["uci"], ("harq_ack", "csi1", "csi2")):
+            if part is None:
+                continue
+            ok = bool(r[f"{name}_ok"])
+            wrong = int((r[f"{name}_bits"].cpu().numpy() != part).sum())
+            flags[name] = (ok, wrong)
+            if not ok or wrong:
+                fail(f"ul_slot_uci UE {i}: {name} ok {ok} with {wrong} of {part.size} bits wrong")
+        print(f"# ul_slot_uci UE {i} (rank {ue['shape'][0]}): CRC {bool(r['tb_crc_ok'])}, "
+              f"bit errors {errs}, UCI (ok, wrong bits) {flags}, "
+              f"SINR {float(r['snr_db']):.2f} dB")
+        if not bool(r["tb_crc_ok"]) or errs:
+            fail(f"ul_slot_uci UE {i}: CRC {bool(r['tb_crc_ok'])} with {errs} bit errors")
+        if not (np.isfinite(float(r["noise_var"])) and np.isfinite(float(r["snr_db"]))):
+            fail(f"ul_slot_uci UE {i}: non-finite noise_var / snr_db")
+    for j, ((bits, rho), (sent, _h)) in enumerate(zip(f1_out, pucch_plan["f1"])):
+        print(f"# ul_slot_uci F1 #{j}: bits {bits.tolist()} (sent {sent.tolist()}), "
+              f"rho {float(rho):.4f} (DTX threshold {pucch.F1_DTX_THRESHOLD})")
+        if bits.cpu().numpy().tolist() != sent.tolist() or not float(rho) > pucch.F1_DTX_THRESHOLD:
+            fail(f"ul_slot_uci F1 #{j}: bits {bits.tolist()}, rho {float(rho):.4f}")
+    for j, ((value, metric), (sent, _h), c) in enumerate(zip(f0_out, pucch_plan["f0"], f0)):
+        want_value = sent + (len(pucch._f0_candidates(c)) // 2 if c.sr_opportunity else 0)
+        print(f"# ul_slot_uci F0 #{j}: value {int(value)} (sent {want_value}), metric "
+              f"{float(metric):.4f} (DTX threshold {pucch.F0_DTX_THRESHOLD})")
+        if int(value) != want_value or not float(metric) > pucch.F0_DTX_THRESHOLD:
+            fail(f"ul_slot_uci F0 #{j}: value {int(value)}, metric {float(metric):.4f}")
+    for j, ((bits, ok, snr_db), (sent, _h)) in enumerate(zip(f2_out, pucch_plan["f2"])):
+        wrong = int((bits.cpu().numpy() != sent).sum())
+        print(f"# ul_slot_uci F2 #{j}: {sent.size} UCI bits, ok {bool(ok)}, {wrong} wrong, "
+              f"SNR {float(snr_db):.2f} dB")
+        if not bool(ok) or wrong:
+            fail(f"ul_slot_uci F2 #{j}: ok {bool(ok)} with {wrong} bits wrong")
+
+    ms = cuda_ms(run, reps=5)
+    print(f"# [{card}] ul_slot_uci: 8 UEs (UCI on PUSCH, ranks 4/2/1) + 6 PUCCH occasions, "
+          f"273 PRB x 4 ports: {ms:.4f} ms/slot")
+    print(f"# [{card}] ul_slot_uci: {device_kernels_per_call(run)} device kernels per call")
+    return counts, k2_err
+
+
+def device_kernels_per_call(fn) -> str:
+    """The device kernels one call of fn launches, counted by
+    torch.profiler (after a warm-up call); "not measured" where the
+    profiler sees no device activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n = sum(e.count for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA)
+    return str(n) if n else "not measured"
 
 
 # ---- the kernels against their plain versions ---------------------------------
@@ -576,7 +816,7 @@ def check_k3(rng, dev, batch: int, nsc: int, name: str):
     for layout, hh in (("estimate layout", h), ("contiguous", h.contiguous())):
         before = equalizer.mmse_weights_4x4.launches
         w_k, ev_k = equalizer.mmse_weights_4x4(hh, nv)
-        w_p, ev_p = equalizer.equalize_weights(hh, nv)
+        w_p, ev_p = equalizer.mmse_weights_4x4_plain(hh, nv)
         torch.cuda.synchronize()
         if equalizer.mmse_weights_4x4.launches != before + 1:
             fail(f"K3 {name} {layout}: not one launch")
@@ -599,7 +839,7 @@ def check_k3(rng, dev, batch: int, nsc: int, name: str):
     print(f"# K3 {name} ({batch} x {nsc}): W and eq_nvar bitwise equal to the plain version on "
           f"the estimate's layout and contiguous; vs f64 oracle {o_err:.3e} at nv {float(nv[i]):.3g}")
     ms = kernel_ms(lambda: equalizer.mmse_weights_4x4(h, nv), reps=50)
-    plain_ms = cuda_ms(lambda: equalizer.equalize_weights(h, nv), reps=10)
+    plain_ms = cuda_ms(lambda: equalizer.mmse_weights_4x4_plain(h, nv), reps=10)
     # About 1.5k float32 operations a subcarrier: the gram about 510, the
     # blocked inverse about 460, mu, W and eq_nvar about 600.
     bd = bound(nbytes(h, nv, w_k, ev_k), 1500.0 * batch * nsc)
@@ -883,6 +1123,8 @@ def main() -> int:
     errs = {"decode": k2_err}
     per_path["plane"], plane_errs = plane_phase(card, rx, tb, float_bits)
     errs.update(plane_errs)
+    per_path["ul_slot_uci"], k2_err4 = ul4_phase(card)
+    errs["decode"] = max(errs["decode"], k2_err4)
     # Each kernel's launches on the path it serves (one call of it), and
     # on every path.
     home = {"decode_dematch": "flagship", "mmse_weights_4x4": "flagship", "decode": "ul_slot",

@@ -184,3 +184,8 @@ def crc_check_concat(chunks: torch.Tensor, name: str) -> torch.Tensor:
 def crc_append(bits: torch.Tensor, name: str) -> torch.Tensor:
     """(..., L) -> (..., L + crc_len) message with its CRC attached."""
     return torch.cat([bits.to(torch.uint8), crc(bits, name)], dim=-1)
+
+
+def crc_check(bits_with_crc: torch.Tensor, name: str) -> torch.Tensor:
+    """Per-message CRC pass/fail of (..., L + crc_len) inputs -> (...,) bool."""
+    return (crc(bits_with_crc, name) == 0).all(dim=-1)

@@ -1,19 +1,24 @@
-"""MMSE equalizer weights per subcarrier: 4x4 (kernel K3) and rank 1.
+"""Equalizer weights per subcarrier: MMSE and ZF on any ports x layers
+(L <= 4), and the 4x4 MMSE kernel K3.
 
-Port of ``equalize_weights`` (srsran_project_tpu/ops/equalizer.py, MMSE,
+Port of ``equalize_weights`` (srsran_project_tpu/ops/equalizer.py,
 tx_scaling = 1) and of its TPU kernel ``equalize_weights_pallas``
-(ops/equalizer_pallas.py).  ``mmse_weights_4x4`` is the entry point: a
-CUDA tensor launches the hand-written kernel
-(``csrc/mmse_weights_4x4.cu``), a CPU tensor runs ``equalize_weights``,
-the plain torch version below.  Both compute the kernel's algebra: gram,
-C = G + nv I with nv >= 1e-12, blocked 2x2 Schur inverse, unbias mu
-clipped to [1e-9, 1 - 1e-9], W = C^-1 H^H / mu, eq_nvar = (1 - mu) / mu.
-Explicit scalar complex algebra on (re, im) float32 tensors: no
-torch.linalg, no matmul (so no TF32 path either).
+(ops/equalizer_pallas.py).
 
-``mmse_weights_rank1`` is the general path of ``equalize_weights`` at one
-layer, which the reference computes outside any TPU kernel: plain torch on
-every device.
+* ``mmse_weights_4x4`` is K3's entry point: a CUDA tensor launches the
+  hand-written kernel (``csrc/mmse_weights_4x4.cu``), a CPU tensor runs
+  ``mmse_weights_4x4_plain``, its plain torch version.  Both compute the
+  kernel's algebra: gram, C = G + nv I with nv >= 1e-12, blocked 2x2 Schur
+  inverse, unbias mu clipped to [1e-9, 1 - 1e-9], W = C^-1 H^H / mu,
+  eq_nvar = (1 - mu) / mu, as explicit scalar complex algebra on (re, im)
+  float32 tensors: no torch.linalg, no matmul (so no TF32 path either).
+* ``equalize_weights(h, noise_var, method)`` is the general function,
+  which the reference computes outside any TPU kernel: plain torch on
+  every device.  Its 4x4 MMSE case is ``mmse_weights_4x4_plain`` (so bit
+  for bit K3's algebra); every other case runs the reference's batched
+  algebra (gram, closed-form ``_inv_small``, W) as
+  elementwise complex products summed over the short axes, again no
+  matmul.
 """
 
 from __future__ import annotations
@@ -77,10 +82,10 @@ def _check(h: torch.Tensor, noise_var: torch.Tensor) -> torch.Tensor:
     return nv
 
 
-def equalize_weights(h: torch.Tensor, noise_var: torch.Tensor):
-    """Plain version: (..., nsc, P=4, L=4) complex64 channels and (...,)
-    noise variances -> (w (..., nsc, L, P) complex64, eq_nvar (..., nsc, L)
-    float32)."""
+def mmse_weights_4x4_plain(h: torch.Tensor, noise_var: torch.Tensor):
+    """K3's plain version: (..., nsc, P=4, L=4) complex64 channels and
+    (...,) noise variances -> (w (..., nsc, L, P) complex64, eq_nvar (...,
+    nsc, L) float32)."""
     nv = torch.clamp_min(_check(h, noise_var), 1e-12)[..., None]
     hr, hi = h.real, h.imag
     hh = [[(hr[..., p, l], hi[..., p, l]) for l in range(L)] for p in range(P)]
@@ -140,7 +145,7 @@ def mmse_weights_4x4(h: torch.Tensor, noise_var: torch.Tensor):
 
     CUDA tensor: kernel K3 (one launch); CPU tensor: the plain version."""
     if h.device.type == "cpu":
-        return equalize_weights(h, noise_var)
+        return mmse_weights_4x4_plain(h, noise_var)
     if h.device.type != "cuda":
         raise ValueError(f"mmse_weights_4x4: unsupported device {h.device}")
     nv = _check(h, noise_var).reshape(-1).contiguous()
@@ -173,19 +178,75 @@ def occupancy() -> dict:
     return {"registers": regs.value, "blocks_per_sm": blocks.value}
 
 
-def mmse_weights_rank1(h: torch.Tensor, noise_var: torch.Tensor):
-    """One-layer MMSE weights: (..., nsc, P, 1) complex64 h, (...,)
-    noise_var -> (w (..., nsc, 1, P) complex64, eq_nvar (..., nsc, 1)
-    float32): g = |h|^2, mu = g / (g + nv) clipped to [1e-9, 1 - 1e-9],
-    w = conj(h) / (g + nv) / mu, eq_nvar = (1 - mu) / mu."""
-    if h.dim() < 3 or h.shape[-1] != 1 or h.dtype != torch.complex64:
-        raise ValueError(f"mmse_weights_rank1: want (..., nsc, P, 1) complex64, got "
+# ---- the general path (any P, L <= 4; MMSE and ZF) ------------------------
+
+def _cmm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(..., m, k) x (..., k, n) complex products summed over k (no matmul,
+    so no TF32)."""
+    return (a[..., :, :, None] * b[..., None, :, :]).sum(dim=-2)
+
+
+def _inv2x2(c: torch.Tensor) -> torch.Tensor:
+    """Closed-form inverse of (..., 2, 2) complex matrices."""
+    a, b, d, e = c[..., 0, 0], c[..., 0, 1], c[..., 1, 0], c[..., 1, 1]
+    r = 1.0 / (a * e - b * d)
+    return torch.stack([torch.stack([e * r, -b * r], dim=-1),
+                        torch.stack([-d * r, a * r], dim=-1)], dim=-2)
+
+
+def _inv_small(c: torch.Tensor) -> torch.Tensor:
+    """Closed-form inverse of (..., L, L) matrices, L in {1, 2, 3, 4}:
+    blocked 2x2 Schur complements; L = 3 pads to 4 with an identity corner
+    (block-diagonal, so the padded inverse embeds the answer)."""
+    nl = c.shape[-1]
+    if nl == 1:
+        return 1.0 / c
+    if nl == 2:
+        return _inv2x2(c)
+    if nl == 3:
+        pad = torch.zeros(c.shape[:-2] + (4, 4), dtype=c.dtype, device=c.device)
+        pad[..., :3, :3] = c
+        pad[..., 3, 3] = 1.0
+        return _inv_small(pad)[..., :3, :3]
+    if nl == 4:
+        a, b = c[..., :2, :2], c[..., :2, 2:]
+        bh, d = c[..., 2:, :2], c[..., 2:, 2:]
+        ai = _inv2x2(a)
+        si = _inv2x2(d - _cmm(_cmm(bh, ai), b))  # inverse of A's Schur complement
+        aib, bhai = _cmm(ai, b), _cmm(bh, ai)
+        top = torch.cat([ai + _cmm(_cmm(aib, si), bhai), -_cmm(aib, si)], dim=-1)
+        bot = torch.cat([-_cmm(si, bhai), si], dim=-1)
+        return torch.cat([top, bot], dim=-2)
+    raise ValueError(f"L={nl} unsupported")
+
+
+def equalize_weights(h: torch.Tensor, noise_var: torch.Tensor, method: str = "mmse"):
+    """Per-position equalizer weights: (..., P, L) complex64 channels,
+    noise_var broadcastable to (...,) -> (w (..., L, P) complex64, eq_nvar
+    (..., L) float32), x_hat = w @ y unbiased with post-equalization noise
+    eq_nvar.  MMSE: C = G + nv I, mu = diag(C^-1 G) clipped to
+    [1e-9, 1 - 1e-9], W = C^-1 H^H / mu, eq_nvar = (1 - mu) / mu.  ZF:
+    C = G + 1e-9 I, W = C^-1 H^H, eq_nvar = nv diag(C^-1)."""
+    if method not in ("mmse", "zf"):
+        raise ValueError(method)
+    if h.dim() < 2 or h.shape[-1] > 4 or h.dtype != torch.complex64:
+        raise ValueError(f"equalize_weights: want (..., P, L <= 4) complex64, got "
                          f"{tuple(h.shape)} {h.dtype}")
-    nv = torch.as_tensor(noise_var, dtype=torch.float32, device=h.device)
-    nv = torch.clamp_min(nv, 1e-12)[..., None]
-    hr, hi = h.real[..., 0], h.imag[..., 0]  # (..., nsc, P)
-    g = (hr * hr + hi * hi).sum(dim=-1)
-    ci = 1.0 / (g + nv)
-    mu = torch.clamp(ci * g, 1e-9, 1.0 - 1e-9)
-    w = torch.complex(ci[..., None] * hr / mu[..., None], -(ci[..., None] * hi) / mu[..., None])
-    return w[..., None, :], ((1.0 - mu) / mu)[..., None]
+    npr, nl = h.shape[-2], h.shape[-1]
+    nv = torch.clamp_min(torch.as_tensor(noise_var, dtype=torch.float32, device=h.device)
+                         .broadcast_to(h.shape[:-2]), 1e-12)
+    if method == "mmse" and (npr, nl) == (P, L):
+        # Each position as a one-subcarrier "slot" of its own noise.
+        w, ev = mmse_weights_4x4_plain(h[..., None, :, :], nv)
+        return w[..., 0, :, :], ev[..., 0, :]
+    nv = nv[..., None]
+    hh = h.conj().transpose(-1, -2)  # (..., L, P)
+    gram = _cmm(hh, h)  # (..., L, L)
+    eye = torch.eye(nl, dtype=torch.float32, device=h.device)
+    load = nv[..., None] * eye if method == "mmse" else 1e-9 * eye
+    cinv = _inv_small(gram + load)
+    w = _cmm(cinv, hh)
+    if method == "mmse":
+        mu = torch.clamp((cinv * gram.transpose(-1, -2)).sum(dim=-1).real, 1e-9, 1.0 - 1e-9)
+        return w / mu[..., None], (1.0 - mu) / mu
+    return w, nv * torch.diagonal(cinv, dim1=-2, dim2=-1).real

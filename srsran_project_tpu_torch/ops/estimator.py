@@ -1,14 +1,15 @@
 """DM-RS channel estimator, fast path (port of
 ``srsran_project_tpu/ops/estimator.py``: ``estimate_channel``,
-``_smooth_freq``, ``_rc_filter_taps``).
+``_smooth_freq``, ``_rc_filter_taps``; ``estimate_h`` is its channel part
+alone).
 
 Per (rx port, layer): LS at the pilot REs -> OCC despread over CDM pairs
 -> time average over DM-RS symbols -> bulk-delay derotation -> 9-tap
 raised-cosine smoothing in frequency -> linear interpolation to every
-subcarrier -> re-rotation.  The flagship path measures noise by second
-differences and SINR after equalization (phy/pusch.py), so the
-estimator's own noise, EPRE/RSRP/SNR, CFO and TA metrics are not ported
-yet (ROADMAP Q1.8).
+subcarrier -> re-rotation, then the pilot-residual noise variance and the
+EPRE / RSRP / SNR metrics (PUCCH F2 reads them; PUSCH measures its noise
+by second differences, phy/pusch.py).  The CFO and TA metrics are not
+ported yet (ROADMAP Q1.8.2).
 """
 
 from __future__ import annotations
@@ -64,15 +65,13 @@ def _unit_phasor(phase: torch.Tensor) -> torch.Tensor:
     return torch.polar(torch.ones_like(phase), phase)
 
 
-def estimate_channel(y_pilots: torch.Tensor, ref_pilots: torch.Tensor, wf: torch.Tensor,
-                     pair_positions: tuple, nof_sc: int):
-    """Estimate (rx port, layer) channels over an allocation.
-
-    y_pilots:   (..., nsym_dmrs, Np) received pilot REs
-    ref_pilots: broadcastable to y_pilots — pilot values without the OCC
-    wf:         broadcastable (Np,) +-1 frequency OCC of the layer's port
-    pair_positions: CDM pair centres relative to the allocation start
-    Returns h (..., nof_sc) complex64."""
+def estimate_h(y_pilots: torch.Tensor, ref_pilots: torch.Tensor, wf: torch.Tensor,
+               pair_positions: tuple, nof_sc: int, smooth: bool = True):
+    """The channel part of ``estimate_channel``: (h (..., nof_sc)
+    complex64, the LS samples (..., nsym_dmrs, Np), the despread pair
+    values (..., nsym_dmrs, Np/2)).  PUSCH calls it alone: its noise comes
+    from second differences, and the metrics would cost launches for
+    nothing."""
     if len(pair_positions) < 2:
         raise NotImplementedError("allocations below one PRB are not ported (ROADMAP Q1.8)")
     dev = y_pilots.device
@@ -86,10 +85,37 @@ def estimate_channel(y_pilots: torch.Tensor, ref_pilots: torch.Tensor, wf: torch
     n_pairs = h_t.shape[-1]
     slope = torch.angle(torch.sum(h_t[..., 1:] * h_t[..., :-1].conj(), dim=-1, keepdim=True))
     idx = torch.arange(n_pairs, dtype=torch.float32, device=dev)
-    h_t = _smooth_freq(h_t * _unit_phasor(-slope * idx), _rc_filter_taps())
+    h_t = h_t * _unit_phasor(-slope * idx)
+    if smooth:
+        h_t = _smooth_freq(h_t, _rc_filter_taps())
 
     li = _interp_on(dev, pair_positions, nof_sc, 0)
     fr = _interp_on(dev, pair_positions, nof_sc, 1)
     k_pair = _interp_on(dev, pair_positions, nof_sc, 2)
     h = h_t[..., li] * (1 - fr) + h_t[..., li + 1] * fr
-    return (h * _unit_phasor(slope * k_pair)).to(torch.complex64)
+    return (h * _unit_phasor(slope * k_pair)).to(torch.complex64), ls, h_pair
+
+
+def estimate_channel(y_pilots: torch.Tensor, ref_pilots: torch.Tensor, wf: torch.Tensor,
+                     pair_positions: tuple, nof_sc: int, smooth: bool = True,
+                     compute_ta: bool = False, compute_cfo: bool = False):
+    """Estimate (rx port, layer) channels over an allocation.
+
+    y_pilots:   (..., nsym_dmrs, Np) received pilot REs
+    ref_pilots: broadcastable to y_pilots — pilot values without the OCC
+    wf:         broadcastable (Np,) +-1 frequency OCC of the layer's port
+    pair_positions: CDM pair centres relative to the allocation start
+    Returns (h (..., nof_sc) complex64, noise_var (...,) float32, metrics
+    dict of epre / rsrp / snr (...,) float32)."""
+    if compute_ta or compute_cfo:
+        raise NotImplementedError("the estimator's TA and CFO metrics are not ported yet "
+                                  "(ROADMAP Q1.8.2)")
+    h, ls, h_pair = estimate_h(y_pilots, ref_pilots, wf, pair_positions, nof_sc, smooth)
+    # Noise: residual of the LS samples against the despread pair values
+    # (one degree of freedom per pair goes to the despreading).
+    resid = ls - h_pair.repeat_interleave(2, dim=-1)
+    noise_var = torch.clamp_min((resid.abs() ** 2).mean(dim=(-2, -1)) * 2.0, 1e-10)
+    epre = (y_pilots.abs() ** 2).mean(dim=(-2, -1))
+    rsrp = (h_pair.abs() ** 2).mean(dim=-1).mean(dim=-1)
+    metrics = {"epre": epre, "rsrp": rsrp, "snr": rsrp / noise_var}
+    return h, noise_var.to(torch.float32), metrics

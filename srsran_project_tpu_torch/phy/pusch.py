@@ -3,11 +3,12 @@ transmitter.
 
 Port of ``srsran_project_tpu/phy/pusch.py``: the fast estimator with
 second-difference noise (``_estimate_stage``, per-grant pilots through
-``r_override``), per-subcarrier MMSE weights (4x4: kernel K3; rank 1 on
-any number of ports) applied across the data symbols
+``r_override``), per-subcarrier MMSE or ZF weights (4x4 MMSE: kernel K3;
+every other rank and port count: ``equalize_weights``) applied across the data symbols
 (``_equalize_stage``), the float max-log demapper with int8 quantization,
 descrambling and post-equalization SINR (``_demap_stage``), and the
-back end with HARQ (``finish``).  ``process`` decodes one grant per slot,
+back end with UCI on PUSCH (HARQ-ACK, CSI parts 1 and 2 demultiplexed and
+decoded, ``phy/ulsch_demux``) and HARQ (``finish``).  ``process`` decodes one grant per slot,
 ``process_multi`` N equal-config grants of one slot grid in one batch.
 The plane path (``demapper="planes"``) runs apply + demap + quantize +
 descramble in kernel K4 straight into the decoder's bit-planes
@@ -27,37 +28,57 @@ import torch
 from ..ops import scrambling
 from ..ops._tables import device_table
 from ..ops.demap_planes import demap_planes
-from ..ops.equalizer import mmse_weights_4x4, mmse_weights_rank1
-from ..ops.estimator import estimate_channel
+from ..ops.equalizer import equalize_weights, mmse_weights_4x4
+from ..ops.estimator import estimate_h
 from ..ops.modulation import Modulation, demap_soft, quantize_llr
 from ..ops.modulation.evm import evm
 from ..ran import dmrs as dmrs_mod
+from ..ran import ulsch_info
 from . import allocation as alloc_mod
 from . import pdsch as pdsch_mod
+from . import ulsch_demux
 from .pdsch import check_flagship_alloc
 from .sch import SchConfig, _fused_decode_ok, decode_transport_block
 
 # Field -> (the values this port runs, the ROADMAP item that ports the rest).
 _SLICE_ONLY = {
-    "equalizer": (("mmse",), "Q1.8"),
-    "sinr_method": (("post_equalization",), "Q1.8"),
-    "noise_method": (("second_difference",), "Q1.8"),
-    "estimator": (("fast",), "Q1.8"),
-    "demapper": (("float", "planes"), "Q1.8"),
-    "ldpc_decoder": (("auto",), "Q1.8"),
-    "cfo_compensation": ((False,), "Q1.8"),
-    "uci": ((None,), "Q1.8"),
-    "ptrs_enabled": ((False,), "Q1.8"),
-    "transform_precoding": ((False,), "Q1.8"),
-    "compute_ta": ((False,), "Q1.8"),
+    "equalizer": (("mmse", "zf"), "Q1.8.8"),
+    "sinr_method": (("post_equalization",), "Q1.8.2"),
+    "noise_method": (("second_difference",), "Q1.8.2"),
+    "estimator": (("fast",), "Q1.8.7"),
+    "demapper": (("float", "planes"), "Q1.8.8"),
+    "ldpc_decoder": (("auto",), "Q1.8.8"),
+    "cfo_compensation": ((False,), "Q1.8.6"),
+    "ptrs_enabled": ((False,), "Q1.8.4"),
+    "transform_precoding": ((False,), "Q1.8.5"),
+    "compute_ta": ((False,), "Q1.8.2"),
 }
 
 
 @dataclasses.dataclass(frozen=True)
+class UciOnPuschConfig:
+    """Twin of the reference's ``UciOnPuschConfig``: UCI multiplexed on
+    PUSCH (TS 38.212 §6.3), payload sizes and beta offset indices.  A
+    ``csi_report_cfg`` (two-step CSI: the part-2 size follows the decoded
+    RI) is held as given; decoding it is not ported yet (ROADMAP Q1.8.3)."""
+
+    nof_harq_ack_bits: int = 0
+    nof_csi1_bits: int = 0
+    nof_csi2_bits: int = 0
+    beta_harq_ack_index: int = 9
+    beta_csi_index: int = 9
+    beta_csi2_index: int = 9
+    csi_report_cfg: object | None = None
+
+    @classmethod
+    def from_reference(cls, ref) -> "UciOnPuschConfig":
+        return cls(**{f.name: getattr(ref, f.name) for f in dataclasses.fields(cls)})
+
+
+@dataclasses.dataclass(frozen=True)
 class PuschConfig:
-    """Twin of the reference's ``PuschConfig`` (same fields and defaults).
-    ``uci`` takes only None here, the reference's UciOnPuschConfig is not
-    ported."""
+    """Twin of the reference's ``PuschConfig`` (same fields, defaults and
+    derived values)."""
 
     tbs: int
     target_code_rate: float
@@ -83,7 +104,7 @@ class PuschConfig:
     ldpc_decoder: str = "auto"
     cfo_compensation: bool = False
     ldpc_early_stop: bool = True
-    uci: object | None = None
+    uci: UciOnPuschConfig | None = None
     ptrs_enabled: bool = False
     ptrs_k: int = 2
     ptrs_re_offset: int = 0
@@ -108,6 +129,8 @@ class PuschConfig:
         kw = {f.name: getattr(ref, f.name) for f in dataclasses.fields(cls)}
         kw["modulation"] = Modulation(int(kw["modulation"]))
         kw["alloc"] = alloc_mod.Allocation.from_fields(kw["alloc"])
+        if kw["uci"] is not None:
+            kw["uci"] = UciOnPuschConfig.from_reference(kw["uci"])
         return cls(**kw)
 
     @functools.cached_property
@@ -116,14 +139,43 @@ class PuschConfig:
         return alloc_mod.nof_data_re(self.alloc) * qm * self.nof_layers
 
     @functools.cached_property
+    def uci_mux(self):
+        """``UlschMuxConfig`` when UCI is configured (G_ack, G_csi1, G_csi2
+        from the betas), else None."""
+        u = self.uci
+        if u is None or not (u.nof_harq_ack_bits or u.nof_csi1_bits or u.nof_csi2_bits):
+            return None
+        if u.csi_report_cfg is not None:
+            raise NotImplementedError("two-step CSI (csi_report_cfg) is not ported yet "
+                                      "(ROADMAP Q1.8.3)")
+        qm = int(self.modulation) if self.modulation != Modulation.PI_2_BPSK else 1
+        geo = (self.tbs + 24, alloc_mod.nof_data_re(self.alloc), qm, self.nof_layers)
+        g_ack = ulsch_info.nof_harq_ack_bits(u.nof_harq_ack_bits, u.beta_harq_ack_index, *geo)
+        g_csi1 = ulsch_info.nof_csi1_bits(u.nof_csi1_bits, u.beta_csi_index, *geo, g_ack=g_ack)
+        g_csi2 = ulsch_info.nof_csi2_bits(u.nof_csi2_bits, u.beta_csi2_index, *geo,
+                                          g_ack=g_ack, g_csi1=g_csi1)
+        # Reserved-ACK layout for 1-2 bit payloads: sized as if O_ack = 2
+        # (TS 38.212 §6.2.7; data maps through, ACK punctures).
+        g_ack_rvd = 0
+        if 0 < u.nof_harq_ack_bits <= 2:
+            g_ack_rvd = ulsch_info.nof_harq_ack_bits(2, u.beta_harq_ack_index, *geo)
+        return ulsch_demux.UlschMuxConfig(
+            alloc=self.alloc, qm=qm, nof_layers=self.nof_layers,
+            nof_grid_symbols=self.nof_grid_symbols, nof_grid_sc=self.nof_grid_sc,
+            g_ack=g_ack, g_csi1=g_csi1, g_csi2=g_csi2,
+            nof_ack_bits=u.nof_harq_ack_bits, g_ack_rvd=g_ack_rvd)
+
+    @functools.cached_property
     def sch(self) -> SchConfig:
         qm = int(self.modulation) if self.modulation != Modulation.PI_2_BPSK else 1
+        mux = self.uci_mux
         return SchConfig(
             tbs=self.tbs,
             target_code_rate=self.target_code_rate,
             qm=qm,
             nof_layers=self.nof_layers,
-            nof_total_bits=self.g_total,
+            # Rate-matched around CSI (and around a rate-matched ACK).
+            nof_total_bits=self.g_total if mux is None else mux.nof_data_bits,
             rv=self.rv,
             decoder=self.ldpc_decoder,
         )
@@ -186,7 +238,7 @@ def _estimate_stage(grid: torch.Tensor, cfg: PuschConfig, r_override=None):
     r_all = (_est_on(dev, cfg, 2)[None] if r_override is None else r_override)[:, :, None]
     gflat = grid.reshape(b, npr, -1)
     y_p = gflat[:, :, idx_all].reshape(b, npr, nl, nsym_d, -1).transpose(1, 2)  # (B, nl, P, ...)
-    h_l = estimate_channel(y_p, r_all, wf_all[:, None, None, :], pair_pos, a.nof_sc)
+    h_l = estimate_h(y_p, r_all, wf_all[:, None, None, :], pair_pos, a.nof_sc)[0]
     h = h_l.permute(0, 2, 3, 1)  # (B, P, nof_sc, nl)
 
     # Noise from (1, -2, 1) second differences of the OCC-despread pair
@@ -218,19 +270,15 @@ def _data_rows(gflat: torch.Tensor, cfg: PuschConfig) -> torch.Tensor:
 
 
 def _weights(h: torch.Tensor, noise_var: torch.Tensor, cfg: PuschConfig):
-    """(B, P, nof_sc, nl) channels -> per-subcarrier MMSE weights (B,
-    nof_sc, nl, P) and post-equalization noise (B, nof_sc, nl): kernel K3
-    for 4x4, the rank-1 algebra for one layer."""
-    nl, npr = cfg.nof_layers, cfg.nof_rx_ports
+    """(B, P, nof_sc, nl) channels -> per-subcarrier weights (B, nof_sc,
+    nl, P) and post-equalization noise (B, nof_sc, nl): kernel K3 for 4x4
+    MMSE, the general ``equalize_weights`` (MMSE or ZF) for the rest."""
     hs = h.transpose(1, 2)  # (B, nof_sc, P, nl)
-    if (nl, npr) == (4, 4):
+    if (cfg.nof_layers, cfg.nof_rx_ports, cfg.equalizer) == (4, 4, "mmse"):
         return mmse_weights_4x4(hs, noise_var)  # K3 reads the view through its strides
-    if nl == 1:
-        # Elementwise torch keeps its input's layout: the copy makes w
-        # contiguous, as K4 takes it on the plane path.
-        return mmse_weights_rank1(hs.contiguous(), noise_var)
-    raise NotImplementedError(f"{npr}x{nl} equalization: only 4x4 and rank-1 MMSE are "
-                              "ported (ROADMAP Q1.8)")
+    # Elementwise torch keeps its input's layout: the copy makes w
+    # contiguous, as K4 takes it on the plane path.
+    return equalize_weights(hs.contiguous(), noise_var[:, None], method=cfg.equalizer)
 
 
 def _equalize_stage(gflat: torch.Tensor, h: torch.Tensor, noise_var: torch.Tensor,
@@ -273,14 +321,22 @@ def _front_end(grid: torch.Tensor, rnti: torch.Tensor, cfg: PuschConfig):
 
 
 def transmit(tb_bits: torch.Tensor, rnti: torch.Tensor, cfg: PuschConfig,
+             ack_bits: torch.Tensor | None = None, csi1_bits: torch.Tensor | None = None,
+             csi2_bits: torch.Tensor | None = None,
              precoding: torch.Tensor | None = None) -> torch.Tensor:
-    """UE-side PUSCH transmitter for loopback (no UCI): SCH encode + PUSCH
-    scrambling + modulation + DM-RS.  (..., A) TB bits and (...,) RNTIs ->
-    (..., P, nsym, nsc) grids, P = precoding's columns (default: one port
-    per layer, nof_layers x nof_rx_ports identity)."""
+    """UE-side PUSCH transmitter for loopback: SCH encode + UCI multiplex +
+    PUSCH scrambling + modulation + DM-RS.  (..., A) TB bits, (...,) RNTIs
+    and the configured UCI payloads (..., O) -> (..., P, nsym, nsc) grids,
+    P = precoding's columns (default: one port per layer, nof_layers x
+    nof_rx_ports identity)."""
     from .sch import encode_transport_block
 
     cw = encode_transport_block(tb_bits, cfg.sch)
+    mux = cfg.uci_mux
+    if mux is None and not (ack_bits is None and csi1_bits is None and csi2_bits is None):
+        raise ValueError("transmit: UCI payloads given, but the config carries no UCI")
+    if mux is not None:
+        cw = ulsch_demux.multiplex(cw, ack_bits, csi1_bits, mux, csi2_bits=csi2_bits)
     scr = scrambling.scramble_bits(cw, _pusch_c_init(rnti, cfg.n_id))
     if precoding is None:
         precoding = torch.eye(cfg.nof_layers, cfg.nof_rx_ports, dtype=torch.complex64)
@@ -294,11 +350,36 @@ def transmit(tb_bits: torch.Tensor, rnti: torch.Tensor, cfg: PuschConfig,
                                  tx_cfg)
 
 
+# UCI part -> the result keys of its (bits, ok).
+UCI_KEYS = (("ack", ("harq_ack_bits", "harq_ack_ok")), ("csi1", ("csi1_bits", "csi1_ok")),
+            ("csi2", ("csi2_bits", "csi2_ok")))
+
+
+def split_uci(llr_i8: torch.Tensor, cfg: PuschConfig):
+    """UCI demultiplex + decode of (B, G) descrambled LLRs -> (the (B,
+    nof_data_bits) SCH LLRs, dict of the UCI result keys).  Without UCI
+    the LLRs pass through and the dict is empty."""
+    mux = cfg.uci_mux
+    if mux is None:
+        return llr_i8, {}
+    data, ack, csi1, csi2 = ulsch_demux.demultiplex(llr_i8, mux)
+    parts = ulsch_demux.decode_uci_parts(ack, csi1, cfg.uci.nof_harq_ack_bits,
+                                         cfg.uci.nof_csi1_bits, csi2_llrs=csi2,
+                                         nof_csi2_bits=cfg.uci.nof_csi2_bits)
+    out = {}
+    for part, (bits_key, ok_key) in UCI_KEYS:
+        if part in parts:
+            out[bits_key], out[ok_key] = parts[part]
+    return data, out
+
+
 def finish(llr_i8: torch.Tensor, noise_var: torch.Tensor, snr_acc: torch.Tensor,
            cfg: PuschConfig, harq_buffer: torch.Tensor | None = None) -> dict:
-    """Back half of ``process``: LDPC decode (with the HARQ combine when a
-    buffer is given) + result dict, from (B, G) descrambled LLRs."""
-    tb, ok, harq = decode_transport_block(llr_i8, cfg.sch, cfg.nof_ldpc_iterations,
+    """Back half of ``process``: UCI demultiplex + decode, LDPC decode
+    (with the HARQ combine when a buffer is given) + result dict, from
+    (B, G) descrambled LLRs."""
+    data, uci_out = split_uci(llr_i8, cfg)
+    tb, ok, harq = decode_transport_block(data, cfg.sch, cfg.nof_ldpc_iterations,
                                           harq_buffer, early_stop=cfg.ldpc_early_stop)
     return {
         "tb_bits": tb,
@@ -306,6 +387,7 @@ def finish(llr_i8: torch.Tensor, noise_var: torch.Tensor, snr_acc: torch.Tensor,
         "harq_buffer": harq,
         "noise_var": noise_var,
         "snr_db": 10.0 * torch.log10(torch.clamp_min(snr_acc, 1e-12)),
+        **uci_out,
     }
 
 
@@ -313,7 +395,9 @@ def process(grid: torch.Tensor, rnti: torch.Tensor, cfg: PuschConfig,
             harq_buffer: torch.Tensor | None = None) -> dict:
     """Decode one PUSCH grant per slot: (B, P, nsym, nsc) grids, (B,) RNTIs
     and optional (B, C, N) HARQ buffers -> dict of tb_bits (B, A),
-    tb_crc_ok (B,), harq_buffer (B, C, N), noise_var (B,), snr_db (B,)."""
+    tb_crc_ok (B,), harq_buffer (B, C, N), noise_var (B,), snr_db (B,),
+    and with UCI harq_ack_bits / csi1_bits / csi2_bits (B, O) and their
+    _ok flags (B,)."""
     llr_i8, noise_var, snr_acc = _front_end(grid, rnti, cfg)
     return finish(llr_i8, noise_var, snr_acc, cfg, harq_buffer=harq_buffer)
 
@@ -355,6 +439,9 @@ def process_multi(grid: torch.Tensor, rntis, first_rbs, cfg: PuschConfig,
     offsets of compact (rb_start = 0) windows sharing ``cfg``, optional
     (N, C, N_cb) HARQ buffers.  Returns the dict of ``process`` stacked
     over the grants."""
+    if cfg.uci is not None and cfg.uci.csi_report_cfg is not None:
+        raise ValueError("process_multi: two-step CSI PDUs take the per-PDU path "
+                         "(part-2 size follows the decoded RI)")
     first_rbs = tuple(int(r) for r in first_rbs)
     dev = grid.device
     rntis = torch.as_tensor(rntis, dtype=torch.int64, device=dev)
@@ -365,10 +452,12 @@ def process_multi(grid: torch.Tensor, rntis, first_rbs, cfg: PuschConfig,
 
 def _demap_planes_ok(cfg: PuschConfig) -> bool:
     """Gate of the plane path (kernel K4 + K1 in plane layout): opted in
-    with ``demapper="planes"``, no repetition, square 16/64/256QAM and
-    full-row data symbols.  Unlike the reference, the gate does not ask
-    which device runs it: the device follows the input tensor."""
+    with ``demapper="planes"``, no repetition, no UCI, square
+    16/64/256QAM and full-row data symbols.  Unlike the reference, the gate
+    does not ask which device runs it: the device follows the input
+    tensor."""
     return (cfg.demapper == "planes"
+            and cfg.uci_mux is None
             and _fused_decode_ok(cfg.sch)
             and cfg.modulation in (Modulation.QAM16, Modulation.QAM64, Modulation.QAM256)
             and pdsch_mod.uniform_data_rows(cfg.alloc))

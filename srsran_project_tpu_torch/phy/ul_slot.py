@@ -1,14 +1,17 @@
 """Heterogeneous multi-UE uplink slot.
 
-Port of ``srsran_project_tpu/phy/ul_slot.py``, PUSCH part: one slot
-carries PUSCH grants of different MCS, widths and layer counts, each with
-an optional HARQ buffer.  Grants are grouped by their compact window
-config; each group runs one batched front end and one rate dematch + HARQ
-combine, and the LDPC decode batches every group's codeblocks per (base
-graph, Z, iterations, early stop, n_cb) into ONE launch of kernel K2.
-Then desegment + CRC per group, and the results scatter back to input
-order.  PUCCH F0/F1/F2 occasions, UCI on PUSCH and PT-RS are not ported
-yet (ROADMAP Q1.8, Q1.9).
+Port of ``srsran_project_tpu/phy/ul_slot.py``: one slot carries PUSCH
+grants of different MCS, widths and layer counts (ranks 1-4, MMSE or ZF),
+each with an optional HARQ buffer and UCI on PUSCH, and PUCCH F0/F1/F2
+occasions.  Grants are grouped by their compact window config; each group
+runs one batched front end, one UCI demultiplex + decode (HARQ-ACK, CSI
+parts 1 and 2; the punctured ACK positions read 0 in the data stream) and
+one rate dematch + HARQ combine, and the LDPC decode batches every
+group's codeblocks per (base graph, Z, iterations, early stop, n_cb) into
+ONE launch of kernel K2.  Then desegment + CRC per group, the results
+scatter back to input order, and the PUCCH occasions are detected on the
+same grid.  PT-RS and two-step CSI are not ported yet (ROADMAP Q1.8.4,
+Q1.8.3).
 """
 
 from __future__ import annotations
@@ -19,6 +22,8 @@ import numpy as np
 import torch
 
 from ..ops.ldpc.decoder import decode
+from . import pucch as pucch_mod
+from . import pucch_f2 as f2_mod
 from . import pusch as pusch_mod
 from .pusch import PuschConfig
 from .sch import _dematch_stage, _desegment_stage
@@ -46,9 +51,10 @@ class UlSlotPdu:
 
 
 def _slot_front(grid: torch.Tensor, groups: dict, pdus: list):
-    """Per config group: batched front end + rate dematch + HARQ combine.
-    Returns per group (codeword buffers (Ni, C, N) int8, noise_var (Ni,),
-    SINR (Ni,))."""
+    """Per config group: batched front end + UCI demultiplex and decode +
+    rate dematch + HARQ combine.  Returns per group (codeword buffers (Ni,
+    C, N) int8, noise_var (Ni,), SINR (Ni,), dict of the UCI result keys
+    stacked over the group)."""
     dev = grid.device
     outs = []
     for cfg, idxs in groups.items():
@@ -57,8 +63,9 @@ def _slot_front(grid: torch.Tensor, groups: dict, pdus: list):
         llrs, nvs, snrs = pusch_mod._multi_front_end(
             grid, rntis, [12 * r for r in first_rbs], pusch_mod._pilot_bank_on(dev, cfg, first_rbs),
             cfg)
-        outs.append((_dematch_stage(llrs, _harq_stack(cfg, idxs, pdus, dev), cfg.sch),
-                     nvs, snrs))
+        data, uci = pusch_mod.split_uci(llrs, cfg)
+        outs.append((_dematch_stage(data, _harq_stack(cfg, idxs, pdus, dev), cfg.sch),
+                     nvs, snrs, uci))
     return outs
 
 
@@ -92,6 +99,9 @@ def _config_groups(pdus: list) -> dict:
     groups: dict[PuschConfig, list[int]] = {}
     for i, pdu in enumerate(pdus):
         c = pdu.config
+        if c.uci is not None and c.uci.csi_report_cfg is not None:
+            raise ValueError("two-step CSI PDUs take the per-PDU path (part-2 size follows "
+                             "the decoded RI)")
         # Everything but the absolute CRB (which only seeds the DM-RS,
         # passed per grant) is shared by equal grants at other offsets.
         key = dataclasses.replace(c, alloc=dataclasses.replace(c.alloc, crb_start=0))
@@ -118,15 +128,18 @@ def _code_groups(cfgs: tuple, fronts: list) -> list:
 
 
 def process_slot(grid: torch.Tensor, pdus: list, f1_cfgs=(), f0_cfgs=(), f2_cfgs=()):
-    """Decode the PUSCH grants of a heterogeneous multi-UE UL slot.
+    """Decode a heterogeneous multi-UE UL slot.
 
     grid: (P, nsym, nof_grid_sc) received slot grid; pdus: list[UlSlotPdu]
-    with mixed configs.  Returns (results, [], []) as the reference does
-    without PUCCH: results[i] is a dict per input PDU (tb_bits, tb_crc_ok,
-    harq_buffer, noise_var, snr_db)."""
-    if f1_cfgs or f0_cfgs or f2_cfgs:
-        raise NotImplementedError("PUCCH F0/F1/F2 in the slot is not ported yet "
-                                  "(ROADMAP Q1.9)")
+    with mixed configs; f1_cfgs / f0_cfgs / f2_cfgs: PUCCH F1 / F0 / F2
+    occasions on the same grid.
+
+    Returns (results, f1_results, f0_results[, f2_results when f2_cfgs])
+    as the reference does: results[i] is a dict per input PDU (tb_bits,
+    tb_crc_ok, harq_buffer, noise_var, snr_db, and with UCI harq_ack_bits,
+    csi1_bits, csi2_bits and their _ok flags); f1_results[j] is (bits,
+    metric); f0_results[k] is (value, metric); f2_results[m] is
+    (uci_bits, ok, snr_db)."""
     groups = _config_groups(pdus)
     cfgs = tuple(groups)
     fronts = _slot_front(grid, groups, pdus)
@@ -139,7 +152,7 @@ def process_slot(grid: torch.Tensor, pdus: list, f1_cfgs=(), f0_cfgs=(), f2_cfgs
 
     finished = _slot_finish(bits_g, cfgs, tuple(len(idxs) for idxs in groups.values()))
     results: list = [None] * len(pdus)
-    for idxs, (harq, nvs, snrs), (tb, ok) in zip(groups.values(), fronts, finished):
+    for idxs, (harq, nvs, snrs, uci), (tb, ok) in zip(groups.values(), fronts, finished):
         for k, i in enumerate(idxs):
             results[i] = {
                 "tb_bits": tb[k],
@@ -147,5 +160,10 @@ def process_slot(grid: torch.Tensor, pdus: list, f1_cfgs=(), f0_cfgs=(), f2_cfgs
                 "harq_buffer": harq[k],
                 "noise_var": nvs[k],
                 "snr_db": 10.0 * torch.log10(torch.clamp_min(snrs[k], 1e-12)),
+                **{key: v[k] for key, v in uci.items()},
             }
-    return results, [], []
+    f1_outs = [pucch_mod.format1_detect(grid, f1)[::2] for f1 in f1_cfgs]
+    f0_outs = [pucch_mod.format0_detect(grid, f0)[:2] for f0 in f0_cfgs]
+    if f2_cfgs:
+        return results, f1_outs, f0_outs, [f2_mod.process(grid, f2) for f2 in f2_cfgs]
+    return results, f1_outs, f0_outs

@@ -13,7 +13,9 @@ K3's W and eq_nvar and K4's planes and err2 bitwise (both sides round the
 same float operations in the same order);
 IQ 1e-4 x RMS and int8 LLRs within +-1 (cuFFT and pocketfft round
 differently); TB bits and CRC exact; noise_var and SINR 1e-3 relative;
-HARQ buffers within +-2 (two +-1 LLRs combined).
+HARQ buffers within +-2 (two +-1 LLRs combined); UCI codewords, decoded
+bits, ok flags and short-block metrics bitwise between card and CPU on the
+same int8-valued LLRs (every sum is an integer, exact in any order).
 """
 
 import numpy as np
@@ -23,7 +25,7 @@ from torch_parity import RETX_UE, SLOT_PLAN, cuda_device, small_slot, to_np, to_
 
 from srsran_project_tpu_torch.models import cell
 from srsran_project_tpu_torch.ops import demap_planes as dp
-from srsran_project_tpu_torch.ops import equalizer, ofdm
+from srsran_project_tpu_torch.ops import equalizer, ofdm, short_block, uci
 from srsran_project_tpu_torch.ops.ldpc import decoder
 from srsran_project_tpu_torch.ops.modulation import Modulation
 from srsran_project_tpu_torch.phy import pusch, sch, ul_slot
@@ -85,7 +87,7 @@ def test_k3_matches_plain(cuda_device, layout, batch, nsc):  # noqa: F811
     before = equalizer.mmse_weights_4x4.launches
     w_k, e_k = equalizer.mmse_weights_4x4(h_t, nv_t)
     assert equalizer.mmse_weights_4x4.launches == before + 1
-    w_p, e_p = equalizer.equalize_weights(h_t, nv_t)
+    w_p, e_p = equalizer.mmse_weights_4x4_plain(h_t, nv_t)
     np.testing.assert_array_equal(to_np(torch.view_as_real(w_k)).view(np.int32),
                                   to_np(torch.view_as_real(w_p)).view(np.int32))
     np.testing.assert_array_equal(to_np(e_k).view(np.int32), to_np(e_p).view(np.int32))
@@ -133,6 +135,10 @@ K2_CASES = [
     # memory a block.
     pytest.param(dict(tbs=8000, target_code_rate=0.9, qm=2, nof_layers=1,
                       nof_total_bits=9000, rv=0, tbs_lbrm_bytes=None), id="bg1-z384-full-graph"),
+    # chip_smoke.py path 4, group B: rank 2, 64QAM, 22 PRB, rate-matched
+    # around UCI (37,620 SCH bits), BG1 Z=320, 3 codeblocks.
+    pytest.param(dict(tbs=21000, target_code_rate=567 / 1024, qm=6, nof_layers=2,
+                      nof_total_bits=37620, rv=0), id="path4-group-b"),
 ]
 
 
@@ -282,3 +288,25 @@ def test_ul_slot_on_card_matches_cpu(cuda_device):  # noqa: F811
                 assert abs(float(rg[k]) / float(rc[k]) - 1) <= 1e-3, (i, k)
             d = (rg["harq_buffer"].cpu().int() - rc["harq_buffer"].int()).abs()
             assert int(d.max()) <= 2, (i, int(d.max()))
+
+
+@pytest.mark.parametrize("k, e", [(1, 100), (2, 24), (6, 64), (11, 252), (19, 144), (22, 64),
+                                  (40, 192), (400, 1376)])
+def test_uci_codecs_on_card_match_cpu(cuda_device, k, e):  # noqa: F811
+    """encode_uci, decode_uci (short block, polar with CRC6 + PC bits, CRC11,
+    two segments) and short-block detect on the card against the CPU, on
+    the same int8-valued LLRs, noisy enough that some codewords fail."""
+    rng = np.random.default_rng(k)
+    bits = torch.from_numpy(rng.integers(0, 2, size=(6, k), dtype=np.uint8))
+    cw = uci.encode_uci(bits, e)
+    assert torch.equal(uci.encode_uci(bits.to(cuda_device), e).cpu(), cw)
+    llr = (1.0 - 2.0 * to_np(cw).astype(np.float32)) * 6.0 + rng.normal(0.0, 12.0, cw.shape)
+    x = torch.from_numpy(np.clip(np.round(llr), -120, 120).astype(np.float32))
+    b_c, ok_c = uci.decode_uci(x, k)
+    b_g, ok_g = uci.decode_uci(x.to(cuda_device), k)
+    assert torch.equal(b_g.cpu(), b_c) and torch.equal(ok_g.cpu(), ok_c)
+    if k <= 11:
+        b_c, m_c = short_block.detect(x, k, e)
+        b_g, m_g = short_block.detect(x.to(cuda_device), k, e)
+        assert torch.equal(b_g.cpu(), b_c)
+        assert torch.equal(m_g.cpu().view(torch.int32), m_c.view(torch.int32))

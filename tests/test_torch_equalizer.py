@@ -121,3 +121,58 @@ def test_rejects_bad_inputs():
         teq.mmse_weights_4x4(torch.zeros((10, 4, 2), dtype=torch.complex64), torch.tensor(0.1))
     with pytest.raises(ValueError):
         teq.mmse_weights_4x4(torch.zeros((2, 10, 4, 4), dtype=torch.complex64), torch.tensor(0.1))
+
+
+# ---- the general path: MMSE and ZF on any ports x layers ---------------------
+# Tolerances as above: against the JAX package's ``equalize_weights`` (XLA
+# on the CPU, matmuls at HIGHEST precision) |dW| <= 1e-4 * max(1, max|W|)
+# and per element |d eq_nvar| <= 1e-4 * max(1, |eq_nvar|); against a
+# float64 oracle 1e-2.  The channels are random with condition numbers
+# below 20: the float32 error of both sides grows with the square of the
+# condition number, and ZF has no noise term to bound it (at 160, a square
+# 3x3 ZF differs from the reference by 3.5e-4 x max|W|).
+
+GENERAL_SHAPES = [(2, 1), (2, 2), (4, 2), (4, 3), (3, 3), (4, 4)]
+
+
+def _oracle64_general(h, nv, method):
+    h64 = h.astype(np.complex128)
+    hH = np.conj(np.swapaxes(h64, -1, -2))
+    g = hH @ h64
+    eye = np.eye(h.shape[-1])
+    ci = np.linalg.inv(g + (nv if method == "mmse" else 1e-9) * eye)
+    w = ci @ hH
+    if method == "mmse":
+        mu = np.clip(np.real(np.einsum("nij,nji->ni", ci, g)), 1e-9, 1 - 1e-9)
+        return w / mu[..., None], (1.0 - mu) / mu
+    return w, nv * np.real(np.einsum("nii->ni", ci))
+
+
+@pytest.mark.parametrize("method", ["mmse", "zf"])
+@pytest.mark.parametrize("ports, layers", GENERAL_SHAPES)
+def test_general_weights_match_reference(ports, layers, method):
+    from srsran_project_tpu.ops.equalizer import equalize_weights as jeq
+
+    rng = np.random.default_rng(10 * ports + layers)
+    h = ((rng.standard_normal((900, ports, layers)) + 1j * rng.standard_normal((900, ports, layers)))
+         * 0.5).astype(np.complex64)
+    h = h[np.linalg.cond(h) < 20][:300]
+    nv = np.float32(0.013)
+    w_j, e_j = (np.asarray(x) for x in jeq(jnp.asarray(h), jnp.float32(nv), method=method))
+    w_t, e_t = (to_np(x) for x in teq.equalize_weights(to_torch(h), torch.tensor(nv), method))
+    assert w_t.shape == (300, layers, ports) and e_t.shape == (300, layers)
+    assert w_t.dtype == np.complex64 and e_t.dtype == np.float32
+    assert np.abs(w_t - w_j).max() <= 1e-4 * max(1.0, np.abs(w_j).max())
+    assert (np.abs(e_t - e_j) <= 1e-4 * np.maximum(1.0, np.abs(e_j))).all()
+    w64, e64 = _oracle64_general(h, float(nv), method)
+    assert np.abs(w_t - w64).max() < 1e-2 and np.abs(e_t - e64).max() < 1e-2
+
+
+def test_general_4x4_mmse_is_the_k3_plain_version():
+    """The general function's 4x4 MMSE case is K3's plain version bit for
+    bit, with one noise variance per position as well as per slot."""
+    h = _rand_h((2, 200), seed=11)
+    nv = np.array([0.01, 0.3], np.float32)
+    w_p, e_p = teq.mmse_weights_4x4_plain(to_torch(h), to_torch(nv))
+    w_g, e_g = teq.equalize_weights(to_torch(h), to_torch(nv)[:, None])
+    assert torch.equal(w_g, w_p) and torch.equal(e_g, e_p)

@@ -8,6 +8,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 from torch_parity import to_torch  # noqa: F401  (sets torch threads)
 
 from srsran_project_tpu.models import cell as jcell
@@ -242,7 +243,7 @@ def test_cell_config_twin(make):
 
 @pytest.mark.parametrize("field, value", [
     ("equalizer", "mmse_ref"), ("demapper", "reference"), ("ldpc_decoder", "reference_i8"),
-    ("equalizer", "zf"), ("sinr_method", "channel_estimator"),
+    ("equalizer", "zf_ref"), ("sinr_method", "channel_estimator"),
     ("noise_method", "pair_residual"), ("cfo_compensation", True),
 ])
 def test_out_of_slice_values_raise(field, value):
@@ -259,12 +260,32 @@ def test_out_of_slice_pdsch_values_raise(field):
                            alloc=alloc, **{field: True})
 
 
+# A UCI config with a CSI report configuration (two-step CSI) stands for
+# the field values of UCI on PUSCH that are still not ported.
+_TWO_STEP_CSI = tpusch.UciOnPuschConfig(nof_harq_ack_bits=2, nof_csi1_bits=10,
+                                        csi_report_cfg=object())
+
+
 @pytest.mark.parametrize("field", ["uci", "ptrs_enabled", "transform_precoding", "compute_ta"])
 def test_out_of_slice_pusch_values_raise(field):
+    """The config raises when made, or (two-step CSI) when its UCI
+    multiplexing is first asked for."""
     alloc = tcell.CellConfig().alloc
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tpusch.PuschConfig(tbs=1000, target_code_rate=0.5, modulation=tmap.Modulation.QAM16,
-                           alloc=alloc, **{field: object() if field == "uci" else True})
+                           alloc=alloc, **{field: _TWO_STEP_CSI if field == "uci" else True}).sch
+
+
+def test_two_step_csi_in_the_slot_raises():
+    """process_slot sends a two-step CSI grant away with ValueError, as the
+    reference's slot does (its part-2 size follows the decoded RI)."""
+    from srsran_project_tpu_torch.phy import ul_slot as tul
+
+    cfg = dataclasses.replace(tcell.CellConfig(nof_rb=4, nof_ports=1, nof_layers=1).pusch_cfg,
+                              uci=_TWO_STEP_CSI)
+    with pytest.raises(ValueError, match="two-step CSI"):
+        tul.process_slot(torch.zeros((1, 14, 48), dtype=torch.complex64),
+                         [tul.UlSlotPdu(rnti=1, first_rb=0, config=cfg)])
 
 
 SEG_CASES = [(3000, 0.5), (9000, 0.45), (2000, 0.2), (300, 0.1), (1179864, 948 / 1024),

@@ -23,7 +23,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_parity import RETX_UE, SLOT_PLAN, SLOT_PORTS, slot_config, small_slot, to_np, to_torch
+from torch_parity import (RETX_UE, SLOT_PLAN, SLOT_PORTS, SLOT_PRB, slot_config, small_slot, to_np,
+                          to_torch)
 
 from srsran_project_tpu.ops.modulation import Modulation as JModulation
 from srsran_project_tpu.ops.modulation import demap_soft as jdemap
@@ -118,7 +119,7 @@ def test_transmit_matches_reference(slots):
         w = np.eye(1, SLOT_PORTS, k=1, dtype=np.complex64)
         want = np.asarray(jpusch.transmit(jnp.asarray(tb), jnp.uint32(rnti), jp.config,
                                           precoding=jnp.asarray(w)))
-        got = to_np(tpusch.transmit(to_torch(tb), torch.tensor(rnti), cfg, to_torch(w)))
+        got = to_np(tpusch.transmit(to_torch(tb), torch.tensor(rnti), cfg, precoding=to_torch(w)))
         assert got.shape == want.shape
         rms = float(np.sqrt(np.mean(np.abs(want) ** 2)))
         assert np.abs(got - want).max() <= 1e-5 * rms
@@ -210,7 +211,7 @@ def test_chip_smoke_retransmission_pair(atten_db):
                                             precoding=jnp.asarray(ue["channel"]))) + rx
         want = jpusch.process(jnp.asarray(grid_j), jnp.uint32(ue["rnti"]), jcfg, harq_j)
         grid_t = tpusch.transmit(to_torch(ue["tb"]), torch.tensor(ue["rnti"]), tcfg,
-                                 to_torch(ue["channel"])) + to_torch(rx)
+                                 precoding=to_torch(ue["channel"])) + to_torch(rx)
         got = tpusch.process(grid_t[None], torch.tensor([ue["rnti"]]), tcfg, harq_t)
         harq_j, harq_t = want["harq_buffer"], got["harq_buffer"]
         assert bool(got["tb_crc_ok"][0]) == bool(want["tb_crc_ok"]) == (rv == 2)
@@ -220,5 +221,31 @@ def test_chip_smoke_retransmission_pair(atten_db):
 
 
 def test_pucch_in_the_slot_raises(slots):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tul.process_slot(slots[0]["grid"], slots[0]["tpdus"], f1_cfgs=(object(),))
+    """PUCCH occasions in the slot are decoded, beside the PUSCH grants:
+    a 1-symbol F0 (1 HARQ bit) and a 1-symbol F2 (6 UCI bits) on symbol 0,
+    which the grants leave free, of the first slot's grid.  The occasions
+    return the sent value and bits above the DTX threshold, the tuple grows
+    to four lists with F2, and the PUSCH results stay the same."""
+    from srsran_project_tpu_torch.phy import pucch as tpucch
+    from srsran_project_tpu_torch.phy import pucch_f2 as tf2
+
+    s = slots[0]
+    f0 = tpucch.PucchFormat0Config(prb=5, start_symbol=0, nof_symbols=1, initial_cyclic_shift=2,
+                                   n_id=9, nof_grid_sc=SLOT_PRB * 12)
+    f2 = tf2.PucchFormat2Config(rb_start=10, rb_count=2, start_symbol=0, nof_symbols=1,
+                                nof_uci_bits=6, rnti=0x4620, nof_rx_ports=SLOT_PORTS,
+                                nof_grid_sc=SLOT_PRB * 12)
+    bits = np.array([1, 0, 0, 1, 1, 0], np.uint8)
+    w = torch.tensor([0.8, 0.6j], dtype=torch.complex64)[:, None]
+    grid = s["grid"].clone()
+    grid[:, 0, 60:72] += w * tpucch.format0_generate(f0, 1, device="cpu")[0]
+    grid[:, 0] += w * tf2.generate(f2, bits, device="cpu")[0]
+    res, f1_out, f0_out, f2_out = tul.process_slot(grid, s["tpdus"], (), (f0,), (f2,))
+    assert f1_out == [] and len(f0_out) == len(f2_out) == 1
+    assert int(f0_out[0][0]) == 1 and float(f0_out[0][1]) > tpucch.F0_DTX_THRESHOLD
+    assert bool(f2_out[0][1])
+    np.testing.assert_array_equal(to_np(f2_out[0][0]), bits)
+    for r, want in zip(res, s["res_t"]):
+        assert set(r) == set(want)
+        np.testing.assert_array_equal(to_np(r["tb_bits"]), want["tb_bits"])
+        assert bool(r["tb_crc_ok"]) == bool(want["tb_crc_ok"])

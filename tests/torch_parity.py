@@ -81,7 +81,8 @@ def small_slot(rv_retx=None, noise_seed: int = 0, atten_db: float = RETX_ATTENUA
         w = (w / np.linalg.norm(w)).astype(np.complex64)
         if ue == RETX_UE:
             w = w * np.float32(10 ** (-atten_db / 20))
-        sub = pusch.transmit(torch.from_numpy(tb), torch.tensor(rnti), cfg, torch.from_numpy(w))
+        sub = pusch.transmit(torch.from_numpy(tb), torch.tensor(rnti), cfg,
+                             precoding=torch.from_numpy(w))
         grid[:, :, rb0 * 12 : rb0 * 12 + cfg.nof_grid_sc] += sub
         cfgs.append(cfg)
         tbs.append(tb)

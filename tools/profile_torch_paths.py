@@ -8,8 +8,9 @@ Run from the repository root on a machine with one NVIDIA GPU:
 It builds the port's kernels (as chip_smoke.py does), then
 
 1. times the flagship float and plane decodes at batch 8 in turns (float,
-   plane, plane, float) and the 8-UE uplink slot twice, with CUDA events
-   around 10 calls after 2 warm-ups;
+   plane, plane, float), the 8-UE uplink slot twice and chip_smoke.py's
+   path 4 (the whole uplink slot: UCI on PUSCH, ranks 4/2/1, six PUCCH
+   occasions) twice, with CUDA events around 10 calls after 2 warm-ups;
 2. runs torch.profiler over 5 calls of each path (after 3 warm-ups) and
    prints per call the wall time, the device-busy time (the sum of the
    device kernels' self time), their share, the number of device kernels,
@@ -18,7 +19,12 @@ It builds the port's kernels (as chip_smoke.py does), then
    K2 ``decode_kernel``, K3 ``mmse_weights_4x4_kernel``, K4
    ``demap_planes_kernel``).
 
-The inputs are chip_smoke.py's: its uplink slot plan (new data) and 8
+Path 4 is also split into its host-heavy parts, each profiled alone on
+the slot's own inputs: the UCI decodes of its three config groups (short
+block and the polar SC decoder on the demultiplexed LLRs), and the six
+PUCCH detections.
+
+The inputs are chip_smoke.py's: its uplink slot plans (new data) and 8
 random flagship slots at about 30 dB.  Every line starts with ``#``; the
 card's name and power limit come first.  The profiler inflates the wall
 times it reads.
@@ -45,7 +51,7 @@ def main() -> int:
     import chip_smoke as cs
     from srsran_project_tpu_torch.models import cell
     from srsran_project_tpu_torch.ops import cuda_lib
-    from srsran_project_tpu_torch.phy import ul_slot
+    from srsran_project_tpu_torch.phy import pucch, pucch_f2, pusch, ul_slot, ulsch_demux
 
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_paths: needs a CUDA device")
@@ -57,6 +63,35 @@ def main() -> int:
     pdus = [ul_slot.UlSlotPdu(rnti=u["rnti"], first_rb=u["first_rb"], config=c)
             for u, c in zip(ues, cfgs)]
 
+    ues4, pucch4, noise4 = cs.ul4_plan()
+    grid4, cfgs4 = cs.ul4_grid(ues4, pucch4, noise4, dev)
+    pdus4 = [ul_slot.UlSlotPdu(rnti=u["rnti"], first_rb=u["first_rb"], config=c)
+             for u, c in zip(ues4, cfgs4)]
+    f1, f0, f2 = cs.ul4_pucch()
+    # The demultiplexed UCI LLRs of each path-4 config group.
+    groups4 = ul_slot._config_groups(pdus4)
+    uci_llrs = []
+    for cfg, idxs in groups4.items():
+        rb = tuple(pdus4[i].first_rb for i in idxs)
+        rn = torch.tensor([pdus4[i].rnti for i in idxs], device=dev)
+        llrs = pusch._multi_front_end(grid4, rn, [12 * r for r in rb],
+                                      pusch._pilot_bank_on(dev, cfg, rb), cfg)[0]
+        uci_llrs.append((cfg, ulsch_demux.demultiplex(llrs, cfg.uci_mux)[1:]))
+
+    def uci_decodes():
+        for cfg, (ack, csi1, csi2) in uci_llrs:
+            ulsch_demux.decode_uci_parts(ack, csi1, cfg.uci.nof_harq_ack_bits,
+                                         cfg.uci.nof_csi1_bits, csi2_llrs=csi2,
+                                         nof_csi2_bits=cfg.uci.nof_csi2_bits)
+
+    def pucch_detections():
+        for c in f1:
+            pucch.format1_detect(grid4, c)
+        for c in f0:
+            pucch.format0_detect(grid4, c)
+        for c in f2:
+            pucch_f2.process(grid4, c)
+
     fl = cell.CellConfig()
     pl = cell.CellConfig(demapper="planes")
     rng = np.random.default_rng(1)
@@ -66,12 +101,16 @@ def main() -> int:
 
     calls = {
         "ul_slot": lambda: ul_slot.process_slot(grid, pdus),
+        "ul_slot_uci": lambda: ul_slot.process_slot(grid4, pdus4, f1, f0, f2),
+        "ul_slot_uci UCI decodes": uci_decodes,
+        "ul_slot_uci PUCCH": pucch_detections,
         "float b=1": lambda: cell.decode_slot(rx[:1], cs.RNTI, fl),
         "plane b=1": lambda: cell.decode_slot(rx[:1], cs.RNTI, pl),
         "float b=8": lambda: cell.decode_slot(rx, cs.RNTI, fl),
         "plane b=8": lambda: cell.decode_slot(rx, cs.RNTI, pl),
     }
-    for name in ("float b=8", "plane b=8", "plane b=8", "float b=8", "ul_slot", "ul_slot"):
+    for name in ("float b=8", "plane b=8", "plane b=8", "float b=8", "ul_slot", "ul_slot",
+                 "ul_slot_uci", "ul_slot_uci"):
         print(f"# turn {name}: {cs.cuda_ms(calls[name], reps=10, warmup=2):.4f} ms/call")
 
     reps = 5
