@@ -9,7 +9,7 @@ Run from the repository root on a machine with one NVIDIA Hopper card:
 It builds the port's CUDA kernels from ``srsran_project_tpu_torch/csrc``
 (into ``build/``, one ``nvcc`` per source, side by side), checks each
 kernel against its plain torch version on the card at the shapes of the
-paths below, then drives four paths through the port's public entry
+paths below, then drives five paths through the port's public entry
 points, each with every kernel launch counter set to 0 just before it and
 read just after:
 
@@ -40,7 +40,20 @@ read just after:
    SR and with 2 HARQ bits.  The UE side is the port's own (``pusch.transmit``
    with UCI, ``pucch.format0/1_generate``, ``pucch_f2.generate``).  K2 is
    held against its plain version on the slot's code groups (BG1 Z=384,
-   Z=320, BG2 Z=36).
+   Z=320, BG2 Z=36);
+5. every allocation shape and waveform on the same carrier and 4 RX
+   ports, the UE side the port's own (``pdsch.process`` with a
+   PdschConfig twin): (a) ``pusch.process`` on a 273-PRB 4x4 256QAM grant
+   with PT-RS (K = 2) under a random common phase per symbol (K3, K1);
+   (b) a 273-PRB 4x4 64QAM grant with DM-RS type 2 and data on the DM-RS
+   symbol (the per-RE equalizer, K1); (c) 270-PRB DFT-s-OFDM grants with
+   pi/2-BPSK and with QPSK and the low-PAPR DM-RS (K1 at qm = 1 and 2);
+   (d) narrower grants of those shapes side by side through
+   ``ul_slot.process_slot``, two PT-RS grants at different PRBs (K2 once
+   per code group, K3 once per PT-RS group); (e) a 273-PRB rank-2 grant
+   with two-step CSI (RI, part-2 size and bits checked).  K1 is held
+   against its plain version on (a)-(c) and (e)'s own LLRs, K3 on (a)'s
+   channel estimate, K2 on (d)'s code groups.
 
 Every CRC, every TB and UCI bit, every ``_ok`` flag and every PUCCH value
 is checked, and each PUCCH metric against its DTX threshold.  It then times each path per slot and
@@ -51,7 +64,8 @@ sleep kernel, so they run back to back) and its plain version's time
 
 Output: progress and timing lines, then one JSON line with the kernels
 (time, plain version's time, the bound computed from this run's inputs,
-launches per path; the resident blocks per SM, and for K3 and K4 the
+launches per path, device time and bound at path 5's shapes
+("shapes_ms"); the resident blocks per SM, and for K3 and K4 the
 registers a thread and the same three numbers at 8 flagship slots, "b8_",
 K3 also at the uplink slot's group A, "group_a_"), the
 card's name and power limit, and as the LAST line
@@ -613,25 +627,369 @@ def ul4_phase(card: str) -> tuple[dict, float]:
     ms = cuda_ms(run, reps=5)
     print(f"# [{card}] ul_slot_uci: 8 UEs (UCI on PUSCH, ranks 4/2/1) + 6 PUCCH occasions, "
           f"273 PRB x 4 ports: {ms:.4f} ms/slot")
-    print(f"# [{card}] ul_slot_uci: {device_kernels_per_call(run)} device kernels per call")
+    print(f"# [{card}] ul_slot_uci: {profile_call(run)[0]} device kernels per call")
     return counts, k2_err
 
 
-def device_kernels_per_call(fn) -> str:
-    """The device kernels one call of fn launches, counted by
-    torch.profiler (after a warm-up call); "not measured" where the
-    profiler sees no device activity."""
+def profile_call(fn) -> tuple[str, float, float]:
+    """One call of fn under torch.profiler (after a warm-up call): (the
+    device kernels it launches, "not measured" where the profiler sees no
+    device activity; their summed device time in ms; the call's wall time
+    in ms, which the profiler inflates)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
-    n = sum(e.count for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA)
-    return str(n) if n else "not measured"
+        wall = (time.perf_counter() - t0) * 1e3
+    dev_ev = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    n = sum(e.count for e in dev_ev)
+    return (str(n) if n else "not measured",
+            sum(e.self_device_time_total for e in dev_ev) / 1e3, wall)
+
+
+# ---- every allocation shape and waveform --------------------------------------
+
+# Path 5 on the same carrier and 4 RX ports.  Shapes: name -> (layers,
+# modulation, MCS (table, index, pi/2-BPSK), DM-RS type, CDM groups without
+# data, transform precoding, PT-RS).  Rates from TS 38.214 Tables
+# 5.1.3.1-2 (256QAM MCS 21, 711/1024), 5.1.3.1-1 (64QAM MCS 20, 567/1024)
+# and 6.1.4.1-1 (transform precoding, 64QAM table: MCS 0 pi/2-BPSK
+# 240/1024, MCS 6 QPSK 449/1024).
+P5_SHAPES = {
+    "ptrs": (4, ("qam256", 21, False), 1, 2, False, True),
+    "type2": (4, ("qam64", 20, False), 2, 2, False, False),
+    "dfts_bpsk": (1, ("qam64", 0, True), 1, 2, True, False),
+    "dfts_qpsk": (1, ("qam64", 6, False), 1, 2, True, False),
+}
+# Per shape: PRBs of the single grant (path 5 a-c) and the SNR per RE and
+# port; the common phase error per data symbol of the PT-RS grants, up to
+# +-P5_CPE_RAD (none on the DM-RS symbol).
+P5_NOF_PRB = {"ptrs": 273, "type2": 273, "dfts_bpsk": 270, "dfts_qpsk": 270}
+P5_SNR_DB = {"ptrs": 32.0, "type2": 28.0, "dfts_bpsk": 6.0, "dfts_qpsk": 6.0}
+P5_CPE_RAD = 1.0
+P5_RNTI = 0x4801
+P5_N_RS_ID = 17
+# Path 5d: narrower grants of the shapes side by side on one grid, (shape,
+# first PRB, PRBs): two PT-RS grants at different PRBs (separate config
+# groups: their PT-RS values follow the absolute CRB), two type-2 grants
+# sharing a config, and one of each DFT-s shape (48 and 45 PRB are
+# 2^a 3^b 5^c).  SNR 32 dB.
+P5_SLOT = (("ptrs", 0, 40), ("ptrs", 40, 40), ("type2", 80, 48), ("dfts_bpsk", 128, 48),
+           ("dfts_qpsk", 176, 45), ("type2", 221, 48))
+P5_SLOT_SNR_DB = 32.0
+# Path 5e: two-step CSI (a 4-port CSI-RS report: RI from 4 ranks) on a
+# rank-2 16QAM grant of 273 PRB with 2 HARQ-ACK bits, at 25 dB.
+P5_CSI_NOF_PRB = 273
+P5_CSI_RANK = 3
+P5_CSI_SNR_DB = 25.0
+
+
+def p5_configs(shape: str, nof_rb: int, first_rb: int = 0, uci=None):
+    """(the UE side's PdschConfig, the receiver's PuschConfig) of a path-5
+    grant: a compact window of nof_rb PRBs at crb_start first_rb, on the
+    flagship's symbols 1-13 with DM-RS on symbol 2."""
+    from srsran_project_tpu_torch.ops.modulation import Modulation
+    from srsran_project_tpu_torch.phy import pdsch, pusch
+    from srsran_project_tpu_torch.phy.allocation import Allocation
+    from srsran_project_tpu_torch.ran import tbs as tbs_mod
+
+    layers, (table, mcs, pi2), ctype, ncdm, tp, ptrs = P5_SHAPES[shape]
+    qm, rate = tbs_mod.mcs_to_qm_rate(mcs, table, tp, pi2)
+    mod = Modulation.PI_2_BPSK if pi2 and qm == 1 else Modulation(qm)
+    alloc = Allocation(rb_start=0, rb_count=nof_rb, sym_start=1, sym_count=13,
+                       dmrs_symbols=(2,), dmrs_config_type=ctype,
+                       nof_cdm_groups_without_data=ncdm, crb_start=first_rb)
+    common = dict(tbs=tbs_mod.calculate_tbs(nof_rb, 13, 12, rate, qm, layers),
+                  target_code_rate=rate, modulation=mod, alloc=alloc, nof_layers=layers,
+                  nof_grid_symbols=14, nof_grid_sc=12 * nof_rb, ptrs_enabled=ptrs, ptrs_k=2,
+                  transform_precoding=tp, n_rs_id=P5_N_RS_ID)
+    return (pdsch.PdschConfig(nof_ports=UL_NOF_PORTS, **common),
+            pusch.PuschConfig(nof_rx_ports=UL_NOF_PORTS, uci=uci, **common))
+
+
+def p5_csi_configs():
+    """Path 5e: the rank-2 16QAM grant with two-step CSI, (PuschConfig,
+    the CSI report config)."""
+    from srsran_project_tpu_torch.models.cell import CellConfig
+    from srsran_project_tpu_torch.ops.modulation import Modulation
+    from srsran_project_tpu_torch.phy.pusch import UciOnPuschConfig
+    from srsran_project_tpu_torch.ran import csi
+
+    report = csi.CsiReportConfig(nof_csi_rs_ports=4)
+    uci = UciOnPuschConfig(nof_harq_ack_bits=2, nof_csi1_bits=csi.part1_bitwidth(report),
+                           nof_csi2_bits=csi.part2_min_max(report)[1], csi_report_cfg=report)
+    pc = CellConfig(nof_rb=P5_CSI_NOF_PRB, nof_ports=UL_NOF_PORTS, nof_layers=2,
+                    modulation=Modulation.QAM16, target_code_rate=0.5).pusch_cfg
+    return dataclasses.replace(pc, uci=uci), report
+
+
+def p5_plan(seed: int = SEED):
+    """Everything random about path 5, made with numpy from ``seed``: per
+    single grant (a, b, c) and per slot grant (d) a dict of rnti, first_rb,
+    shape, PRBs, SNR, TB bits, channel (layers, 4) and the common phase
+    per symbol; the two-step CSI grant's TB, payloads and channel; and
+    unit complex noise (4, 14, 3276) for each of the three grids."""
+    rng = np.random.default_rng(seed + 5)
+
+    def grant(i, shape, first_rb, nof_rb, snr):
+        _tx, rx = p5_configs(shape, nof_rb, first_rb)
+        phase = np.zeros(14)
+        if rx.ptrs_enabled:
+            phase[3:] = rng.uniform(-P5_CPE_RAD, P5_CPE_RAD, 11)
+            phase[1] = rng.uniform(-P5_CPE_RAD, P5_CPE_RAD)
+        return dict(rnti=P5_RNTI + i, first_rb=first_rb, shape=shape, nof_rb=nof_rb, snr=snr,
+                    tb=rng.integers(0, 2, size=(rx.tbs,), dtype=np.uint8),
+                    channel=_unit_rows(rng, rx.nof_layers), phase=phase)
+
+    singles = [grant(i, s, 0, P5_NOF_PRB[s], P5_SNR_DB[s]) for i, s in enumerate(P5_SHAPES)]
+    slot = [grant(10 + i, s, rb, n, P5_SLOT_SNR_DB) for i, (s, rb, n) in enumerate(P5_SLOT)]
+    cfg, report = p5_csi_configs()
+    from srsran_project_tpu_torch.ran import csi
+
+    ri_off, ri_w, sizes = csi.part2_correspondence(report)
+    v = report.allowed_ranks.index(P5_CSI_RANK)
+    csi1 = rng.integers(0, 2, size=(csi.part1_bitwidth(report),), dtype=np.uint8)
+    csi1[ri_off : ri_off + ri_w] = [(v >> (ri_w - 1 - k)) & 1 for k in range(ri_w)]
+    two = dict(rnti=P5_RNTI + 20, tb=rng.integers(0, 2, size=(cfg.tbs,), dtype=np.uint8),
+               ack=rng.integers(0, 2, size=(2,), dtype=np.uint8), csi1=csi1,
+               csi2=rng.integers(0, 2, size=(sizes[v],), dtype=np.uint8),
+               channel=_unit_rows(rng, 2))
+    noise = rng.standard_normal((3, UL_NOF_PORTS, 14, UL_NOF_PRB * 12, 2)) * np.sqrt(0.5)
+    return singles, slot, two, (noise[..., 0] + 1j * noise[..., 1]).astype(np.complex64)
+
+
+def p5_signal(ue, device):
+    """The (4, 14, 12 nof_rb) grid of one path-5 grant as received, before
+    noise: the port's own UE side (``pdsch.process`` with the grant's
+    PdschConfig, its channel as the precoding), times the common phase
+    per symbol."""
+    import torch
+
+    from srsran_project_tpu_torch.phy import pdsch
+
+    tx, _rx = p5_configs(ue["shape"], ue["nof_rb"], ue["first_rb"])
+    sig = pdsch.process(torch.from_numpy(ue["tb"]).to(device), ue["rnti"],
+                        torch.from_numpy(ue["channel"]).to(device), tx)
+    return sig * torch.polar(torch.ones(14, device=device),
+                             torch.from_numpy(ue["phase"]).float().to(device))[:, None]
+
+
+def p5_noise(noise, snr_db: float, nof_sc: int, device):
+    import torch
+
+    return torch.from_numpy(noise[..., :nof_sc]).to(device) * float(10 ** (-snr_db / 20))
+
+
+def check_p5_result(what: str, res: dict, tb, idx: int = 0) -> None:
+    crc = bool(res["tb_crc_ok"][idx])
+    errs = int((res["tb_bits"][idx].cpu().numpy() != tb).sum())
+    snr = float(res["snr_db"][idx])
+    print(f"# shapes {what}: CRC {crc}, bit errors {errs}, SINR {snr:.2f} dB")
+    if not crc or errs:
+        fail(f"shapes {what}: CRC {crc} with {errs} bit errors")
+    if not (np.isfinite(float(res["noise_var"][idx])) and np.isfinite(snr)):
+        fail(f"shapes {what}: non-finite noise_var / snr_db")
+
+
+def check_k3_on(h, nv, what: str):
+    """K3 against its plain version on (B, nsc, 4, 4) channels ``h`` (any
+    strides) and (B,) noise variances: one launch, W and eq_nvar bitwise
+    equal.  Returns (the largest absolute difference, W, eq_nvar)."""
+    import torch
+
+    from srsran_project_tpu_torch.ops import equalizer
+
+    before = equalizer.mmse_weights_4x4.launches
+    w_k, ev_k = equalizer.mmse_weights_4x4(h, nv)
+    w_p, ev_p = equalizer.mmse_weights_4x4_plain(h, nv)
+    torch.cuda.synchronize()
+    if equalizer.mmse_weights_4x4.launches != before + 1:
+        fail(f"{what}: not one launch")
+    err = max_abs_diff((w_k, w_p), (ev_k, ev_p))
+    if not math.isfinite(err):
+        fail(f"{what}: non-finite W or eq_nvar")
+    if not (torch.equal(torch.view_as_real(w_k).view(torch.int32),
+                        torch.view_as_real(w_p).view(torch.int32))
+            and torch.equal(ev_k.view(torch.int32), ev_p.view(torch.int32))):
+        fail(f"{what}: W / eq_nvar differ from the plain version (max|dW| "
+             f"{float((w_k - w_p).abs().max()):.3e}, max|d eq_nvar| "
+             f"{float((ev_k - ev_p).abs().max()):.3e})")
+    print(f"# {what} {tuple(h.shape)}: W and eq_nvar bitwise equal to the plain version")
+    return err, w_k, ev_k
+
+
+def p5_inputs(device):
+    """Path 5's received grids on ``device``, built from ``p5_plan``: a
+    list of (plan entry, PuschConfig, (1, 4, 14, nsc) grid, (1,) RNTIs) for
+    (a)-(c); the slot's (grid, its UlSlotPdus); and (e)'s (plan entry,
+    PuschConfig, grid, RNTIs)."""
+    import torch
+
+    from srsran_project_tpu_torch.phy import pusch, ul_slot
+
+    singles, slot, two, noise = p5_plan()
+    out = []
+    for ue in singles:
+        _tx, cfg = p5_configs(ue["shape"], ue["nof_rb"])
+        grid = p5_signal(ue, device) + p5_noise(noise[0], ue["snr"], cfg.nof_grid_sc, device)
+        out.append((ue, cfg, grid[None], torch.tensor([ue["rnti"]], device=device)))
+    grid = p5_noise(noise[1], P5_SLOT_SNR_DB, UL_NOF_PRB * 12, device).clone()
+    pdus = []
+    for ue in slot:
+        _tx, cfg = p5_configs(ue["shape"], ue["nof_rb"], ue["first_rb"])
+        sc0 = 12 * ue["first_rb"]
+        grid[:, :, sc0 : sc0 + cfg.nof_grid_sc] += p5_signal(ue, device)
+        pdus.append(ul_slot.UlSlotPdu(rnti=ue["rnti"], first_rb=ue["first_rb"], config=cfg))
+    cfg, _report = p5_csi_configs()
+
+    def on(x):
+        return torch.from_numpy(x).to(device)
+
+    sig = pusch.transmit(on(two["tb"]), torch.tensor(two["rnti"], device=device), cfg,
+                         on(two["ack"]), on(two["csi1"]), on(two["csi2"]),
+                         precoding=on(two["channel"]))
+    grid_e = sig + p5_noise(noise[2], P5_CSI_SNR_DB, cfg.nof_grid_sc, device)
+    return (out, (grid, pdus, slot),
+            (two, cfg, grid_e[None], torch.tensor([two["rnti"]], device=device)))
+
+
+def shapes_phase(card: str) -> tuple[dict, dict, dict]:
+    """Path 5: (a) a PT-RS grant, (b) a DM-RS type-2 grant with data on the
+    DM-RS symbol, (c) DFT-s-OFDM with pi/2-BPSK and with QPSK, each through
+    ``pusch.process``; (d) narrower grants of those shapes through
+    ``ul_slot.process_slot``; (e) two-step CSI through ``pusch.process``.
+    Each with the launch counters read around it, K1 held against its plain
+    version on (a)-(c) and (e)'s own LLRs, K3 on (a)'s channel estimate, K2
+    on (d)'s code groups.  Returns the launch counts summed over the path,
+    the kernels' largest differences, and each kernel's device times at
+    these shapes with their bounds."""
+    import torch
+
+    from srsran_project_tpu_torch.ops import equalizer
+    from srsran_project_tpu_torch.ops.ldpc import decoder
+    from srsran_project_tpu_torch.phy import pusch, sch as sch_mod, ul_slot
+
+    dev = torch.device(DEVICE)
+    singles, (slot_grid, pdus, slot), (two, cfg_e, grid_e, rnti_e) = p5_inputs(dev)
+    total: dict = {}
+    errs = {"decode_dematch": 0.0, "mmse_weights_4x4": 0.0, "decode": 0.0}
+    times: dict = {"decode_dematch": {}, "mmse_weights_4x4": {}, "decode": {}}
+
+    def counted(name, fn, want):
+        torch.cuda.synchronize()
+        reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        got = read_counts()
+        expect_counts(f"shapes {name}", got, want)
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+        return out
+
+    def report(name, fn):
+        ms = cuda_ms(fn, reps=5)
+        kernels, busy, wall = profile_call(fn)
+        print(f"# [{card}] shapes {name}: {ms:.4f} ms a call; {kernels} device kernels per "
+              f"call, device busy {busy:.4f} of {wall:.4f} ms profiled "
+              f"({100 * busy / wall:.1f} %)")
+
+    def k1_on(name, llr, cfg):
+        data, _ = pusch.split_uci(llr, cfg)
+        bits, iters = sch_mod._fused_decode(data, cfg.sch, cfg.nof_ldpc_iterations,
+                                            cfg.ldpc_early_stop)
+        errs["decode_dematch"] = max(errs["decode_dematch"],
+                                     check_k1_batch(data, bits, iters, cfg, f"shapes {name}"))
+        seg = cfg.sch.seg
+        e0 = sch_mod._e_groups(cfg.sch.cb_e_bits)[0][2]
+        plan = decoder.dematch_decode_plan(seg.base_graph, seg.lifting_size,
+                                           seg.nof_payload_bits_per_cb, e0, cfg.sch.rv,
+                                           cfg.sch.qm, cfg.sch.n_cb or seg.full_codeword_bits)
+        times["decode_dematch"][name] = dict(
+            ms=kernel_ms(lambda: sch_mod._fused_decode(data, cfg.sch, cfg.nof_ldpc_iterations,
+                                                       cfg.ldpc_early_stop)),
+            bound_ms=ldpc_bound(plan, iters, (data,), (bits, iters))[0], qm=cfg.sch.qm,
+            codeblocks=int(iters.numel()), mean_iterations=float(iters.float().mean()))
+
+    # (a)-(c): one grant each through pusch.process.
+    for ue, cfg, grid, rnti in singles:
+        if not _fused_ok(cfg):
+            fail(f"shapes {ue['shape']}: repetition geometry, K1 would not run")
+        want = {"decode_dematch": 1}
+        if (cfg.nof_layers, cfg.nof_rx_ports) == (4, 4) and pusch.pdsch_mod.uniform_data_rows(
+                cfg.alloc):
+            want["mmse_weights_4x4"] = 1  # the fast equalizer: full data rows
+        res = counted(ue["shape"], lambda: pusch.process(grid, rnti, cfg), want)
+        check_p5_result(f"{ue['shape']} ({ue['nof_rb']} PRB, {cfg.nof_layers} layers, "
+                        f"{cfg.modulation.name}, G {cfg.g_total})", res, ue["tb"])
+        llr = pusch._front_end(grid, rnti, cfg)[0]
+        k1_on(ue["shape"], llr, cfg)
+        if cfg.ptrs_enabled:
+            _g, h, nv = pusch._estimate_stage(grid, cfg)
+            hs = h.transpose(1, 2)
+            err, w_k, ev_k = check_k3_on(hs, nv, "shapes ptrs K3")
+            errs["mmse_weights_4x4"] = max(errs["mmse_weights_4x4"], err)
+            times["mmse_weights_4x4"]["ptrs"] = dict(
+                ms=kernel_ms(lambda: equalizer.mmse_weights_4x4(hs, nv), reps=50),
+                bound_ms=bound(nbytes(hs, nv, w_k, ev_k), 1500.0 * hs.shape[1])[0])
+            got = pusch.cpe_phases(grid.reshape(1, UL_NOF_PORTS, -1), h, cfg)[0]
+            got = got.angle().cpu().numpy()
+            cpe_err = float(np.abs(np.angle(np.exp(1j * (got - ue["phase"])))).max())
+            print(f"# shapes ptrs: common phase error recovered within {cpe_err:.4f} rad "
+                  f"(up to {P5_CPE_RAD} rad per symbol)")
+            if not cpe_err < 0.05:
+                fail(f"shapes ptrs: CPE off by {cpe_err:.4f} rad")
+        report(ue["shape"], lambda: pusch.process(grid, rnti, cfg))
+
+    # (d): the narrower grants side by side through process_slot.
+    grid = slot_grid
+    groups = ul_slot._config_groups(pdus)
+    cfgs = tuple(groups)
+    codes = {(c.sch.seg.base_graph, c.sch.seg.lifting_size, c.nof_ldpc_iterations,
+              c.ldpc_early_stop, c.sch.n_cb) for c in cfgs}
+    k3_groups = sum(1 for c in cfgs if (c.nof_layers, c.nof_rx_ports) == (4, 4)
+                    and pusch.pdsch_mod.uniform_data_rows(c.alloc))
+    if len(groups) != 5 or k3_groups != 2:
+        fail(f"shapes slot: {len(groups)} config groups and {k3_groups} K3 groups, want 5 and 2")
+    res, _, _ = counted("slot", lambda: ul_slot.process_slot(grid, pdus),
+                        {"decode": len(codes), "mmse_weights_4x4": 2})
+    for i, (r, ue) in enumerate(zip(res, slot)):
+        check_p5_result(f"slot UE {i} ({ue['shape']}, PRB {ue['first_rb']}+{ue['nof_rb']})",
+                        {k: v[None] for k, v in r.items()}, ue["tb"])
+    k2_err, geometries = check_code_groups(grid, pdus, "shapes slot")
+    errs["decode"] = k2_err
+    fronts = ul_slot._slot_front(grid, groups, pdus)
+    for (bg, z, iters, early, n_cb), _gis, _sizes, llrs in ul_slot._code_groups(cfgs, fronts):
+        plan = decoder.decode_plan(bg, z, llrs.shape[-1], n_cb)
+        bits, _, its = decoder.decode(llrs, bg, z, iters, early, True, n_cb)
+        times["decode"][f"BG{bg} Z={z} C={llrs.shape[0]}"] = dict(
+            ms=kernel_ms(lambda: decoder.decode(llrs, bg, z, iters, early, True, n_cb)),
+            bound_ms=ldpc_bound(plan, its, (llrs,), (bits, its))[0])
+    print(f"# shapes slot: {len(pdus)} grants in {len(groups)} config groups, K2 code groups "
+          f"{geometries}")
+    report("slot", lambda: ul_slot.process_slot(grid, pdus))
+
+    # (e): two-step CSI through pusch.process.
+    cfg, grid, rnti = cfg_e, grid_e, rnti_e
+    res = counted("two-step CSI", lambda: pusch.process(grid, rnti, cfg), {"decode_dematch": 1})
+    check_p5_result(f"two-step CSI ({P5_CSI_NOF_PRB} PRB, 2 layers, QAM16)", res, two["tb"])
+    n2 = int(res["nof_csi2_bits"][0])
+    flags = {"rank": int(res["csi_rank"][0]), "nof_csi2_bits": n2}
+    for name, sent in (("harq_ack", two["ack"]), ("csi1", two["csi1"]), ("csi2", two["csi2"])):
+        got = res[f"{name}_bits"][0].cpu().numpy()[: sent.size]
+        flags[name] = (bool(res[f"{name}_ok"][0]), int((got != sent).sum()))
+    print(f"# shapes two-step CSI: {flags} (sent rank {P5_CSI_RANK}, part 2 of "
+          f"{two['csi2'].size} bits)")
+    if (flags["rank"], n2) != (P5_CSI_RANK, two["csi2"].size) or any(
+            not ok or wrong for ok, wrong in (flags[k] for k in ("harq_ack", "csi1", "csi2"))):
+        fail(f"shapes two-step CSI: {flags}")
+    k1_on("two_step_csi", pusch._front_end(grid, rnti, cfg)[0], cfg)
+    report("two-step CSI", lambda: pusch.process(grid, rnti, cfg))
+    return total, errs, times
 
 
 # ---- the kernels against their plain versions ---------------------------------
@@ -814,22 +1172,8 @@ def check_k3(rng, dev, batch: int, nsc: int, name: str):
     nv = torch.from_numpy(nv_np.astype(np.float32)).to(dev)
     err = 0.0
     for layout, hh in (("estimate layout", h), ("contiguous", h.contiguous())):
-        before = equalizer.mmse_weights_4x4.launches
-        w_k, ev_k = equalizer.mmse_weights_4x4(hh, nv)
-        w_p, ev_p = equalizer.mmse_weights_4x4_plain(hh, nv)
-        torch.cuda.synchronize()
-        if equalizer.mmse_weights_4x4.launches != before + 1:
-            fail(f"K3 {name} {layout}: not one launch")
-        d = max_abs_diff((w_k, w_p), (ev_k, ev_p))
-        if not math.isfinite(d):
-            fail(f"K3 {name} {layout}: non-finite W or eq_nvar")
+        d, w_k, ev_k = check_k3_on(hh, nv, f"K3 {name} {layout}")
         err = max(err, d)
-        if not (torch.equal(torch.view_as_real(w_k).view(torch.int32),
-                            torch.view_as_real(w_p).view(torch.int32))
-                and torch.equal(ev_k.view(torch.int32), ev_p.view(torch.int32))):
-            fail(f"K3 {name} {layout}: W / eq_nvar differ from the plain version (max|dW| "
-                 f"{float((w_k - w_p).abs().max()):.3e}, max|d eq_nvar| "
-                 f"{float((ev_k - ev_p).abs().max()):.3e})")
     i = int(np.argmax(nv_np))  # the oracle's float32 gap grows as nv falls
     w64, ev64 = _mmse_oracle64(h_np[i].transpose(2, 1, 0), float(nv[i]))
     o_err = max(float(np.abs(w_k[i].cpu().numpy() - w64).max()),
@@ -1125,6 +1469,9 @@ def main() -> int:
     errs.update(plane_errs)
     per_path["ul_slot_uci"], k2_err4 = ul4_phase(card)
     errs["decode"] = max(errs["decode"], k2_err4)
+    per_path["shapes"], errs5, times5 = shapes_phase(card)
+    for name, err in errs5.items():
+        errs[name] = max(errs.get(name, 0.0), err)
     # Each kernel's launches on the path it serves (one call of it), and
     # on every path.
     home = {"decode_dematch": "flagship", "mmse_weights_4x4": "flagship", "decode": "ul_slot",
@@ -1133,6 +1480,8 @@ def main() -> int:
         k["launches"] = per_path[home[k["name"]]][k["name"]]
         k["launches_per_path"] = {path: c[k["name"]] for path, c in per_path.items()}
         k["max_abs_err"] = max(k["max_abs_err"], errs.get(k["name"], 0.0))
+        if k["name"] in times5:  # device ms and bound at path 5's shapes
+            k["shapes_ms"] = times5[k["name"]]
     print(f"# chip_smoke took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

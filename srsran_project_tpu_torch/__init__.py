@@ -1,7 +1,8 @@
 """srsran_project_tpu_torch — the PyTorch/CUDA port of srsran_project_tpu.
 
-The flagship 100 MHz 4x4 slot (PDSCH encode -> IQ -> PUSCH decode) on an
-NVIDIA Hopper card.  The layout mirrors the JAX package module for module
+The flagship 100 MHz 4x4 slot (PDSCH encode -> IQ -> PUSCH decode), the
+multi-UE uplink slot and every PUSCH/PDSCH allocation shape and waveform
+on an NVIDIA Hopper card.  The layout mirrors the JAX package module for module
 so each counterpart is easy to find; the JAX package stays the reference
 every port function is tested against.
 
@@ -21,12 +22,16 @@ Rules of the package:
 
 Subpackages
 -----------
-ran      constants, TBS, DM-RS geometry (copies of the reference's)
+ran      constants, TBS, DM-RS geometry, UL-SCH sizes, CSI reports
+         (copies of the reference's)
 ops      crc, scrambling, ldpc (graphs, segment/encode/rate match, K1 and
-         K2 decode), modulation (map/demap/evm), ofdm, estimator,
-         equalizer (K3), demap_planes (K4)
-phy      allocation, shared-channel coding (sch), PDSCH bit/grid chains,
-         PUSCH front end, the multi-UE uplink slot (ul_slot)
+         K2 decode), modulation (map/demap/evm, BPSK to 256QAM), ofdm,
+         transform precoding, estimator, equalizer (per subcarrier with
+         K3, per RE), demap_planes (K4), polar, short block, UCI codecs
+phy      allocation, shared-channel coding (sch), PDSCH (process: every
+         allocation shape, PT-RS, DFT-s), PUSCH front ends and back end
+         (UCI on PUSCH, two-step CSI), PUCCH, the multi-UE uplink slot
+         (ul_slot)
 models   the flagship cell: encode_slot / decode_slot
 csrc     CUDA C++ sources of the Hopper kernels (built at first use)
 """

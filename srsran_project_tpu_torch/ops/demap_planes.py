@@ -34,14 +34,12 @@ import torch
 
 from . import cuda_lib
 from .modulation.demapper import LLR_MAX
-from .modulation.mapper import Modulation, pam_levels
+from .modulation.mapper import Modulation, check_square_qam, pam_levels
 
 
 def _check(y, w, eq_nvar, c, mod: Modulation):
     """Validate the shapes and types -> (B, P, S, N, L, qm)."""
-    if mod not in (Modulation.QPSK, Modulation.QAM16, Modulation.QAM64, Modulation.QAM256):
-        raise NotImplementedError(f"demap_planes: {mod.name} is not a square QAM")
-    qm = int(mod)
+    qm = check_square_qam(mod)
     if y.dim() != 4 or w.dim() != 4:
         raise ValueError(f"demap_planes: want y (B, P, S, N), w (B, N, L, P), got "
                          f"{tuple(y.shape)}, {tuple(w.shape)}")
@@ -122,7 +120,7 @@ def demap_planes(y: torch.Tensor, w: torch.Tensor, eq_nvar: torch.Tensor,
         raise ValueError(f"demap_planes: unsupported device {y.device}")
     b, p, s, n, l, qm = _check(y, w, eq_nvar, c, mod)
     if l > 4:
-        raise NotImplementedError(f"demap_planes: {l} layers (the kernel takes 1 to 4)")
+        raise ValueError(f"demap_planes: {l} layers (the kernel takes 1 to 4)")
     if max(p, qm) * s * n * l >= 2 ** 31:
         raise ValueError("demap_planes: a slot must hold fewer than 2^31 elements")
     for name, t in (("y", y), ("w", w), ("eq_nvar", eq_nvar), ("c", c)):

@@ -1,9 +1,9 @@
 """Equalizer weights per subcarrier: MMSE and ZF on any ports x layers
-(L <= 4), and the 4x4 MMSE kernel K3.
+(L <= 4), the 4x4 MMSE kernel K3, and the per-RE equalizer.
 
-Port of ``equalize_weights`` (srsran_project_tpu/ops/equalizer.py,
-tx_scaling = 1) and of its TPU kernel ``equalize_weights_pallas``
-(ops/equalizer_pallas.py).
+Port of ``equalize_weights`` and ``equalize`` (srsran_project_tpu/ops/
+equalizer.py, tx_scaling = 1) and of the TPU kernel
+``equalize_weights_pallas`` (ops/equalizer_pallas.py).
 
 * ``mmse_weights_4x4`` is K3's entry point: a CUDA tensor launches the
   hand-written kernel (``csrc/mmse_weights_4x4.cu``), a CPU tensor runs
@@ -19,6 +19,9 @@ tx_scaling = 1) and of its TPU kernel ``equalize_weights_pallas``
   algebra (gram, closed-form ``_inv_small``, W) as
   elementwise complex products summed over the short axes, again no
   matmul.
+* ``equalize(y, h, noise_var, method)`` equalizes each resource element
+  with its own channel, for allocations whose data REs do not fill whole
+  rows (data on the DM-RS symbols): plain torch, as in the reference.
 """
 
 from __future__ import annotations
@@ -250,3 +253,79 @@ def equalize_weights(h: torch.Tensor, noise_var: torch.Tensor, method: str = "mm
         mu = torch.clamp((cinv * gram.transpose(-1, -2)).sum(dim=-1).real, 1e-9, 1.0 - 1e-9)
         return w / mu[..., None], (1.0 - mu) / mu
     return w, nv * torch.diagonal(cinv, dim1=-2, dim2=-1).real
+
+
+# ---- per resource element (any allocation shape) ---------------------------
+
+def _equalize_mmse4(y: torch.Tensor, h: torch.Tensor, noise_var: torch.Tensor):
+    """4-layer, 4-port MMSE per RE in the reference's order of operations
+    (``_equalize_mmse4_soa``): matched filter z = H^H y, C = G + nv I, the
+    blocked 2x2 Schur inverse, x = C^-1 z / mu, eq_nvar = (1 - mu) / mu."""
+    nv = torch.clamp_min(noise_var, 1e-12)
+    hc = [[h[..., p, l] for l in range(L)] for p in range(P)]
+    yc = [y[..., p] for p in range(P)]
+    g = [[sum(hc[p][l].conj() * hc[p][m] for p in range(P)) for m in range(L)]
+         for l in range(L)]
+    z = [sum(hc[p][l].conj() * yc[p] for p in range(P)) for l in range(L)]
+    c = [[g[l][m] + nv if l == m else g[l][m] for m in range(L)] for l in range(L)]
+
+    def inv2(c00, c01, c10, c11):
+        r = 1.0 / (c00 * c11 - c01 * c10)
+        return c11 * r, -c01 * r, -c10 * r, c00 * r
+
+    def mm2(a, b):
+        return (a[0] * b[0] + a[1] * b[2], a[0] * b[1] + a[1] * b[3],
+                a[2] * b[0] + a[3] * b[2], a[2] * b[1] + a[3] * b[3])
+
+    ai = inv2(c[0][0], c[0][1], c[1][0], c[1][1])
+    bm = (c[0][2], c[0][3], c[1][2], c[1][3])
+    bh = (c[2][0], c[2][1], c[3][0], c[3][1])
+    d = (c[2][2], c[2][3], c[3][2], c[3][3])
+    si = inv2(*(x - t for x, t in zip(d, mm2(mm2(bh, ai), bm))))
+    aib, bhai = mm2(ai, bm), mm2(bh, ai)
+    tl = tuple(a + t for a, t in zip(ai, mm2(mm2(aib, si), bhai)))
+    tr = tuple(-t for t in mm2(aib, si))
+    bl = tuple(-t for t in mm2(si, bhai))
+    ci = [[tl[0], tl[1], tr[0], tr[1]],
+          [tl[2], tl[3], tr[2], tr[3]],
+          [bl[0], bl[1], si[0], si[1]],
+          [bl[2], bl[3], si[2], si[3]]]
+    x = [sum(ci[l][m] * z[m] for m in range(L)) for l in range(L)]
+    mu = [torch.clamp(sum((ci[l][m] * g[m][l]).real for m in range(L)), 1e-9, 1.0 - 1e-9)
+          for l in range(L)]
+    return (torch.stack([x[l] / mu[l] for l in range(L)], dim=-1),
+            torch.stack([(1.0 - mu[l]) / mu[l] for l in range(L)], dim=-1))
+
+
+def equalize(y: torch.Tensor, h: torch.Tensor, noise_var: torch.Tensor, method: str = "mmse"):
+    """Equalize every resource element with its own channel: y (..., nre,
+    P) complex64, h (..., nre, P, L <= 4) complex64, noise_var
+    broadcastable to (..., nre) -> (x_hat (..., nre, L) complex64, eq_nvar
+    (..., nre, L) float32), the unbiased estimates and their
+    post-equalization noise.  Port of the reference's ``equalize``: 4x4
+    MMSE in its structure-of-arrays algebra, every other case its batched
+    algebra (matched filter, closed-form ``_inv_small``, C^-1 z), as
+    elementwise complex products summed over the short axes (no matmul,
+    so no TF32)."""
+    if method not in ("mmse", "zf"):
+        raise ValueError(method)
+    if h.dim() < 3 or h.shape[-1] > 4 or h.dtype != torch.complex64:
+        raise ValueError(f"equalize: want (..., nre, P, L <= 4) complex64, got "
+                         f"{tuple(h.shape)} {h.dtype}")
+    npr, nl = h.shape[-2], h.shape[-1]
+    nv = torch.as_tensor(noise_var, dtype=torch.float32, device=h.device).broadcast_to(
+        h.shape[:-2])
+    if method == "mmse" and (npr, nl) == (P, L):
+        return _equalize_mmse4(y, h, nv)
+    nv = torch.clamp_min(nv, 1e-12)[..., None]
+    hh = h.conj().transpose(-1, -2)  # (..., L, P)
+    gram = _cmm(hh, h)
+    z = (hh * y[..., None, :]).sum(dim=-1)  # (..., L) matched filter
+    eye = torch.eye(nl, dtype=torch.float32, device=h.device)
+    load = nv[..., None] * eye if method == "mmse" else 1e-9 * eye
+    cinv = _inv_small(gram + load)
+    xt = (cinv * z[..., None, :]).sum(dim=-1)
+    if method == "mmse":
+        mu = torch.clamp((cinv * gram.transpose(-1, -2)).sum(dim=-1).real, 1e-9, 1.0 - 1e-9)
+        return xt / mu, (1.0 - mu) / mu
+    return xt, nv * torch.diagonal(cinv, dim1=-2, dim2=-1).real

@@ -48,14 +48,20 @@ def _smooth_freq(h: torch.Tensor, taps: np.ndarray) -> torch.Tensor:
 
 
 def _interp_plan(pair_positions: tuple, nof_sc: int):
-    """(left neighbour (nof_sc,), fraction (nof_sc,), pair-index coordinate
-    (nof_sc,)) of the linear interpolation from pair centres."""
+    """(left neighbour (nof_sc,), right neighbour (nof_sc,), fraction
+    (nof_sc,), pair-index coordinate (nof_sc,)) of the linear interpolation
+    from pair centres.  The right neighbour of a single pair is itself (the
+    reference's gather clamps the index; its weight is 0)."""
     pos = np.asarray(pair_positions, dtype=np.float32)
     x = np.arange(nof_sc, dtype=np.float32)
     li = np.clip(np.searchsorted(pos, x, side="right") - 1, 0, max(len(pos) - 2, 0))
+    ri = np.minimum(li + 1, len(pos) - 1).astype(np.int64)
+    if len(pos) < 2:  # one pair: every subcarrier takes its value
+        return li.astype(np.int64), ri, np.zeros_like(x), np.zeros_like(x)
     frac = np.clip((x - pos[li]) / (pos[li + 1] - pos[li]), 0.0, 1.0)
     spacing = float(pos[1] - pos[0])
-    return li.astype(np.int64), frac.astype(np.float32), ((x - pos[0]) / spacing).astype(np.float32)
+    return (li.astype(np.int64), ri, frac.astype(np.float32),
+            ((x - pos[0]) / spacing).astype(np.float32))
 
 
 _interp_on = device_table(lambda pp, n, which: _interp_plan(pp, n)[which])
@@ -72,8 +78,6 @@ def estimate_h(y_pilots: torch.Tensor, ref_pilots: torch.Tensor, wf: torch.Tenso
     values (..., nsym_dmrs, Np/2)).  PUSCH calls it alone: its noise comes
     from second differences, and the metrics would cost launches for
     nothing."""
-    if len(pair_positions) < 2:
-        raise NotImplementedError("allocations below one PRB are not ported (ROADMAP Q1.8)")
     dev = y_pilots.device
     ls = y_pilots * ref_pilots.conj() * wf
     pair = ls.reshape(ls.shape[:-1] + (ls.shape[-1] // 2, 2))
@@ -81,19 +85,23 @@ def estimate_h(y_pilots: torch.Tensor, ref_pilots: torch.Tensor, wf: torch.Tenso
     h_t = h_pair.mean(dim=-2)  # (..., Np/2)
 
     # Bulk-delay derotation before smoothing/interpolation (both lag a fast
-    # phase rotation); the rotation is re-applied at every subcarrier.
+    # phase rotation); the rotation is re-applied at every subcarrier.  A
+    # single pair has no slope: the reference neither derotates it nor
+    # re-rotates.
     n_pairs = h_t.shape[-1]
-    slope = torch.angle(torch.sum(h_t[..., 1:] * h_t[..., :-1].conj(), dim=-1, keepdim=True))
-    idx = torch.arange(n_pairs, dtype=torch.float32, device=dev)
-    h_t = h_t * _unit_phasor(-slope * idx)
+    if n_pairs > 1:
+        slope = torch.angle(torch.sum(h_t[..., 1:] * h_t[..., :-1].conj(), dim=-1,
+                                      keepdim=True))
+        idx = torch.arange(n_pairs, dtype=torch.float32, device=dev)
+        h_t = h_t * _unit_phasor(-slope * idx)
     if smooth:
         h_t = _smooth_freq(h_t, _rc_filter_taps())
 
-    li = _interp_on(dev, pair_positions, nof_sc, 0)
-    fr = _interp_on(dev, pair_positions, nof_sc, 1)
-    k_pair = _interp_on(dev, pair_positions, nof_sc, 2)
-    h = h_t[..., li] * (1 - fr) + h_t[..., li + 1] * fr
-    return (h * _unit_phasor(slope * k_pair)).to(torch.complex64), ls, h_pair
+    li, ri, fr = (_interp_on(dev, pair_positions, nof_sc, i) for i in range(3))
+    h = h_t[..., li] * (1 - fr) + h_t[..., ri] * fr
+    if n_pairs > 1:
+        h = h * _unit_phasor(slope * _interp_on(dev, pair_positions, nof_sc, 3))
+    return h.to(torch.complex64), ls, h_pair
 
 
 def estimate_channel(y_pilots: torch.Tensor, ref_pilots: torch.Tensor, wf: torch.Tensor,

@@ -1,8 +1,8 @@
 """Soft demapping: exact per-axis max-log LLRs, and int8 quantization.
 
 Port of ``srsran_project_tpu/ops/modulation/demapper.py`` (closed form
-``_axis_llrs_closed``, ``demap_soft`` for QPSK and square QAM,
-``quantize_llr``).
+``_axis_llrs_closed``, ``demap_soft`` for BPSK, pi/2-BPSK, QPSK and
+square QAM, ``quantize_llr``).
 LLR sign convention: positive = bit 0.  ``torch.round``, like
 ``jnp.round``, rounds half to even.
 """
@@ -12,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .mapper import Modulation, check_square_qam, pam_levels
+from .mapper import Modulation, bits_per_symbol, pam_levels, pi2_rotation
 
 LLR_MAX = 120
 
@@ -36,8 +36,13 @@ def _axis_llrs_closed(y: torch.Tensor, levels: np.ndarray, labels: np.ndarray):
 def demap_soft(symbols: torch.Tensor, noise_var: torch.Tensor, mod: Modulation) -> torch.Tensor:
     """(..., S) complex symbols and (..., S) noise variances -> (..., S*Qm)
     float32 LLRs, in the mapper's bit order (I/Q interleaved)."""
-    qm = check_square_qam(mod)
+    qm = bits_per_symbol(mod)
     shape = symbols.shape
+    if qm == 1:  # project on (1 + j)/sqrt(2), after undoing the pi/2 rotation
+        if mod == Modulation.PI_2_BPSK:
+            symbols = symbols * pi2_rotation(shape[-1], symbols.device, conj=True)
+        proj = (symbols.real + symbols.imag) / float(np.float32(np.sqrt(2.0)))
+        return 4.0 * proj / noise_var
     if qm == 2:  # QPSK: the max-log LLR is linear, 2 sqrt(2) y / noise_var
         c = float(np.float32(2.0 * np.sqrt(2.0)))
         both = torch.stack([c * symbols.real / noise_var, c * symbols.imag / noise_var], dim=-1)

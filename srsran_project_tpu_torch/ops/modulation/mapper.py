@@ -75,22 +75,39 @@ def pam_levels(mod: Modulation):
     return levels[order], bits[order]
 
 
+SQUARE_QAM = (Modulation.QPSK, Modulation.QAM16, Modulation.QAM64, Modulation.QAM256)
+
+
 def check_square_qam(mod: Modulation) -> int:
-    """Qm of a square QAM (QPSK included); BPSK and pi/2-BPSK are not
-    ported yet."""
-    if mod not in (Modulation.QPSK, Modulation.QAM16, Modulation.QAM64, Modulation.QAM256):
-        raise NotImplementedError(
-            f"{mod.name}: only QPSK and 16/64/256QAM are ported (ROADMAP Q1.8)")
+    """Qm of a square QAM (QPSK included): the modulations whose symbols
+    are the product of two PAM axes, as kernel K4 demaps them (the
+    reference's plane path takes no other)."""
+    if mod not in SQUARE_QAM:
+        raise ValueError(f"{mod.name} is not a square QAM (QPSK, 16/64/256QAM)")
     return int(mod)
 
 
+def pi2_rotation(n: int, device, conj: bool = False) -> torch.Tensor:
+    """(n,) complex64 pi/2-BPSK rotation: 1 on even symbols, j (-j with
+    ``conj``) on odd ones (TS 38.211 §5.1.1)."""
+    odd = torch.arange(n, device=device) % 2 == 1
+    one = torch.ones((), dtype=torch.complex64, device=device)
+    return torch.where(odd, one * (-1j if conj else 1j), one)
+
+
 def map_bits(bits: torch.Tensor, mod: Modulation) -> torch.Tensor:
-    """(..., E) bits -> (..., E/Qm) complex64 symbols (square QAM)."""
-    qm = check_square_qam(mod)
+    """(..., E) bits -> (..., E/Qm) complex64 symbols."""
+    qm = bits_per_symbol(mod)
     e = bits.shape[-1]
     group = bits.to(torch.float32).reshape(bits.shape[:-1] + (e // qm, qm))
+    s2 = float(np.float32(1.0 / np.sqrt(2)))
+    if qm == 1:  # BPSK and pi/2-BPSK: d = (1 - 2b)(1 + j)/sqrt(2)
+        r = (1.0 - 2.0 * group[..., 0]) * s2
+        syms = torch.complex(r, r)
+        if mod == Modulation.PI_2_BPSK:
+            syms = syms * pi2_rotation(syms.shape[-1], bits.device)
+        return syms
     if qm == 2:
-        s2 = float(np.float32(1.0 / np.sqrt(2)))
         return torch.complex((1.0 - 2.0 * group[..., 0]) * s2, (1.0 - 2.0 * group[..., 1]) * s2)
     m = qm // 2
 

@@ -1,10 +1,13 @@
 """PDSCH processor: transport block -> port grids.
 
-Port of ``srsran_project_tpu/phy/pdsch.py``, flagship path: the bit chain
-(encode + rate match + scramble) and the scatter-free grid assembly
-(``_grid_rows_fast``: full data rows, type-1 DM-RS at stride 2) with exact
-float32 precoding by scalar multiply-adds.  PT-RS, transform precoding,
-other allocation shapes and ``process_multi`` are not ported yet.
+Port of ``srsran_project_tpu/phy/pdsch.py``: ``process`` (one PDU, any
+leading batch), the bit chain (encode + rate match + scramble), and the
+grid chain: the scatter-free assembly (``_grid_rows_fast``: full data
+rows, type-1 DM-RS at stride 2) where it applies, else the scatter
+assembly of any allocation shape (data on the DM-RS symbols, DM-RS type
+2, any first symbol and PRB), with PT-RS (``ptrs_layout``) and transform
+precoding with the low-PAPR DM-RS; exact float32 precoding by scalar
+multiply-adds.  ``process_multi`` is not ported yet (ROADMAP Q1.9).
 """
 
 from __future__ import annotations
@@ -15,7 +18,7 @@ import functools
 import numpy as np
 import torch
 
-from ..ops import scrambling
+from ..ops import scrambling, sequences, transform_precoding
 from ..ops._tables import device_table
 from ..ops.modulation import Modulation, map_bits
 from ..ran import dmrs as dmrs_mod
@@ -29,12 +32,6 @@ def uniform_data_rows(a: alloc_mod.Allocation) -> bool:
     dmask = dmrs_mod.data_subcarrier_mask(a.dmrs_config_type, a.nof_cdm_groups_without_data)
     dmrs_in_range = [s for s in a.dmrs_symbols if a.sym_start <= s < a.sym_start + a.sym_count]
     return not (bool(dmask.any()) and dmrs_in_range)
-
-
-def check_flagship_alloc(a: alloc_mod.Allocation) -> None:
-    if not (uniform_data_rows(a) and a.dmrs_config_type == 1):
-        raise NotImplementedError("only full-row data symbols with type-1 DM-RS are "
-                                  "ported (ROADMAP Q1.8 / Q1.9)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,11 +58,15 @@ class PdschConfig:
     transform_precoding: bool = False
     n_rs_id: int = 0
 
-    def __post_init__(self):
-        if self.ptrs_enabled:
-            raise NotImplementedError("PT-RS is not ported yet (ROADMAP Q1.9)")
-        if self.transform_precoding:
-            raise NotImplementedError("transform precoding is not ported yet (ROADMAP Q1.8)")
+    @classmethod
+    def from_reference(cls, ref) -> "PdschConfig":
+        """Copy a reference (JAX package) ``PdschConfig`` field by field, by
+        attribute access only (the modulation by value, the allocation as
+        the port's own ``Allocation``)."""
+        kw = {f.name: getattr(ref, f.name) for f in dataclasses.fields(cls)}
+        kw["modulation"] = Modulation(int(kw["modulation"]))
+        kw["alloc"] = alloc_mod.Allocation.from_fields(kw["alloc"])
+        return cls(**kw)
 
     @functools.cached_property
     def sch(self) -> SchConfig:
@@ -139,8 +140,15 @@ def _grid_rows_fast(layered: torch.Tensor, precoding: torch.Tensor,
     if a.sc_start or a.nof_sc != cfg.nof_grid_sc:
         win = torch.nn.functional.pad(
             win, (a.sc_start, cfg.nof_grid_sc - a.sc_start - a.nof_sc))
+    return _precode(win, precoding)
+
+
+def _precode(grid_l: torch.Tensor, precoding: torch.Tensor) -> torch.Tensor:
+    """(..., nl, nsym, nsc) layer grids and the (nl, P) precoding -> (...,
+    P, nsym, nsc) port grids, exact float32: one scalar multiply-add per
+    (layer, port)."""
     w = precoding.to(torch.complex64)
-    return torch.stack([sum(w[l, p] * win[..., l, :, :] for l in range(nl))
+    return torch.stack([sum(w[l, p] * grid_l[..., l, :, :] for l in range(w.shape[0]))
                         for p in range(w.shape[1])], dim=-3)
 
 
@@ -150,11 +158,119 @@ def _bit_chain(tb_bits: torch.Tensor, rnti: torch.Tensor, cfg: PdschConfig) -> t
     return scrambling.scramble_bits(cw, _pdsch_c_init(rnti, cfg.n_id))
 
 
+def _low_papr_pilots(cfg, nof_pilots: int) -> np.ndarray:
+    """(nof_pilots,) complex64 low-PAPR DM-RS of a transform-precoded
+    grant: one sequence on every DM-RS symbol, indexed from the allocation
+    start (sequence group n_rs_id mod 30, base sequence 0)."""
+    return np.asarray(sequences.base_sequence(cfg.n_rs_id % 30, 0, nof_pilots), np.complex64)
+
+
+@functools.lru_cache(maxsize=None)
+def _scatter_plan(cfg: PdschConfig):
+    """Host plan of the scatter assembly on the flat (nl * nsym * nsc)
+    layer grid: (data RE indices (nl * ndata,), DM-RS indices and values,
+    PT-RS indices and values on layer 0)."""
+    a = cfg.alloc
+    nl = cfg.nof_layers
+    n = cfg.nof_grid_symbols * cfg.nof_grid_sc
+    didx = alloc_mod.data_re_indices(a, cfg.nof_grid_symbols, cfg.nof_grid_sc).astype(np.int64)
+    data_idx = (np.arange(nl)[:, None] * n + didx[None]).reshape(-1)
+    beta = np.float32(dmrs_mod.sch_to_dmrs_beta(a.nof_cdm_groups_without_data))
+    d_idx, d_val = [], []
+    for layer in range(nl):
+        idx, wf, _, seq_idx = alloc_mod.pilot_re_indices(a, layer, cfg.nof_grid_sc)
+        if cfg.transform_precoding:
+            r = np.broadcast_to(_low_papr_pilots(cfg, len(seq_idx)),
+                                (len(a.dmrs_symbols), len(seq_idx)))
+        else:
+            r = dmrs_pilots(cfg, int(seq_idx[-1]) + 1)[:, seq_idx]
+        d_idx.append(layer * n + idx.reshape(-1).astype(np.int64))
+        d_val.append((beta * r * wf.astype(np.complex64)).reshape(-1))
+    if cfg.ptrs_enabled:
+        p_idx, p_val, _ = ptrs_layout(cfg)
+    else:
+        p_idx, p_val = np.zeros(0, np.int32), np.zeros(0, np.complex64)
+    return (data_idx, np.concatenate(d_idx), np.concatenate(d_val).astype(np.complex64),
+            p_idx.astype(np.int64), p_val)
+
+
+_scatter_on = device_table(lambda cfg, which: _scatter_plan(cfg)[which])
+
+
+def _grid_scatter(layered: torch.Tensor, precoding: torch.Tensor,
+                  cfg: PdschConfig) -> torch.Tensor:
+    """(..., nl, ndata) symbol-major layer symbols -> (..., P, nsym, nsc)
+    grids by the reference's scatter assembly, in its order: data REs
+    (DFT-precoded per symbol with transform precoding), then each layer's
+    DM-RS, then PT-RS on layer 0; exact f32 precoding."""
+    a = cfg.alloc
+    nl = cfg.nof_layers
+    lead = layered.shape[:-2]
+    dev = layered.device
+    if cfg.transform_precoding:
+        blocks = layered.reshape(lead + (nl, -1, a.nof_sc))
+        layered = transform_precoding.precode(blocks).reshape(lead + (nl, -1))
+    n = cfg.nof_grid_symbols * cfg.nof_grid_sc
+    grid_l = torch.zeros(lead + (nl * n,), dtype=torch.complex64, device=dev)
+    grid_l[..., _scatter_on(dev, cfg, 0)] = layered.reshape(lead + (-1,))
+    grid_l[..., _scatter_on(dev, cfg, 1)] = _scatter_on(dev, cfg, 2)
+    if cfg.ptrs_enabled:
+        grid_l[..., _scatter_on(dev, cfg, 3)] = _scatter_on(dev, cfg, 4)
+    return _precode(grid_l.reshape(lead + (nl, cfg.nof_grid_symbols, cfg.nof_grid_sc)),
+                    precoding)
+
+
 def _grid_chain(cw: torch.Tensor, precoding: torch.Tensor, cfg: PdschConfig) -> torch.Tensor:
-    """Modulate + layer map + DM-RS + precode: (..., G) bits -> (..., P,
-    nsym, nsc) port grids."""
-    check_flagship_alloc(cfg.alloc)
+    """Modulate + layer map + DM-RS (+ PT-RS) + precode: (..., G) bits ->
+    (..., P, nsym, nsc) port grids.  The scatter-free rows where the
+    reference takes them (full data rows, type-1 DM-RS, no PT-RS, no
+    transform precoding), else the scatter assembly."""
     syms = map_bits(cw, cfg.modulation)  # (..., G/Qm)
     nl = cfg.nof_layers
     layered = syms.reshape(syms.shape[:-1] + (-1, nl)).transpose(-1, -2)  # symbol i -> layer i%nl
-    return _grid_rows_fast(layered, precoding, cfg)
+    if (uniform_data_rows(cfg.alloc) and not cfg.transform_precoding
+            and not cfg.ptrs_enabled and cfg.alloc.dmrs_config_type == 1):
+        return _grid_rows_fast(layered, precoding, cfg)
+    return _grid_scatter(layered, precoding, cfg)
+
+
+# TS 38.211 Table 7.4.1.2.2-1 (DM-RS type 1): subcarrier k_RE_ref per
+# (resourceElementOffset, PT-RS port); reference ptrs_pattern.cpp:36-38.
+_PTRS_K_RE_TYPE1 = ((0, 2, 1, 3), (2, 4, 3, 5), (6, 8, 7, 9), (8, 10, 9, 11))
+
+
+@functools.lru_cache(maxsize=None)
+def ptrs_layout(cfg: PdschConfig):
+    """(flat grid indices, pilot values, symbol index per RE) of the PT-RS
+    REs of this PDU, as the reference lays them out: one DM-RS sequence,
+    c_init from the first DM-RS symbol, feeds every PT-RS symbol; PRBs from
+    rb_start + k_RB_ref at stride K_PTRS; the subcarrier is the Table
+    7.4.1.2.2-1 k_RE_ref of port 0.  Symbol-major: every data symbol holds
+    the same PRBs."""
+    a = cfg.alloc
+    k_re = _PTRS_K_RE_TYPE1[cfg.ptrs_re_offset][0]
+    prbs = list(range(a.rb_start + cfg.ptrs_k_rb_ref, a.rb_start + a.rb_count, cfg.ptrs_k))
+    data_syms = [s for s in range(a.sym_start, a.sym_start + a.sym_count)
+                 if s not in a.dmrs_symbols]
+    c_init = dmrs_mod.dmrs_c_init(cfg.slot_in_frame, min(a.dmrs_symbols),
+                                  cfg.dmrs_scrambling_id, cfg.n_scid)
+    nseq = (a.crb_start + a.rb_start + a.rb_count) * 6
+    c = scrambling.gold_ref(c_init, 2 * nseq).astype(np.float32)
+    r = ((1.0 - 2.0 * c[0::2]) + 1j * (1.0 - 2.0 * c[1::2])) / np.sqrt(2)
+    idx = [sym * cfg.nof_grid_sc + prb * 12 + k_re for sym in data_syms for prb in prbs]
+    vals = [r[(a.crb_start + prb) * 6 + k_re // 2] for _sym in data_syms for prb in prbs]
+    syms = [sym for sym in data_syms for _prb in prbs]
+    return (np.asarray(idx, np.int32), np.asarray(vals, np.complex64),
+            np.asarray(syms, np.int32))
+
+
+def process(tb_bits: torch.Tensor, rnti, precoding: torch.Tensor,
+            cfg: PdschConfig) -> torch.Tensor:
+    """Encode one PDSCH PDU into port grids: (..., A) TB bits, an RNTI (an
+    int, or a tensor of the leading shape) and the (nof_layers, P)
+    precoding -> (..., P, nof_grid_symbols, nof_grid_sc) complex64, on the
+    device of ``tb_bits``."""
+    dev = tb_bits.device
+    rnti = torch.as_tensor(rnti, dtype=torch.int64, device=dev)
+    cw = _bit_chain(tb_bits, rnti, cfg)
+    return _grid_chain(cw, torch.as_tensor(precoding, device=dev).to(torch.complex64), cfg)

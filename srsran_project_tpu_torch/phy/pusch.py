@@ -2,19 +2,24 @@
 transmitter.
 
 Port of ``srsran_project_tpu/phy/pusch.py``: the fast estimator with
-second-difference noise (``_estimate_stage``, per-grant pilots through
-``r_override``), per-subcarrier MMSE or ZF weights (4x4 MMSE: kernel K3;
-every other rank and port count: ``equalize_weights``) applied across the data symbols
-(``_equalize_stage``), the float max-log demapper with int8 quantization,
-descrambling and post-equalization SINR (``_demap_stage``), and the
-back end with UCI on PUSCH (HARQ-ACK, CSI parts 1 and 2 demultiplexed and
-decoded, ``phy/ulsch_demux``) and HARQ (``finish``).  ``process`` decodes one grant per slot,
+second-difference noise and PT-RS common-phase-error tracking
+(``_estimate_stage``, per-grant pilots through ``r_override``, the
+low-PAPR DM-RS of transform precoding), per-subcarrier MMSE or ZF weights
+(4x4 MMSE: kernel K3; every other rank and port count:
+``equalize_weights``) applied across full data rows, or the per-RE
+``equalize`` where data shares the DM-RS symbols (``_equalize_stage``),
+the DFT-s-OFDM deprecode (``_deprecode_stage``), the float max-log
+demapper (BPSK, pi/2-BPSK, QPSK, square QAM) with int8 quantization,
+descrambling, the PT-RS LLR erasure and post-equalization SINR
+(``_demap_stage``), and the back end with UCI on PUSCH (HARQ-ACK, CSI
+parts 1 and 2 demultiplexed and decoded, two-step CSI whose part-2 size
+follows the decoded RI, ``phy/ulsch_demux``) and HARQ (``finish``).  ``process`` decodes one grant per slot,
 ``process_multi`` N equal-config grants of one slot grid in one batch.
 The plane path (``demapper="planes"``) runs apply + demap + quantize +
 descramble in kernel K4 straight into the decoder's bit-planes
 (``_front_end_planes``).  Every function takes a leading batch dimension
 (B, ...): slots, or the grants of a slot.  Field values outside these
-paths raise NotImplementedError.
+paths raise ``NotImplementedError`` naming their ROADMAP sub-item.
 """
 
 from __future__ import annotations
@@ -25,19 +30,19 @@ import functools
 import numpy as np
 import torch
 
-from ..ops import scrambling
+from ..ops import scrambling, transform_precoding
 from ..ops._tables import device_table
 from ..ops.demap_planes import demap_planes
-from ..ops.equalizer import equalize_weights, mmse_weights_4x4
+from ..ops.equalizer import equalize, equalize_weights, mmse_weights_4x4
 from ..ops.estimator import estimate_h
 from ..ops.modulation import Modulation, demap_soft, quantize_llr
 from ..ops.modulation.evm import evm
+from ..ran import csi as csi_mod
 from ..ran import dmrs as dmrs_mod
 from ..ran import ulsch_info
 from . import allocation as alloc_mod
 from . import pdsch as pdsch_mod
 from . import ulsch_demux
-from .pdsch import check_flagship_alloc
 from .sch import SchConfig, _fused_decode_ok, decode_transport_block
 
 # Field -> (the values this port runs, the ROADMAP item that ports the rest).
@@ -49,8 +54,6 @@ _SLICE_ONLY = {
     "demapper": (("float", "planes"), "Q1.8.8"),
     "ldpc_decoder": (("auto",), "Q1.8.8"),
     "cfo_compensation": ((False,), "Q1.8.6"),
-    "ptrs_enabled": ((False,), "Q1.8.4"),
-    "transform_precoding": ((False,), "Q1.8.5"),
     "compute_ta": ((False,), "Q1.8.2"),
 }
 
@@ -58,9 +61,11 @@ _SLICE_ONLY = {
 @dataclasses.dataclass(frozen=True)
 class UciOnPuschConfig:
     """Twin of the reference's ``UciOnPuschConfig``: UCI multiplexed on
-    PUSCH (TS 38.212 §6.3), payload sizes and beta offset indices.  A
-    ``csi_report_cfg`` (two-step CSI: the part-2 size follows the decoded
-    RI) is held as given; decoding it is not ported yet (ROADMAP Q1.8.3)."""
+    PUSCH (TS 38.212 §6.3), payload sizes and beta offset indices.  With a
+    ``csi_report_cfg`` (``ran.csi.CsiReportConfig``: two-step CSI) part 1
+    is decoded first and the part-2 size follows its RI; nof_csi1_bits and
+    nof_csi2_bits then give part 1's width and the largest part 2 for the
+    G split, as in the reference."""
 
     nof_harq_ack_bits: int = 0
     nof_csi1_bits: int = 0
@@ -72,7 +77,10 @@ class UciOnPuschConfig:
 
     @classmethod
     def from_reference(cls, ref) -> "UciOnPuschConfig":
-        return cls(**{f.name: getattr(ref, f.name) for f in dataclasses.fields(cls)})
+        kw = {f.name: getattr(ref, f.name) for f in dataclasses.fields(cls)}
+        if kw["csi_report_cfg"] is not None:
+            kw["csi_report_cfg"] = csi_mod.CsiReportConfig.from_reference(kw["csi_report_cfg"])
+        return cls(**kw)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -145,9 +153,6 @@ class PuschConfig:
         u = self.uci
         if u is None or not (u.nof_harq_ack_bits or u.nof_csi1_bits or u.nof_csi2_bits):
             return None
-        if u.csi_report_cfg is not None:
-            raise NotImplementedError("two-step CSI (csi_report_cfg) is not ported yet "
-                                      "(ROADMAP Q1.8.3)")
         qm = int(self.modulation) if self.modulation != Modulation.PI_2_BPSK else 1
         geo = (self.tbs + 24, alloc_mod.nof_data_re(self.alloc), qm, self.nof_layers)
         g_ack = ulsch_info.nof_harq_ack_bits(u.nof_harq_ack_bits, u.beta_harq_ack_index, *geo)
@@ -201,11 +206,20 @@ def _estimate_constants(cfg: PuschConfig):
     idx_all = np.stack(idx_l).astype(np.int32)
     wf_all = np.stack(wf_l).astype(np.float32)
     n_total = int(max(s[-1] for s in seq_l)) + 1
-    pil = []
-    for sym in a.dmrs_symbols:
-        c_init = dmrs_mod.dmrs_c_init(cfg.slot_in_frame, sym, cfg.dmrs_scrambling_id, cfg.n_scid)
-        c = scrambling.gold_ref(int(c_init), 2 * n_total).astype(np.float32)
-        pil.append(((1.0 - 2.0 * c[0::2]) + 1j * (1.0 - 2.0 * c[1::2])) / np.sqrt(2))
+    if cfg.transform_precoding:
+        # Low-PAPR DM-RS: one sequence on every DM-RS symbol, indexed from
+        # the allocation start.
+        base = np.zeros(n_total, np.complex64)
+        first = int(min(s[0] for s in seq_l))
+        base[first:] = pdsch_mod._low_papr_pilots(cfg, n_total - first)
+        pil = [base for _ in a.dmrs_symbols]
+    else:
+        pil = []
+        for sym in a.dmrs_symbols:
+            c_init = dmrs_mod.dmrs_c_init(cfg.slot_in_frame, sym, cfg.dmrs_scrambling_id,
+                                          cfg.n_scid)
+            c = scrambling.gold_ref(int(c_init), 2 * n_total).astype(np.float32)
+            pil.append(((1.0 - 2.0 * c[0::2]) + 1j * (1.0 - 2.0 * c[1::2])) / np.sqrt(2))
     beta = dmrs_mod.sch_to_dmrs_beta(a.nof_cdm_groups_without_data)
     pilots = (np.stack(pil) / np.float32(beta)).astype(np.complex64)
     r_all = np.stack([pilots[:, s] for s in seq_l]).astype(np.complex64)
@@ -223,9 +237,10 @@ _est_on = device_table(_estimate_table)
 def _estimate_stage(grid: torch.Tensor, cfg: PuschConfig, r_override=None):
     """(B, P, nsym, nsc) grid -> (gflat (B, P, nsym*nsc), h (B, P, nof_sc,
     nl), noise_var (B,)): pilot gather, all port/layer channel estimates,
-    second-difference noise.  ``r_override`` (B, nl, nsym_d, Np) replaces
-    the config's DM-RS pilot values per batch element (the grants of a
-    multi-UE slot share a compact config, but their pilots follow each
+    second-difference noise, and with PT-RS the grid derotated by each
+    symbol's common phase error.  ``r_override`` (B, nl, nsym_d, Np)
+    replaces the config's DM-RS pilot values per batch element (the grants
+    of a multi-UE slot share a compact config, but their pilots follow each
     grant's absolute CRB)."""
     a = cfg.alloc
     nl, npr = cfg.nof_layers, cfg.nof_rx_ports
@@ -256,7 +271,61 @@ def _estimate_stage(grid: torch.Tensor, cfg: PuschConfig, r_override=None):
     d2 = h_pair[..., 2:] - 2.0 * h_pair[..., 1:-1] + h_pair[..., :-2]
     beta2 = dmrs_mod.sch_to_dmrs_beta(a.nof_cdm_groups_without_data) ** 2
     nv = (d2.abs() ** 2).reshape(b, -1).mean(dim=-1) * nsym_d / 3.0 * beta2
+    if cfg.ptrs_enabled:
+        gflat = _ptrs_derotate(grid, gflat, h, cfg)
     return gflat, h, torch.clamp_min(nv, 1e-10)
+
+
+def _ptrs_twin(cfg: PuschConfig) -> pdsch_mod.PdschConfig:
+    """The transmitter's PdschConfig of a PT-RS grant, as the reference
+    builds it for the PT-RS layout."""
+    return pdsch_mod.PdschConfig(
+        tbs=cfg.tbs, target_code_rate=cfg.target_code_rate, modulation=cfg.modulation,
+        alloc=cfg.alloc, nof_layers=cfg.nof_layers, nof_grid_symbols=cfg.nof_grid_symbols,
+        nof_grid_sc=cfg.nof_grid_sc, slot_in_frame=cfg.slot_in_frame,
+        dmrs_scrambling_id=cfg.dmrs_scrambling_id, n_scid=cfg.n_scid, ptrs_enabled=True,
+        ptrs_k=cfg.ptrs_k, ptrs_re_offset=cfg.ptrs_re_offset, ptrs_k_rb_ref=cfg.ptrs_k_rb_ref)
+
+
+@functools.lru_cache(maxsize=None)
+def _ptrs_plan(cfg: PuschConfig):
+    """(PT-RS grid indices (Nptrs,), pilot values (Nptrs,), their
+    subcarrier in the allocation (Nptrs,), the symbols that carry them);
+    each of those symbols holds the same PRBs, symbol-major."""
+    p_idx, p_vals, p_syms = pdsch_mod.ptrs_layout(_ptrs_twin(cfg))
+    syms = sorted(set(p_syms.tolist()))
+    return (p_idx.astype(np.int64), p_vals,
+            ((p_idx % cfg.nof_grid_sc) - cfg.alloc.sc_start).astype(np.int64),
+            np.asarray(syms, np.int64))
+
+
+_ptrs_on = device_table(lambda cfg, which: _ptrs_plan(cfg)[which])
+
+
+def cpe_phases(gflat: torch.Tensor, h: torch.Tensor, cfg: PuschConfig) -> torch.Tensor:
+    """PT-RS common phase error: (B, P, nsym*nsc) grid and (B, P, nof_sc,
+    nl) channel estimates -> (B, nsym) unit phasors, per data symbol the
+    rotation of the received PT-RS REs against pilot x layer 0's channel,
+    summed over ports and REs; 1 on symbols without PT-RS."""
+    dev = gflat.device
+    phase = torch.ones((gflat.shape[0], cfg.nof_grid_symbols), dtype=torch.complex64, device=dev)
+    syms = _ptrs_on(dev, cfg, 3)
+    if not len(syms):
+        return phase
+    y_p = gflat[:, :, _ptrs_on(dev, cfg, 0)]  # (B, P, Nptrs)
+    expect = _ptrs_on(dev, cfg, 1) * h[:, :, _ptrs_on(dev, cfg, 2), 0]
+    corr = (y_p * expect.conj()).sum(dim=1)  # (B, Nptrs)
+    per_sym = corr.reshape(corr.shape[0], len(syms), -1).sum(dim=-1)
+    mag = per_sym.abs()
+    phase[:, syms] = torch.where(mag > 0, per_sym / torch.clamp_min(mag, 1e-12), 1.0 + 0j)
+    return phase
+
+
+def _ptrs_derotate(grid: torch.Tensor, gflat: torch.Tensor, h: torch.Tensor,
+                   cfg: PuschConfig) -> torch.Tensor:
+    """The grid derotated by each symbol's common phase error, flat."""
+    phase = cpe_phases(gflat, h, cfg)
+    return (grid * phase.conj()[:, None, :, None]).reshape(gflat.shape)
 
 
 def _data_rows(gflat: torch.Tensor, cfg: PuschConfig) -> torch.Tensor:
@@ -281,11 +350,27 @@ def _weights(h: torch.Tensor, noise_var: torch.Tensor, cfg: PuschConfig):
     return equalize_weights(hs.contiguous(), noise_var[:, None], method=cfg.equalizer)
 
 
+_data_re_on = device_table(lambda cfg: alloc_mod.data_re_indices(
+    cfg.alloc, cfg.nof_grid_symbols, cfg.nof_grid_sc).astype(np.int64))
+_data_sc_on = device_table(lambda cfg: (alloc_mod.data_re_indices(
+    cfg.alloc, cfg.nof_grid_symbols, cfg.nof_grid_sc) % cfg.nof_grid_sc
+    - cfg.alloc.sc_start).astype(np.int64))
+
+
 def _equalize_stage(gflat: torch.Tensor, h: torch.Tensor, noise_var: torch.Tensor,
                     cfg: PuschConfig):
-    """Per-subcarrier MMSE weights applied to every data symbol ->
-    (x_hat (B, ndata, nl) complex64, eq_nvar (B, ndata, nl))."""
+    """(x_hat (B, ndata, nl) complex64, eq_nvar (B, ndata, nl)) in data-RE
+    order.  Full data rows: per-subcarrier weights applied to every data
+    symbol.  Otherwise (data on the DM-RS symbols): the data-RE gather and
+    the per-RE ``equalize`` with each RE's channel, as the reference
+    does."""
     nl, npr = cfg.nof_layers, cfg.nof_rx_ports
+    if not pdsch_mod.uniform_data_rows(cfg.alloc):
+        dev = gflat.device
+        y = gflat[:, :, _data_re_on(dev, cfg)]  # (B, P, ndata)
+        h_data = h[:, :, _data_sc_on(dev, cfg), :]  # (B, P, ndata, nl)
+        return equalize(y.transpose(1, 2), h_data.transpose(1, 2), noise_var[:, None],
+                        method=cfg.equalizer)
     y = _data_rows(gflat, cfg)  # (B, P, nsym_d, nof_sc)
     b, _, nsym_d, nsc = y.shape
     w, eq_sc = _weights(h, noise_var, cfg)
@@ -296,28 +381,66 @@ def _equalize_stage(gflat: torch.Tensor, h: torch.Tensor, noise_var: torch.Tenso
     return x.reshape(b, -1, nl), eq_nvar.reshape(b, -1, nl)
 
 
+def _deprecode_stage(x_hat: torch.Tensor, eq_nvar: torch.Tensor, cfg: PuschConfig):
+    """Undo transform precoding: per data symbol, the IDFT of the equalized
+    M_sc block, and its noise variances replaced by their mean."""
+    b, _, nl = x_hat.shape
+    xb = x_hat.reshape(b, -1, cfg.alloc.nof_sc, nl)
+    nb = eq_nvar.reshape(b, -1, cfg.alloc.nof_sc, nl)
+    return (transform_precoding.deprecode(xb, dim=2).reshape(x_hat.shape),
+            transform_precoding.deprecode_noise_var(nb, dim=2).reshape(eq_nvar.shape))
+
+
+@functools.lru_cache(maxsize=None)
+def _ptrs_bit_positions(cfg: PuschConfig) -> np.ndarray:
+    """Bit indices in the G stream that the PT-RS punctures (every layer's
+    bits of a PT-RS RE, as the reference erases them)."""
+    didx = alloc_mod.data_re_indices(cfg.alloc, cfg.nof_grid_symbols, cfg.nof_grid_sc)
+    pos_of = {int(g): i for i, g in enumerate(didx)}
+    bits_per_re = cfg.sch.qm * cfg.nof_layers
+    out = []
+    for g in _ptrs_plan(cfg)[0]:
+        i = pos_of.get(int(g))
+        if i is not None:
+            out.extend(range(i * bits_per_re, (i + 1) * bits_per_re))
+    return np.asarray(sorted(out), np.int32)
+
+
+_ptrs_bits_on = device_table(lambda cfg: _ptrs_bit_positions(cfg).astype(np.int64))
+
+
 def _demap_stage(x_hat: torch.Tensor, eq_nvar: torch.Tensor, rnti: torch.Tensor,
                  cfg: PuschConfig):
-    """Soft demap + de-layer-map + quantize + descramble, and the
-    decision-directed post-equalization SINR -> (llr_i8 (B, G), sinr (B,))."""
+    """Soft demap + de-layer-map + quantize + descramble (+ the PT-RS
+    erasure), and the decision-directed post-equalization SINR ->
+    (llr_i8 (B, G), sinr (B,))."""
     b, _, nl = x_hat.shape
     qm = cfg.sch.qm
     llr = demap_soft(x_hat.transpose(1, 2), eq_nvar.transpose(1, 2), cfg.modulation)
     llr = llr.reshape(b, nl, -1, qm).transpose(1, 2).reshape(b, -1)  # (B, G)
     llr_i8 = scrambling.descramble_llrs(quantize_llr(llr, cfg.llr_range_limit),
                                         _pusch_c_init(rnti, cfg.n_id))
+    if cfg.ptrs_enabled:
+        llr_i8 = llr_i8.index_fill(-1, _ptrs_bits_on(llr_i8.device, cfg), 0)
     e = evm(x_hat.reshape(b, -1), cfg.modulation)
     return llr_i8, 1.0 / torch.clamp_min(e * e, 1e-12)
+
+
+def _after_estimate(gflat: torch.Tensor, h: torch.Tensor, noise_var: torch.Tensor,
+                    rnti: torch.Tensor, cfg: PuschConfig):
+    """Equalize (+ deprecode with transform precoding) + demap of estimated
+    grids -> (llr_i8 (B, G), noise_var (B,), post-equalization SINR (B,))."""
+    x_hat, eq_nvar = _equalize_stage(gflat, h, noise_var, cfg)
+    if cfg.transform_precoding:
+        x_hat, eq_nvar = _deprecode_stage(x_hat, eq_nvar, cfg)
+    llr_i8, sinr = _demap_stage(x_hat, eq_nvar, rnti, cfg)
+    return llr_i8, noise_var, sinr
 
 
 def _front_end(grid: torch.Tensor, rnti: torch.Tensor, cfg: PuschConfig):
     """(B, P, nsym, nsc) grids and (B,) RNTIs -> (llr_i8 (B, G),
     noise_var (B,), post-equalization SINR (B,))."""
-    check_flagship_alloc(cfg.alloc)
-    gflat, h, noise_var = _estimate_stage(grid, cfg)
-    x_hat, eq_nvar = _equalize_stage(gflat, h, noise_var, cfg)
-    llr_i8, sinr = _demap_stage(x_hat, eq_nvar, rnti, cfg)
-    return llr_i8, noise_var, sinr
+    return _after_estimate(*_estimate_stage(grid, cfg), rnti, cfg)
 
 
 def transmit(tb_bits: torch.Tensor, rnti: torch.Tensor, cfg: PuschConfig,
@@ -357,16 +480,24 @@ UCI_KEYS = (("ack", ("harq_ack_bits", "harq_ack_ok")), ("csi1", ("csi1_bits", "c
 
 def split_uci(llr_i8: torch.Tensor, cfg: PuschConfig):
     """UCI demultiplex + decode of (B, G) descrambled LLRs -> (the (B,
-    nof_data_bits) SCH LLRs, dict of the UCI result keys).  Without UCI
-    the LLRs pass through and the dict is empty."""
+    nof_data_bits) SCH LLRs, dict of the UCI result keys; with two-step
+    CSI also csi_rank and nof_csi2_bits).  Without UCI the LLRs pass
+    through and the dict is empty."""
     mux = cfg.uci_mux
     if mux is None:
         return llr_i8, {}
+    u = cfg.uci
     data, ack, csi1, csi2 = ulsch_demux.demultiplex(llr_i8, mux)
-    parts = ulsch_demux.decode_uci_parts(ack, csi1, cfg.uci.nof_harq_ack_bits,
-                                         cfg.uci.nof_csi1_bits, csi2_llrs=csi2,
-                                         nof_csi2_bits=cfg.uci.nof_csi2_bits)
     out = {}
+    if u.csi_report_cfg is not None and u.nof_csi1_bits:
+        parts = ulsch_demux.decode_uci_parts(ack, None, u.nof_harq_ack_bits, 0)
+        two = ulsch_demux.decode_csi_two_step(csi1, csi2, u.csi_report_cfg)
+        parts.update(two)
+        if "rank" in two:
+            out["csi_rank"], out["nof_csi2_bits"] = two["rank"], two["nof_csi2_bits"]
+    else:
+        parts = ulsch_demux.decode_uci_parts(ack, csi1, u.nof_harq_ack_bits, u.nof_csi1_bits,
+                                             csi2_llrs=csi2, nof_csi2_bits=u.nof_csi2_bits)
     for part, (bits_key, ok_key) in UCI_KEYS:
         if part in parts:
             out[bits_key], out[ok_key] = parts[part]
@@ -397,7 +528,8 @@ def process(grid: torch.Tensor, rnti: torch.Tensor, cfg: PuschConfig,
     and optional (B, C, N) HARQ buffers -> dict of tb_bits (B, A),
     tb_crc_ok (B,), harq_buffer (B, C, N), noise_var (B,), snr_db (B,),
     and with UCI harq_ack_bits / csi1_bits / csi2_bits (B, O) and their
-    _ok flags (B,)."""
+    _ok flags (B,); with two-step CSI csi2_bits pads to the largest part-2
+    size, and csi_rank (B,) and nof_csi2_bits (B,) say which it was."""
     llr_i8, noise_var, snr_acc = _front_end(grid, rnti, cfg)
     return finish(llr_i8, noise_var, snr_acc, cfg, harq_buffer=harq_buffer)
 
@@ -410,11 +542,7 @@ def _multi_front_end(grid: torch.Tensor, rntis: torch.Tensor, first_scs, r_batch
     SINR (N,))."""
     w = cfg.nof_grid_sc
     win = torch.stack([grid[:, :, sc0 : sc0 + w] for sc0 in first_scs])
-    check_flagship_alloc(cfg.alloc)
-    gflat, h, noise_var = _estimate_stage(win, cfg, r_override=r_batch)
-    x_hat, eq_nvar = _equalize_stage(gflat, h, noise_var, cfg)
-    llr_i8, sinr = _demap_stage(x_hat, eq_nvar, rntis, cfg)
-    return llr_i8, noise_var, sinr
+    return _after_estimate(*_estimate_stage(win, cfg, r_override=r_batch), rntis, cfg)
 
 
 @functools.lru_cache(maxsize=None)
@@ -452,11 +580,13 @@ def process_multi(grid: torch.Tensor, rntis, first_rbs, cfg: PuschConfig,
 
 def _demap_planes_ok(cfg: PuschConfig) -> bool:
     """Gate of the plane path (kernel K4 + K1 in plane layout): opted in
-    with ``demapper="planes"``, no repetition, no UCI, square
-    16/64/256QAM and full-row data symbols.  Unlike the reference, the gate
-    does not ask which device runs it: the device follows the input
-    tensor."""
+    with ``demapper="planes"``, no repetition, no UCI, no PT-RS, no
+    transform precoding, square 16/64/256QAM and full-row data symbols.
+    Unlike the reference, the gate does not ask which device runs it: the
+    device follows the input tensor."""
     return (cfg.demapper == "planes"
+            and not cfg.transform_precoding
+            and not cfg.ptrs_enabled
             and cfg.uci_mux is None
             and _fused_decode_ok(cfg.sch)
             and cfg.modulation in (Modulation.QAM16, Modulation.QAM64, Modulation.QAM256)
@@ -468,7 +598,6 @@ def _plane_inputs(grid: torch.Tensor, rnti: torch.Tensor, cfg: PuschConfig):
     weights, eq_nvar, the (B, G) uint8 Gold sequence in stream order): the
     inputs of ``demap_planes``, noise_var (B,)), with the estimate and the
     weights as in ``_front_end``."""
-    check_flagship_alloc(cfg.alloc)
     gflat, h, noise_var = _estimate_stage(grid, cfg)
     y = _data_rows(gflat, cfg).contiguous()
     w, eq_sc = _weights(h, noise_var, cfg)

@@ -40,7 +40,7 @@ class SchConfig:
         if self.decoder != "auto":
             raise NotImplementedError(
                 f"decoder={self.decoder!r}: the reference-exact int8 decoder is "
-                "not ported yet (ROADMAP Q1.8)")
+                "not ported yet (ROADMAP Q1.8.8)")
 
     @functools.cached_property
     def seg(self) -> segmenter.SegmentParams:

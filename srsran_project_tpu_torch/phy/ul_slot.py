@@ -10,8 +10,9 @@ one rate dematch + HARQ combine, and the LDPC decode batches every
 group's codeblocks per (base graph, Z, iterations, early stop, n_cb) into
 ONE launch of kernel K2.  Then desegment + CRC per group, the results
 scatter back to input order, and the PUCCH occasions are detected on the
-same grid.  PT-RS and two-step CSI are not ported yet (ROADMAP Q1.8.4,
-Q1.8.3).
+same grid.  Any allocation shape and waveform of ``pusch`` runs here
+(data on the DM-RS symbols, DM-RS type 2, PT-RS, DFT-s-OFDM); two-step
+CSI grants are sent away with ValueError, as the reference's slot does.
 """
 
 from __future__ import annotations
@@ -104,7 +105,10 @@ def _config_groups(pdus: list) -> dict:
                              "the decoded RI)")
         # Everything but the absolute CRB (which only seeds the DM-RS,
         # passed per grant) is shared by equal grants at other offsets.
-        key = dataclasses.replace(c, alloc=dataclasses.replace(c.alloc, crb_start=0))
+        # PT-RS values also follow the absolute CRB but come from the
+        # config, so PT-RS grants keep their crb_start in the key.
+        crb = c.alloc.crb_start if c.ptrs_enabled else 0
+        key = dataclasses.replace(c, alloc=dataclasses.replace(c.alloc, crb_start=crb))
         groups.setdefault(key, []).append(i)
     return groups
 

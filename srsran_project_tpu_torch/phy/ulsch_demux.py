@@ -16,9 +16,9 @@ tests/test_torch_uci.py):
   follows it and may use reserved REs.
 
 ``multiplex`` and ``demultiplex`` are gathers and index writes with those
-plans on bit / LLR streams of G = nof_data_re * Qm * nof_layers.  The
-two-step CSI decode (part-2 size from the decoded RI) is not ported yet
-(ROADMAP Q1.8.3).
+plans on bit / LLR streams of G = nof_data_re * Qm * nof_layers.
+``decode_csi_two_step`` decodes CSI part 1, then part 2 at the size its
+RI selects (``ran/csi``).
 """
 
 from __future__ import annotations
@@ -31,6 +31,7 @@ import torch
 
 from ..ops import uci as uci_mod
 from ..ops._tables import device_table
+from ..ran import csi as csi_mod
 from . import allocation as alloc_mod
 
 
@@ -249,4 +250,65 @@ def decode_uci_parts(ack_llrs, csi_llrs, nof_ack_bits: int, nof_csi1_bits: int,
                           ("csi2", csi2_llrs, nof_csi2_bits)):
         if llrs is not None and k:
             out[name] = uci_mod.decode_uci(llrs.to(torch.float32), k)
+    return out
+
+
+def ack_placeholder_descramble(ack_llrs: torch.Tensor, scr_bits: torch.Tensor, qm: int,
+                               nof_ack_bits: int) -> torch.Tensor:
+    """Placeholder correction for 1-2 bit HARQ-ACK payloads on PUSCH: the
+    demodulator descrambles every position, and the spec's x/y
+    placeholders (TS 38.211 scrambling special cases) are reverted on the
+    ACK REs.  With 1 bit per RE group [b, y, x..], out[1] flips iff c0 ^
+    c1; with 2 bits [b0, b1, x..], out[0:2] pass; out[2:] flip iff their
+    own c.  (..., G_ack) LLRs and scrambling bits, G_ack a multiple of
+    qm."""
+    if nof_ack_bits > 2 or qm == 1:
+        return ack_llrs
+    g = ack_llrs.shape[-1]
+    grp = ack_llrs.reshape(ack_llrs.shape[:-1] + (g // qm, qm))
+    c = scr_bits.reshape(scr_bits.shape[:-1] + (g // qm, qm)).to(torch.int32)
+    flip = torch.zeros_like(c)
+    if nof_ack_bits == 1:
+        flip[..., 1] = c[..., 0] ^ c[..., 1]
+    if qm > 2:
+        flip[..., 2:] = c[..., 2:]
+    return torch.where(flip == 1, -grp, grp).reshape(ack_llrs.shape)
+
+
+_part2_tables_on = device_table(lambda sizes, which: np.asarray(
+    [sorted(set(sizes)).index(s) for s in sizes] if which else sizes, np.int64))
+
+
+def decode_csi_two_step(csi1_llrs: torch.Tensor, csi2_llrs: torch.Tensor | None, csi_cfg) -> dict:
+    """Two-step CSI: part 1 at its fixed width, then part 2 at the size its
+    decoded RI selects (TS 38.212 Table 6.3.2.1.2-4).  As in the
+    reference, part 2 is decoded at every size the correspondence allows
+    and the RI picks the result, so nothing waits on the host.
+
+    (..., E1) and (..., E2) LLRs -> dict of "csi1" (bits, ok), and with a
+    part 2: "csi2" (bits padded with zeros to the largest size, ok),
+    "rank" (...,) and "nof_csi2_bits" (...,) int64."""
+    bits1, ok1 = uci_mod.decode_uci(csi1_llrs.to(torch.float32), csi_mod.part1_bitwidth(csi_cfg))
+    out = {"csi1": (bits1, ok1)}
+    corr = csi_mod.part2_correspondence(csi_cfg)
+    if corr is None or csi2_llrs is None:
+        return out
+    ri_off, ri_w, sizes = corr
+    v = torch.zeros(bits1.shape[:-1], dtype=torch.int64, device=bits1.device)
+    for j in range(ri_w):  # the RI field, MSB first
+        v = (v << 1) | bits1[..., ri_off + j].to(torch.int64)
+    v = torch.clamp(v, 0, len(sizes) - 1)
+    max_size = max(sizes)
+    cand_bits, cand_ok = [], []
+    for s in sorted(set(sizes)):
+        b, ok = uci_mod.decode_uci(csi2_llrs.to(torch.float32), s)
+        cand_bits.append(torch.nn.functional.pad(b, (0, max_size - s)))
+        cand_ok.append(ok)
+    sel = _part2_tables_on(bits1.device, sizes, 1)[v]
+    bits2 = torch.gather(torch.stack(cand_bits, dim=-2), -2,
+                         sel[..., None, None].expand(sel.shape + (1, max_size)))[..., 0, :]
+    ok2 = torch.gather(torch.stack(cand_ok, dim=-1), -1, sel[..., None])[..., 0]
+    out["csi2"] = (bits2, ok2)
+    out["rank"] = v + 1
+    out["nof_csi2_bits"] = _part2_tables_on(bits1.device, sizes, 0)[v]
     return out

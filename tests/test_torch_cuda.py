@@ -310,3 +310,139 @@ def test_uci_codecs_on_card_match_cpu(cuda_device, k, e):  # noqa: F811
         b_g, m_g = short_block.detect(x.to(cuda_device), k, e)
         assert torch.equal(b_g.cpu(), b_c)
         assert torch.equal(m_g.cpu().view(torch.int32), m_c.view(torch.int32))
+
+
+# ---- every allocation shape and waveform ------------------------------------
+
+def _shape_configs(nof_rb=12, layers=1, ports=2, mod=Modulation.QAM16, rate=0.5, dmrs_type=1,
+                   cdm=2, **extra):
+    """(PdschConfig, PuschConfig) of one grant of the port (no JAX here):
+    symbols 1-13, DM-RS on symbol 2; ``extra`` sets PT-RS and transform
+    precoding on both."""
+    from srsran_project_tpu_torch.phy import pdsch
+    from srsran_project_tpu_torch.phy.allocation import Allocation
+    from srsran_project_tpu_torch.ran import tbs as tbs_mod
+
+    qm = 1 if mod == Modulation.PI_2_BPSK else int(mod)
+    alloc = Allocation(rb_start=0, rb_count=nof_rb, sym_start=1, sym_count=13,
+                       dmrs_symbols=(2,), dmrs_config_type=dmrs_type,
+                       nof_cdm_groups_without_data=cdm)
+    common = dict(tbs=tbs_mod.calculate_tbs(nof_rb, 13, 12, rate, qm, layers),
+                  target_code_rate=rate, modulation=mod, alloc=alloc, nof_layers=layers,
+                  nof_grid_symbols=14, nof_grid_sc=12 * nof_rb, n_rs_id=5, **extra)
+    return (pdsch.PdschConfig(nof_ports=ports, **common),
+            pusch.PuschConfig(nof_rx_ports=ports, **common))
+
+
+def _shape_grid(tx, seed: int, snr_db: float, phase: float = 0.0):
+    """A received CPU grid of a grant: the port's pdsch.process through a
+    random unitary channel, a random common phase per data symbol up to
+    +-phase, AWGN.  Returns (TB bits, grid (1, P, 14, nsc))."""
+    from srsran_project_tpu_torch.phy import pdsch
+
+    rng = np.random.default_rng(seed)
+    tb = rng.integers(0, 2, size=(tx.tbs,), dtype=np.uint8)
+    h = rng.standard_normal((tx.nof_ports, tx.nof_layers)) + 1j * rng.standard_normal(
+        (tx.nof_ports, tx.nof_layers))
+    w = (np.linalg.qr(h)[0].T * np.sqrt(tx.nof_ports / tx.nof_layers)).astype(np.complex64)
+    g = to_np(pdsch.process(torch.from_numpy(tb), 0x4601, torch.from_numpy(w), tx))
+    ph = rng.uniform(-phase, phase, 14)
+    ph[list(tx.alloc.dmrs_symbols)] = 0.0
+    g = g * np.exp(1j * ph)[None, :, None]
+    g = g + np.sqrt(0.5 * 10 ** (-snr_db / 10)) * (rng.standard_normal(g.shape)
+                                                  + 1j * rng.standard_normal(g.shape))
+    return tb, torch.from_numpy(g.astype(np.complex64))[None]
+
+
+@pytest.mark.parametrize("case", ["qm1-pi2bpsk", "qm2", "ptrs-erased"])
+def test_k1_new_inputs_match_plain(cuda_device, case):  # noqa: F811
+    """K1 on inputs of this slice's grants against its plain version: qm = 1
+    (pi/2-BPSK) and qm = 2 streams, and a 16QAM stream whose PT-RS bits
+    the receiver erased to 0; bits and iterations equal, one launch."""
+    mod, extra = {"qm1-pi2bpsk": (Modulation.PI_2_BPSK, dict(transform_precoding=True)),
+                  "qm2": (Modulation.QPSK, dict(transform_precoding=True)),
+                  "ptrs-erased": (Modulation.QAM16, dict(ptrs_enabled=True))}[case]
+    _tx, cfg = _shape_configs(nof_rb=24, mod=mod, rate=0.4 if mod != Modulation.PI_2_BPSK
+                              else 0.234, **extra)
+    llrs = torch.stack([_noisy_llrs(cfg.sch, 8), _noisy_llrs(cfg.sch, 9)])
+    if cfg.ptrs_enabled:
+        llrs[:, torch.from_numpy(pusch._ptrs_bit_positions(cfg).astype(np.int64))] = 0
+    assert sch._fused_decode_ok(cfg.sch)
+    for early in (False, True):
+        before = decoder.decode_dematch.launches
+        bits_k, it_k = sch._fused_decode(llrs.to(cuda_device), cfg.sch, 6, early)
+        assert decoder.decode_dematch.launches == before + 1
+        bits_p, it_p = sch._fused_decode(llrs, cfg.sch, 6, early)
+        np.testing.assert_array_equal(to_np(bits_k), to_np(bits_p))
+        np.testing.assert_array_equal(to_np(it_k), to_np(it_p))
+
+
+@pytest.mark.parametrize("ports, layers, method", [(4, 4, "mmse"), (4, 2, "zf"), (2, 1, "mmse")])
+def test_equalize_per_re_card_matches_cpu(cuda_device, ports, layers, method):  # noqa: F811
+    """The per-RE equalizer on the card against the CPU, channels of
+    condition number below 20: within 1e-4 x max(1, |.|)."""
+    rng = np.random.default_rng(layers)
+    h = ((rng.standard_normal((3000, ports, layers)) + 1j * rng.standard_normal(
+        (3000, ports, layers))) * 0.5).astype(np.complex64)
+    h = h[np.linalg.cond(h) < 20][:1000]
+    y = ((rng.standard_normal((len(h), ports)) + 1j * rng.standard_normal((len(h), ports)))
+         * 0.5).astype(np.complex64)
+    ins = (torch.from_numpy(y), torch.from_numpy(h), torch.tensor(0.02))
+    cpu = equalizer.equalize(*ins, method=method)
+    gpu = equalizer.equalize(*(t.to(cuda_device) for t in ins), method=method)
+    for a, b in zip(cpu, gpu):
+        a, b = to_np(a), to_np(b)
+        assert (np.abs(a - b) <= 1e-4 * np.maximum(1.0, np.abs(a))).all()
+
+
+def test_deprecode_and_cpe_card_match_cpu(cuda_device):  # noqa: F811
+    """The DFT-s deprecode stage (1e-5 x RMS, noise rtol 1e-6) and the PT-RS
+    common phase per symbol (1e-5 rad) on the card against the CPU."""
+    _tx, cfg = _shape_configs(nof_rb=12, mod=Modulation.QPSK, transform_precoding=True)
+    rng = np.random.default_rng(2)
+    n = 12 * 12 * 12
+    x = torch.from_numpy((rng.standard_normal((2, n, 1)) + 1j * rng.standard_normal((2, n, 1)))
+                         .astype(np.complex64))
+    nv = torch.from_numpy(rng.uniform(0.01, 1.0, (2, n, 1)).astype(np.float32))
+    xc, nc = pusch._deprecode_stage(x, nv, cfg)
+    xg, ng = pusch._deprecode_stage(x.to(cuda_device), nv.to(cuda_device), cfg)
+    rms = float(xc.abs().pow(2).mean().sqrt())
+    assert float((xg.cpu() - xc).abs().max()) <= 1e-5 * rms
+    np.testing.assert_allclose(to_np(ng), to_np(nc), rtol=1e-6)
+
+    tx, cfg = _shape_configs(nof_rb=24, layers=4, ports=4, mod=Modulation.QAM256, rate=0.7,
+                             ptrs_enabled=True)
+    _tb, grid = _shape_grid(tx, seed=3, snr_db=30.0, phase=1.0)
+    phases = {}
+    for dev in ("cpu", cuda_device):
+        g = grid.to(dev)
+        _gf, h, _nv = pusch._estimate_stage(g, cfg)
+        phases[str(dev)] = pusch.cpe_phases(g.reshape(1, 4, -1), h, cfg).cpu()
+    d = (phases[str(cuda_device)] * phases["cpu"].conj()).angle().abs().max()
+    assert float(d) <= 1e-5
+
+
+@pytest.mark.parametrize("shape", ["type2-4x4", "ptrs-4x4", "dfts-pi2bpsk", "cdm1-zf"])
+def test_new_shapes_on_card_match_cpu(cuda_device, shape):  # noqa: F811
+    """pusch.process on the card against the CPU for each new shape: int8
+    LLRs within +-1, TB bits and CRC equal (and right)."""
+    kw = {"type2-4x4": dict(layers=4, ports=4, mod=Modulation.QAM64, dmrs_type=2),
+          "ptrs-4x4": dict(layers=4, ports=4, mod=Modulation.QAM256, rate=0.7,
+                           ptrs_enabled=True),
+          "dfts-pi2bpsk": dict(ports=4, mod=Modulation.PI_2_BPSK, rate=0.234,
+                               transform_precoding=True),
+          "cdm1-zf": dict(layers=2, ports=4, cdm=1)}[shape]
+    tx, cfg = _shape_configs(**kw)
+    if shape == "cdm1-zf":
+        cfg = pusch.dataclasses.replace(cfg, equalizer="zf")
+    tb, grid = _shape_grid(tx, seed=4, snr_db=30.0, phase=1.0 if cfg.ptrs_enabled else 0.0)
+    outs, llrs = {}, {}
+    for dev in ("cpu", cuda_device):
+        rnti = torch.tensor([0x4601], device=dev)
+        llrs[str(dev)] = pusch._front_end(grid.to(dev), rnti, cfg)[0].cpu()
+        outs[str(dev)] = pusch.process(grid.to(dev), rnti, cfg)
+    d = (llrs["cpu"].int() - llrs[str(cuda_device)].int()).abs()
+    assert int(d.max()) <= 1
+    for key in ("cpu", str(cuda_device)):
+        assert bool(outs[key]["tb_crc_ok"][0])
+        np.testing.assert_array_equal(to_np(outs[key]["tb_bits"][0].cpu()), tb)

@@ -35,6 +35,7 @@ from srsran_project_tpu_torch.ops.modulation import mapper as tmap
 from srsran_project_tpu_torch.phy import pdsch as tpdsch
 from srsran_project_tpu_torch.phy import pusch as tpusch
 from srsran_project_tpu_torch.phy import sch as tsch
+from srsran_project_tpu_torch.ran import csi as tcsi
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -252,28 +253,68 @@ def test_out_of_slice_values_raise(field, value):
         cfg.pusch_cfg  # noqa: B018
 
 
-@pytest.mark.parametrize("field", ["ptrs_enabled", "transform_precoding"])
-def test_out_of_slice_pdsch_values_raise(field):
-    alloc = tcell.CellConfig().alloc
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpdsch.PdschConfig(tbs=1000, target_code_rate=0.5, modulation=tmap.Modulation.QAM16,
-                           alloc=alloc, **{field: True})
-
-
-# A UCI config with a CSI report configuration (two-step CSI) stands for
-# the field values of UCI on PUSCH that are still not ported.
-_TWO_STEP_CSI = tpusch.UciOnPuschConfig(nof_harq_ack_bits=2, nof_csi1_bits=10,
-                                        csi_report_cfg=object())
-
-
-@pytest.mark.parametrize("field", ["uci", "ptrs_enabled", "transform_precoding", "compute_ta"])
+@pytest.mark.parametrize("field", ["compute_ta"])
 def test_out_of_slice_pusch_values_raise(field):
-    """The config raises when made, or (two-step CSI) when its UCI
-    multiplexing is first asked for."""
+    """The config raises when made."""
     alloc = tcell.CellConfig().alloc
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tpusch.PuschConfig(tbs=1000, target_code_rate=0.5, modulation=tmap.Modulation.QAM16,
-                           alloc=alloc, **{field: _TWO_STEP_CSI if field == "uci" else True}).sch
+                           alloc=alloc, **{field: True}).sch
+
+
+# Every NotImplementedError the port raises, with the ROADMAP sub-item its
+# message names: (what raises, how to trigger it, the sub-item).
+def _pusch_field(field, value):
+    return lambda: tpusch.PuschConfig(tbs=1000, target_code_rate=0.5,
+                                      modulation=tmap.Modulation.QAM16,
+                                      alloc=tcell.CellConfig().alloc, **{field: value})
+
+
+def _estimate_metrics(**kw):
+    y = torch.zeros((1, 12), dtype=torch.complex64)
+    return lambda: test_.estimate_channel(y, y, torch.ones(12), (0.5, 2.5, 4.5), 12, **kw)
+
+
+RAISES = [
+    ("PuschConfig.equalizer", _pusch_field("equalizer", "mmse_ref"), "Q1.8.8"),
+    ("PuschConfig.sinr_method", _pusch_field("sinr_method", "channel_estimator"), "Q1.8.2"),
+    ("PuschConfig.noise_method", _pusch_field("noise_method", "pair_residual"), "Q1.8.2"),
+    ("PuschConfig.estimator", _pusch_field("estimator", "reference"), "Q1.8.7"),
+    ("PuschConfig.demapper", _pusch_field("demapper", "reference"), "Q1.8.8"),
+    ("PuschConfig.ldpc_decoder", _pusch_field("ldpc_decoder", "reference_i8"), "Q1.8.8"),
+    ("PuschConfig.cfo_compensation", _pusch_field("cfo_compensation", True), "Q1.8.6"),
+    ("PuschConfig.compute_ta", _pusch_field("compute_ta", True), "Q1.8.2"),
+    ("SchConfig.decoder", lambda: tsch.SchConfig(tbs=1000, target_code_rate=0.5, qm=4,
+                                                 nof_layers=1, nof_total_bits=2400,
+                                                 decoder="reference_i8"), "Q1.8.8"),
+    ("estimate_channel(compute_ta=True)", _estimate_metrics(compute_ta=True), "Q1.8.2"),
+    ("estimate_channel(compute_cfo=True)", _estimate_metrics(compute_cfo=True), "Q1.8.2"),
+]
+
+
+@pytest.mark.parametrize("what, trigger, item", RAISES, ids=[r[0] for r in RAISES])
+def test_raise_names_its_sub_item(what, trigger, item):
+    """Each value the port does not run raises NotImplementedError naming
+    its ROADMAP sub-item, not a parent item."""
+    with pytest.raises(NotImplementedError, match=rf"ROADMAP {item}\b"):
+        trigger()
+
+
+def test_every_raise_is_pinned():
+    """The package raises NotImplementedError at three places (the
+    PuschConfig field table, SchConfig, estimate_channel), all pinned
+    above; a new one must be added to RAISES."""
+    pkg = os.path.join(REPO, "srsran_project_tpu_torch")
+    sites = sorted(os.path.relpath(os.path.join(d, f), pkg) for d, _, fs in os.walk(pkg)
+                   for f in fs if f.endswith(".py")
+                   for line in open(os.path.join(d, f)) if "raise NotImplementedError" in line)
+    assert sites == ["ops/estimator.py", "phy/pusch.py", "phy/sch.py"], sites
+
+
+# A UCI config with a CSI report configuration: two-step CSI.
+_TWO_STEP_CSI = tpusch.UciOnPuschConfig(
+    nof_harq_ack_bits=2, nof_csi1_bits=6, nof_csi2_bits=5,
+    csi_report_cfg=tcsi.CsiReportConfig(nof_csi_rs_ports=4))
 
 
 def test_two_step_csi_in_the_slot_raises():

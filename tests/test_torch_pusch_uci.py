@@ -258,10 +258,12 @@ def test_estimator_noise_and_metrics(smooth):
 
 
 def test_two_step_csi_raises():
-    jcfg = dataclasses.replace(jconfig("R2"), uci=jpusch.UciOnPuschConfig(2, 19, 40,
-                                                                          csi_report_cfg="rpt"))
+    """process_multi sends a two-step CSI grant away with ValueError, as
+    the reference does (its part-2 size follows the decoded RI)."""
+    from srsran_project_tpu.ran import csi as jcsi
+
+    jcfg = dataclasses.replace(jconfig("R2"), uci=jpusch.UciOnPuschConfig(
+        2, 6, 5, csi_report_cfg=jcsi.CsiReportConfig(nof_csi_rs_ports=4)))
     tcfg = tpusch.PuschConfig.from_reference(jcfg)
-    with pytest.raises(NotImplementedError, match="Q1.8.3"):
-        tcfg.uci_mux  # noqa: B018
     with pytest.raises(ValueError, match="two-step CSI"):
         tpusch.process_multi(torch.zeros((PORTS, 14, 96), dtype=torch.complex64), [1], [0], tcfg)

@@ -19,6 +19,11 @@ It builds the port's kernels (as chip_smoke.py does), then
    K2 ``decode_kernel``, K3 ``mmse_weights_4x4_kernel``, K4
    ``demap_planes_kernel``).
 
+The calls of chip_smoke.py's path 5 (a PT-RS grant, a DM-RS type-2 grant
+with data on the DM-RS symbol, DFT-s-OFDM with pi/2-BPSK and QPSK, the
+slot of narrower grants of those shapes, a two-step CSI grant) are
+profiled as well, on chip_smoke.py's inputs.
+
 Path 4 is also split into its host-heavy parts, each profiled alone on
 the slot's own inputs: the UCI decodes of its three config groups (short
 block and the polar SC decoder on the demultiplexed LLRs), and the six
@@ -99,7 +104,15 @@ def main() -> int:
     iq = cell.encode_slot(tb, cs.RNTI, torch.eye(4, dtype=torch.complex64, device=dev), fl)
     rx = iq + 0.03 * torch.randn(iq.shape, dtype=torch.complex64, device=dev) * iq.abs().mean()
 
+    # chip_smoke.py's path 5: each allocation shape and waveform.
+    singles5, (grid5, pdus5, _slot5), (_two, cfg5e, grid5e, rnti5e) = cs.p5_inputs(dev)
+    shapes = {f"shapes {ue['shape']}": (lambda g=g, r=r, c=c: pusch.process(g, r, c))
+              for ue, c, g, r in singles5}
+    shapes["shapes slot"] = lambda: ul_slot.process_slot(grid5, pdus5)
+    shapes["shapes two-step CSI"] = lambda: pusch.process(grid5e, rnti5e, cfg5e)
+
     calls = {
+        **shapes,
         "ul_slot": lambda: ul_slot.process_slot(grid, pdus),
         "ul_slot_uci": lambda: ul_slot.process_slot(grid4, pdus4, f1, f0, f2),
         "ul_slot_uci UCI decodes": uci_decodes,
@@ -110,7 +123,7 @@ def main() -> int:
         "plane b=8": lambda: cell.decode_slot(rx, cs.RNTI, pl),
     }
     for name in ("float b=8", "plane b=8", "plane b=8", "float b=8", "ul_slot", "ul_slot",
-                 "ul_slot_uci", "ul_slot_uci"):
+                 "ul_slot_uci", "ul_slot_uci", "shapes slot", "shapes slot"):
         print(f"# turn {name}: {cs.cuda_ms(calls[name], reps=10, warmup=2):.4f} ms/call")
 
     reps = 5
