@@ -9,7 +9,7 @@ Run from the repository root on a machine with one NVIDIA Hopper card:
 It builds the port's CUDA kernels from ``srsran_project_tpu_torch/csrc``
 (into ``build/``, one ``nvcc`` per source, side by side), checks each
 kernel against its plain torch version on the card at the shapes of the
-paths below, then drives five paths through the port's public entry
+paths below, then drives six paths through the port's public entry
 points, each with every kernel launch counter set to 0 just before it and
 read just after:
 
@@ -53,7 +53,27 @@ read just after:
    per code group, K3 once per PT-RS group); (e) a 273-PRB rank-2 grant
    with two-step CSI (RI, part-2 size and bits checked).  K1 is held
    against its plain version on (a)-(c) and (e)'s own LLRs, K3 on (a)'s
-   channel estimate, K2 on (d)'s code groups.
+   channel estimate, K2 on (d)'s code groups;
+6. the DU-low's FAPI entry point (``phy.upper_phy.UpperPhy``) on the same
+   carrier with 4 ports: (a) one DL_TTI.request (four equal-config compact
+   4-layer 256QAM PDSCH grants in one ``pdsch.process_multi`` batch, a
+   PT-RS PDSCH, two PDCCH (one interleaved), an SSB and two CSI-RS on REs
+   they do not share) through ``process_dl_tti``: the grid against the sum
+   of each PDU's own processor, every DCI back through ``pdcch.receive``
+   and the PBCH payload through ``ssb.decode_pbch`` at 20 dB, every PDSCH
+   grant CRC-clean through ``pusch.process`` at 30 dB (no kernel in the
+   DL_TTI call itself); (b) two UL_TTI.requests through
+   ``process_ul_tti``: path 4's shapes narrowed to make room for a
+   two-step CSI grant (the per-PDU path, K1) and an SRS, path 4's six
+   PUCCH occasions, one UE failing its CRC in the first call and passing
+   in the second as an rv-2 retransmission out of the HARQ pool (K2 per
+   code group, K3 and K1 each call; K2 held against its plain version on
+   both calls' code groups, K3 on group A's estimate, K1 on the two-step
+   grant's LLRs); every CRC, RxData, UCI and SRS indication checked;
+   (c) the port's ``apps/du_low_sim`` in-process: its defaults (the
+   flagship on TDL-A at 25 dB, 8 slots: K1 and K3 a slot), whose exit code
+   must match its BLER, and 273 PRB with 4 ports and 1 layer on one tap at
+   30 dB (4 slots, K1 a slot), which must be CRC-clean.
 
 Every CRC, every TB and UCI bit, every ``_ok`` flag and every PUCCH value
 is checked, and each PUCCH metric against its DTX threshold.  It then times each path per slot and
@@ -513,7 +533,7 @@ def ul4_grid(ues, pucch_plan, noise, device):
     """The received (4, 14, 3276) grid of path 4, built on ``device`` by the
     port's own UE-side code (``pusch.transmit`` with UCI,
     ``pucch.format0/1_generate``, ``pucch_f2.generate``), and each UE's
-    config."""
+    config (``ul4_config`` of its shape, or the UE's own "config")."""
     import torch
 
     from srsran_project_tpu_torch.phy import pucch, pucch_f2, pusch
@@ -524,7 +544,7 @@ def ul4_grid(ues, pucch_plan, noise, device):
     grid = on(noise)
     cfgs = []
     for ue in ues:
-        cfg = ul4_config(*ue["shape"], ue["first_rb"])
+        cfg = ue["config"] if "config" in ue else ul4_config(*ue["shape"], ue["first_rb"])
         sub = pusch.transmit(on(ue["tb"]), torch.tensor(ue["rnti"], device=device), cfg,
                              *[None if u is None else on(u) for u in ue["uci"]],
                              precoding=on(ue["channel"]))
@@ -650,6 +670,15 @@ def profile_call(fn) -> tuple[str, float, float]:
     n = sum(e.count for e in dev_ev)
     return (str(n) if n else "not measured",
             sum(e.self_device_time_total for e in dev_ev) / 1e3, wall)
+
+
+def report_call(card: str, name: str, fn) -> None:
+    """Time one call (CUDA events, host included) and profile it; print
+    ms a call, device kernels a call and the device's busy share."""
+    ms = cuda_ms(fn, reps=5)
+    kernels, busy, wall = profile_call(fn)
+    print(f"# [{card}] {name}: {ms:.4f} ms a call; {kernels} device kernels per call, device "
+          f"busy {busy:.4f} of {wall:.4f} ms profiled ({100 * busy / wall:.1f} %)")
 
 
 # ---- every allocation shape and waveform --------------------------------------
@@ -892,11 +921,7 @@ def shapes_phase(card: str) -> tuple[dict, dict, dict]:
         return out
 
     def report(name, fn):
-        ms = cuda_ms(fn, reps=5)
-        kernels, busy, wall = profile_call(fn)
-        print(f"# [{card}] shapes {name}: {ms:.4f} ms a call; {kernels} device kernels per "
-              f"call, device busy {busy:.4f} of {wall:.4f} ms profiled "
-              f"({100 * busy / wall:.1f} %)")
+        report_call(card, f"shapes {name}", fn)
 
     def k1_on(name, llr, cfg):
         data, _ = pusch.split_uci(llr, cfg)
@@ -1432,6 +1457,501 @@ def plane_phase(card: str, rx, tb, float_bits) -> tuple[dict, dict]:
     return launches, {"demap_planes": k4_err, "decode_dematch_planes": k1_err}
 
 
+# ---- the DU-low's FAPI entry point ------------------------------------------------
+
+P6_RNTI = 0x4901
+P6_SLOT = (5, 0)  # (SFN, slot): every DL config below is for slot 0 of its frame
+# (a) One DL_TTI on the 273-PRB carrier with 4 ports: four equal-config
+# compact 4-layer 256QAM grants of 40 PRB (MCS 21 of the 256QAM table,
+# 711/1024) at PRB 0, 40, 80 and 120 (one process_multi batch), a full-grid
+# PT-RS grant of the same shape at PRB 160-219, two PDCCH on symbol 0 (one
+# interleaved), an SSB at PRB 222-241 on symbols 2-5, and two row-1 CSI-RS
+# at PRB 244-257 (symbol 13) and 258-271 (symbol 12): no RE is shared.
+P6_DL_FIRST_RBS = (0, 40, 80, 120)
+P6_DL_NOF_PRB = 40
+P6_PTRS_PRB = (160, 60)
+P6_SSB_AT = (2, 222 * 12)  # (first symbol, first subcarrier)
+P6_CSI_RS = ((244, 14, 13), (258, 14, 12))  # (first PRB, PRBs, symbol)
+P6_DL_SNR_DB = 30.0  # the PDSCH grants' loopback decodes
+P6_CTRL_SNR_DB = 20.0  # PDCCH and PBCH on the UE side
+# (b) Two UL_TTI calls on the same carrier: path 4's shapes, narrower, so
+# that a two-step CSI grant (rank 2, 16QAM r 0.5, 2 HARQ-ACK bits) fits at
+# PRB 248-263 and the SRS (comb 2, one antenna port) on symbol 0 of PRB
+# 0-247; path 4's six PUCCH occasions at PRB 264-272.  Per group: (UEs,
+# layers, bits per symbol, code rate, PRBs each, UCI sizes).  UE 5 carries
+# no UCI: attenuated by P6_RETX_ATTEN_DB, its rv 0 fails in the first call
+# and its rv 2 combined with the pooled buffer passes in the second.
+P6_UL_GROUPS = (
+    (2, 4, 8, 948.0 / 1024.0, 72, (2, 40, 400)),  # A: UEs 0-1, PRB 0-143 (K3)
+    (4, 2, 6, 567.0 / 1024.0, 22, (11, 19, 0)),   # B: UEs 2-5, PRB 144-231
+    (2, 1, 2, 120.0 / 1024.0, 8, (1, 0, 0)),      # C: UEs 6-7, PRB 232-247, repetition
+)
+P6_RETX_UE = 5
+P6_RETX_ATTEN_DB = 19.0  # rv 0 alone passes at 15 dB, the combine fails at 22 (CPU run)
+P6_CSI_GRANT = (248, 16)  # (first PRB, PRBs)
+P6_CSI_RANK = 2
+P6_SRS_PRB = (0, 248)
+# (c) The app: its defaults (the flagship on TDL-A at 25 dB) for 8 slots,
+# then 273 PRB with 4 ports and 1 layer on one tap at 30 dB for 4 slots.
+P6_APP_RUNS = ((["--slots", "8"], None),
+               (["--set", "cell.nof_layers=1", "--channel", "single", "--snr-db", "30",
+                 "--slots", "4"], 0.0))
+
+
+def p6_slot():
+    from srsran_project_tpu_torch.ran.constants import SubcarrierSpacing
+    from srsran_project_tpu_torch.ran.slot_point import SlotPoint
+
+    return SlotPoint.from_sfn_slot(SubcarrierSpacing.KHZ30, *P6_SLOT)
+
+
+def p6_dl_configs(first_rb: int | None, ptrs: bool = False):
+    """(PdschConfig, the PuschConfig that decodes it) of a path-6 DL grant:
+    4 layers of 256QAM MCS 21 on symbols 1-13, DM-RS on symbol 2; a compact
+    window of 40 PRB at crb_start first_rb, or (first_rb None) the PT-RS
+    grant on the full grid."""
+    from srsran_project_tpu_torch.ops.modulation import Modulation
+    from srsran_project_tpu_torch.phy import pdsch, pusch
+    from srsran_project_tpu_torch.phy.allocation import Allocation
+    from srsran_project_tpu_torch.ran import tbs as tbs_mod
+
+    qm, rate = tbs_mod.mcs_to_qm_rate(21, "qam256")
+    if first_rb is None:
+        rb0, nrb = P6_PTRS_PRB
+        alloc = Allocation(rb_start=rb0, rb_count=nrb, sym_start=1, sym_count=13,
+                           dmrs_symbols=(2,))
+        nsc = UL_NOF_PRB * 12
+    else:
+        nrb = P6_DL_NOF_PRB
+        alloc = Allocation(rb_start=0, rb_count=nrb, sym_start=1, sym_count=13,
+                           dmrs_symbols=(2,), crb_start=first_rb)
+        nsc = nrb * 12
+    common = dict(tbs=tbs_mod.calculate_tbs(nrb, 13, 12, rate, qm, 4), target_code_rate=rate,
+                  modulation=Modulation(qm), alloc=alloc, nof_layers=4, nof_grid_symbols=14,
+                  nof_grid_sc=nsc, ptrs_enabled=ptrs, ptrs_k=2)
+    return (pdsch.PdschConfig(nof_ports=UL_NOF_PORTS, **common),
+            pusch.PuschConfig(nof_rx_ports=UL_NOF_PORTS, **common))
+
+
+def p6_pdcch_configs():
+    from srsran_project_tpu_torch.phy import pdcch
+
+    common = dict(symbol=0, duration=1, n_id=101, nof_grid_sc=UL_NOF_PRB * 12,
+                  slot_in_frame=P6_SLOT[1])
+    return (pdcch.PdcchConfig(payload_bits=39, aggregation_level=4, cce_index=0,
+                              coreset_rb_start=0, coreset_rb_count=48, **common),
+            pdcch.PdcchConfig(payload_bits=57, aggregation_level=8, cce_index=8,
+                              coreset_rb_start=48, coreset_rb_count=96, interleaved=True,
+                              reg_bundle_size=6, interleaver_rows=2, shift_index=1,
+                              n_rnti=P6_RNTI + 9, **common))
+
+
+def p6_dl_request(seed: int = SEED):
+    """Path 6 (a): the DL_TTI.request and TX_Data.request (numpy payloads,
+    made from ``seed``), and unit complex noise (4, 14, 3276)."""
+    from srsran_project_tpu_torch.fapi import messages as fapi
+    from srsran_project_tpu_torch.phy import ssb
+
+    rng = np.random.default_rng(seed + 6)
+    slot = p6_slot()
+    pdsch_pdus, tbs = [], []
+    for i, rb0 in enumerate(P6_DL_FIRST_RBS + (None,)):
+        tx, _rx = p6_dl_configs(rb0, ptrs=rb0 is None)
+        tbs.append(rng.integers(0, 2, size=(tx.tbs,), dtype=np.uint8))
+        pdsch_pdus.append(fapi.DlPdschPdu(tx, P6_RNTI + i, _unit_rows(rng, 4), i, first_rb=rb0))
+    pdcch_pdus = [fapi.DlPdcchPdu(c, P6_RNTI + 10 + k,
+                                  rng.integers(0, 2, size=(c.payload_bits,), dtype=np.uint8))
+                  for k, c in enumerate(p6_pdcch_configs())]
+    mib = rng.integers(0, 2, size=(24,), dtype=np.uint8)
+    scfg = ssb.SsbConfig(pci=1, ssb_index=0, l_max=8, sfn_2lsb=(P6_SLOT[0] >> 1) & 3)
+    payload = ssb.pbch_pack_payload(mib, sfn=P6_SLOT[0], hrf=0, ssb_index=0, l_max=8)
+    ssb_pdu = fapi.DlSsbPdu(scfg, payload, first_subcarrier=P6_SSB_AT[1],
+                            first_symbol=P6_SSB_AT[0])
+    csi = [fapi.DlCsiRsPdu(row=1, rb_start=rb0, rb_count=n, symbol=sym, scrambling_id=300 + k)
+           for k, (rb0, n, sym) in enumerate(P6_CSI_RS)]
+    req = fapi.DlTtiRequest(slot=slot, pdsch=pdsch_pdus, pdcch=pdcch_pdus, ssb=[ssb_pdu],
+                            csi_rs=csi)
+    noise = rng.standard_normal((UL_NOF_PORTS, 14, UL_NOF_PRB * 12, 2)) * np.sqrt(0.5)
+    return (req, fapi.TxDataRequest(slot=slot, payloads=tbs),
+            (noise[..., 0] + 1j * noise[..., 1]).astype(np.complex64))
+
+
+def p6_dl_by_pdu(req, data, phy_cfg, device):
+    """The sum of each PDU's own port function on ``device``: every PDSCH
+    through ``pdsch.process`` (placed at its first_rb), every PDCCH, SSB and
+    CSI-RS through its processor onto port 0."""
+    import torch
+
+    from srsran_project_tpu_torch.phy import csi_rs, dl_slot, pdcch, pdsch, ssb
+
+    def on(x):
+        return torch.from_numpy(np.asarray(x)).to(device)
+
+    grid = torch.zeros((UL_NOF_PORTS, 14, UL_NOF_PRB * 12), dtype=torch.complex64,
+                       device=device)
+    for p in req.pdsch:
+        sub = pdsch.process(on(data.payloads[p.tb_index]), p.rnti, on(p.precoding), p.config)
+        sc0 = 12 * (p.first_rb or 0)
+        grid[:, :, sc0 : sc0 + sub.shape[-1]] += sub
+    for p in req.pdcch:
+        grid[0] += pdcch.process(on(p.payload), p.rnti, p.config)
+    for p in req.ssb:
+        grid[0, p.first_symbol : p.first_symbol + ssb.SSB_NSYM,
+             p.first_subcarrier : p.first_subcarrier + ssb.SSB_NSC] += ssb.assemble_ssb(
+                 on(p.payload), p.config)
+    for p in req.csi_rs:
+        grid[0] += csi_rs.generate(dl_slot.csi_rs_config(p, req.slot.slot_in_frame, phy_cfg),
+                                   device=device)
+    return grid
+
+
+
+
+def fapi_dl_phase(card: str) -> dict:
+    """Path 6 (a): one DL_TTI through ``UpperPhy.process_dl_tti``; the grid
+    against the per-PDU sum, the PDCCH and PBCH through the UE-side
+    receivers at 20 dB, every PDSCH grant through ``pusch.process`` at 30
+    dB.  Returns the launch counts of the DL_TTI call (none: the downlink
+    has no kernel)."""
+    import torch
+
+    from srsran_project_tpu_torch.phy import pdcch, pusch, ssb
+    from srsran_project_tpu_torch.phy.upper_phy import UpperPhy, UpperPhyConfig
+
+    dev = torch.device(DEVICE)
+    req, data, noise = p6_dl_request()
+    phy = UpperPhy(UpperPhyConfig(nof_ports=UL_NOF_PORTS, nof_grid_sc=UL_NOF_PRB * 12,
+                                  device=DEVICE))
+    torch.cuda.synchronize()
+    reset_counts()
+    grid = phy.process_dl_tti(req, data)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    expect_counts("fapi DL_TTI", counts, {})
+    want = p6_dl_by_pdu(req, data, phy.cfg, dev)
+    rms = float(want.abs().pow(2).mean().sqrt())
+    err = float((grid - want).abs().max())
+    print(f"# fapi DL_TTI: {len(req.pdsch)} PDSCH (4 in one process_multi batch, 1 PT-RS), "
+          f"{len(req.pdcch)} PDCCH, {len(req.ssb)} SSB, {len(req.csi_rs)} CSI-RS: grid "
+          f"{tuple(grid.shape)} within {err:.3e} of the per-PDU sum (RMS {rms:.4f})")
+    if not err <= 1e-6 * rms:
+        fail(f"fapi DL_TTI: grid off the per-PDU sum by {err:.3e} (RMS {rms:.4f})")
+    unit = torch.from_numpy(noise).to(dev)
+    rx20 = grid + unit * float(10 ** (-P6_CTRL_SNR_DB / 20))
+    for k, p in enumerate(req.pdcch):
+        bits, ok = pdcch.receive(rx20[0], p.rnti, p.config)
+        wrong = int((bits.cpu().numpy() != p.payload).sum())
+        print(f"# fapi DL_TTI PDCCH #{k} (AL {p.config.aggregation_level}, interleaved "
+              f"{p.config.interleaved}): CRC {bool(ok)}, {wrong} of {p.payload.size} DCI bits "
+              f"wrong at {P6_CTRL_SNR_DB} dB")
+        if not bool(ok) or wrong:
+            fail(f"fapi DL_TTI PDCCH #{k}: CRC {bool(ok)}, {wrong} bits wrong")
+    for p in req.ssb:
+        block = rx20[0, p.first_symbol : p.first_symbol + ssb.SSB_NSYM,
+                     p.first_subcarrier : p.first_subcarrier + ssb.SSB_NSC].reshape(-1)
+        d = block[torch.from_numpy(ssb._ssb_re_layout(p.config.pci)[0].astype(np.int64)).to(dev)]
+        llrs = torch.stack([d.real, d.imag], dim=-1).reshape(-1) * 4.0
+        payload, ok = ssb.decode_pbch(llrs, p.config)
+        wrong = int((payload.cpu().numpy() != p.payload).sum())
+        print(f"# fapi DL_TTI PBCH (pci {p.config.pci}): CRC {bool(ok)}, {wrong} of 32 payload "
+              f"bits wrong at {P6_CTRL_SNR_DB} dB")
+        if not bool(ok) or wrong:
+            fail(f"fapi DL_TTI PBCH: CRC {bool(ok)}, {wrong} bits wrong")
+    rx30 = grid + unit * float(10 ** (-P6_DL_SNR_DB / 20))
+    for p in req.pdsch:
+        _tx, rx_cfg = p6_dl_configs(p.first_rb, ptrs=p.first_rb is None)
+        sc0 = 12 * (p.first_rb or 0)
+        win = rx30[:, :, sc0 : sc0 + rx_cfg.nof_grid_sc] if p.first_rb is not None else rx30
+        res = pusch.process(win[None], torch.tensor([p.rnti], device=dev), rx_cfg)
+        check_p5_result(f"fapi DL_TTI PDSCH rnti {p.rnti:#x} (PRB {sc0 // 12 + rx_cfg.alloc.rb_start}, "
+                        f"{rx_cfg.alloc.rb_count} PRB, PT-RS {rx_cfg.ptrs_enabled}) decoded",
+                        res, data.payloads[p.tb_index])
+    report_call(card, "fapi DL_TTI", lambda: phy.process_dl_tti(req, data))
+    return counts
+
+
+def p6_csi_config():
+    """Path 6 (b)'s two-step CSI grant: a compact window (PuschConfig, the
+    CSI report config)."""
+    from srsran_project_tpu_torch.phy.pusch import UciOnPuschConfig
+    from srsran_project_tpu_torch.ran import csi
+
+    report = csi.CsiReportConfig(nof_csi_rs_ports=4)
+    uci = UciOnPuschConfig(nof_harq_ack_bits=2, nof_csi1_bits=csi.part1_bitwidth(report),
+                           nof_csi2_bits=csi.part2_min_max(report)[1], csi_report_cfg=report)
+    rb0, nrb = P6_CSI_GRANT
+    return dataclasses.replace(ul_config(2, 4, 0.5, nrb, rb0), uci=uci), report
+
+
+def p6_ul_plan(seed: int = SEED):
+    """Everything random about path 6 (b), made with numpy from ``seed``:
+    the UEs (as ``ul4_plan``'s, with their configs), the PUCCH payloads,
+    the two-step CSI grant, the SRS channel (4,) and noise (2, 4, 14,
+    3276) at SNR_DB for the two calls."""
+    from srsran_project_tpu_torch.ran import csi
+
+    rng = np.random.default_rng(seed + 60)
+    ues, rb = [], 0
+    for nof_ues, layers, qm, rate, nof_rb, uci in P6_UL_GROUPS:
+        for _ in range(nof_ues):
+            i = len(ues)
+            uci_i = (0, 0, 0) if i == P6_RETX_UE else uci
+            cfg = ul4_config(layers, qm, rate, nof_rb, uci_i, rb)
+            ch = _unit_rows(rng, layers)
+            if i == P6_RETX_UE:
+                ch = ch * np.float32(10 ** (-P6_RETX_ATTEN_DB / 20))
+            ues.append(dict(rnti=P6_RNTI + 20 + i, first_rb=rb, shape=(layers, qm, rate, nof_rb,
+                                                                       uci_i),
+                            config=cfg, tb=rng.integers(0, 2, size=(cfg.tbs,), dtype=np.uint8),
+                            uci=[rng.integers(0, 2, size=(n,), dtype=np.uint8) if n else None
+                                 for n in uci_i],
+                            channel=ch))
+            rb += nof_rb
+    f1, f0, f2 = ul4_pucch()
+    pucch = {"f1": [(rng.integers(0, 2, size=(c.nof_harq_bits,), dtype=np.uint8),
+                     _unit_rows(rng, 1)) for c in f1],
+             "f0": [(v, _unit_rows(rng, 1)) for v in (1, 2)],
+             "f2": [(rng.integers(0, 2, size=(c.nof_uci_bits,), dtype=np.uint8),
+                     _unit_rows(rng, 1)) for c in f2]}
+    cfg, report = p6_csi_config()
+    ri_off, ri_w, sizes = csi.part2_correspondence(report)
+    v = report.allowed_ranks.index(P6_CSI_RANK)
+    csi1 = rng.integers(0, 2, size=(csi.part1_bitwidth(report),), dtype=np.uint8)
+    csi1[ri_off : ri_off + ri_w] = [(v >> (ri_w - 1 - k)) & 1 for k in range(ri_w)]
+    two = dict(rnti=P6_RNTI + 40, tb=rng.integers(0, 2, size=(cfg.tbs,), dtype=np.uint8),
+               ack=rng.integers(0, 2, size=(2,), dtype=np.uint8), csi1=csi1,
+               csi2=rng.integers(0, 2, size=(sizes[v],), dtype=np.uint8),
+               channel=_unit_rows(rng, 2))
+    srs_h = _unit_rows(rng, 1)[0]
+    sigma = np.sqrt(0.5 * 10 ** (-SNR_DB / 10))
+    noise = rng.standard_normal((2, UL_NOF_PORTS, 14, UL_NOF_PRB * 12, 2)) * sigma
+    return ues, pucch, two, srs_h, (noise[..., 0] + 1j * noise[..., 1]).astype(np.complex64)
+
+
+def p6_srs_config():
+    from srsran_project_tpu_torch.phy import srs
+
+    return srs.SrsConfig(rb_start=P6_SRS_PRB[0], rb_count=P6_SRS_PRB[1], start_symbol=0,
+                         nof_symbols=1, comb=2, sequence_id=7, nof_rx_ports=UL_NOF_PORTS,
+                         nof_grid_sc=UL_NOF_PRB * 12)
+
+
+def p6_ul_call(call: int, plan, device):
+    """Path 6 (b)'s received grid of call 0 or 1 on ``device`` and its
+    UL_TTI.request; in call 1 UE P6_RETX_UE sends rv 2 as a retransmission."""
+    import torch
+
+    from srsran_project_tpu_torch.fapi import messages as fapi
+    from srsran_project_tpu_torch.phy import pusch, srs
+
+    ues, pucch_plan, two, srs_h, noise = plan
+    if call:
+        ues = [dict(ue, config=dataclasses.replace(ue["config"], rv=2))
+               if i == P6_RETX_UE else ue for i, ue in enumerate(ues)]
+    grid, cfgs = ul4_grid(ues, pucch_plan, noise[call], device)
+    cfg, _report = p6_csi_config()
+
+    def on(x):
+        return torch.from_numpy(x).to(device)
+
+    sc0 = 12 * P6_CSI_GRANT[0]
+    grid[:, :, sc0 : sc0 + cfg.nof_grid_sc] += pusch.transmit(
+        on(two["tb"]), torch.tensor(two["rnti"], device=device), cfg, on(two["ack"]),
+        on(two["csi1"]), on(two["csi2"]), precoding=on(two["channel"]))
+    grid += on(srs_h)[:, None, None] * srs.generate(p6_srs_config(), device=device)
+    f1, f0, f2 = ul4_pucch()
+    pdus = [fapi.UlPuschPdu(c, ue["rnti"], harq_id=i, new_data=not (call and i == P6_RETX_UE),
+                            first_rb=ue["first_rb"]) for i, (ue, c) in enumerate(zip(ues, cfgs))]
+    pdus.append(fapi.UlPuschPdu(cfg, two["rnti"], harq_id=15, first_rb=P6_CSI_GRANT[0]))
+    req = fapi.UlTtiRequest(
+        slot=p6_slot() + 4 + call,
+        pusch=pdus, pucch=[fapi.UlPucchPdu(c, P6_RNTI + 50 + k)
+                           for k, c in enumerate(f1 + f0 + f2)],
+        srs=[fapi.UlSrsPdu(p6_srs_config(), P6_RNTI + 60)])
+    return grid, req
+
+
+def p6_expected_uci(plan, req) -> list:
+    """The UCI indications the call must give, in order: per PUSCH PDU its
+    HARQ-ACK, CSI part 1 and part 2 bits (part 2 of the two-step grant as
+    sent, a prefix of the padded indication), then per PUCCH PDU its bits
+    (F0: the HARQ bits and the SR bit)."""
+    from srsran_project_tpu_torch.phy import pucch
+
+    ues, pucch_plan, two, _srs_h, _noise = plan
+    out = []
+    for ue in ues:
+        out.extend(u for u in ue["uci"] if u is not None)
+    out.extend([two["ack"], two["csi1"], two["csi2"]])
+    f1, f0, _f2 = ul4_pucch()
+    out.extend(bits for bits, _h in pucch_plan["f1"])
+    for (value, _h), c in zip(pucch_plan["f0"], f0):
+        bits = [(value >> i) & 1 for i in range(c.nof_harq_bits)]
+        out.append(np.asarray(bits + ([1] if c.sr_opportunity else []), np.uint8))
+    out.extend(bits for bits, _h in pucch_plan["f2"])
+    return out
+
+
+def p6_check_results(name: str, res, req, plan, retx_ok: bool) -> None:
+    """Every CRC, RxData, UCI and SRS indication of one UL_TTI call against
+    what was sent."""
+    ues, _pucch, two, srs_h, _noise = plan
+    sent_tbs = [ue["tb"] for ue in ues] + [two["tb"]]
+    crc = [c.tb_crc_ok for c in res.crc]
+    want_crc = [retx_ok if i == P6_RETX_UE else True for i in range(len(sent_tbs))]
+    snrs = [round(c.snr_db, 2) for c in res.crc]
+    print(f"# {name}: CRC {crc}, SINR dB {snrs}")
+    if crc != want_crc or [c.rnti for c in res.crc] != [p.rnti for p in req.pusch]:
+        fail(f"{name}: CRC {crc}, want {want_crc}")
+    if not all(np.isfinite(c.snr_db) for c in res.crc):
+        fail(f"{name}: non-finite SINR")
+    got_rx = {d.rnti: d.payload for d in res.rx_data}
+    for p, tb, ok in zip(req.pusch, sent_tbs, want_crc):
+        if ok and not np.array_equal(got_rx.get(p.rnti), tb):
+            fail(f"{name}: RxData of rnti {p.rnti:#x} differs from the TB sent")
+    if len(got_rx) != sum(want_crc):
+        fail(f"{name}: {len(got_rx)} RxData indications, want {sum(want_crc)}")
+    want_uci = p6_expected_uci(plan, req)
+    if len(res.uci) != len(want_uci):
+        fail(f"{name}: {len(res.uci)} UCI indications, want {len(want_uci)}")
+    bad = [k for k, (u, w) in enumerate(zip(res.uci, want_uci))
+           if not u.valid or not np.array_equal(np.asarray(u.uci_bits)[: w.size], w)]
+    print(f"# {name}: {len(res.uci)} UCI indications (PUSCH UCI, two-step CSI, 6 PUCCH), "
+          f"{len(bad)} wrong or invalid")
+    if bad:
+        fail(f"{name}: UCI indications {bad} wrong or invalid")
+    if res.errors or len(res.srs) != 1:
+        fail(f"{name}: errors {res.errors}, {len(res.srs)} SRS indications")
+    s = res.srs[0]
+    h = np.asarray(s.h)
+    rel = float(np.abs(h.mean(axis=-1) - srs_h).max() / np.abs(srs_h).max())
+    print(f"# {name}: SRS h {h.shape}, wideband mean within {rel:.4f} of the channel sent, "
+          f"SNR {s.snr_db:.2f} dB")
+    if h.shape != (UL_NOF_PORTS, P6_SRS_PRB[1] * 6) or not rel < 0.02 or not s.snr_db > 20.0:
+        fail(f"{name}: SRS h {h.shape}, off by {rel:.4f}, SNR {s.snr_db:.2f} dB")
+
+
+def p6_slot_pdus(req, pool=None):
+    """The UlSlotPdus that ``UpperPhy`` hands ``process_slot`` for ``req``
+    (HARQ buffers from ``pool`` for retransmissions)."""
+    from srsran_project_tpu_torch.phy import ul_slot
+
+    return [ul_slot.UlSlotPdu(rnti=p.rnti, first_rb=p.first_rb, config=p.config,
+                              harq_buffer=None if p.new_data else pool.get(p.rnti, p.harq_id))
+            for p in req.pusch if p.config.uci is None or p.config.uci.csi_report_cfg is None]
+
+
+def fapi_ul_phase(card: str) -> tuple[dict, dict]:
+    """Path 6 (b): two UL_TTI calls through ``UpperPhy.process_ul_tti``,
+    the retransmission out of the pool in the second; K2 held against its
+    plain version on each call's code groups, K3 on group A's estimate, K1
+    on the two-step CSI grant's LLRs.  Returns the launch counts of both
+    calls and the kernels' largest differences."""
+    import torch
+
+    from srsran_project_tpu_torch.phy import pusch, sch as sch_mod, ul_slot
+    from srsran_project_tpu_torch.phy.upper_phy import UpperPhy, UpperPhyConfig
+
+    dev = torch.device(DEVICE)
+    plan = p6_ul_plan()
+    phy = UpperPhy(UpperPhyConfig(nof_ports=UL_NOF_PORTS, nof_grid_sc=UL_NOF_PRB * 12,
+                                  device=DEVICE))
+    total: dict = {}
+    errs = {"decode": 0.0, "mmse_weights_4x4": 0.0, "decode_dematch": 0.0}
+    calls = []
+    for call in (0, 1):
+        grid, req = p6_ul_call(call, plan, dev)
+        slot_pdus = p6_slot_pdus(req, phy.harq_pool)
+        codes = {(c.sch.seg.base_graph, c.sch.seg.lifting_size, c.nof_ldpc_iterations,
+                  c.ldpc_early_stop, c.sch.n_cb) for c in ul_slot._config_groups(slot_pdus)}
+        torch.cuda.synchronize()
+        reset_counts()
+        res = phy.process_ul_tti(req, grid)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        name = f"fapi UL_TTI call {call + 1}"
+        expect_counts(name, counts, {"decode": len(codes), "mmse_weights_4x4": 1,
+                                     "decode_dematch": 1})
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        retx = plan[0][P6_RETX_UE]
+        pooled = phy.harq_pool.get(retx["rnti"], P6_RETX_UE) is not None
+        p6_check_results(name, res, req, plan, retx_ok=bool(call))
+        if pooled == bool(call):
+            fail(f"{name}: UE {P6_RETX_UE}'s HARQ buffer pooled {pooled}")
+        k2_err, geometries = check_code_groups(grid, slot_pdus, name)
+        errs["decode"] = max(errs["decode"], k2_err)
+        print(f"# {name}: K2 code groups {geometries}")
+        calls.append((grid, req))
+    # K3 on group A's estimate and K1 on the two-step CSI grant's LLRs, from
+    # the first call's grid.
+    grid, req = calls[0]
+    groups = ul_slot._config_groups(p6_slot_pdus(req))
+    cfg_a, idx_a = next(iter(groups.items()))
+    first_rbs = tuple(req.pusch[i].first_rb for i in idx_a)
+    win = torch.stack([grid[:, :, 12 * r : 12 * r + cfg_a.nof_grid_sc] for r in first_rbs])
+    _g, h, nv = pusch._estimate_stage(win, cfg_a, r_override=pusch._pilot_bank_on(
+        dev, cfg_a, first_rbs))
+    errs["mmse_weights_4x4"] = check_k3_on(h.transpose(1, 2), nv, "fapi UL_TTI group A K3")[0]
+    p = req.pusch[-1]
+    sc0 = 12 * p.first_rb
+    llr = pusch._front_end(grid[None, :, :, sc0 : sc0 + p.config.nof_grid_sc],
+                           torch.tensor([p.rnti], device=dev), p.config)[0]
+    data, _ = pusch.split_uci(llr, p.config)
+    bits, iters = sch_mod._fused_decode(data, p.config.sch, p.config.nof_ldpc_iterations,
+                                        p.config.ldpc_early_stop)
+    errs["decode_dematch"] = check_k1_batch(data, bits, iters, p.config, "fapi UL_TTI two-step CSI")
+    timing = UpperPhy(UpperPhyConfig(nof_ports=UL_NOF_PORTS, nof_grid_sc=UL_NOF_PRB * 12,
+                                     device=DEVICE))
+    report_call(card, "fapi UL_TTI (call 1's request: 8 PUSCH, a two-step CSI grant, 6 PUCCH, "
+                "1 SRS)", lambda: timing.process_ul_tti(req, grid))
+    return total, errs
+
+
+def app_phase(card: str) -> dict:
+    """Path 6 (c): the port's du_low_sim in-process (``main``), twice; each
+    run's return code and BLER line checked, its launch counts read around
+    it.  Returns the launches summed over both runs."""
+    import contextlib
+    import io
+    import re
+
+    import torch
+
+    from srsran_project_tpu_torch.apps import du_low_sim
+
+    total: dict = {}
+    for argv, want_bler in P6_APP_RUNS:
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        reset_counts()
+        with contextlib.redirect_stderr(buf):
+            rc = du_low_sim.main(list(argv))
+        torch.cuda.synchronize()
+        counts = read_counts()
+        text = buf.getvalue()
+        for line in text.splitlines():
+            print(f"# du_low_sim {' '.join(argv)}: {line.lstrip('# ')}")
+        m = re.search(r"# (\d+) slots in ([0-9.]+)s \(([0-9.]+) slot-pairs/s\), BLER=([0-9.]+)",
+                      text)
+        if m is None:
+            fail(f"du_low_sim {argv}: no summary line (rc {rc})")
+        slots, bler = int(m.group(1)), float(m.group(4))
+        print(f"# [{card}] du_low_sim {' '.join(argv)}: rc {rc}, BLER {bler:.3f}, "
+              f"{m.group(3)} slot-pairs/s")
+        if rc != (0 if bler < 1.0 else 1):
+            fail(f"du_low_sim {argv}: rc {rc} with BLER {bler}")
+        if want_bler is not None and (rc != 0 or bler != want_bler):
+            fail(f"du_low_sim {argv}: rc {rc}, BLER {bler}, want rc 0 and BLER {want_bler}")
+        want = {"decode_dematch": slots}
+        if "cell.nof_layers=1" not in argv:
+            want["mmse_weights_4x4"] = slots  # 4x4 MMSE on full data rows
+        expect_counts(f"du_low_sim {' '.join(argv)}", counts, want)
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -1472,6 +1992,11 @@ def main() -> int:
     per_path["shapes"], errs5, times5 = shapes_phase(card)
     for name, err in errs5.items():
         errs[name] = max(errs.get(name, 0.0), err)
+    per_path["fapi_dl_tti"] = fapi_dl_phase(card)
+    per_path["fapi_ul_tti"], errs6 = fapi_ul_phase(card)
+    for name, err in errs6.items():
+        errs[name] = max(errs.get(name, 0.0), err)
+    per_path["du_low_sim"] = app_phase(card)
     # Each kernel's launches on the path it serves (one call of it), and
     # on every path.
     home = {"decode_dematch": "flagship", "mmse_weights_4x4": "flagship", "decode": "ul_slot",

@@ -7,7 +7,9 @@ rows, type-1 DM-RS at stride 2) where it applies, else the scatter
 assembly of any allocation shape (data on the DM-RS symbols, DM-RS type
 2, any first symbol and PRB), with PT-RS (``ptrs_layout``) and transform
 precoding with the low-PAPR DM-RS; exact float32 precoding by scalar
-multiply-adds.  ``process_multi`` is not ported yet (ROADMAP Q1.9).
+multiply-adds.  ``process_multi`` encodes N equal-config grants of one
+slot as one leading-batch pass through both chains, each grant with its
+own DM-RS values (the Gold index follows its absolute CRB) and precoding.
 """
 
 from __future__ import annotations
@@ -114,11 +116,36 @@ def _dmrs_rows(cfg: PdschConfig) -> np.ndarray:
 _dmrs_rows_on = device_table(_dmrs_rows)
 
 
+def _pilot_weights(cfg: PdschConfig) -> np.ndarray:
+    """(nl, Np) complex64: beta x each layer's OCC weight of its pilots."""
+    a = cfg.alloc
+    beta = np.float32(dmrs_mod.sch_to_dmrs_beta(a.nof_cdm_groups_without_data))
+    return np.stack([beta * alloc_mod.pilot_re_indices(a, layer, cfg.nof_grid_sc)[1].astype(
+        np.complex64) for layer in range(cfg.nof_layers)])
+
+
+_pilot_w_on = device_table(_pilot_weights)
+
+
+def _override_rows(r: torch.Tensor, cfg: PdschConfig) -> torch.Tensor:
+    """Per-grant DM-RS pilot values (..., nl, nsym_d, Np) -> the DM-RS rows
+    (..., nsym_d, nl, nof_sc) of ``_dmrs_rows``, each layer's values at its
+    CDM-group offset."""
+    vals = r * _pilot_w_on(r.device, cfg)[:, None, :]
+    out = torch.zeros(r.shape[:-3] + (r.shape[-2], cfg.nof_layers, cfg.alloc.nof_sc),
+                      dtype=torch.complex64, device=r.device)
+    for layer in range(cfg.nof_layers):
+        delta = int(dmrs_mod.cdm_group(1, layer))  # type-1 delta == CDM group
+        out[..., layer, delta::2] = vals[..., layer, :, :]
+    return out
+
+
 def _grid_rows_fast(layered: torch.Tensor, precoding: torch.Tensor,
-                    cfg: PdschConfig) -> torch.Tensor:
+                    cfg: PdschConfig, dmrs_override: torch.Tensor | None = None) -> torch.Tensor:
     """(..., nl, ndata) symbol-major layer symbols -> (..., P, nsym, nsc)
     grids: data rows reshape straight into the grid, DM-RS rows come from
-    the static pilot table, then exact f32 precoding."""
+    the static pilot table (or from ``dmrs_override``, per-grant pilot
+    values (..., nl, nsym_d, Np)), then exact f32 precoding."""
     a = cfg.alloc
     nl = cfg.nof_layers
     lead = layered.shape[:-2]
@@ -126,14 +153,16 @@ def _grid_rows_fast(layered: torch.Tensor, precoding: torch.Tensor,
     data_syms = [s for s in range(a.sym_start, a.sym_start + a.sym_count)
                  if s not in a.dmrs_symbols]
     data3 = layered.reshape(lead + (nl, len(data_syms), a.nof_sc))
-    dmrs_rows = _dmrs_rows_on(dev, cfg)
+    dmrs_rows = (_dmrs_rows_on(dev, cfg) if dmrs_override is None
+                 else _override_rows(dmrs_override, cfg))
     zero_row = torch.zeros(lead + (nl, a.nof_sc), dtype=torch.complex64, device=dev)
     rows = []
     for s in range(cfg.nof_grid_symbols):
         if s in data_syms:
             rows.append(data3[..., data_syms.index(s), :])
         elif s in a.dmrs_symbols and a.sym_start <= s < a.sym_start + a.sym_count:
-            rows.append(dmrs_rows[list(a.dmrs_symbols).index(s)].expand(lead + (nl, a.nof_sc)))
+            rows.append(dmrs_rows[..., list(a.dmrs_symbols).index(s), :, :].expand(
+                lead + (nl, a.nof_sc)))
         else:
             rows.append(zero_row)
     win = torch.stack(rows, dim=-2)  # (..., nl, S, nof_sc)
@@ -144,12 +173,13 @@ def _grid_rows_fast(layered: torch.Tensor, precoding: torch.Tensor,
 
 
 def _precode(grid_l: torch.Tensor, precoding: torch.Tensor) -> torch.Tensor:
-    """(..., nl, nsym, nsc) layer grids and the (nl, P) precoding -> (...,
-    P, nsym, nsc) port grids, exact float32: one scalar multiply-add per
-    (layer, port)."""
+    """(..., nl, nsym, nsc) layer grids and the (nl, P) precoding, or one
+    (..., nl, P) per leading element -> (..., P, nsym, nsc) port grids,
+    exact float32: one scalar multiply-add per (layer, port)."""
     w = precoding.to(torch.complex64)
-    return torch.stack([sum(w[l, p] * grid_l[..., l, :, :] for l in range(w.shape[0]))
-                        for p in range(w.shape[1])], dim=-3)
+    nl, nports = w.shape[-2:]
+    return torch.stack([sum(w[..., l, p, None, None] * grid_l[..., l, :, :] for l in range(nl))
+                        for p in range(nports)], dim=-3)
 
 
 def _bit_chain(tb_bits: torch.Tensor, rnti: torch.Tensor, cfg: PdschConfig) -> torch.Tensor:
@@ -198,11 +228,13 @@ _scatter_on = device_table(lambda cfg, which: _scatter_plan(cfg)[which])
 
 
 def _grid_scatter(layered: torch.Tensor, precoding: torch.Tensor,
-                  cfg: PdschConfig) -> torch.Tensor:
+                  cfg: PdschConfig, dmrs_override: torch.Tensor | None = None) -> torch.Tensor:
     """(..., nl, ndata) symbol-major layer symbols -> (..., P, nsym, nsc)
     grids by the reference's scatter assembly, in its order: data REs
     (DFT-precoded per symbol with transform precoding), then each layer's
-    DM-RS, then PT-RS on layer 0; exact f32 precoding."""
+    DM-RS (the per-grant pilot values of ``dmrs_override`` where given,
+    except with transform precoding's low-PAPR sequence), then PT-RS on
+    layer 0; exact f32 precoding."""
     a = cfg.alloc
     nl = cfg.nof_layers
     lead = layered.shape[:-2]
@@ -213,25 +245,32 @@ def _grid_scatter(layered: torch.Tensor, precoding: torch.Tensor,
     n = cfg.nof_grid_symbols * cfg.nof_grid_sc
     grid_l = torch.zeros(lead + (nl * n,), dtype=torch.complex64, device=dev)
     grid_l[..., _scatter_on(dev, cfg, 0)] = layered.reshape(lead + (-1,))
-    grid_l[..., _scatter_on(dev, cfg, 1)] = _scatter_on(dev, cfg, 2)
+    if dmrs_override is None or cfg.transform_precoding:
+        grid_l[..., _scatter_on(dev, cfg, 1)] = _scatter_on(dev, cfg, 2)
+    else:
+        vals = dmrs_override * _pilot_w_on(dev, cfg)[:, None, :]
+        grid_l[..., _scatter_on(dev, cfg, 1)] = vals.reshape(lead + (-1,))
     if cfg.ptrs_enabled:
         grid_l[..., _scatter_on(dev, cfg, 3)] = _scatter_on(dev, cfg, 4)
     return _precode(grid_l.reshape(lead + (nl, cfg.nof_grid_symbols, cfg.nof_grid_sc)),
                     precoding)
 
 
-def _grid_chain(cw: torch.Tensor, precoding: torch.Tensor, cfg: PdschConfig) -> torch.Tensor:
+def _grid_chain(cw: torch.Tensor, precoding: torch.Tensor, cfg: PdschConfig,
+                dmrs_override: torch.Tensor | None = None) -> torch.Tensor:
     """Modulate + layer map + DM-RS (+ PT-RS) + precode: (..., G) bits ->
     (..., P, nsym, nsc) port grids.  The scatter-free rows where the
     reference takes them (full data rows, type-1 DM-RS, no PT-RS, no
-    transform precoding), else the scatter assembly."""
+    transform precoding), else the scatter assembly.  ``dmrs_override``
+    (..., nl, nsym_d, Np) replaces the config's DM-RS pilot values per
+    leading element."""
     syms = map_bits(cw, cfg.modulation)  # (..., G/Qm)
     nl = cfg.nof_layers
     layered = syms.reshape(syms.shape[:-1] + (-1, nl)).transpose(-1, -2)  # symbol i -> layer i%nl
     if (uniform_data_rows(cfg.alloc) and not cfg.transform_precoding
             and not cfg.ptrs_enabled and cfg.alloc.dmrs_config_type == 1):
-        return _grid_rows_fast(layered, precoding, cfg)
-    return _grid_scatter(layered, precoding, cfg)
+        return _grid_rows_fast(layered, precoding, cfg, dmrs_override)
+    return _grid_scatter(layered, precoding, cfg, dmrs_override)
 
 
 # TS 38.211 Table 7.4.1.2.2-1 (DM-RS type 1): subcarrier k_RE_ref per
@@ -274,3 +313,76 @@ def process(tb_bits: torch.Tensor, rnti, precoding: torch.Tensor,
     rnti = torch.as_tensor(rnti, dtype=torch.int64, device=dev)
     cw = _bit_chain(tb_bits, rnti, cfg)
     return _grid_chain(cw, torch.as_tensor(precoding, device=dev).to(torch.complex64), cfg)
+
+
+@functools.lru_cache(maxsize=None)
+def _multi_dmrs_bank(cfg: PdschConfig, first_rbs: tuple) -> np.ndarray:
+    """(N, nl, nsym_d, Np) complex64 per-grant DM-RS pilot values: the only
+    per-UE constant of equal-config grants at different PRBs (the Gold
+    index follows the absolute CRB)."""
+    banks = []
+    for rb0 in first_rbs:
+        a = dataclasses.replace(cfg.alloc, crb_start=int(rb0))
+        per_layer = []
+        for layer in range(cfg.nof_layers):
+            seq_idx = alloc_mod.pilot_re_indices(a, layer, cfg.nof_grid_sc)[3]
+            ntot = int(seq_idx[-1]) + 1
+            rows = []
+            for sym in a.dmrs_symbols:
+                c_init = dmrs_mod.dmrs_c_init(cfg.slot_in_frame, sym, cfg.dmrs_scrambling_id,
+                                              cfg.n_scid)
+                c = scrambling.gold_ref(int(c_init), 2 * ntot).astype(np.float32)
+                r = ((1.0 - 2.0 * c[0::2]) + 1j * (1.0 - 2.0 * c[1::2])) / np.sqrt(2)
+                rows.append(r[seq_idx])
+            per_layer.append(np.stack(rows))
+        banks.append(np.stack(per_layer))
+    return np.stack(banks).astype(np.complex64)
+
+
+_bank_on = device_table(_multi_dmrs_bank)
+
+
+def _multi_encode(tbs: torch.Tensor, rntis: torch.Tensor, first_scs: list, bank: torch.Tensor,
+                  precoding: torch.Tensor, grid: torch.Tensor, cfg: PdschConfig) -> torch.Tensor:
+    """N equal-config grants through both chains as one leading batch, then
+    each grant's window added into the slot grid at its offset, in grant
+    order."""
+    subs = _grid_chain(_bit_chain(tbs, rntis, cfg), precoding, cfg, dmrs_override=bank)
+    width = subs.shape[-1]
+    for i, off in enumerate(first_scs):
+        grid[:, :, off : off + width] += subs[i]
+    return grid
+
+
+def process_multi(tbs: torch.Tensor, rntis, first_rbs, precoding, cfg: PdschConfig,
+                  grid: torch.Tensor | None = None, nof_slot_sc: int | None = None
+                  ) -> torch.Tensor:
+    """Encode N equal-config PDSCH grants into one slot grid in one batched
+    pass (the DL twin of ``pusch.process_multi``).
+
+    tbs: (N, A) payload bits (on the device of ``grid`` when one is given);
+    rntis: (N,); first_rbs: length-N PRB offsets of compact (rb_start = 0)
+    windows sharing ``cfg``; precoding: (nl, P) shared or (N, nl, P) per
+    grant; grid: an optional (P, nsym, nof_slot_sc) slot grid to add into
+    (a new grid is returned; the given one is left as it was).  Without a
+    grid the slot spans at least the config's width and the last grant's
+    window."""
+    if cfg.ptrs_enabled:
+        raise ValueError("process_multi: PT-RS PDUs take the per-PDU path")
+    first_rbs = tuple(int(r) for r in first_rbs)
+    dev = grid.device if grid is not None else torch.as_tensor(tbs).device
+    tbs = torch.as_tensor(tbs, dtype=torch.uint8).to(dev)
+    rntis = torch.as_tensor(rntis, dtype=torch.int64).to(dev)
+    if grid is None:
+        if nof_slot_sc is None:
+            nof_slot_sc = max(cfg.nof_grid_sc,
+                              *(12 * (rb + cfg.alloc.rb_count) for rb in first_rbs))
+        grid = torch.zeros((cfg.nof_ports, cfg.nof_grid_symbols, nof_slot_sc),
+                           dtype=torch.complex64, device=dev)
+    else:
+        grid = grid.clone()
+    w = torch.as_tensor(precoding).to(device=dev, dtype=torch.complex64)
+    if w.dim() == 2:
+        w = w.expand((tbs.shape[0],) + tuple(w.shape))
+    return _multi_encode(tbs, rntis, [12 * rb for rb in first_rbs],
+                         _bank_on(dev, cfg, first_rbs), w, grid, cfg)

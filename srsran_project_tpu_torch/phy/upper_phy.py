@@ -1,14 +1,52 @@
-"""Upper PHY state, the part the multi-UE slot needs.
+"""Upper PHY slot orchestration: FAPI requests in, grids and indications out.
 
-Port of ``HarqBufferPool`` from ``srsran_project_tpu/phy/upper_phy.py``:
-soft-bit buffers, as torch tensors on any device, keyed like the
-reference's trx_buffer_identifier (rnti, harq id).  ``UpperPhy`` itself is
-not ported yet (ROADMAP Q1.10).
+Port of ``srsran_project_tpu/phy/upper_phy.py``: ``UpperPhy`` turns a
+DL_TTI.request + TX_Data.request into the slot's resource grid
+(equal-config compact PDSCH grants as one ``pdsch.process_multi`` batch,
+the others one by one, then every PDCCH, SSB and CSI-RS through
+``dl_slot.assemble_broadcast``), a UL_DCI.request into PDCCH on a grid,
+and a UL_TTI.request + received grid into CRC, RxData, UCI, SRS and error
+indications (compact PUSCH grants and the PUCCH occasions through
+``ul_slot.process_slot``, the others through ``pusch.process``).  HARQ
+soft bits live in a ``HarqBufferPool`` keyed like the reference's
+trx_buffer_identifier (rnti, harq id).
+
+Everything runs on ``UpperPhyConfig.device`` (default the card): grids
+are made there, request payloads are moved there, and a received grid on
+another device raises ValueError.  PRACH is not ported (ROADMAP Q1.10.1).
 """
 
 from __future__ import annotations
 
+import dataclasses
+
+import numpy as np
 import torch
+
+from ..fapi import messages as fapi
+from . import dl_slot as dl_slot_mod
+from . import pdcch as pdcch_mod
+from . import pdsch as pdsch_mod
+from . import pucch as pucch_mod
+from . import pucch_f2 as pucch_f2_mod
+from . import pusch as pusch_mod
+from . import srs as srs_mod
+from . import ul_slot as ul_slot_mod
+
+
+@dataclasses.dataclass
+class UpperPhyConfig:
+    """Twin of the reference's ``UpperPhyConfig``, with the device the
+    slot's tensors live on."""
+
+    nof_ports: int = 1
+    nof_grid_symbols: int = 14
+    nof_grid_sc: int = 624
+    # Debug dump of received UL grids (reference phy_rx_symbols_filename,
+    # du_low_config.h): cbf16 binary, one file per call.
+    rx_symbols_filename: str | None = None
+    validate_requests: bool = False  # run fapi.validators on each request
+    device: str = "cuda"
 
 
 class HarqBufferPool:
@@ -30,3 +68,232 @@ class HarqBufferPool:
 
     def release(self, rnti: int, harq_id: int) -> None:
         self._buffers.pop((rnti, harq_id), None)
+
+
+def _host(x: torch.Tensor) -> np.ndarray:
+    return x.detach().cpu().numpy()
+
+
+class UpperPhy:
+    """One cell's upper PHY."""
+
+    def __init__(self, cfg: UpperPhyConfig):
+        self.cfg = cfg
+        self.device = torch.device(cfg.device)
+        self.harq_pool = HarqBufferPool()
+        # PHY taps: observers called at stage boundaries as fn(event, slot,
+        # payload) with the grid or the results; they must not mutate it.
+        self._taps: list = []
+
+    def add_tap(self, fn) -> None:
+        """Register an observer of 'dl_grid' / 'ul_grid' / 'ul_results'."""
+        self._taps.append(fn)
+
+    def remove_tap(self, fn) -> None:
+        self._taps.remove(fn)
+
+    def _notify(self, event: str, slot, payload) -> None:
+        for fn in self._taps:
+            fn(event, slot, payload)
+
+    def _zeros(self) -> torch.Tensor:
+        c = self.cfg
+        return torch.zeros((c.nof_ports, c.nof_grid_symbols, c.nof_grid_sc),
+                           dtype=torch.complex64, device=self.device)
+
+    def _on(self, x, dtype) -> torch.Tensor:
+        """A request payload (numpy or tensor) on the PHY's device."""
+        return torch.as_tensor(x, dtype=dtype, device=self.device)
+
+    # ------------------------------------------------------------------
+    # Downlink: DL_TTI.request + TX_Data.request -> resource grid
+    # ------------------------------------------------------------------
+    def process_dl_tti(self, request: fapi.DlTtiRequest,
+                       tx_data: fapi.TxDataRequest) -> torch.Tensor:
+        cfg = self.cfg
+        if cfg.validate_requests:
+            from ..fapi.validators import validate_dl_tti
+
+            validate_dl_tti(request, tx_data, cfg.nof_grid_sc)
+        grid = self._zeros()
+        # Equal-config compact PDUs batch into one process_multi per config.
+        # The key takes crb_start to 0 (process_multi derives each grant's
+        # pilots from its first_rb); only crb_start == first_rb grants
+        # batch, since a crb_start = 0 grant at first_rb != 0 would get its
+        # DM-RS Gold index from the wrong CRB.
+        batched, singles = {}, []
+        for pdu in request.pdsch:
+            c = pdu.config
+            if (pdu.first_rb is not None and not c.ptrs_enabled
+                    and c.alloc.crb_start == pdu.first_rb):
+                key = dataclasses.replace(c, alloc=dataclasses.replace(c.alloc, crb_start=0))
+                batched.setdefault(key, []).append(pdu)
+            else:
+                singles.append(pdu)
+        for cfg_g, pdus in batched.items():
+            if len(pdus) == 1:
+                singles.extend(pdus)
+                continue
+            tbs = torch.stack([self._on(tx_data.payloads[p.tb_index], torch.uint8) for p in pdus])
+            rntis = torch.tensor([p.rnti for p in pdus], dtype=torch.int64, device=self.device)
+            w = torch.stack([self._on(p.precoding, torch.complex64) for p in pdus])
+            grid = pdsch_mod.process_multi(tbs, rntis, [p.first_rb for p in pdus], w, cfg_g,
+                                           grid=grid)
+        for pdu in singles:
+            sub = pdsch_mod.process(self._on(tx_data.payloads[pdu.tb_index], torch.uint8),
+                                    pdu.rnti, self._on(pdu.precoding, torch.complex64),
+                                    pdu.config)
+            if pdu.first_rb is None:
+                grid = grid + sub
+            else:
+                # A compact-grid PDU goes to its granted PRB offset.
+                off = pdu.first_rb * 12
+                grid[:, :, off : off + sub.shape[2]] += sub
+        grid = dl_slot_mod.assemble_broadcast(grid, request, cfg)
+        self._notify("dl_grid", request.slot, grid)
+        return grid
+
+    # ------------------------------------------------------------------
+    # Uplink: UL_DCI.request, UL_TTI.request + received grid -> indications
+    # ------------------------------------------------------------------
+    def process_ul_dci(self, request: fapi.UlDciRequest,
+                       grid: torch.Tensor | None = None) -> torch.Tensor:
+        """Encode the UL_DCI.request PDCCH PDUs onto a new grid, or onto a
+        copy of the given one."""
+        grid = self._zeros() if grid is None else self._check_grid(grid).clone()
+        for pdu in request.pdcch:
+            grid[0] += pdcch_mod.process(self._on(pdu.payload, torch.uint8), pdu.rnti,
+                                         pdu.config)
+        return grid
+
+    def _check_grid(self, grid) -> torch.Tensor:
+        if not isinstance(grid, torch.Tensor):
+            raise ValueError(f"the grid must be a torch tensor on {self.device}, "
+                             f"got {type(grid).__name__}")
+        if grid.device.type != self.device.type or (
+                self.device.index is not None and grid.device.index != self.device.index):
+            raise ValueError(f"the grid lives on {grid.device}, the upper PHY on {self.device}")
+        return grid
+
+    def process_ul_tti(self, request: fapi.UlTtiRequest,
+                       rx_grid: torch.Tensor) -> fapi.SlotResults:
+        rx_grid = self._check_grid(rx_grid)
+        if request.prach:
+            raise NotImplementedError(
+                "UL_TTI PRACH PDUs are not ported yet (ROADMAP Q1.10.1: phy/prach with "
+                "ops/lower_phy's PRACH demodulator)")
+        res = fapi.SlotResults(slot=request.slot)
+        if self.cfg.validate_requests:
+            from ..fapi.validators import validate_ul_tti
+
+            validate_ul_tti(request, self.cfg.nof_grid_sc)
+        self._notify("ul_grid", request.slot, rx_grid)
+        if self.cfg.rx_symbols_filename:
+            from ..support import file_vector
+
+            file_vector.write_vector(f"{self.cfg.rx_symbols_filename}.{request.slot.count}",
+                                     _host(rx_grid).reshape(-1), "cbf16")
+        outs, pucch_outs = self._decode_pusch(request, rx_grid)
+        for pdu, out in zip(request.pusch, outs):
+            self._pusch_indications(res, pdu, out)
+        for j, pdu in enumerate(request.pucch):
+            self._pucch_indication(res, request, rx_grid, j, pdu, pucch_outs)
+        for pdu in request.srs:
+            est = srs_mod.estimate(rx_grid, pdu.config)
+            snr = float(est["epre"].mean()) / max(float(est["noise_var"].mean()), 1e-12)
+            res.srs.append(fapi.SrsIndicationPdu(pdu.rnti, 10.0 * np.log10(max(snr, 1e-12)),
+                                                 float(est["phase_slope"].mean()),
+                                                 _host(est["h"])))
+        self._notify("ul_results", request.slot, res)
+        return res
+
+    def _decode_pusch(self, request: fapi.UlTtiRequest, rx_grid: torch.Tensor):
+        """Per PUSCH PDU its result dict, and the PUCCH results the slot
+        program detected (PDU index -> result).  Two or more compact grants
+        without two-step CSI go through ``ul_slot.process_slot`` with every
+        PUCCH F0/F1/F2 occasion folded in; the rest one by one through
+        ``pusch.process`` on their window."""
+        outs: dict[int, dict] = {}
+        pucch_outs: dict[int, tuple] = {}
+        eligible = [i for i, pdu in enumerate(request.pusch)
+                    if (pdu.first_rb is not None
+                        and (pdu.config.uci is None or pdu.config.uci.csi_report_cfg is None)
+                        and pdu.config.alloc.crb_start == pdu.first_rb)]
+        if len(eligible) >= 2:
+            slot_pdus = []
+            for i in eligible:
+                p = request.pusch[i]
+                hb = None if p.new_data else self.harq_pool.get(p.rnti, p.harq_id)
+                slot_pdus.append(ul_slot_mod.UlSlotPdu(rnti=p.rnti, first_rb=p.first_rb,
+                                                       config=p.config, harq_buffer=hb))
+            by_kind = {kind: [j for j, pp in enumerate(request.pucch) if isinstance(pp.config, kind)]
+                       for kind in (pucch_mod.PucchFormat1Config, pucch_mod.PucchFormat0Config,
+                                    pucch_f2_mod.PucchFormat2Config)}
+            idx = list(by_kind.values())
+            cfgs = [tuple(request.pucch[j].config for j in js) for js in idx]
+            results = ul_slot_mod.process_slot(rx_grid, slot_pdus, *cfgs)
+            for i, out in zip(eligible, results[0]):
+                outs[i] = out
+            for js, found in zip(idx, results[1:]):
+                pucch_outs.update(zip(js, found))
+        for i, pdu in enumerate(request.pusch):
+            if i in outs:
+                continue
+            harq = None if pdu.new_data else self.harq_pool.get(pdu.rnti, pdu.harq_id)
+            pdu_grid = rx_grid
+            if pdu.first_rb is not None:
+                off = pdu.first_rb * 12
+                pdu_grid = rx_grid[:, :, off : off + pdu.config.nof_grid_sc]
+            out = pusch_mod.process(pdu_grid[None],
+                                    torch.tensor([pdu.rnti], dtype=torch.int64,
+                                                 device=self.device),
+                                    pdu.config, harq_buffer=None if harq is None else harq[None])
+            outs[i] = {k: v[0] for k, v in out.items()}
+        return [outs[i] for i in range(len(request.pusch))], pucch_outs
+
+    def _pusch_indications(self, res: fapi.SlotResults, pdu, out: dict) -> None:
+        """CRC, UCI and RxData indications of one PUSCH PDU, and its HARQ
+        buffer kept (CRC failed) or released (CRC passed)."""
+        ok = bool(out["tb_crc_ok"])
+        for bits_key, ok_key in ("harq_ack_bits", "harq_ack_ok"), ("csi1_bits", "csi1_ok"), \
+                                ("csi2_bits", "csi2_ok"):
+            if bits_key in out:
+                res.uci.append(fapi.UciIndicationPdu(pdu.rnti, _host(out[bits_key]),
+                                                     bool(out[ok_key]), 0.0))
+        res.crc.append(fapi.CrcIndicationPdu(
+            pdu.rnti, pdu.harq_id, ok, snr_db=float(out["snr_db"]),
+            ta_s=float(out["ta_s"]) if "ta_s" in out else None))
+        if ok:
+            res.rx_data.append(fapi.RxDataIndicationPdu(pdu.rnti, pdu.harq_id,
+                                                        _host(out["tb_bits"])))
+            self.harq_pool.release(pdu.rnti, pdu.harq_id)
+        else:
+            self.harq_pool.put(pdu.rnti, pdu.harq_id, out["harq_buffer"])
+
+    def _pucch_indication(self, res: fapi.SlotResults, request, rx_grid: torch.Tensor, j: int,
+                          pdu, folded: dict) -> None:
+        """The UCI indication of one PUCCH PDU (an error indication for a
+        format without a detector: F3 and F4)."""
+        c = pdu.config
+        if isinstance(c, pucch_mod.PucchFormat0Config):
+            val, metric = folded[j] if j in folded else pucch_mod.format0_detect(rx_grid, c)[:2]
+            # The candidate index carries the HARQ bits; with an SR
+            # opportunity the upper half of the candidates means a positive
+            # SR, sent as a trailing bit.
+            n_base = max(1, 1 << c.nof_harq_bits)
+            harq_val = int(val) % n_base
+            bits = [(harq_val >> i) & 1 for i in range(c.nof_harq_bits)]
+            if c.sr_opportunity:
+                bits.append(1 if int(val) >= n_base else 0)
+            res.uci.append(fapi.UciIndicationPdu(
+                pdu.rnti, np.asarray(bits, np.uint8),
+                float(metric) > pucch_mod.F0_DTX_THRESHOLD, float(metric)))
+        elif isinstance(c, pucch_mod.PucchFormat1Config):
+            bits, metric = folded[j] if j in folded else pucch_mod.format1_detect(rx_grid, c)[::2]
+            res.uci.append(fapi.UciIndicationPdu(
+                pdu.rnti, _host(bits), float(metric) > pucch_mod.F1_DTX_THRESHOLD, float(metric)))
+        elif isinstance(c, pucch_f2_mod.PucchFormat2Config):
+            bits, ok, snr = folded[j] if j in folded else pucch_f2_mod.process(rx_grid, c)
+            res.uci.append(fapi.UciIndicationPdu(pdu.rnti, _host(bits), bool(ok), float(snr)))
+        else:
+            res.errors.append(fapi.ErrorIndication(request.slot, f"unsupported PUCCH {type(c)}"))

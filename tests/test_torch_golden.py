@@ -12,7 +12,14 @@ the JAX package's vector tests' bounds:
 * ``transform_precoder``: the deprecode within 2e-4 and the noise
   averaging within rtol 2e-3 (tests/vectors/test_golden_tail.py);
 * ``mod_mapper``: the pi/2-BPSK, BPSK and QPSK cases within 1e-6
-  (tests/vectors/test_golden_modulation.py).
+  (tests/vectors/test_golden_modulation.py);
+* ``pdcch_processor``, ``ssb_processor`` and ``csi_rs_generator``: the
+  grids of the port's ``pdcch.process``, ``ssb.assemble_ssb`` and
+  ``csi_rs.generate`` within 8e-3, silence outside the SSB block
+  (tests/vectors/test_golden_dl_proc.py);
+* ``srs_estimator``: the port's ``srs.estimate`` against the reference
+  estimator's TA (3 ns), EPRE (0.4 dB), wideband coefficients (rtol 0.15,
+  0.15 rad) and noise bound (tests/vectors/test_golden_srs.py).
 
 The vectors are read with the JAX package's ``read_vector``; the port
 itself reads none.
@@ -30,8 +37,12 @@ from srsran_project_tpu.support.file_vector import read_vector
 from srsran_project_tpu_torch.ops import transform_precoding as ttp
 from srsran_project_tpu_torch.ops.modulation import Modulation
 from srsran_project_tpu_torch.ops.modulation import mapper as tmap
+from srsran_project_tpu_torch.phy import csi_rs as tcsi
+from srsran_project_tpu_torch.phy import pdcch as tpdcch
 from srsran_project_tpu_torch.phy import pdsch as tpdsch
 from srsran_project_tpu_torch.phy import pusch as tpusch
+from srsran_project_tpu_torch.phy import srs as tsrs
+from srsran_project_tpu_torch.phy import ssb as tssb
 from srsran_project_tpu_torch.phy.allocation import Allocation, nof_data_re
 
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
@@ -129,3 +140,92 @@ def test_mod_mapper(case):
     got = to_np(tmap.map_bits(to_torch(bits), mod))
     assert got.shape == ref.shape
     np.testing.assert_allclose(got, ref, atol=1e-6, err_msg=case["mod"])
+
+
+@pytest.mark.parametrize("idx", range(4))
+def test_pdcch_processor(idx):
+    case = _suite("pdcch_processor")[idx]
+    subc = case["bwp_rb"] * 12
+    ref = read_vector(_path("pdcch_processor", f"grid{idx}.dat"), "cf32").reshape(14, subc)
+    payload = read_vector(_path("pdcch_processor", f"payload{idx}.dat"), "u8")
+    cfg = tpdcch.PdcchConfig(
+        payload_bits=case["payload_bits"], aggregation_level=case["aggregation_level"],
+        cce_index=case["cce_index"], coreset_rb_start=case["coreset_rb_start"],
+        coreset_rb_count=case["coreset_rb_count"], symbol=case["start_sym"],
+        duration=case["duration"], interleaved=bool(case["interleaved"]),
+        reg_bundle_size=case["reg_bundle"], interleaver_rows=case["interleaver_rows"],
+        shift_index=case["shift_index"], n_id=case["n_id"], n_rnti=case["n_rnti"],
+        nof_grid_symbols=14, nof_grid_sc=subc, slot_in_frame=case["slot_idx"])
+    got = to_np(tpdcch.process(to_torch(payload), case["rnti"], cfg))
+    assert np.abs(got - ref).max() < 8e-3, case
+    assert np.abs(ref).max() > 0.5
+
+
+@pytest.mark.parametrize("idx", range(4))
+def test_ssb_processor(idx):
+    case = _suite("ssb_processor")[idx]
+    subc = case["grid_rb"] * 12
+    ref = read_vector(_path("ssb_processor", f"grid{idx}.dat"), "cf32").reshape(14, subc)
+    mib = read_vector(_path("ssb_processor", f"mib{idx}.dat"), "u8")
+    cfg = tssb.SsbConfig(pci=case["pci"], ssb_index=case["ssb_idx"], l_max=case["L_max"],
+                         sfn_2lsb=2 * ((case["sfn"] >> 2) & 1) + ((case["sfn"] >> 1) & 1),
+                         hrf=case["hrf"])
+    payload = tssb.pbch_pack_payload(mib, sfn=case["sfn"], hrf=case["hrf"],
+                                     ssb_index=case["ssb_idx"], l_max=case["L_max"],
+                                     k_ssb=case["subcarrier_offset"])
+    block = to_np(tssb.assemble_ssb(to_torch(payload), cfg))
+    l0, k0 = case["l_start"], case["k_start"]
+    assert np.abs(block - ref[l0 : l0 + 4, k0 : k0 + 240]).max() < 8e-3, case
+    mask = np.ones_like(ref, bool)
+    mask[l0 : l0 + 4, k0 : k0 + 240] = False
+    assert np.abs(ref[mask]).max() == 0.0
+
+
+@pytest.mark.parametrize("idx", range(5))
+def test_csi_rs_generator(idx):
+    case = _suite("csi_rs_generator")[idx]
+    subc, ports = case["bwp_rb"] * 12, case["nof_ports"]
+    ref = read_vector(_path("csi_rs_generator", f"grid{idx}.dat"), "cf32").reshape(ports, 14, subc)
+    ki = tuple(case["ki"])
+    cfg = tcsi.CsiRsConfig(
+        rb_start=case["rb_start"], rb_count=case["rb_count"], symbol=case["l0"],
+        scrambling_id=case["scrambling_id"], row=case["row"], k0=ki[0],
+        ki=ki if len(ki) > 1 else (), symbol2=case["l1"] if case["l1"] else None,
+        slot_in_frame=case["slot_idx"], nof_grid_symbols=14, nof_grid_sc=subc)
+    # The stored grids carry the reference's identity precoding, 1/sqrt(ports).
+    got = to_np(tcsi.generate(cfg, device="cpu")) / np.sqrt(ports)
+    got = got[None] if got.ndim == 2 else got
+    assert np.abs(got - ref).max() < 8e-3, case
+    assert np.abs(ref).max() > 0.3
+
+
+@pytest.mark.parametrize("idx", range(6))
+def test_srs_estimator(idx):
+    case = _suite("srs_estimator")[idx]
+    subc, rx, tx = case["bwp_rb"] * 12, case["rx_ports"], case["tx_ports"]
+    grid = read_vector(_path("srs_estimator", f"grid{idx}.dat"), "cf32").reshape(rx, 14, subc)
+    h_ref = read_vector(_path("srs_estimator", f"h{idx}.dat"), "cf32").reshape(rx, tx)
+    comb = case["comb"]
+    comb_offset = case["k0"] % comb
+    cfg = tsrs.SrsConfig(
+        rb_start=(case["k0"] - comb_offset) // 12, rb_count=case["m_sc"] * comb // 12,
+        start_symbol=case["start_symbol"], nof_symbols=case["nof_symbols"], comb=comb,
+        comb_offset=comb_offset, sequence_id=case["sequence_id"],
+        cyclic_shift=case["cyclic_shift"], nof_antenna_ports=tx, nof_rx_ports=rx,
+        nof_grid_sc=subc)
+    res = {k: to_np(v) for k, v in tsrs.estimate(to_torch(grid), cfg).items()}
+    h = res["h"].reshape(rx, tx, -1)
+    slope = res["phase_slope"].reshape(rx, tx)
+    ta = float(np.mean(-slope / (2 * np.pi * comb * 30e3)))
+    assert abs(ta - case["ref_ta_s"]) < 3e-9, (case, ta)
+    assert abs(10 * np.log10(res["epre"].mean()) - case["ref_epre_db"]) < 0.4, case
+    # Wideband coefficients: the TA-compensated mean of the LSE over the
+    # noise standard deviation, as the reference normalizes them.
+    i = np.arange(case["m_sc"])
+    coeff = (h * np.exp(-1j * (slope / case["m_sc"])[..., None] * i)).mean(axis=-1)
+    noise_std = max(np.sqrt(case["ref_noise_var"]),
+                    0.01 * np.sqrt(float((np.abs(coeff) ** 2).sum())))
+    pred = coeff / noise_std
+    assert np.allclose(np.abs(pred), np.abs(h_ref), rtol=0.15), (case, pred, h_ref)
+    assert np.abs(np.angle(pred * np.conj(h_ref))).max() < 0.15, case
+    assert res["noise_var"].mean() < 2 * case["ref_noise_var"] + 1e-3, case

@@ -71,7 +71,7 @@ if files[0].name == "__init__.py":
     loaded = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + ".")]
     for n in loaded:
         importlib.import_module(n)
-    assert len(loaded) >= 25, loaded
+    assert len(loaded) >= 45, loaded
 else:
     spec = importlib.util.spec_from_file_location(files[0].stem, files[0])
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
@@ -91,16 +91,34 @@ def _import_targets(name: str) -> list[str]:
     return [os.path.join(REPO, name)]
 
 
-@pytest.mark.parametrize("target", ["package", "chip_smoke.py", "tools/profile_torch_paths.py"])
+@pytest.mark.parametrize("target", ["package", "chip_smoke.py", "tools/profile_torch_paths.py",
+                                    "srsran_project_tpu_torch/apps/du_low_sim.py"])
 def test_package_imports_no_jax(target):
-    """The port's package, chip_smoke.py and the profiler script name
-    neither jax nor anything of srsran_project_tpu in any import, and
-    loading them (with every module they name) in a fresh interpreter
-    leaves both out of sys.modules."""
+    """The port's package (its FAPI, DL channels, upper PHY, channel
+    emulator, config and app modules among them), chip_smoke.py, the
+    profiler script and the app name neither jax nor anything of
+    srsran_project_tpu in any import, and loading them (with every module
+    they name) in a fresh interpreter leaves both out of sys.modules."""
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", _IMPORT_CHECK, *_import_targets(target)],
                           cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_app_runs_without_yaml():
+    """The app's defaults and --set overrides need no PyYAML: with yaml made
+    unimportable, a small CPU run in a fresh interpreter passes."""
+    code = ("import sys; sys.modules['yaml'] = None\n"
+            "from srsran_project_tpu_torch.apps import du_low_sim\n"
+            "sys.exit(du_low_sim.main(sys.argv[1:]))")
+    args = ["--cpu", "--set", "cell.nof_rb=12", "--set", "cell.nof_ports=1", "--set",
+            "cell.nof_layers=1", "--set", "cell.modulation=qpsk", "--channel", "single",
+            "--snr-db", "30", "--slots", "1"]
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code, *args], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "BLER=0.000" in proc.stderr
 
 
 # ---- the port's copies of the JAX package's host modules --------------------
@@ -275,6 +293,23 @@ def _estimate_metrics(**kw):
     return lambda: test_.estimate_channel(y, y, torch.ones(12), (0.5, 2.5, 4.5), 12, **kw)
 
 
+def _prach_pdu():
+    from srsran_project_tpu_torch.fapi import messages as tfapi
+    from srsran_project_tpu_torch.phy.upper_phy import UpperPhy, UpperPhyConfig
+    from srsran_project_tpu_torch.ran.slot_point import SlotPoint
+
+    req = tfapi.UlTtiRequest(slot=SlotPoint(tcell.CellConfig().scs, 0),
+                             prach=[tfapi.UlPrachPdu(tfapi.PrachConfig())])
+    return lambda: UpperPhy(UpperPhyConfig(device="cpu")).process_ul_tti(
+        req, torch.zeros((1, 14, 624), dtype=torch.complex64))
+
+
+def _app_flag(*argv):
+    from srsran_project_tpu_torch.apps import du_low_sim
+
+    return lambda: du_low_sim.main(["--cpu", *argv])
+
+
 RAISES = [
     ("PuschConfig.equalizer", _pusch_field("equalizer", "mmse_ref"), "Q1.8.8"),
     ("PuschConfig.sinr_method", _pusch_field("sinr_method", "channel_estimator"), "Q1.8.2"),
@@ -289,6 +324,13 @@ RAISES = [
                                                  decoder="reference_i8"), "Q1.8.8"),
     ("estimate_channel(compute_ta=True)", _estimate_metrics(compute_ta=True), "Q1.8.2"),
     ("estimate_channel(compute_cfo=True)", _estimate_metrics(compute_cfo=True), "Q1.8.2"),
+    ("UpperPhy.process_ul_tti(PRACH)", _prach_pdu(), "Q1.10.1"),
+    ("du_low_sim --trace", _app_flag("--trace", "t.json"), "Q1.10.2"),
+    ("du_low_sim --ues", _app_flag("--ues", "4"), "Q1.10.3"),
+    ("du_low_sim --cells", _app_flag("--cells", "2"), "Q1.10.4"),
+    ("du_low_sim --ru", _app_flag("--ru", "ofh"), "Q1.10.5"),
+    ("du_low_sim --pcap", _app_flag("--pcap", "mac.pcap"), "Q1.10.6"),
+    ("du_low_sim --remote-port", _app_flag("--remote-port", "0"), "Q1.10.7"),
 ]
 
 
@@ -301,14 +343,16 @@ def test_raise_names_its_sub_item(what, trigger, item):
 
 
 def test_every_raise_is_pinned():
-    """The package raises NotImplementedError at three places (the
-    PuschConfig field table, SchConfig, estimate_channel), all pinned
-    above; a new one must be added to RAISES."""
+    """The package raises NotImplementedError at five places (the
+    PuschConfig field table, SchConfig, estimate_channel, the upper PHY's
+    PRACH, the app's deferred flags), all pinned above; a new one must be
+    added to RAISES."""
     pkg = os.path.join(REPO, "srsran_project_tpu_torch")
     sites = sorted(os.path.relpath(os.path.join(d, f), pkg) for d, _, fs in os.walk(pkg)
                    for f in fs if f.endswith(".py")
                    for line in open(os.path.join(d, f)) if "raise NotImplementedError" in line)
-    assert sites == ["ops/estimator.py", "phy/pusch.py", "phy/sch.py"], sites
+    assert sites == ["apps/du_low_sim.py", "ops/estimator.py", "phy/pusch.py", "phy/sch.py",
+                     "phy/upper_phy.py"], sites
 
 
 # A UCI config with a CSI report configuration: two-step CSI.
@@ -419,3 +463,43 @@ def test_modulation_and_filter_tables():
         for a, b in zip(tmap.pam_levels(mod), jmap.pam_levels(jm)):
             np.testing.assert_array_equal(a, b)
         assert tmap.bits_per_symbol(mod) == jmap.bits_per_symbol(jm)
+
+
+def test_slot_point_copy():
+    """ran/slot_point.py: fields, arithmetic and wrap-around."""
+    from srsran_project_tpu.ran import constants as jconst
+    from srsran_project_tpu.ran.slot_point import SlotPoint as JSlot
+    from srsran_project_tpu_torch.ran import constants as tconst
+    from srsran_project_tpu_torch.ran.slot_point import SlotPoint as TSlot
+
+    for scs in jconst.SubcarrierSpacing:
+        ts = tconst.SubcarrierSpacing(int(scs))
+        spf = jconst.nof_slots_per_frame(scs)
+        for sfn, n in ((0, 0), (1023, spf - 1), (517, spf // 2), (1024 + 3, 1)):
+            j, t = JSlot.from_sfn_slot(scs, sfn, n), TSlot.from_sfn_slot(ts, sfn, n)
+            assert (t.count, t.sfn, t.slot_in_frame, t.slot_in_subframe, t.subframe) == \
+                (j.count, j.sfn, j.slot_in_frame, j.slot_in_subframe, j.subframe)
+            for d in (1, 7, spf * 1024 - 1, spf * 600):
+                assert (t + d).count == (j + d).count
+                assert (t + d) - t == (j + d) - j
+            assert repr(t) == repr(j)
+        with pytest.raises(ValueError):
+            TSlot.from_sfn_slot(ts, 0, spf)
+    assert TSlot.from_sfn_slot(tconst.SubcarrierSpacing.KHZ30, 1, 2) < \
+        TSlot.from_sfn_slot(tconst.SubcarrierSpacing.KHZ30, 1, 3)
+
+
+def test_file_vector_copy(tmp_path):
+    """support/file_vector.py: the same bytes for every element type."""
+    from srsran_project_tpu.support import file_vector as jfv
+    from srsran_project_tpu_torch.support import file_vector as tfv
+
+    rng = np.random.default_rng(0)
+    x = (rng.standard_normal(257) + 1j * rng.standard_normal(257)).astype(np.complex64) * 300
+    for kind in ("cbf16", "cf32", "f32", "i16", "i8", "u8"):
+        data = x if kind in ("cbf16", "cf32") else (x.real if kind == "f32" else x.real % 100)
+        jfv.write_vector(str(tmp_path / "j"), data, kind)
+        tfv.write_vector(str(tmp_path / "t"), data, kind)
+        assert (tmp_path / "j").read_bytes() == (tmp_path / "t").read_bytes(), kind
+        np.testing.assert_array_equal(tfv.read_vector(str(tmp_path / "t"), kind),
+                                      jfv.read_vector(str(tmp_path / "j"), kind))

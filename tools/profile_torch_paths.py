@@ -24,6 +24,13 @@ with data on the DM-RS symbol, DFT-s-OFDM with pi/2-BPSK and QPSK, the
 slot of narrower grants of those shapes, a two-step CSI grant) are
 profiled as well, on chip_smoke.py's inputs.
 
+So are the calls of chip_smoke.py's path 6, the DU-low's FAPI entry
+point: its DL_TTI call and its first UL_TTI call through ``UpperPhy``
+(timed in turns against path 4 as well), and the UL_TTI call's parts,
+each alone on the call's own inputs: ``ul_slot.process_slot`` with the
+PUCCH occasions, the two-step CSI grant's ``pusch.process``, and the
+SRS estimate.
+
 Path 4 is also split into its host-heavy parts, each profiled alone on
 the slot's own inputs: the UCI decodes of its three config groups (short
 block and the polar SC decoder on the demultiplexed LLRs), and the six
@@ -111,8 +118,29 @@ def main() -> int:
     shapes["shapes slot"] = lambda: ul_slot.process_slot(grid5, pdus5)
     shapes["shapes two-step CSI"] = lambda: pusch.process(grid5e, rnti5e, cfg5e)
 
+    # chip_smoke.py's path 6: the DU-low's FAPI calls and the UL_TTI call's parts.
+    from srsran_project_tpu_torch.phy import srs
+    from srsran_project_tpu_torch.phy.upper_phy import UpperPhy, UpperPhyConfig
+
+    phy = UpperPhy(UpperPhyConfig(nof_ports=cs.UL_NOF_PORTS, nof_grid_sc=cs.UL_NOF_PRB * 12))
+    dl_req, dl_data, _noise6 = cs.p6_dl_request()
+    grid6, ul_req = cs.p6_ul_call(0, cs.p6_ul_plan(), dev)
+    pdus6 = cs.p6_slot_pdus(ul_req)
+    two6 = ul_req.pusch[-1]
+    win6 = grid6[None, :, :, 12 * two6.first_rb : 12 * two6.first_rb + two6.config.nof_grid_sc]
+    rnti6 = torch.tensor([two6.rnti], device=dev)
+    srs6 = ul_req.srs[0].config
+    fapi = {
+        "fapi DL_TTI": lambda: phy.process_dl_tti(dl_req, dl_data),
+        "fapi UL_TTI": lambda: phy.process_ul_tti(ul_req, grid6),
+        "fapi UL_TTI process_slot": lambda: ul_slot.process_slot(grid6, pdus6, f1, f0, f2),
+        "fapi UL_TTI two-step CSI": lambda: pusch.process(win6, rnti6, two6.config),
+        "fapi UL_TTI SRS": lambda: srs.estimate(grid6, srs6),
+    }
+
     calls = {
         **shapes,
+        **fapi,
         "ul_slot": lambda: ul_slot.process_slot(grid, pdus),
         "ul_slot_uci": lambda: ul_slot.process_slot(grid4, pdus4, f1, f0, f2),
         "ul_slot_uci UCI decodes": uci_decodes,
@@ -123,7 +151,8 @@ def main() -> int:
         "plane b=8": lambda: cell.decode_slot(rx, cs.RNTI, pl),
     }
     for name in ("float b=8", "plane b=8", "plane b=8", "float b=8", "ul_slot", "ul_slot",
-                 "ul_slot_uci", "ul_slot_uci", "shapes slot", "shapes slot"):
+                 "ul_slot_uci", "ul_slot_uci", "shapes slot", "shapes slot", "fapi UL_TTI",
+                 "ul_slot_uci", "ul_slot_uci", "fapi UL_TTI", "fapi DL_TTI", "fapi DL_TTI"):
         print(f"# turn {name}: {cs.cuda_ms(calls[name], reps=10, warmup=2):.4f} ms/call")
 
     reps = 5
