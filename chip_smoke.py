@@ -9,7 +9,7 @@ Run from the repository root on a machine with one NVIDIA Hopper card:
 It builds the port's CUDA kernels from ``srsran_project_tpu_torch/csrc``
 (into ``build/``, one ``nvcc`` per source, side by side), checks each
 kernel against its plain torch version on the card at the shapes of the
-paths below, then drives six paths through the port's public entry
+paths below, then drives seven paths through the port's public entry
 points, each with every kernel launch counter set to 0 just before it and
 read just after:
 
@@ -73,7 +73,26 @@ read just after:
    (c) the port's ``apps/du_low_sim`` in-process: its defaults (the
    flagship on TDL-A at 25 dB, 8 slots: K1 and K3 a slot), whose exit code
    must match its BLER, and 273 PRB with 4 ports and 1 layer on one tap at
-   30 dB (4 slots, K1 a slot), which must be CRC-clean.
+   30 dB (4 slots, K1 a slot), which must be CRC-clean;
+7. random access and the rest of the uplink's measurements on the same
+   carrier with 4 ports: (a) one UL_TTI.request through
+   ``process_ul_tti(request, rx_grid, prach_fd=...)`` with two compact
+   4-layer 64QAM grants of 128 PRB (DM-RS on symbols 2 and 11, TA and CFO
+   compensation on; per UE a random unitary channel, a delay of +0.40 or
+   -0.20 us and a CFO of +400 or -250 Hz, 30 dB; K2 once, K3 once) and a
+   format-0 PRACH occasion at PRB 258 carrying preambles 5 and 50 at 2.0
+   and 9.0 us, built at 122.88 MHz on the card and demodulated by
+   ``lower_phy.prach_demodulate``: both CRCs, each ta_s within 10 ns of
+   its delay, the same grid without CFO compensation failing both CRCs,
+   exactly the two preambles with their TA, K2 and K3 against their plain
+   versions on the call's inputs; (b) a B4 occasion (L_RA 139, 12
+   symbols) with one preamble at 0.5 us; (c) a format-0 occasion of noise
+   alone, no preamble; (d) ``pucch_f34.process`` on F3 over 16 PRB with
+   hopping, additional DM-RS and 100 bits, F3 on 1 PRB with pi/2-BPSK,
+   and two F4 UEs on one PRB (OCC 4, indices 0 and 2) at 20 dB; (e)
+   ``pucch.format1_detect_batch`` on four F1 UEs on one PRB (shifts
+   0/3/6/9, OCC 0/1); (f) ``prs_toa_estimate`` on a 270-PRB comb-4 PRS
+   delayed by 37.3 samples.  (b)-(f) launch no kernel.
 
 Every CRC, every TB and UCI bit, every ``_ok`` flag and every PUCCH value
 is checked, and each PUCCH metric against its DTX threshold.  It then times each path per slot and
@@ -85,7 +104,8 @@ sleep kernel, so they run back to back) and its plain version's time
 Output: progress and timing lines, then one JSON line with the kernels
 (time, plain version's time, the bound computed from this run's inputs,
 launches per path, device time and bound at path 5's shapes
-("shapes_ms"); the resident blocks per SM, and for K3 and K4 the
+("shapes_ms") and, for K2 and K3, on path 7 (a)'s inputs
+("prach_ul_tti_ms"); the resident blocks per SM, and for K3 and K4 the
 registers a thread and the same three numbers at 8 flagship slots, "b8_",
 K3 also at the uplink slot's group A, "group_a_"), the
 card's name and power limit, and as the LAST line
@@ -1952,6 +1972,460 @@ def app_phase(card: str) -> dict:
     return total
 
 
+# ---- random access and the rest of the uplink's measurements ------------------
+
+P7_RNTI = 0x4A01
+P7_SLOT = (7, 0)  # (SFN, slot)
+# (a) Two compact 4-layer 64QAM grants (MCS 17 of the 256QAM table,
+# 772/1024) of 128 PRB at PRB 0 and 128 on symbols 1-13 with DM-RS on
+# symbols 2 and 11, both with TA and CFO compensation; per UE its delay
+# (a phase ramp over the subcarriers) and CFO (a phase per symbol at the
+# symbol's start, as phy/channel_emulator applies it); 30 dB.  Not 256QAM:
+# under a bulk delay the fast estimator's FD-OCC despreading leaks the
+# co-CDM layer (ROADMAP Q3), which holds a 4-layer grant delayed by 0.40
+# us near 23.5 dB SINR in both packages, below what MCS 21 needs.
+P7_FIRST_RBS = (0, 128)
+P7_NOF_PRB = 128
+P7_MCS = (17, "qam256")
+P7_DELAYS_S = (0.40e-6, -0.20e-6)
+P7_CFOS_HZ = (400.0, -250.0)
+P7_TA_TOL_S = 10e-9
+# The PRACH occasions, sampled at 122.88 MHz: (format, zero-correlation
+# zone, logical root, PRB offset, start symbol, the (preamble, delay)
+# pairs sent, SNR in dB per preamble subcarrier and port).  (a) format 0
+# (L_RA 839, 1.25 kHz, N_CS 46: 18 shifts a root, 4 roots) at PRB 258;
+# (b) B4 (L_RA 139, 30 kHz, 12 symbols, 12 PRB) at PRB 200; (c) format 0
+# with noise only.
+P7_SRATE_HZ = 122.88e6
+P7_PRACH = {
+    "a": ("0", 8, 0, 258, 0, ((5, 2.0e-6), (50, 9.0e-6)), 0.0),
+    "b": ("B4", 7, 3, 200, 0, ((17, 0.5e-6),), 0.0),
+    "c": ("0", 8, 0, 258, 0, (), 0.0),
+}
+# (d) PUCCH F3 and F4 at 20 dB: (PucchFormat34Config fields): F3 over 16
+# PRB with hopping and additional DM-RS and 100 UCI bits (polar), F3 on 1
+# PRB with pi/2-BPSK and 12 bits, F4 with OCC length 4 and indices 0 and
+# 2 on one PRB.
+P7_F34 = (
+    dict(prb_start=200, nof_prb=16, start_symbol=0, nof_symbols=14, nof_uci_bits=100,
+         second_hop_prb=240, additional_dmrs=True),
+    dict(prb_start=220, nof_prb=1, start_symbol=0, nof_symbols=14, nof_uci_bits=12,
+         pi2_bpsk=True),
+    dict(prb_start=230, nof_prb=1, start_symbol=0, nof_symbols=14, nof_uci_bits=8,
+         occ_length=4, occ_index=0),
+    dict(prb_start=230, nof_prb=1, start_symbol=0, nof_symbols=14, nof_uci_bits=10,
+         occ_length=4, occ_index=2),
+)
+P7_PUCCH_SNR_DB = 20.0
+# (e) Four F1 occasions on PRB 262: (initial cyclic shift, OCC, HARQ bits).
+P7_F1_PRB = 262
+P7_F1 = ((0, 0, 1), (3, 1, 2), (6, 0, 2), (9, 1, 1))
+# (f) A comb-4 PRS of 270 PRB from PRB 3 over symbols 2-13, delayed by
+# 37.3 samples of the 4096-point domain, at 20 dB.
+P7_PRS = dict(rb_start=3, rb_count=270, start_symbol=2, nof_symbols=12, comb_size=4,
+              n_id_prs=42, slot_in_frame=P7_SLOT[1], nof_grid_sc=UL_NOF_PRB * 12)
+P7_PRS_DELAY = 37.3
+
+
+def p7_slot():
+    from srsran_project_tpu_torch.ran.constants import SubcarrierSpacing
+    from srsran_project_tpu_torch.ran.slot_point import SlotPoint
+
+    return SlotPoint.from_sfn_slot(SubcarrierSpacing.KHZ30, *P7_SLOT)
+
+
+def p7_config(first_rb: int, measured: bool = True):
+    """The port's PuschConfig of one path-7 grant: a compact window of 128
+    PRB at crb_start first_rb, with (measured) or without TA and CFO
+    compensation."""
+    from srsran_project_tpu_torch.ops.modulation import Modulation
+    from srsran_project_tpu_torch.phy import pusch
+    from srsran_project_tpu_torch.phy.allocation import Allocation
+    from srsran_project_tpu_torch.ran import tbs as tbs_mod
+
+    qm, rate = tbs_mod.mcs_to_qm_rate(*P7_MCS)
+    alloc = Allocation(rb_start=0, rb_count=P7_NOF_PRB, sym_start=1, sym_count=13,
+                       dmrs_symbols=(2, 11), crb_start=first_rb)
+    return pusch.PuschConfig(
+        tbs=tbs_mod.calculate_tbs(P7_NOF_PRB, 13, 24, rate, qm, 4), target_code_rate=rate,
+        modulation=Modulation(qm), alloc=alloc, nof_layers=4, nof_rx_ports=UL_NOF_PORTS,
+        nof_grid_symbols=14, nof_grid_sc=P7_NOF_PRB * 12, compute_ta=measured,
+        cfo_compensation=measured)
+
+
+def p7_prach_config(name: str):
+    """The detector's PrachConfig of occasion ``name``."""
+    from srsran_project_tpu_torch.phy import prach
+
+    fmt, zcz, root = P7_PRACH[name][:3]
+    return prach.PrachConfig(l_ra=839 if fmt == "0" else 139, root_sequence_index=root,
+                             zero_correlation_zone=zcz, nof_rx_ports=UL_NOF_PORTS)
+
+
+def p7_window(name: str) -> dict:
+    from srsran_project_tpu_torch.ops import lower_phy
+
+    fmt, _zcz, _root, rb0, sym0 = P7_PRACH[name][:5]
+    return lower_phy.prach_window_params(fmt, 30000, P7_SLOT[1] % 2, sym0, 0, P7_SRATE_HZ, rb0,
+                                         0, UL_NOF_PRB, 839 if fmt == "0" else 139)
+
+
+def p7_prach_samples(name: str, seed: int, device):
+    """Occasion ``name``'s (4, samples) baseband at 122.88 MHz, built on
+    ``device``: each preamble (``prach.generate_preamble_ref``, unit power
+    a subcarrier) delayed by a phase ramp over its DC-relative
+    frequencies and through a random gain per port, one unitary IDFT, the
+    symbol repeated and its CP prepended; plus white noise at the SNR per
+    subcarrier and port.  Everything random from numpy with ``seed``."""
+    import torch
+
+    from srsran_project_tpu_torch.phy import prach
+
+    fmt, zcz, root, _rb0, _sym0, preambles, snr_db = P7_PRACH[name]
+    p = p7_window(name)
+    dft, l_ra, scs = p["dft_size"], p["l_ra"], P7_SRATE_HZ / p["dft_size"]
+    rng = np.random.default_rng(seed)
+    bins = (p["k_offset"] + np.arange(l_ra)) % dft
+    freq = np.where(bins >= dft // 2, bins - dft, bins) * scs
+    spec = torch.zeros((UL_NOF_PORTS, dft), dtype=torch.complex64, device=device)
+    idx = torch.from_numpy(bins.astype(np.int64)).to(device)
+    for pi, tau in preambles:
+        g = rng.standard_normal(UL_NOF_PORTS) + 1j * rng.standard_normal(UL_NOF_PORTS)
+        g = g / np.sqrt(2)
+        ramp = np.exp(-2j * np.pi * freq * tau) / np.sqrt(l_ra)
+        y = prach.generate_preamble_ref(fmt, root, pi, zcz, device=device)
+        spec[:, idx] += (torch.from_numpy(g.astype(np.complex64)).to(device)[:, None]
+                         * (y * torch.from_numpy(ramp.astype(np.complex64)).to(device))[None])
+    sym = torch.fft.ifft(spec, dim=-1) * float(np.sqrt(dft))
+    body = sym.repeat(1, p["nof_symbols"])
+    sig = torch.cat([body[:, body.shape[-1] - p["cp_samples"]:], body], dim=-1)
+    sigma = np.sqrt(0.5 * 10 ** (-snr_db / 10))
+    noise = rng.standard_normal((UL_NOF_PORTS, sig.shape[-1], 2)).astype(np.float32) * sigma
+    return sig + torch.view_as_complex(torch.from_numpy(noise)).to(device)
+
+
+def p7_prach_fd(name: str, samples):
+    """The occasion's (4, L_RA) preamble subcarriers through
+    ``lower_phy.prach_demodulate``."""
+    from srsran_project_tpu_torch.ops import lower_phy
+
+    p = p7_window(name)
+    return lower_phy.prach_demodulate(samples[..., p["sample_offset"]:], l_ra=p["l_ra"],
+                                      dft_size=p["dft_size"], nof_symbols=p["nof_symbols"],
+                                      cp_samples=p["cp_samples"], k_offset=p["k_offset"])
+
+
+def p7_plan(seed: int = SEED):
+    """Path 7 (a)'s UEs, made with numpy from ``seed``: per UE rnti,
+    first_rb, TB bits, (4, 4) unitary channel, delay and CFO; and the (4,
+    14, 3276) noise at SNR_DB."""
+    rng = np.random.default_rng(seed + 7)
+    ues = []
+    for i, rb0 in enumerate(P7_FIRST_RBS):
+        cfg = p7_config(rb0)
+        ues.append(dict(rnti=P7_RNTI + i, first_rb=rb0, config=cfg,
+                        tb=rng.integers(0, 2, size=(cfg.tbs,), dtype=np.uint8),
+                        channel=_unit_rows(rng, 4), delay=P7_DELAYS_S[i], cfo=P7_CFOS_HZ[i]))
+    sigma = np.sqrt(0.5 * 10 ** (-SNR_DB / 10))
+    noise = rng.standard_normal((UL_NOF_PORTS, 14, UL_NOF_PRB * 12, 2)) * sigma
+    return ues, (noise[..., 0] + 1j * noise[..., 1]).astype(np.complex64)
+
+
+def p7_grid(ues, noise, device):
+    """Path 7 (a)'s received (4, 14, 3276) grid on ``device``: each UE's
+    ``pusch.transmit`` through its channel, delay and CFO, plus the noise."""
+    import torch
+
+    from srsran_project_tpu_torch.phy import channel_emulator, pusch
+
+    grid = torch.tensor(noise, device=device)  # a copy, also on the CPU
+    k = np.arange(UL_NOF_PRB * 12)
+    for ue in ues:
+        cfg = ue["config"]
+        sub = pusch.transmit(torch.from_numpy(ue["tb"]).to(device),
+                             torch.tensor(ue["rnti"], device=device), cfg,
+                             precoding=torch.from_numpy(ue["channel"]).to(device))
+        sc0 = 12 * ue["first_rb"]
+        ramp = np.exp(-2j * np.pi * k[sc0 : sc0 + cfg.nof_grid_sc] * 30e3 * ue["delay"])
+        cfo = channel_emulator._cfo_phases(channel_emulator.ChannelConfig(cfo_hz=ue["cfo"]), 14,
+                                           torch.device(device))
+        grid[:, :, sc0 : sc0 + cfg.nof_grid_sc] += (
+            sub * torch.from_numpy(ramp.astype(np.complex64)).to(device)[None, None]
+            * cfo[None, :, None])
+    return grid
+
+
+def p7_request(name: str, ues=()):
+    """The UL_TTI.request of call ``name``: the UEs' PUSCH PDUs and the
+    occasion's PRACH PDU."""
+    from srsran_project_tpu_torch.fapi import messages as fapi
+
+    return fapi.UlTtiRequest(
+        slot=p7_slot() + "abc".index(name),
+        pusch=[fapi.UlPuschPdu(ue["config"], ue["rnti"], harq_id=i, first_rb=ue["first_rb"])
+               for i, ue in enumerate(ues)],
+        prach=[fapi.UlPrachPdu(p7_prach_config(name))])
+
+
+def p7_expected_ta(name: str) -> dict:
+    """Preamble index -> the TA bin ``detect`` should read: the delay in
+    bins of the dft_size-point profile plus the fraction of a bin at which
+    the preamble's shift window starts (the window starts at its floor)."""
+    cfg = p7_prach_config(name)
+    scs = P7_SRATE_HZ / p7_window(name)["dft_size"]
+    out = {}
+    for pi, tau in P7_PRACH[name][5]:
+        v = pi % cfg.nof_shifts
+        start = ((cfg.l_ra - v * cfg.n_cs) * cfg.dft_size / cfg.l_ra) % cfg.dft_size
+        out[pi] = tau * cfg.dft_size * scs + (start - math.floor(start))
+    return out
+
+
+def p7_check_rach(what: str, res, name: str) -> None:
+    """Exactly the sent preambles, each TA within one bin of its delay."""
+    want = p7_expected_ta(name)
+    got = {r.preamble_index: r.ta_samples for r in res.rach}
+    bin_s = 1.0 / (p7_prach_config(name).dft_size * P7_SRATE_HZ / p7_window(name)["dft_size"])
+    found = [(r.preamble_index, round(r.metric, 2), r.ta_samples) for r in res.rach]
+    print(f"# {what}: RACH {found} (bin {bin_s * 1e6:.4f} us), want preambles {sorted(want)} "
+          f"at TA bins {[round(v, 2) for v in want.values()]}")
+    if sorted(got) != sorted(want):
+        fail(f"{what}: detected preambles {sorted(got)}, want {sorted(want)}")
+    for pi, ta in got.items():
+        if not abs(ta - want[pi]) <= 1.0:
+            fail(f"{what}: preamble {pi} TA {ta} bins, want {want[pi]:.2f} within one bin")
+
+
+def prach_ul_phase(card: str) -> tuple[dict, dict, dict, dict]:
+    """Path 7 (a)-(c): three UL_TTI calls through
+    ``UpperPhy.process_ul_tti`` with the PRACH occasions' buffers.  Returns
+    the launch counts of (a) and of (b) + (c), K2's and K3's largest
+    differences from their plain versions on (a)'s inputs, and their
+    device ms and bounds there."""
+    import torch
+
+    from srsran_project_tpu_torch.ops import equalizer
+    from srsran_project_tpu_torch.ops.ldpc import decoder
+    from srsran_project_tpu_torch.phy import pusch, ul_slot
+    from srsran_project_tpu_torch.phy.upper_phy import UpperPhy, UpperPhyConfig
+
+    dev = torch.device(DEVICE)
+    ues, noise = p7_plan()
+    grid = p7_grid(ues, noise, dev)
+    phy = UpperPhy(UpperPhyConfig(nof_ports=UL_NOF_PORTS, nof_grid_sc=UL_NOF_PRB * 12,
+                                  device=DEVICE))
+    samples = {n: p7_prach_samples(n, SEED + 70 + i, dev) for i, n in enumerate("abc")}
+    req_a = p7_request("a", ues)
+
+    torch.cuda.synchronize()
+    reset_counts()
+    fd_a = p7_prach_fd("a", samples["a"])
+    res = phy.process_ul_tti(req_a, grid, prach_fd=fd_a)
+    torch.cuda.synchronize()
+    counts_a = read_counts()
+    expect_counts("prach UL_TTI (a)", counts_a, {"decode": 1, "mmse_weights_4x4": 1})
+    crc = [c.tb_crc_ok for c in res.crc]
+    tas = [c.ta_s for c in res.crc]
+    print(f"# prach UL_TTI (a): prach_fd {tuple(fd_a.shape)}, CRC {crc}, SINR dB "
+          f"{[round(c.snr_db, 2) for c in res.crc]}, ta_s {tas} (delays {list(P7_DELAYS_S)})")
+    if crc != [True, True] or res.errors:
+        fail(f"prach UL_TTI (a): CRC {crc}, errors {res.errors}")
+    for ue, c, d in zip(ues, res.crc, res.rx_data):
+        if not np.array_equal(d.payload, ue["tb"]):
+            fail(f"prach UL_TTI (a): rnti {ue['rnti']:#x} RxData differs from the TB sent")
+        if not abs(c.ta_s - ue["delay"]) <= P7_TA_TOL_S:
+            fail(f"prach UL_TTI (a): rnti {c.rnti:#x} ta_s {c.ta_s}, want {ue['delay']} within "
+                 f"{P7_TA_TOL_S}")
+    p7_check_rach("prach UL_TTI (a)", res, "a")
+
+    # The same grid without CFO compensation: both CRCs fail.
+    plain = [ul_slot.UlSlotPdu(rnti=ue["rnti"], first_rb=ue["first_rb"],
+                               config=p7_config(ue["first_rb"], measured=False)) for ue in ues]
+    crc_plain = [bool(r["tb_crc_ok"]) for r in ul_slot.process_slot(grid, plain)[0]]
+    print(f"# prach UL_TTI (a) without CFO compensation: CRC {crc_plain}")
+    if any(crc_plain):
+        fail(f"prach UL_TTI (a): without CFO compensation CRC {crc_plain}: the check shows "
+             f"nothing")
+
+    # K2 on the call's code group and K3 on its estimate.
+    slot_pdus = [ul_slot.UlSlotPdu(rnti=ue["rnti"], first_rb=ue["first_rb"], config=ue["config"])
+                 for ue in ues]
+    k2_err, geometries = check_code_groups(grid, slot_pdus, "prach UL_TTI (a)")
+    cfg_a, _idx = next(iter(ul_slot._config_groups(slot_pdus).items()))
+    first_rbs = tuple(ue["first_rb"] for ue in ues)
+    win = torch.stack([grid[:, :, 12 * r : 12 * r + cfg_a.nof_grid_sc] for r in first_rbs])
+    _g, h, nv = pusch._estimate_stage(win, cfg_a, r_override=pusch._pilot_bank_on(
+        dev, cfg_a, first_rbs))
+    k3_err = check_k3_on(h.transpose(1, 2), nv, "prach UL_TTI (a) K3")[0]
+    groups = ul_slot._config_groups(slot_pdus)
+    fronts = ul_slot._slot_front(grid, groups, slot_pdus)
+    (bg, z, iters, early, n_cb), _gis, _sizes, llrs = ul_slot._code_groups(tuple(groups),
+                                                                           fronts)[0]
+    bits, _, its = decoder.decode(llrs, bg, z, iters, early, True, n_cb)
+    hs = h.transpose(1, 2)
+    w, ev = equalizer.mmse_weights_4x4(hs, nv)
+    times = {"decode": dict(
+        ms=kernel_ms(lambda: decoder.decode(llrs, bg, z, iters, early, True, n_cb)),
+        bound_ms=ldpc_bound(decoder.decode_plan(bg, z, llrs.shape[-1], n_cb), its, (llrs,),
+                            (bits, its))[0]),
+        "mmse_weights_4x4": dict(ms=kernel_ms(lambda: equalizer.mmse_weights_4x4(hs, nv)),
+                                 bound_ms=bound(nbytes(hs, nv, w, ev),
+                                                1500.0 * hs.shape[0] * hs.shape[1])[0])}
+    print(f"# [{card}] prach UL_TTI (a): K2 ({geometries[0]}, C={llrs.shape[0]}) "
+          f"{times['decode']['ms']:.4f} ms (bound {times['decode']['bound_ms']:.5f}), K3 "
+          f"({tuple(hs.shape)}) {times['mmse_weights_4x4']['ms']:.4f} ms (bound "
+          f"{times['mmse_weights_4x4']['bound_ms']:.5f}) device time")
+
+    total = {}
+    for name in "bc":
+        req = p7_request(name)
+        torch.cuda.synchronize()
+        reset_counts()
+        fd = p7_prach_fd(name, samples[name])
+        res = phy.process_ul_tti(req, grid, prach_fd=fd)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        expect_counts(f"prach UL_TTI ({name})", counts, {})
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        if res.crc or res.errors:
+            fail(f"prach UL_TTI ({name}): CRC {res.crc}, errors {res.errors}")
+        p7_check_rach(f"prach UL_TTI ({name}) {P7_PRACH[name][0]}", res, name)
+
+    timing = UpperPhy(UpperPhyConfig(nof_ports=UL_NOF_PORTS, nof_grid_sc=UL_NOF_PRB * 12,
+                                     device=DEVICE))
+    report_call(card, "prach UL_TTI (a): 2 PUSCH with TA and CFO, PRACH format 0 (demodulation "
+                "included)", lambda: timing.process_ul_tti(
+                    req_a, grid, prach_fd=p7_prach_fd("a", samples["a"])))
+    for name in "bc":
+        req = p7_request(name)
+        report_call(card, f"prach UL_TTI ({name}): PRACH {P7_PRACH[name][0]} only (demodulation "
+                    "included)", lambda req=req, name=name: timing.process_ul_tti(
+                        req, grid, prach_fd=p7_prach_fd(name, samples[name])))
+    return counts_a, total, {"decode": k2_err, "mmse_weights_4x4": k3_err}, times
+
+
+def p7_pucch_plan(seed: int = SEED):
+    """(d) and (e): the F3/F4 configs with payloads and (4,) channels, the
+    F1 configs with bits and channels, and unit noise (2, 4, 14, 3276)."""
+    from srsran_project_tpu_torch.phy import pucch, pucch_f34
+
+    rng = np.random.default_rng(seed + 71)
+    f34 = []
+    for i, kw in enumerate(P7_F34):
+        c = pucch_f34.PucchFormat34Config(rnti=P7_RNTI + 10 + i, n_id=11,
+                                          slot_in_frame=P7_SLOT[1], nof_rx_ports=UL_NOF_PORTS,
+                                          nof_grid_sc=UL_NOF_PRB * 12, **kw)
+        f34.append((c, rng.integers(0, 2, size=(c.nof_uci_bits,), dtype=np.uint8),
+                    _unit_rows(rng, 1)[0]))
+    f1 = []
+    for m0, occ, nbits in P7_F1:
+        c = pucch.PucchFormat1Config(prb=P7_F1_PRB, start_symbol=0, nof_symbols=14,
+                                     initial_cyclic_shift=m0, occ_index=occ, n_id=11,
+                                     slot_in_frame=P7_SLOT[1], nof_harq_bits=nbits,
+                                     nof_grid_sc=UL_NOF_PRB * 12)
+        f1.append((c, rng.integers(0, 2, size=(nbits,), dtype=np.uint8), _unit_rows(rng, 1)[0]))
+    noise = rng.standard_normal((2, UL_NOF_PORTS, 14, UL_NOF_PRB * 12, 2)) * np.sqrt(0.5)
+    return f34, f1, (noise[..., 0] + 1j * noise[..., 1]).astype(np.complex64)
+
+
+def p7_pucch_grids(plan, device):
+    """(d)'s and (e)'s received grids on ``device``, at P7_PUCCH_SNR_DB."""
+    import torch
+
+    from srsran_project_tpu_torch.phy import pucch, pucch_f34
+
+    f34, f1, noise = plan
+    scale = float(10 ** (-P7_PUCCH_SNR_DB / 20))
+    g34 = torch.from_numpy(noise[0]).to(device) * scale
+    for c, bits, h in f34:
+        g34 += torch.from_numpy(h).to(device)[:, None, None] * pucch_f34.generate(c, bits, device)
+    g1 = torch.from_numpy(noise[1]).to(device) * scale
+    for c, bits, h in f1:
+        sig = pucch.format1_generate(c, bits, device=device)
+        h_t = torch.from_numpy(h).to(device)
+        g1[:, :, 12 * c.prb : 12 * c.prb + 12] += h_t[:, None, None] * sig
+    return g34, g1
+
+
+def pucch_f34_phase(card: str) -> tuple[dict, dict]:
+    """Path 7 (d) and (e): ``pucch_f34.process`` on each F3/F4 occasion and
+    ``pucch.format1_detect_batch`` on the four F1 UEs, every bit and flag
+    checked.  Returns the launch counts of (d) and (e)."""
+    import torch
+
+    from srsran_project_tpu_torch.phy import pucch, pucch_f34
+
+    dev = torch.device(DEVICE)
+    plan = p7_pucch_plan()
+    g34, g1 = p7_pucch_grids(plan, dev)
+    f34, f1, _noise = plan
+    torch.cuda.synchronize()
+    reset_counts()
+    outs = [pucch_f34.process(g34, c) for c, _b, _h in f34]
+    torch.cuda.synchronize()
+    counts_d = read_counts()
+    expect_counts("pucch F3/F4 (d)", counts_d, {})
+    for (c, bits, _h), (got, ok, snr) in zip(f34, outs):
+        what = (f"pucch F{3 if c.occ_length == 1 else 4} (d) {c.nof_prb} PRB at {c.prb_start}, "
+                f"{c.nof_uci_bits} bits, hop {c.second_hop_prb}, add. DM-RS {c.additional_dmrs}, "
+                f"pi/2-BPSK {c.pi2_bpsk}, OCC {c.occ_length}/{c.occ_index}")
+        wrong = int((got.cpu().numpy() != bits).sum())
+        print(f"# {what}: ok {bool(ok)}, {wrong} bits wrong, SNR {float(snr):.2f} dB")
+        if not bool(ok) or wrong:
+            fail(f"{what}: ok {bool(ok)}, {wrong} bits wrong")
+    torch.cuda.synchronize()
+    reset_counts()
+    batch = pucch.format1_detect_batch(g1, f1[0][0])
+    torch.cuda.synchronize()
+    counts_e = read_counts()
+    expect_counts("pucch F1 batch (e)", counts_e, {})
+    for c, bits, _h in f1:
+        m0, occ = c.initial_cyclic_shift, c.occ_index
+        got = batch["bits2"][m0, occ, : bits.size].cpu().numpy()
+        rho = float(batch["rho"][m0, occ])
+        print(f"# pucch F1 batch (e) shift {m0} OCC {occ}: bits {got.tolist()} (sent "
+              f"{bits.tolist()}), rho {rho:.3f}")
+        if not np.array_equal(got, bits) or not rho > pucch.F1_DTX_THRESHOLD:
+            fail(f"pucch F1 batch (e) shift {m0} OCC {occ}: bits {got}, sent {bits}, rho {rho}")
+    report_call(card, "pucch F3/F4 (d): 4 occasions",
+                lambda: [pucch_f34.process(g34, c) for c, _b, _h in f34])
+    report_call(card, "pucch F1 batch (e)", lambda: pucch.format1_detect_batch(g1, f1[0][0]))
+    return counts_d, counts_e
+
+
+def prs_phase(card: str) -> dict:
+    """Path 7 (f): a 270-PRB comb-4 PRS delayed by 37.3 samples, read back
+    by ``prs_toa_estimate`` within 0.5 sample.  Returns its launch
+    counts."""
+    import torch
+
+    from srsran_project_tpu_torch.phy import ptrs_prs
+
+    dev = torch.device(DEVICE)
+    cfg = ptrs_prs.PrsConfig(**P7_PRS)
+    rng = np.random.default_rng(SEED + 72)
+    k = np.arange(cfg.nof_grid_sc)
+    ramp = np.exp(-2j * np.pi * k * P7_PRS_DELAY / 4096).astype(np.complex64)
+    noise = rng.standard_normal((14, cfg.nof_grid_sc, 2)) * np.sqrt(0.5 * 10 ** (-20.0 / 10))
+    rx = (ptrs_prs.generate_prs(cfg, device=dev) * torch.from_numpy(ramp).to(dev)[None]
+          + torch.from_numpy((noise[..., 0] + 1j * noise[..., 1]).astype(np.complex64)).to(dev))
+    torch.cuda.synchronize()
+    reset_counts()
+    out = ptrs_prs.prs_toa_estimate(rx, cfg, dft_size=4096)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    expect_counts("prs (f)", counts, {})
+    toa = float(out["toa_samples"])
+    print(f"# prs (f) {cfg.rb_count} PRB from {cfg.rb_start}, comb {cfg.comb_size}, "
+          f"{cfg.nof_symbols} symbols: toa {toa:.3f} samples (delay {P7_PRS_DELAY}), peak power "
+          f"{float(out['peak_power']):.1f}, rsrp {float(out['rsrp']):.4f}")
+    if not abs(toa - P7_PRS_DELAY) < 0.5:
+        fail(f"prs (f): toa {toa}, want {P7_PRS_DELAY} within 0.5")
+    report_call(card, "prs (f)", lambda: ptrs_prs.prs_toa_estimate(rx, cfg, dft_size=4096))
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -1997,6 +2471,11 @@ def main() -> int:
     for name, err in errs6.items():
         errs[name] = max(errs.get(name, 0.0), err)
     per_path["du_low_sim"] = app_phase(card)
+    per_path["prach_ul_tti"], per_path["prach_only"], errs7, times7 = prach_ul_phase(card)
+    for name, err in errs7.items():
+        errs[name] = max(errs.get(name, 0.0), err)
+    per_path["pucch_f34"], per_path["pucch_f1_batch"] = pucch_f34_phase(card)
+    per_path["prs"] = prs_phase(card)
     # Each kernel's launches on the path it serves (one call of it), and
     # on every path.
     home = {"decode_dematch": "flagship", "mmse_weights_4x4": "flagship", "decode": "ul_slot",
@@ -2007,6 +2486,8 @@ def main() -> int:
         k["max_abs_err"] = max(k["max_abs_err"], errs.get(k["name"], 0.0))
         if k["name"] in times5:  # device ms and bound at path 5's shapes
             k["shapes_ms"] = times5[k["name"]]
+        if k["name"] in times7:  # and on path 7 (a)'s inputs
+            k["prach_ul_tti_ms"] = times7[k["name"]]
     print(f"# chip_smoke took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

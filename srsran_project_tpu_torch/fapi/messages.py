@@ -5,8 +5,7 @@ holding the port's config twins.  ``from_reference`` on the four request
 messages (``DlTtiRequest``, ``TxDataRequest``, ``UlDciRequest``,
 ``UlTtiRequest``) copies a request of the JAX package, configs through
 their twins' ``from_reference``, so that both packages can be given the
-same request.  PRACH is not ported: ``UlPrachPdu`` holds ``PrachConfig``,
-a plain copy of the reference's fields.
+same request.
 
 Mirrors the structure of the reference's SCF-222 message set
 (include/srsran/fapi/messages/: dl_tti_request.h, ul_tti_request.h,
@@ -27,8 +26,10 @@ import numpy as np
 
 from ..phy.pdcch import PdcchConfig
 from ..phy.pdsch import PdschConfig
+from ..phy.prach import PrachConfig
 from ..phy.pucch import PucchFormat0Config, PucchFormat1Config
 from ..phy.pucch_f2 import PucchFormat2Config
+from ..phy.pucch_f34 import PucchFormat34Config
 from ..phy.pusch import PuschConfig
 from ..phy.srs import SrsConfig
 from ..phy.ssb import SsbConfig
@@ -36,34 +37,15 @@ from ..ran.constants import SubcarrierSpacing
 from ..ran.slot_point import SlotPoint
 
 
-@dataclasses.dataclass(frozen=True)
-class PrachConfig:
-    """The fields of the reference's ``phy.prach.PrachConfig`` (the PRACH
-    detector is not ported)."""
-
-    l_ra: int = 839  # 839 (long) or 139 (short)
-    root_sequence_index: int = 0
-    zero_correlation_zone: int = 1
-    nof_rx_ports: int = 1
-    dft_size: int = 1024
-    detect_threshold: float | None = None
-    target_pfa: float = 1e-3
-
-    @classmethod
-    def from_reference(cls, ref) -> "PrachConfig":
-        return cls(**{f.name: getattr(ref, f.name) for f in dataclasses.fields(cls)})
-
-
 # Reference config class name -> the port's twin.
 _TWINS = {c.__name__: c for c in (PdcchConfig, PdschConfig, PucchFormat0Config,
-                                  PucchFormat1Config, PucchFormat2Config, PuschConfig,
-                                  SrsConfig, SsbConfig, PrachConfig)}
+                                  PucchFormat1Config, PucchFormat2Config, PucchFormat34Config,
+                                  PuschConfig, SrsConfig, SsbConfig, PrachConfig)}
 
 
 def _twin(ref):
-    """The port's twin of a reference config; a config without one (PUCCH
-    F3/F4) stays as it is, and the upper PHY answers it with an error
-    indication, as the reference does."""
+    """The port's twin of a reference config (a config without one stays
+    as it is)."""
     cls = _TWINS.get(type(ref).__name__)
     if cls is None:
         return ref

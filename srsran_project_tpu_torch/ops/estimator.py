@@ -8,8 +8,10 @@ Per (rx port, layer): LS at the pilot REs -> OCC despread over CDM pairs
 raised-cosine smoothing in frequency -> linear interpolation to every
 subcarrier -> re-rotation, then the pilot-residual noise variance and the
 EPRE / RSRP / SNR metrics (PUCCH F2 reads them; PUSCH measures its noise
-by second differences, phy/pusch.py).  The CFO and TA metrics are not
-ported yet (ROADMAP Q1.8.2).
+by second differences unless asked for the pilot residual, phy/pusch.py),
+and on request the CFO metric (phase per DM-RS symbol interval) and the
+TA metric (``estimate_ta_samples``: the delay-profile peak of the pair
+channel before derotation).
 """
 
 from __future__ import annotations
@@ -71,6 +73,17 @@ def _unit_phasor(phase: torch.Tensor) -> torch.Tensor:
     return torch.polar(torch.ones_like(phase), phase)
 
 
+def estimate_ta_samples(h_freq: torch.Tensor, dft_size: int = 4096) -> torch.Tensor:
+    """Time-alignment estimate by IDFT peak search: (..., Nf) channel
+    samples at a uniform spacing df -> (...,) float32 peak bin of the
+    dft_size-point delay profile (tau = bin / (dft_size * df)), signed:
+    bins above dft_size / 2 are negative delays."""
+    nf = h_freq.shape[-1]
+    p = torch.fft.ifft(torch.nn.functional.pad(h_freq, (0, dft_size - nf)), dim=-1).abs() ** 2
+    peak = torch.argmax(p, dim=-1)
+    return torch.where(peak > dft_size // 2, peak - dft_size, peak).to(torch.float32)
+
+
 def estimate_h(y_pilots: torch.Tensor, ref_pilots: torch.Tensor, wf: torch.Tensor,
                pair_positions: tuple, nof_sc: int, smooth: bool = True):
     """The channel part of ``estimate_channel``: (h (..., nof_sc)
@@ -104,6 +117,33 @@ def estimate_h(y_pilots: torch.Tensor, ref_pilots: torch.Tensor, wf: torch.Tenso
     return h.to(torch.complex64), ls, h_pair
 
 
+def channel_metrics(y_pilots: torch.Tensor, ls: torch.Tensor, h_pair: torch.Tensor,
+                    compute_ta: bool = False, compute_cfo: bool = False):
+    """The metric part of ``estimate_channel`` from ``estimate_h``'s LS
+    samples and pair values: (noise_var (...,) float32, metrics dict of
+    epre / rsrp / snr (...,), with compute_cfo "cfo_phase_per_dmrs_symbol"
+    (radians per DM-RS symbol interval, 0 with one DM-RS symbol) and with
+    compute_ta "ta_peak_bin_4096")."""
+    # Noise: residual of the LS samples against the despread pair values
+    # (one degree of freedom per pair goes to the despreading).
+    resid = ls - h_pair.repeat_interleave(2, dim=-1)
+    noise_var = torch.clamp_min((resid.abs() ** 2).mean(dim=(-2, -1)) * 2.0, 1e-10)
+    epre = (y_pilots.abs() ** 2).mean(dim=(-2, -1))
+    rsrp = (h_pair.abs() ** 2).mean(dim=-1).mean(dim=-1)
+    metrics = {"epre": epre, "rsrp": rsrp, "snr": rsrp / noise_var}
+    if compute_cfo:
+        if h_pair.shape[-2] > 1:
+            prod = (h_pair[..., 1:, :] * h_pair[..., :-1, :].conj()).sum(dim=(-2, -1))
+            metrics["cfo_phase_per_dmrs_symbol"] = torch.angle(prod)
+        else:
+            metrics["cfo_phase_per_dmrs_symbol"] = torch.zeros(
+                h_pair.shape[:-2], dtype=torch.float32, device=h_pair.device)
+    if compute_ta:
+        # The pair channel before derotation: the TA needs the true slope.
+        metrics["ta_peak_bin_4096"] = estimate_ta_samples(h_pair.mean(dim=-2), dft_size=4096)
+    return noise_var.to(torch.float32), metrics
+
+
 def estimate_channel(y_pilots: torch.Tensor, ref_pilots: torch.Tensor, wf: torch.Tensor,
                      pair_positions: tuple, nof_sc: int, smooth: bool = True,
                      compute_ta: bool = False, compute_cfo: bool = False):
@@ -114,16 +154,6 @@ def estimate_channel(y_pilots: torch.Tensor, ref_pilots: torch.Tensor, wf: torch
     wf:         broadcastable (Np,) +-1 frequency OCC of the layer's port
     pair_positions: CDM pair centres relative to the allocation start
     Returns (h (..., nof_sc) complex64, noise_var (...,) float32, metrics
-    dict of epre / rsrp / snr (...,) float32)."""
-    if compute_ta or compute_cfo:
-        raise NotImplementedError("the estimator's TA and CFO metrics are not ported yet "
-                                  "(ROADMAP Q1.8.2)")
+    dict as ``channel_metrics`` gives it)."""
     h, ls, h_pair = estimate_h(y_pilots, ref_pilots, wf, pair_positions, nof_sc, smooth)
-    # Noise: residual of the LS samples against the despread pair values
-    # (one degree of freedom per pair goes to the despreading).
-    resid = ls - h_pair.repeat_interleave(2, dim=-1)
-    noise_var = torch.clamp_min((resid.abs() ** 2).mean(dim=(-2, -1)) * 2.0, 1e-10)
-    epre = (y_pilots.abs() ** 2).mean(dim=(-2, -1))
-    rsrp = (h_pair.abs() ** 2).mean(dim=-1).mean(dim=-1)
-    metrics = {"epre": epre, "rsrp": rsrp, "snr": rsrp / noise_var}
-    return h, noise_var.to(torch.float32), metrics
+    return (h, *channel_metrics(y_pilots, ls, h_pair, compute_ta, compute_cfo))

@@ -2,7 +2,9 @@
 
 Port of ``srsran_project_tpu/ops/ofdm.py`` with ``torch.fft`` for the
 (I)DFTs.  The reference's two-stage matmul DFT was a TPU workaround and
-is left out, as are its intra-CP window-offset options.
+is left out.  ``demodulate_slot`` takes the reference's intra-CP window
+offsets (a fraction of each CP, or a fixed number of samples), each
+compensated by a linear phase ramp over the subcarriers.
 
 Conventions (as the reference): grid axes (..., nsym, nsc), subcarrier k
 at (k - nsc/2) * scs from the carrier centre; modulate = sqrt(N) * ifft
@@ -69,16 +71,41 @@ def _cp_index(scs, dft_size, cp, slot_in_subframe) -> np.ndarray:
     return np.concatenate(rows).astype(np.int64)
 
 
-def _body_index(scs, dft_size, cp, slot_in_subframe) -> np.ndarray:
-    """(nsym, dft) sample index of each symbol's useful part."""
+def _window_advances(scs, dft_size, cp, slot_in_subframe, window_offset: float,
+                     window_offset_samples) -> np.ndarray:
+    """(nsym,) samples by which each symbol's DFT window starts early,
+    inside its CP: a fixed count, or the fraction of each CP."""
+    cps, _ = _slot_geometry(scs, dft_size, cp, slot_in_subframe)
+    if window_offset_samples is not None:
+        return np.full(len(cps), int(window_offset_samples), np.int64)
+    return np.asarray([int(window_offset * c) for c in cps], np.int64)
+
+
+def _body_index(scs, dft_size, cp, slot_in_subframe, window_offset: float = 0.0,
+                window_offset_samples=None) -> np.ndarray:
+    """(nsym, dft) sample index of each symbol's DFT window: its useful
+    part, started early by ``_window_advances``."""
     cps, _ = _slot_geometry(scs, dft_size, cp, slot_in_subframe)
     starts = np.cumsum([0] + [c + dft_size for c in cps])[:-1] + np.asarray(cps)
+    starts = starts - _window_advances(scs, dft_size, cp, slot_in_subframe, window_offset,
+                                       window_offset_samples)
     return (starts[:, None] + np.arange(dft_size)[None, :]).astype(np.int64)
+
+
+def _window_correction(nsc: int, scs, dft_size, cp, slot_in_subframe, window_offset: float,
+                       window_offset_samples) -> np.ndarray:
+    """(nsym, nsc) complex64: a window advanced by adv samples rotates the
+    signed subcarrier k by exp(-j 2 pi k adv / N); this undoes it."""
+    advs = _window_advances(scs, dft_size, cp, slot_in_subframe, window_offset,
+                            window_offset_samples)
+    k = np.arange(nsc) - nsc // 2
+    return np.stack([np.exp(2j * np.pi * k * adv / dft_size) for adv in advs]).astype(np.complex64)
 
 
 _cp_index_on = device_table(_cp_index)
 _body_index_on = device_table(_body_index)
 _phase_on = device_table(_phase_comp)
+_window_correction_on = device_table(_window_correction)
 
 
 def modulate_slot(grid: torch.Tensor, scs: SubcarrierSpacing = SubcarrierSpacing.KHZ30,
@@ -103,13 +130,24 @@ def modulate_slot(grid: torch.Tensor, scs: SubcarrierSpacing = SubcarrierSpacing
 def demodulate_slot(samples: torch.Tensor, nof_rb: int,
                     scs: SubcarrierSpacing = SubcarrierSpacing.KHZ30,
                     dft_size: int = 1024, cp: CyclicPrefix = CyclicPrefix.NORMAL,
-                    slot_in_subframe: int = 0, f_center_hz: float = 0.0) -> torch.Tensor:
-    """Samples (..., slot_nof_samples) -> grid (..., nsym, nof_rb*12)."""
+                    slot_in_subframe: int = 0, f_center_hz: float = 0.0,
+                    window_offset: float = 0.0,
+                    window_offset_samples: int | None = None) -> torch.Tensor:
+    """Samples (..., slot_nof_samples) -> grid (..., nsym, nof_rb*12).
+
+    window_offset in [0, 1): start each symbol's DFT window that fraction
+    of its CP early (the reference's intra-CP window); or
+    window_offset_samples: a fixed advance for every symbol (below the
+    shortest CP).  Either is compensated per subcarrier."""
     nsc = nof_rb * NRE
     dev = samples.device
-    x = samples[..., _body_index_on(dev, scs, dft_size, cp, slot_in_subframe)]
+    win = (float(window_offset), window_offset_samples)
+    x = samples[..., _body_index_on(dev, scs, dft_size, cp, slot_in_subframe, *win)]
     x = x * _phase_on(dev, scs, dft_size, cp, slot_in_subframe, f_center_hz).conj()[:, None]
     gain = float(np.float32(dft_size * (1.0 / np.sqrt(dft_size))))
     spec = torch.fft.fft(x, dim=-1) / gain
     half = nsc // 2
-    return torch.cat([spec[..., dft_size - half :], spec[..., :half]], dim=-1)
+    grid = torch.cat([spec[..., dft_size - half :], spec[..., :half]], dim=-1)
+    if window_offset or window_offset_samples:
+        grid = grid * _window_correction_on(dev, nsc, scs, dft_size, cp, slot_in_subframe, *win)
+    return grid

@@ -8,8 +8,10 @@ each hop with their time-domain OCC and combines them coherently, with the
 DTX statistic rho.  The sequences and shifts are static per config: each
 detector builds its reference sequences once per (config, device) with
 ``sequences.generate`` (float32 phase ramp on the device, as the
-reference) and then runs batched tensor algebra on the grid.  The
-reference's ``format1_detect_batch`` is not ported yet (ROADMAP Q1.8.9).
+reference) and then runs batched tensor algebra on the grid.
+``format1_detect_batch`` detects every multiplexed F1 transmission of one
+resource at once: a 12-point DFT over the subcarriers despreads every
+cyclic shift, a DFT over each hop's symbols every OCC.
 """
 
 from __future__ import annotations
@@ -250,3 +252,55 @@ def format1_detect(grid: torch.Tensor, cfg: PucchFormat1Config):
         return (proj < 0).to(torch.uint8)[None], proj[None], rho
     bits = torch.stack([corr.real < 0, corr.imag < 0]).to(torch.uint8)
     return bits, torch.stack([corr.real, corr.imag]) / np.sqrt(2), rho
+
+
+@functools.lru_cache(maxsize=None)
+def _f1_batch_refs(cfg: PucchFormat1Config, device: torch.device):
+    """Per hop: (PRB, DM-RS symbols, their (n, 12) sequences at cyclic
+    shift 0, data symbols, their sequences)."""
+    u, v = sequences.group_hopping_params(cfg.n_id, cfg.slot_in_frame, cfg.start_symbol)
+    syms = list(range(cfg.start_symbol, cfg.start_symbol + cfg.nof_symbols))
+    ncs = dict(zip(syms, _ncs_values(cfg.n_id, cfg.slot_in_frame, syms)))
+
+    def seqs(l_list):
+        return torch.stack([sequences.generate(u, v, NRE, float(np.float32(_alpha(0, 0, ncs[l]))),
+                                               device) for l in l_list])
+
+    return [(prb, list(dmrs), seqs(dmrs), list(data), seqs(data))
+            for _s, dmrs, data, prb in _f1_hops(cfg)]
+
+
+def format1_detect_batch(grid: torch.Tensor, cfg: PucchFormat1Config) -> dict:
+    """Detect every multiplexed F1 transmission on one resource (the
+    reference's format1_batch_configuration path) from a (P, nsym, nsc)
+    grid; cfg's initial_cyclic_shift and occ_index are ignored.
+
+    Per hop, the LS of each symbol against the shift-0 sequence goes
+    through a 12-point DFT over the subcarriers (one bin per initial
+    cyclic shift), then a DFT over the hop's DM-RS and data symbols (one
+    bin per OCC, zero-padded or truncated to the data symbols' count).
+    Returns a dict of ``corr`` (12, max_occ) complex correlations, ``rho``
+    (12, max_occ) DTX statistics and ``bits2`` (12, max_occ, 2) hard bits
+    ([..., :1] for 1-bit candidates).  Read only the entries the scheduler
+    allocated: another active transmission's sidelobes can raise rho on an
+    unallocated one."""
+    max_occ = max(len(h[2]) for h in _f1_hops(cfg))  # the data symbols bound the OCC set
+
+    def bank(prb, l_list, seq):
+        z = grid[:, l_list, prb * NRE : (prb + 1) * NRE] * seq.conj()  # (P, n, 12)
+        f = torch.fft.fft(torch.fft.fft(z, dim=-1) / NRE, dim=1) / max(len(l_list), 1)
+        if f.shape[1] < max_occ:
+            f = torch.nn.functional.pad(f, (0, 0, 0, max_occ - f.shape[1]))
+        return f[:, :max_occ]  # (P, max_occ, 12)
+
+    corr = h_pow = z_pow = 0.0
+    for prb, dmrs, dmrs_seq, data, data_seq in _f1_batch_refs(cfg, grid.device):
+        hb = bank(prb, dmrs, dmrs_seq)
+        zb = bank(prb, data, data_seq)
+        corr = corr + (zb * hb.conj()).sum(dim=0)  # (max_occ, 12)
+        h_pow = h_pow + (hb.abs() ** 2).sum(dim=0)
+        z_pow = z_pow + (zb.abs() ** 2).sum(dim=0)
+    corr = corr.T  # (12 shifts, max_occ)
+    rho = corr.abs() / torch.sqrt((h_pow * z_pow).T + 1e-24)
+    bits2 = torch.stack([corr.real < 0, corr.imag < 0], dim=-1).to(torch.uint8)
+    return {"corr": corr, "rho": rho, "bits2": bits2}

@@ -2,19 +2,23 @@
 transmitter.
 
 Port of ``srsran_project_tpu/phy/pusch.py``: the fast estimator with
-second-difference noise and PT-RS common-phase-error tracking
-(``_estimate_stage``, per-grant pilots through ``r_override``, the
-low-PAPR DM-RS of transform precoding), per-subcarrier MMSE or ZF weights
-(4x4 MMSE: kernel K3; every other rank and port count:
+second-difference or pilot-residual noise, CFO compensation (estimate,
+derotate each symbol by the slope, estimate again), the TA estimate and
+PT-RS common-phase-error tracking (``_estimate``, per-grant pilots
+through ``r_override``, the low-PAPR DM-RS of transform precoding; every
+estimate per batch element, never averaged across grants), per-subcarrier
+MMSE or ZF weights (4x4 MMSE: kernel K3; every other rank and port count:
 ``equalize_weights``) applied across full data rows, or the per-RE
 ``equalize`` where data shares the DM-RS symbols (``_equalize_stage``),
 the DFT-s-OFDM deprecode (``_deprecode_stage``), the float max-log
 demapper (BPSK, pi/2-BPSK, QPSK, square QAM) with int8 quantization,
 descrambling, the PT-RS LLR erasure and post-equalization SINR
-(``_demap_stage``), and the back end with UCI on PUSCH (HARQ-ACK, CSI
-parts 1 and 2 demultiplexed and decoded, two-step CSI whose part-2 size
+(``_demap_stage``; ``sinr_method="channel_estimator"`` reports the
+estimator's pilot SNR instead), and the back end with UCI on PUSCH
+(HARQ-ACK, CSI parts 1 and 2 demultiplexed and decoded, two-step CSI whose part-2 size
 follows the decoded RI, ``phy/ulsch_demux``) and HARQ (``finish``).  ``process`` decodes one grant per slot,
-``process_multi`` N equal-config grants of one slot grid in one batch.
+``process_multi`` N equal-config grants of one slot grid in one batch;
+with ``compute_ta`` both add ``ta_s``, the signed delay in seconds.
 The plane path (``demapper="planes"``) runs apply + demap + quantize +
 descramble in kernel K4 straight into the decoder's bit-planes
 (``_front_end_planes``).  Every function takes a leading batch dimension
@@ -34,7 +38,7 @@ from ..ops import scrambling, transform_precoding
 from ..ops._tables import device_table
 from ..ops.demap_planes import demap_planes
 from ..ops.equalizer import equalize, equalize_weights, mmse_weights_4x4
-from ..ops.estimator import estimate_h
+from ..ops.estimator import channel_metrics, estimate_h
 from ..ops.modulation import Modulation, demap_soft, quantize_llr
 from ..ops.modulation.evm import evm
 from ..ran import csi as csi_mod
@@ -48,13 +52,9 @@ from .sch import SchConfig, _fused_decode_ok, decode_transport_block
 # Field -> (the values this port runs, the ROADMAP item that ports the rest).
 _SLICE_ONLY = {
     "equalizer": (("mmse", "zf"), "Q1.8.8"),
-    "sinr_method": (("post_equalization",), "Q1.8.2"),
-    "noise_method": (("second_difference",), "Q1.8.2"),
     "estimator": (("fast",), "Q1.8.7"),
     "demapper": (("float", "planes"), "Q1.8.8"),
     "ldpc_decoder": (("auto",), "Q1.8.8"),
-    "cfo_compensation": ((False,), "Q1.8.6"),
-    "compute_ta": ((False,), "Q1.8.2"),
 }
 
 
@@ -234,14 +234,17 @@ def _estimate_table(cfg: PuschConfig, which: int) -> np.ndarray:
 _est_on = device_table(_estimate_table)
 
 
-def _estimate_stage(grid: torch.Tensor, cfg: PuschConfig, r_override=None):
+def _estimate(grid: torch.Tensor, cfg: PuschConfig, r_override=None):
     """(B, P, nsym, nsc) grid -> (gflat (B, P, nsym*nsc), h (B, P, nof_sc,
-    nl), noise_var (B,)): pilot gather, all port/layer channel estimates,
-    second-difference noise, and with PT-RS the grid derotated by each
-    symbol's common phase error.  ``r_override`` (B, nl, nsym_d, Np)
-    replaces the config's DM-RS pilot values per batch element (the grants
-    of a multi-UE slot share a compact config, but their pilots follow each
-    grant's absolute CRB)."""
+    nl), noise_var (B,), extras): pilot gather, all port/layer channel
+    estimates, with CFO compensation the grid derotated by each grant's
+    slope and estimated again, the noise (second differences or the pilot
+    residual), and with PT-RS the grid derotated by each symbol's common
+    phase error.  ``extras`` holds "snr" (B,) with the channel-estimator
+    SINR method and "ta_s" (B,) with compute_ta.  ``r_override`` (B, nl,
+    nsym_d, Np) replaces the config's DM-RS pilot values per batch element
+    (the grants of a multi-UE slot share a compact config, but their
+    pilots follow each grant's absolute CRB)."""
     a = cfg.alloc
     nl, npr = cfg.nof_layers, cfg.nof_rx_ports
     nsym_d = len(a.dmrs_symbols)
@@ -249,31 +252,80 @@ def _estimate_stage(grid: torch.Tensor, cfg: PuschConfig, r_override=None):
     dev = grid.device
     _, _, _, pair_pos = _estimate_constants(cfg)
     idx_all = _est_on(dev, cfg, 0)
-    wf_all = _est_on(dev, cfg, 1)
+    wf = _est_on(dev, cfg, 1)[:, None, None, :]
     r_all = (_est_on(dev, cfg, 2)[None] if r_override is None else r_override)[:, :, None]
-    gflat = grid.reshape(b, npr, -1)
-    y_p = gflat[:, :, idx_all].reshape(b, npr, nl, nsym_d, -1).transpose(1, 2)  # (B, nl, P, ...)
-    h_l = estimate_h(y_p, r_all, wf_all[:, None, None, :], pair_pos, a.nof_sc)[0]
-    h = h_l.permute(0, 2, 3, 1)  # (B, P, nof_sc, nl)
+    cfo = cfg.cfo_compensation and nsym_d > 1
+    # As in the reference, a noise method other than second differences
+    # is the pilot residual, and a SINR method other than post
+    # equalization the estimator's.
+    metrics = (cfo or cfg.compute_ta or cfg.noise_method != "second_difference"
+               or cfg.sinr_method != "post_equalization")
 
-    # Noise from (1, -2, 1) second differences of the OCC-despread pair
-    # estimates (co-CDM layer removed exactly, channel level and slope
-    # cancelled; the bulk delay is derotated first so curvature from a
-    # fast phase ramp does not read as noise).
-    ls = y_p * r_all.conj() * wf_all[:, None, None, :]
-    pair = ls.reshape(ls.shape[:-1] + (ls.shape[-1] // 2, 2))
-    h_pair = pair.mean(dim=-1).mean(dim=-2)  # (B, nl, P, NpPairs)
+    def estimate(g):
+        """(pair values (B, nl, P, nsym_d, Np/2), h, residual noise (B, nl,
+        P) and metrics, or None without metrics)."""
+        gf = g.reshape(b, npr, -1)
+        y_p = gf[:, :, idx_all].reshape(b, npr, nl, nsym_d, -1).transpose(1, 2)  # (B, nl, P, ...)
+        h_l, ls, h_pair = estimate_h(y_p, r_all, wf, pair_pos, a.nof_sc)
+        m = (channel_metrics(y_p, ls, h_pair, compute_ta=cfg.compute_ta, compute_cfo=cfo)
+             if metrics else None)
+        return h_pair, h_l.permute(0, 2, 3, 1), m  # h (B, P, nof_sc, nl)
+
+    h_pair, h, m = estimate(grid)
+    if cfo:
+        # Derotate every symbol by the grant's CFO slope (radians per
+        # symbol), then estimate again so that the channel's phase
+        # reference matches the derotated data symbols.
+        slope = m[1]["cfo_phase_per_dmrs_symbol"].mean(dim=(1, 2)) / float(
+            a.dmrs_symbols[1] - a.dmrs_symbols[0])
+        sym = torch.arange(cfg.nof_grid_symbols, dtype=torch.float32, device=dev)
+        phase = -slope[:, None] * sym
+        grid = grid * torch.polar(torch.ones_like(phase), phase)[:, None, :, None]
+        h_pair, h, m = estimate(grid)
+    gflat = grid.reshape(b, npr, -1)
+    # Pilot descaling (_estimate_constants) divides the pilot-domain noise
+    # by beta^2; the noise and SNR are referred back to the data REs.
+    beta2 = dmrs_mod.sch_to_dmrs_beta(a.nof_cdm_groups_without_data) ** 2
+    if cfg.noise_method == "second_difference":
+        nv = _second_difference_noise(h_pair, nsym_d, beta2)
+    else:
+        nv = m[0].mean(dim=(1, 2)) * beta2
+    extras = {}
+    if cfg.sinr_method != "post_equalization":
+        extras["snr"] = m[1]["snr"].mean(dim=(1, 2)) / beta2
+    if cfg.compute_ta:
+        # Peak bin of the 4096-point delay profile of the pair channel at
+        # the pair spacing: tau = bin / (4096 df_pair).
+        df_pair = (pair_pos[1] - pair_pos[0]) * cfg.scs_khz * 1e3
+        extras["ta_s"] = m[1]["ta_peak_bin_4096"].mean(dim=(1, 2)) / float(
+            np.float32(4096.0 * df_pair))
+    if cfg.ptrs_enabled:
+        # On the CFO-derotated grid: the reference derotates the grid as it
+        # was before, which undoes the CFO compensation (ROADMAP Q3).
+        gflat = _ptrs_derotate(grid, gflat, h, cfg)
+    return gflat, h, nv, extras
+
+
+def _second_difference_noise(h_pair: torch.Tensor, nsym_d: int, beta2: float) -> torch.Tensor:
+    """Noise from (1, -2, 1) second differences of the OCC-despread pair
+    estimates (B, nl, P, nsym_d, Np/2): the co-CDM layer is removed
+    exactly and the channel's level and slope cancel; the bulk delay is
+    derotated first so that curvature from a fast phase ramp does not read
+    as noise.  Returns (B,)."""
+    h_pair = h_pair.mean(dim=-2)  # (B, nl, P, NpPairs)
     npair = h_pair.shape[-1]
     slope = torch.angle(torch.sum(h_pair[..., 1:] * h_pair[..., :-1].conj(), dim=-1,
                                   keepdim=True))
-    ramp = torch.arange(npair, dtype=torch.float32, device=dev)
+    ramp = torch.arange(npair, dtype=torch.float32, device=h_pair.device)
     h_pair = h_pair * torch.polar(torch.ones_like(slope), -slope * ramp)
     d2 = h_pair[..., 2:] - 2.0 * h_pair[..., 1:-1] + h_pair[..., :-2]
-    beta2 = dmrs_mod.sch_to_dmrs_beta(a.nof_cdm_groups_without_data) ** 2
-    nv = (d2.abs() ** 2).reshape(b, -1).mean(dim=-1) * nsym_d / 3.0 * beta2
-    if cfg.ptrs_enabled:
-        gflat = _ptrs_derotate(grid, gflat, h, cfg)
-    return gflat, h, torch.clamp_min(nv, 1e-10)
+    nv = (d2.abs() ** 2).reshape(h_pair.shape[0], -1).mean(dim=-1) * nsym_d / 3.0 * beta2
+    return torch.clamp_min(nv, 1e-10)
+
+
+def _estimate_stage(grid: torch.Tensor, cfg: PuschConfig, r_override=None):
+    """``_estimate`` without its extras: (gflat, h, noise_var)."""
+    return _estimate(grid, cfg, r_override)[:3]
 
 
 def _ptrs_twin(cfg: PuschConfig) -> pdsch_mod.PdschConfig:
@@ -427,20 +479,31 @@ def _demap_stage(x_hat: torch.Tensor, eq_nvar: torch.Tensor, rnti: torch.Tensor,
 
 
 def _after_estimate(gflat: torch.Tensor, h: torch.Tensor, noise_var: torch.Tensor,
-                    rnti: torch.Tensor, cfg: PuschConfig):
+                    extras: dict, rnti: torch.Tensor, cfg: PuschConfig):
     """Equalize (+ deprecode with transform precoding) + demap of estimated
-    grids -> (llr_i8 (B, G), noise_var (B,), post-equalization SINR (B,))."""
+    grids -> (llr_i8 (B, G), noise_var (B,), SINR (B,)[, ta_s (B,) with
+    compute_ta])."""
     x_hat, eq_nvar = _equalize_stage(gflat, h, noise_var, cfg)
     if cfg.transform_precoding:
         x_hat, eq_nvar = _deprecode_stage(x_hat, eq_nvar, cfg)
     llr_i8, sinr = _demap_stage(x_hat, eq_nvar, rnti, cfg)
-    return llr_i8, noise_var, sinr
+    return _with_metrics(llr_i8, noise_var, sinr, extras, cfg)
+
+
+def _with_metrics(llrs: torch.Tensor, noise_var: torch.Tensor, sinr_post_eq: torch.Tensor,
+                  extras: dict, cfg: PuschConfig):
+    """(LLRs, noise_var, the SINR of cfg.sinr_method[, ta_s with
+    compute_ta]), as the reference's front ends return them."""
+    snr = sinr_post_eq if cfg.sinr_method == "post_equalization" else extras["snr"]
+    if cfg.compute_ta:
+        return llrs, noise_var, snr, extras["ta_s"]
+    return llrs, noise_var, snr
 
 
 def _front_end(grid: torch.Tensor, rnti: torch.Tensor, cfg: PuschConfig):
     """(B, P, nsym, nsc) grids and (B,) RNTIs -> (llr_i8 (B, G),
-    noise_var (B,), post-equalization SINR (B,))."""
-    return _after_estimate(*_estimate_stage(grid, cfg), rnti, cfg)
+    noise_var (B,), SINR (B,)[, ta_s (B,) with compute_ta])."""
+    return _after_estimate(*_estimate(grid, cfg), rnti, cfg)
 
 
 def transmit(tb_bits: torch.Tensor, rnti: torch.Tensor, cfg: PuschConfig,
@@ -529,9 +592,14 @@ def process(grid: torch.Tensor, rnti: torch.Tensor, cfg: PuschConfig,
     tb_crc_ok (B,), harq_buffer (B, C, N), noise_var (B,), snr_db (B,),
     and with UCI harq_ack_bits / csi1_bits / csi2_bits (B, O) and their
     _ok flags (B,); with two-step CSI csi2_bits pads to the largest part-2
-    size, and csi_rank (B,) and nof_csi2_bits (B,) say which it was."""
-    llr_i8, noise_var, snr_acc = _front_end(grid, rnti, cfg)
-    return finish(llr_i8, noise_var, snr_acc, cfg, harq_buffer=harq_buffer)
+    size, and csi_rank (B,) and nof_csi2_bits (B,) say which it was; with
+    compute_ta ta_s (B,) in seconds (bins of the pair channel's delay
+    profile above half its length are negative)."""
+    fe = _front_end(grid, rnti, cfg)
+    out = finish(*fe[:3], cfg, harq_buffer=harq_buffer)
+    if cfg.compute_ta:
+        out["ta_s"] = fe[3]
+    return out
 
 
 def _multi_front_end(grid: torch.Tensor, rntis: torch.Tensor, first_scs, r_batch: torch.Tensor,
@@ -539,10 +607,11 @@ def _multi_front_end(grid: torch.Tensor, rntis: torch.Tensor, first_scs, r_batch
     """Front end of N equal-config grants of one (P, nsym, nsc_total) slot
     grid: each grant's window of cfg.nof_grid_sc subcarriers from its first
     subcarrier, stacked into one batch -> (llr_i8 (N, G), noise_var (N,),
-    SINR (N,))."""
+    SINR (N,)[, ta_s (N,) with compute_ta]), each grant with its own
+    estimate, CFO and TA."""
     w = cfg.nof_grid_sc
     win = torch.stack([grid[:, :, sc0 : sc0 + w] for sc0 in first_scs])
-    return _after_estimate(*_estimate_stage(win, cfg, r_override=r_batch), rntis, cfg)
+    return _after_estimate(*_estimate(win, cfg, r_override=r_batch), rntis, cfg)
 
 
 @functools.lru_cache(maxsize=None)
@@ -573,20 +642,25 @@ def process_multi(grid: torch.Tensor, rntis, first_rbs, cfg: PuschConfig,
     first_rbs = tuple(int(r) for r in first_rbs)
     dev = grid.device
     rntis = torch.as_tensor(rntis, dtype=torch.int64, device=dev)
-    llr_i8, noise_var, snr_acc = _multi_front_end(
-        grid, rntis, [12 * r for r in first_rbs], _pilot_bank_on(dev, cfg, first_rbs), cfg)
-    return finish(llr_i8, noise_var, snr_acc, cfg, harq_buffer=harq_buffers)
+    fe = _multi_front_end(grid, rntis, [12 * r for r in first_rbs],
+                          _pilot_bank_on(dev, cfg, first_rbs), cfg)
+    out = finish(*fe[:3], cfg, harq_buffer=harq_buffers)
+    if cfg.compute_ta:
+        out["ta_s"] = fe[3]
+    return out
 
 
 def _demap_planes_ok(cfg: PuschConfig) -> bool:
     """Gate of the plane path (kernel K4 + K1 in plane layout): opted in
-    with ``demapper="planes"``, no repetition, no UCI, no PT-RS, no
-    transform precoding, square 16/64/256QAM and full-row data symbols.
+    with ``demapper="planes"``, no repetition, no UCI, no PT-RS, no CFO
+    compensation, no transform precoding, square 16/64/256QAM and full-row
+    data symbols.
     Unlike the reference, the gate does not ask which device runs it: the
     device follows the input tensor."""
     return (cfg.demapper == "planes"
             and not cfg.transform_precoding
             and not cfg.ptrs_enabled
+            and not cfg.cfo_compensation
             and cfg.uci_mux is None
             and _fused_decode_ok(cfg.sch)
             and cfg.modulation in (Modulation.QAM16, Modulation.QAM64, Modulation.QAM256)
@@ -599,19 +673,26 @@ def _plane_inputs(grid: torch.Tensor, rnti: torch.Tensor, cfg: PuschConfig):
     inputs of ``demap_planes``, noise_var (B,)), with the estimate and the
     weights as in ``_front_end``."""
     gflat, h, noise_var = _estimate_stage(grid, cfg)
+    return _plane_inputs_of(gflat, h, noise_var, rnti, cfg), noise_var
+
+
+def _plane_inputs_of(gflat: torch.Tensor, h: torch.Tensor, noise_var: torch.Tensor,
+                     rnti: torch.Tensor, cfg: PuschConfig) -> tuple:
+    """The inputs of ``demap_planes`` from an estimate."""
     y = _data_rows(gflat, cfg).contiguous()
     w, eq_sc = _weights(h, noise_var, cfg)
     c = scrambling.gold_sequence(_pusch_c_init(rnti, cfg.n_id), cfg.g_total)
-    return (y, w, eq_sc, c), noise_var
+    return y, w, eq_sc, c
 
 
 def _front_end_planes(grid: torch.Tensor, rnti: torch.Tensor, cfg: PuschConfig):
     """(B, P, nsym, nsc) grids and (B,) RNTIs -> (descrambled int8 LLR
-    bit-planes (B, qm, G/qm), noise_var (B,), post-equalization SINR
-    (B,)): ``_plane_inputs``, then kernel K4 applies the weights, demaps,
-    quantizes and descrambles straight into the planes
-    ``sch.decode_from_planes`` reads."""
-    ins, noise_var = _plane_inputs(grid, rnti, cfg)
-    planes, err2 = demap_planes(*ins, cfg.modulation, cfg.llr_range_limit)
+    bit-planes (B, qm, G/qm), noise_var (B,), SINR (B,)[, ta_s (B,) with
+    compute_ta]): the inputs of ``_plane_inputs``, then kernel K4 applies
+    the weights, demaps, quantizes and descrambles straight into the
+    planes ``sch.decode_from_planes`` reads."""
+    gflat, h, noise_var, extras = _estimate(grid, cfg)
+    planes, err2 = demap_planes(*_plane_inputs_of(gflat, h, noise_var, rnti, cfg),
+                                cfg.modulation, cfg.llr_range_limit)
     snr = 1.0 / torch.clamp_min(err2.mean(dim=(1, 2)), 1e-12)
-    return planes, noise_var, snr
+    return _with_metrics(planes, noise_var, snr, extras, cfg)

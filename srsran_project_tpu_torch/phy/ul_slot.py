@@ -11,8 +11,9 @@ group's codeblocks per (base graph, Z, iterations, early stop, n_cb) into
 ONE launch of kernel K2.  Then desegment + CRC per group, the results
 scatter back to input order, and the PUCCH occasions are detected on the
 same grid.  Any allocation shape and waveform of ``pusch`` runs here
-(data on the DM-RS symbols, DM-RS type 2, PT-RS, DFT-s-OFDM); two-step
-CSI grants are sent away with ValueError, as the reference's slot does.
+(data on the DM-RS symbols, DM-RS type 2, PT-RS, DFT-s-OFDM), with each
+grant's own CFO compensation and TA; two-step CSI grants are sent away
+with ValueError, as the reference's slot does.
 """
 
 from __future__ import annotations
@@ -54,19 +55,21 @@ class UlSlotPdu:
 def _slot_front(grid: torch.Tensor, groups: dict, pdus: list):
     """Per config group: batched front end + UCI demultiplex and decode +
     rate dematch + HARQ combine.  Returns per group (codeword buffers (Ni,
-    C, N) int8, noise_var (Ni,), SINR (Ni,), dict of the UCI result keys
-    stacked over the group)."""
+    C, N) int8, noise_var (Ni,), SINR (Ni,), dict of the other result keys
+    stacked over the group: the UCI ones, and "ta_s" with compute_ta)."""
     dev = grid.device
     outs = []
     for cfg, idxs in groups.items():
         first_rbs = tuple(int(pdus[i].first_rb) for i in idxs)
         rntis = torch.tensor([int(pdus[i].rnti) for i in idxs], dtype=torch.int64, device=dev)
-        llrs, nvs, snrs = pusch_mod._multi_front_end(
+        llrs, nvs, snrs, *ta = pusch_mod._multi_front_end(
             grid, rntis, [12 * r for r in first_rbs], pusch_mod._pilot_bank_on(dev, cfg, first_rbs),
             cfg)
-        data, uci = pusch_mod.split_uci(llrs, cfg)
+        data, extra = pusch_mod.split_uci(llrs, cfg)
+        if ta:
+            extra["ta_s"] = ta[0]
         outs.append((_dematch_stage(data, _harq_stack(cfg, idxs, pdus, dev), cfg.sch),
-                     nvs, snrs, uci))
+                     nvs, snrs, extra))
     return outs
 
 
@@ -140,8 +143,9 @@ def process_slot(grid: torch.Tensor, pdus: list, f1_cfgs=(), f0_cfgs=(), f2_cfgs
 
     Returns (results, f1_results, f0_results[, f2_results when f2_cfgs])
     as the reference does: results[i] is a dict per input PDU (tb_bits,
-    tb_crc_ok, harq_buffer, noise_var, snr_db, and with UCI harq_ack_bits,
-    csi1_bits, csi2_bits and their _ok flags); f1_results[j] is (bits,
+    tb_crc_ok, harq_buffer, noise_var, snr_db, with UCI harq_ack_bits,
+    csi1_bits, csi2_bits and their _ok flags, with compute_ta ta_s: each
+    grant's own); f1_results[j] is (bits,
     metric); f0_results[k] is (value, metric); f2_results[m] is
     (uci_bits, ok, snr_db)."""
     groups = _config_groups(pdus)
@@ -156,7 +160,7 @@ def process_slot(grid: torch.Tensor, pdus: list, f1_cfgs=(), f0_cfgs=(), f2_cfgs
 
     finished = _slot_finish(bits_g, cfgs, tuple(len(idxs) for idxs in groups.values()))
     results: list = [None] * len(pdus)
-    for idxs, (harq, nvs, snrs, uci), (tb, ok) in zip(groups.values(), fronts, finished):
+    for idxs, (harq, nvs, snrs, extra), (tb, ok) in zip(groups.values(), fronts, finished):
         for k, i in enumerate(idxs):
             results[i] = {
                 "tb_bits": tb[k],
@@ -164,7 +168,7 @@ def process_slot(grid: torch.Tensor, pdus: list, f1_cfgs=(), f0_cfgs=(), f2_cfgs
                 "harq_buffer": harq[k],
                 "noise_var": nvs[k],
                 "snr_db": 10.0 * torch.log10(torch.clamp_min(snrs[k], 1e-12)),
-                **{key: v[k] for key, v in uci.items()},
+                **{key: v[k] for key, v in extra.items()},
             }
     f1_outs = [pucch_mod.format1_detect(grid, f1)[::2] for f1 in f1_cfgs]
     f0_outs = [pucch_mod.format0_detect(grid, f0)[:2] for f0 in f0_cfgs]

@@ -5,15 +5,19 @@ DL_TTI.request + TX_Data.request into the slot's resource grid
 (equal-config compact PDSCH grants as one ``pdsch.process_multi`` batch,
 the others one by one, then every PDCCH, SSB and CSI-RS through
 ``dl_slot.assemble_broadcast``), a UL_DCI.request into PDCCH on a grid,
-and a UL_TTI.request + received grid into CRC, RxData, UCI, SRS and error
-indications (compact PUSCH grants and the PUCCH occasions through
-``ul_slot.process_slot``, the others through ``pusch.process``).  HARQ
+and a UL_TTI.request + received grid (+ the PRACH occasion's
+demodulated preamble subcarriers) into CRC (with the TA where the grant
+asks for it), RxData, UCI, SRS, RACH and error indications (compact
+PUSCH grants and the PUCCH occasions through ``ul_slot.process_slot``,
+the others through ``pusch.process``, PRACH through ``prach.detect``
+after everything else; PUCCH F3/F4 get an error indication, as in the
+reference).  HARQ
 soft bits live in a ``HarqBufferPool`` keyed like the reference's
 trx_buffer_identifier (rnti, harq id).
 
 Everything runs on ``UpperPhyConfig.device`` (default the card): grids
-are made there, request payloads are moved there, and a received grid on
-another device raises ValueError.  PRACH is not ported (ROADMAP Q1.10.1).
+are made there, request payloads are moved there, and a received grid or
+PRACH buffer on another device raises ValueError.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ from ..fapi import messages as fapi
 from . import dl_slot as dl_slot_mod
 from . import pdcch as pdcch_mod
 from . import pdsch as pdsch_mod
+from . import prach as prach_mod
 from . import pucch as pucch_mod
 from . import pucch_f2 as pucch_f2_mod
 from . import pusch as pusch_mod
@@ -72,6 +77,14 @@ class HarqBufferPool:
 
 def _host(x: torch.Tensor) -> np.ndarray:
     return x.detach().cpu().numpy()
+
+
+def rach_indications(res: fapi.SlotResults, detected: dict) -> None:
+    """One RACH indication per preamble that ``prach.detect`` found, in
+    preamble order, with its metric and TA bin."""
+    det, metric, ta = (_host(detected[k]) for k in ("detected", "metric", "ta_samples"))
+    for idx in np.nonzero(det)[0]:
+        res.rach.append(fapi.RachIndicationPdu(int(idx), float(metric[idx]), float(ta[idx])))
 
 
 class UpperPhy:
@@ -167,6 +180,8 @@ class UpperPhy:
         return grid
 
     def _check_grid(self, grid) -> torch.Tensor:
+        """A received grid (or PRACH buffer) as given: a tensor on the
+        PHY's device, else ValueError."""
         if not isinstance(grid, torch.Tensor):
             raise ValueError(f"the grid must be a torch tensor on {self.device}, "
                              f"got {type(grid).__name__}")
@@ -175,13 +190,16 @@ class UpperPhy:
             raise ValueError(f"the grid lives on {grid.device}, the upper PHY on {self.device}")
         return grid
 
-    def process_ul_tti(self, request: fapi.UlTtiRequest,
-                       rx_grid: torch.Tensor) -> fapi.SlotResults:
+    def process_ul_tti(self, request: fapi.UlTtiRequest, rx_grid: torch.Tensor,
+                       prach_fd: torch.Tensor | None = None) -> fapi.SlotResults:
+        """UL_TTI.request + received (P, nsym, nsc) grid -> the slot's
+        indications.  prach_fd: the PRACH occasion's (nof_rx_ports, L_RA)
+        demodulated preamble subcarriers (``lower_phy.prach_demodulate``)
+        for the request's PRACH PDUs; without it each PRACH PDU gets an
+        error indication."""
         rx_grid = self._check_grid(rx_grid)
-        if request.prach:
-            raise NotImplementedError(
-                "UL_TTI PRACH PDUs are not ported yet (ROADMAP Q1.10.1: phy/prach with "
-                "ops/lower_phy's PRACH demodulator)")
+        if prach_fd is not None:
+            prach_fd = self._check_grid(prach_fd)
         res = fapi.SlotResults(slot=request.slot)
         if self.cfg.validate_requests:
             from ..fapi.validators import validate_ul_tti
@@ -204,6 +222,11 @@ class UpperPhy:
             res.srs.append(fapi.SrsIndicationPdu(pdu.rnti, 10.0 * np.log10(max(snr, 1e-12)),
                                                  float(est["phase_slope"].mean()),
                                                  _host(est["h"])))
+        for pdu in request.prach:
+            if prach_fd is None:
+                res.errors.append(fapi.ErrorIndication(request.slot, "PRACH requested, no buffer"))
+                continue
+            rach_indications(res, prach_mod.detect(prach_fd, pdu.config))
         self._notify("ul_results", request.slot, res)
         return res
 
@@ -272,8 +295,8 @@ class UpperPhy:
 
     def _pucch_indication(self, res: fapi.SlotResults, request, rx_grid: torch.Tensor, j: int,
                           pdu, folded: dict) -> None:
-        """The UCI indication of one PUCCH PDU (an error indication for a
-        format without a detector: F3 and F4)."""
+        """The UCI indication of one PUCCH PDU (an error indication for F3
+        and F4, as the reference's upper PHY gives)."""
         c = pdu.config
         if isinstance(c, pucch_mod.PucchFormat0Config):
             val, metric = folded[j] if j in folded else pucch_mod.format0_detect(rx_grid, c)[:2]

@@ -19,7 +19,19 @@ the JAX package's vector tests' bounds:
   (tests/vectors/test_golden_dl_proc.py);
 * ``srs_estimator``: the port's ``srs.estimate`` against the reference
   estimator's TA (3 ns), EPRE (0.4 dB), wideband coefficients (rtol 0.15,
-  0.15 rad) and noise bound (tests/vectors/test_golden_srs.py).
+  0.15 rad) and noise bound (tests/vectors/test_golden_srs.py);
+* ``prach_generator``: every preamble of ``generate_preamble_ref`` within
+  2e-5 (tests/vectors/test_golden_phy.py); ``prach_demodulator``: the
+  port's ``prach_window_params`` + ``prach_demodulate`` within 2e-2 of the
+  cbf16 buffers and correlated above 0.999
+  (tests/vectors/test_golden_prach_demod.py); ``prach_detector``: the
+  port's ``detect_ref`` with the same detected preambles, metric within
+  rtol 0.02 and TA within 0.4 us
+  (tests/vectors/test_golden_prach_detector.py);
+* ``prs_generator``: ``generate_prs`` within 8e-3
+  (tests/vectors/test_golden_dl_proc.py); ``pucch_format34``: the port's
+  ``pucch_f34.process`` with the reference's ok flag and its bits
+  (tests/vectors/test_golden_pucch.py).
 
 The vectors are read with the JAX package's ``read_vector``; the port
 itself reads none.
@@ -34,12 +46,16 @@ import torch
 from torch_parity import to_np, to_torch
 
 from srsran_project_tpu.support.file_vector import read_vector
+from srsran_project_tpu_torch.ops import lower_phy as tlower
 from srsran_project_tpu_torch.ops import transform_precoding as ttp
 from srsran_project_tpu_torch.ops.modulation import Modulation
 from srsran_project_tpu_torch.ops.modulation import mapper as tmap
 from srsran_project_tpu_torch.phy import csi_rs as tcsi
 from srsran_project_tpu_torch.phy import pdcch as tpdcch
 from srsran_project_tpu_torch.phy import pdsch as tpdsch
+from srsran_project_tpu_torch.phy import prach as tprach
+from srsran_project_tpu_torch.phy import ptrs_prs as tprs
+from srsran_project_tpu_torch.phy import pucch_f34 as tf34
 from srsran_project_tpu_torch.phy import pusch as tpusch
 from srsran_project_tpu_torch.phy import srs as tsrs
 from srsran_project_tpu_torch.phy import ssb as tssb
@@ -229,3 +245,104 @@ def test_srs_estimator(idx):
     assert np.allclose(np.abs(pred), np.abs(h_ref), rtol=0.15), (case, pred, h_ref)
     assert np.abs(np.angle(pred * np.conj(h_ref))).max() < 0.15, case
     assert res["noise_var"].mean() < 2 * case["ref_noise_var"] + 1e-3, case
+
+
+PRACH_GEN = _suite("prach_generator")
+
+
+@pytest.mark.parametrize("chunk", range(4))
+def test_prach_generator(chunk):
+    """A quarter of the suite's preambles per case."""
+    cases = PRACH_GEN[chunk::4]
+    assert cases
+    for case in cases:
+        ref = read_vector(_path("prach_generator", case["seq"]), "cf32")
+        got = to_np(tprach.generate_preamble_ref(case["format"], case["root"], case["preamble"],
+                                                 case["zcz"], device="cpu"))
+        assert got.shape == (case["len"],), case
+        np.testing.assert_allclose(got, ref, atol=2e-5, err_msg=str(case))
+
+
+@pytest.mark.parametrize("idx", range(5))
+def test_prach_demodulator(idx):
+    case = _suite("prach_demodulator")[idx]
+    inp = to_torch(read_vector(_path("prach_demodulator", f"input{idx}.dat"), "cf32"))
+    nsym = case["nof_symbols"]
+    ref = read_vector(_path("prach_demodulator", f"buffer{idx}.dat"), "cf32").reshape(
+        case["nof_td"], case["nof_fd"], nsym, case["l_ra"])
+    for td in range(case["nof_td"]):
+        for fd in range(case["nof_fd"]):
+            p = tlower.prach_window_params(
+                fmt=case["fmt"], pusch_scs_hz=30000, slot_in_subframe=case["slot_idx"],
+                start_symbol=case["start_symbol"], td_occasion=td, srate_hz=case["srate_hz"],
+                rb_offset=case["rb_offset"], fd_occasion=fd, nof_prb_ul_grid=case["nof_prb_ul"],
+                l_ra=case["l_ra"])
+            assert p["nof_symbols"] == nsym, (case, p)
+            window = inp[p["sample_offset"]:]
+            for sym in range(nsym):
+                got = to_np(tlower.prach_demodulate(
+                    window, l_ra=case["l_ra"], dft_size=p["dft_size"], nof_symbols=1,
+                    cp_samples=p["cp_samples"] + sym * p["dft_size"], k_offset=p["k_offset"]))
+                want = ref[td, fd, sym]
+                assert np.abs(got - want).max() < 2e-2, (case, td, fd, sym)
+                corr = np.abs(np.vdot(got, want)) / (np.linalg.norm(got) * np.linalg.norm(want)
+                                                     + 1e-12)
+                assert corr > 0.999, (case, td, fd, sym, corr)
+
+
+@pytest.mark.parametrize("idx", range(9))
+def test_prach_detector(idx):
+    case = _suite("prach_detector")[idx]
+    rx = read_vector(_path("prach_detector", case["rx"]), "cf32").reshape(
+        case["ports"], case["nof_symbols"], case["l_ra"])
+    res = tprach.detect_ref(to_torch(rx), fmt=case["format"],
+                            root_sequence_index=case["root"],
+                            zero_correlation_zone=case["zcz"], dft_size=1024)
+    want = [int(x) for x in case["det_preambles"].split(",") if x]
+    assert sorted(r["preamble_index"] for r in res) == sorted(want), (case, res)
+    metrics = dict(zip(want, (float(m) for m in case["det_metrics"].split(",") if m)))
+    tas = dict(zip(want, (float(t) for t in case["det_ta_us"].split(",") if t)))
+    for r in res:
+        pi = r["preamble_index"]
+        assert np.isclose(r["metric"], metrics[pi], rtol=0.02), (case, r)
+        assert abs(r["ta_s"] * 1e6 - tas[pi]) < 0.4, (case, r)
+
+
+@pytest.mark.parametrize("idx", range(5))
+def test_prs_generator(idx):
+    case = _suite("prs_generator")[idx]
+    subc = case["bwp_rb"] * 12
+    ref = read_vector(_path("prs_generator", f"grid{idx}.dat"), "cf32").reshape(14, subc)
+    cfg = tprs.PrsConfig(rb_start=case["rb_start"], rb_count=case["rb_count"],
+                         start_symbol=case["start_symbol"], nof_symbols=case["nof_symbols"],
+                         comb_size=case["comb_size"], comb_offset=case["comb_offset"],
+                         n_id_prs=case["n_id_prs"], slot_in_frame=case["slot_idx"],
+                         nof_grid_sc=subc, nof_grid_symbols=14)
+    got = to_np(tprs.generate_prs(cfg, device="cpu"))
+    assert np.abs(got - ref).max() < 8e-3, case
+    assert np.abs(ref).max() > 0.5, case
+
+
+@pytest.mark.parametrize("idx", range(10))
+def test_pucch_format34(idx):
+    case = _suite("pucch_format34")[idx]
+    subc = case["bwp_rb"] * 12
+    grid = read_vector(_path("pucch_format34", f"grid{idx}.dat"), "cf32").reshape(
+        case["ports"], 14, subc)
+    payload = read_vector(_path("pucch_format34", f"payload{idx}.dat"), "u8")
+    ref_bits = read_vector(_path("pucch_format34", f"ref_bits{idx}.dat"), "u8")
+    nof_uci = case["nof_harq"] + case["nof_sr"] + case["nof_csi1"]
+    cfg = tf34.PucchFormat34Config(
+        prb_start=case["prb"], nof_prb=case["nof_prb"], start_symbol=case["start_sym"],
+        nof_symbols=case["nof_syms"], nof_uci_bits=nof_uci, rnti=case["rnti"],
+        n_id=case["n_id"], occ_length=case["occ_length"], occ_index=case["occ_index"],
+        slot_in_frame=case["slot_idx"], nof_rx_ports=case["ports"], nof_grid_sc=subc,
+        second_hop_prb=case["second_hop_prb"] if case.get("second_hop_prb", -1) >= 0 else None,
+        additional_dmrs=bool(case.get("additional_dmrs", 0)),
+        pi2_bpsk=bool(case.get("pi2_bpsk", 0)))
+    bits, ok, snr_db = tf34.process(to_torch(grid), cfg)
+    assert bool(ok) == bool(case["ref_valid"]), case
+    got = to_np(bits)[:nof_uci]
+    np.testing.assert_array_equal(got, ref_bits)
+    np.testing.assert_array_equal(got, payload)
+    assert np.isfinite(float(snr_db))

@@ -262,22 +262,12 @@ def test_cell_config_twin(make):
 
 @pytest.mark.parametrize("field, value", [
     ("equalizer", "mmse_ref"), ("demapper", "reference"), ("ldpc_decoder", "reference_i8"),
-    ("equalizer", "zf_ref"), ("sinr_method", "channel_estimator"),
-    ("noise_method", "pair_residual"), ("cfo_compensation", True),
+    ("equalizer", "zf_ref"),
 ])
 def test_out_of_slice_values_raise(field, value):
     cfg = tcell.CellConfig(**{field: value})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cfg.pusch_cfg  # noqa: B018
-
-
-@pytest.mark.parametrize("field", ["compute_ta"])
-def test_out_of_slice_pusch_values_raise(field):
-    """The config raises when made."""
-    alloc = tcell.CellConfig().alloc
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpusch.PuschConfig(tbs=1000, target_code_rate=0.5, modulation=tmap.Modulation.QAM16,
-                           alloc=alloc, **{field: True}).sch
 
 
 # Every NotImplementedError the port raises, with the ROADMAP sub-item its
@@ -288,22 +278,6 @@ def _pusch_field(field, value):
                                       alloc=tcell.CellConfig().alloc, **{field: value})
 
 
-def _estimate_metrics(**kw):
-    y = torch.zeros((1, 12), dtype=torch.complex64)
-    return lambda: test_.estimate_channel(y, y, torch.ones(12), (0.5, 2.5, 4.5), 12, **kw)
-
-
-def _prach_pdu():
-    from srsran_project_tpu_torch.fapi import messages as tfapi
-    from srsran_project_tpu_torch.phy.upper_phy import UpperPhy, UpperPhyConfig
-    from srsran_project_tpu_torch.ran.slot_point import SlotPoint
-
-    req = tfapi.UlTtiRequest(slot=SlotPoint(tcell.CellConfig().scs, 0),
-                             prach=[tfapi.UlPrachPdu(tfapi.PrachConfig())])
-    return lambda: UpperPhy(UpperPhyConfig(device="cpu")).process_ul_tti(
-        req, torch.zeros((1, 14, 624), dtype=torch.complex64))
-
-
 def _app_flag(*argv):
     from srsran_project_tpu_torch.apps import du_low_sim
 
@@ -312,19 +286,12 @@ def _app_flag(*argv):
 
 RAISES = [
     ("PuschConfig.equalizer", _pusch_field("equalizer", "mmse_ref"), "Q1.8.8"),
-    ("PuschConfig.sinr_method", _pusch_field("sinr_method", "channel_estimator"), "Q1.8.2"),
-    ("PuschConfig.noise_method", _pusch_field("noise_method", "pair_residual"), "Q1.8.2"),
     ("PuschConfig.estimator", _pusch_field("estimator", "reference"), "Q1.8.7"),
     ("PuschConfig.demapper", _pusch_field("demapper", "reference"), "Q1.8.8"),
     ("PuschConfig.ldpc_decoder", _pusch_field("ldpc_decoder", "reference_i8"), "Q1.8.8"),
-    ("PuschConfig.cfo_compensation", _pusch_field("cfo_compensation", True), "Q1.8.6"),
-    ("PuschConfig.compute_ta", _pusch_field("compute_ta", True), "Q1.8.2"),
     ("SchConfig.decoder", lambda: tsch.SchConfig(tbs=1000, target_code_rate=0.5, qm=4,
                                                  nof_layers=1, nof_total_bits=2400,
                                                  decoder="reference_i8"), "Q1.8.8"),
-    ("estimate_channel(compute_ta=True)", _estimate_metrics(compute_ta=True), "Q1.8.2"),
-    ("estimate_channel(compute_cfo=True)", _estimate_metrics(compute_cfo=True), "Q1.8.2"),
-    ("UpperPhy.process_ul_tti(PRACH)", _prach_pdu(), "Q1.10.1"),
     ("du_low_sim --trace", _app_flag("--trace", "t.json"), "Q1.10.2"),
     ("du_low_sim --ues", _app_flag("--ues", "4"), "Q1.10.3"),
     ("du_low_sim --cells", _app_flag("--cells", "2"), "Q1.10.4"),
@@ -343,16 +310,14 @@ def test_raise_names_its_sub_item(what, trigger, item):
 
 
 def test_every_raise_is_pinned():
-    """The package raises NotImplementedError at five places (the
-    PuschConfig field table, SchConfig, estimate_channel, the upper PHY's
-    PRACH, the app's deferred flags), all pinned above; a new one must be
-    added to RAISES."""
+    """The package raises NotImplementedError at three places (the
+    PuschConfig field table, SchConfig, the app's deferred flags), all
+    pinned above; a new one must be added to RAISES."""
     pkg = os.path.join(REPO, "srsran_project_tpu_torch")
     sites = sorted(os.path.relpath(os.path.join(d, f), pkg) for d, _, fs in os.walk(pkg)
                    for f in fs if f.endswith(".py")
                    for line in open(os.path.join(d, f)) if "raise NotImplementedError" in line)
-    assert sites == ["apps/du_low_sim.py", "ops/estimator.py", "phy/pusch.py", "phy/sch.py",
-                     "phy/upper_phy.py"], sites
+    assert sites == ["apps/du_low_sim.py", "phy/pusch.py", "phy/sch.py"], sites
 
 
 # A UCI config with a CSI report configuration: two-step CSI.

@@ -12,7 +12,11 @@ Tolerances:
   ones), on 1 and 4 ports, with and without a second hop;
 * F0 metric and F1 rho: rtol 1e-4; F2 snr_db: atol 1e-3 (float32
   correlations and estimates summed in another order).  The SNR (10 dB per
-  port) keeps every metric far from its DTX threshold.
+  port) keeps every metric far from its DTX threshold;
+* the batched F1 detector (``format1_detect_batch``): corr within 1e-4 of
+  its largest value and rho within 1e-4 absolute of the reference's on
+  every (shift, OCC) entry; each allocated entry's bits exact and its rho
+  above the DTX threshold.
 """
 
 import os
@@ -155,3 +159,42 @@ def test_format2(nbits, rbs, nsym, hop, ports):
     np.testing.assert_array_equal(to_np(bt), bits)
     np.testing.assert_array_equal(to_np(bt), np.asarray(bj))
     np.testing.assert_allclose(float(st), float(sj), atol=1e-3)
+
+
+# Four F1 UEs multiplexed on one PRB: (initial cyclic shift, OCC index,
+# HARQ bits).
+F1_BATCH = ((0, 0, 1), (3, 1, 2), (6, 0, 2), (9, 1, 1))
+
+
+@pytest.mark.parametrize("ports", [1, 4])
+@pytest.mark.parametrize("hop, nsym", [(None, 14), (3, 14), (None, 9)])
+def test_format1_batch(hop, nsym, ports):
+    """format1_detect_batch on four multiplexed F1 transmissions (the case
+    the per-UE detector cannot separate): the bank against the
+    reference's, and each UE's bits from its own entry."""
+    rng = np.random.default_rng(7 + ports + nsym + (hop or 0))
+    base = dict(prb=1, start_symbol=14 - nsym, nof_symbols=nsym, n_id=300, slot_in_frame=2,
+                nof_grid_sc=NSC, second_hop_prb=hop)
+    grid = _awgn(rng, (ports, 14, NSC))
+    sent = []
+    for m0, occ, nbits in F1_BATCH:
+        jc = jpucch.PucchFormat1Config(initial_cyclic_shift=m0, occ_index=occ,
+                                       nof_harq_bits=nbits, **base)
+        bits = rng.integers(0, 2, size=(nbits,), dtype=np.uint8)
+        sig = jpucch.format1_generate(jc, bits)
+        h = _h(rng, ports)
+        for hop_syms, _d, _z, prb in jpucch._f1_hops(jc):
+            _place(grid, sig[[s - base["start_symbol"] for s in hop_syms]], hop_syms,
+                   [prb] * len(hop_syms), h)
+        sent.append((m0, occ, bits))
+    kw = dict(initial_cyclic_shift=0, occ_index=0, **base)
+    want = jpucch.format1_detect_batch(jnp.asarray(grid), jpucch.PucchFormat1Config(**kw))
+    got = tpucch.format1_detect_batch(to_torch(grid), tpucch.PucchFormat1Config(**kw))
+    corr_j = np.asarray(want["corr"])
+    assert to_np(got["corr"]).shape == corr_j.shape and corr_j.shape[0] == 12
+    assert np.abs(to_np(got["corr"]) - corr_j).max() <= 1e-4 * np.abs(corr_j).max()
+    assert np.abs(to_np(got["rho"]) - np.asarray(want["rho"])).max() <= 1e-4
+    np.testing.assert_array_equal(to_np(got["bits2"]), np.asarray(want["bits2"]))
+    for m0, occ, bits in sent:
+        np.testing.assert_array_equal(to_np(got["bits2"][m0, occ, : bits.size]), bits)
+        assert float(got["rho"][m0, occ]) > tpucch.F1_DTX_THRESHOLD

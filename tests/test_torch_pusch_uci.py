@@ -236,7 +236,8 @@ def test_two_bit_ack_retransmission_with_harq_buffer():
 @pytest.mark.parametrize("smooth", [True, False])
 def test_estimator_noise_and_metrics(smooth):
     """estimate_channel: h, the pilot-residual noise_var and epre / rsrp /
-    snr against the reference's, per (layer, port) on a 2-symbol DM-RS."""
+    snr against the reference's, per (layer, port) on a 2-symbol DM-RS, and
+    the TA and CFO metrics when asked for."""
     rng = np.random.default_rng(4)
     shape = (2, 3, 2, 48)  # (layer, port, DM-RS symbol, pilot)
     y = ((rng.standard_normal(shape) + 1j * rng.standard_normal(shape)) * 0.3
@@ -253,8 +254,14 @@ def test_estimator_noise_and_metrics(smooth):
     assert set(mt) == set(mj) == {"epre", "rsrp", "snr"}
     for k in mt:
         np.testing.assert_allclose(to_np(mt[k]), np.asarray(mj[k]), rtol=1e-4)
-    with pytest.raises(NotImplementedError, match="Q1.8.2"):
-        test_.estimate_channel(to_torch(y), to_torch(ref), to_torch(wf), pos, 96, compute_ta=True)
+    # With the TA and CFO metrics: the same TA bins, the CFO within 1e-5 rad.
+    _, _, mj = jest.estimate_channel(jnp.asarray(y), jnp.asarray(ref), jnp.asarray(wf), pos, 96,
+                                     smooth=smooth, compute_ta=True, compute_cfo=True)
+    _, _, mt = test_.estimate_channel(to_torch(y), to_torch(ref), to_torch(wf), pos, 96,
+                                      smooth=smooth, compute_ta=True, compute_cfo=True)
+    np.testing.assert_array_equal(to_np(mt["ta_peak_bin_4096"]), np.asarray(mj["ta_peak_bin_4096"]))
+    np.testing.assert_allclose(to_np(mt["cfo_phase_per_dmrs_symbol"]),
+                               np.asarray(mj["cfo_phase_per_dmrs_symbol"]), atol=1e-5)
 
 
 def test_two_step_csi_raises():

@@ -6,7 +6,8 @@ Tolerances: DL grids within 1e-6 x RMS; CRC verdicts, TB bits and UCI
 bits exact; snr_db atol 1e-3 and PUCCH metrics rtol 1e-4 (as
 tests/test_torch_ul_slot_uci.py); SRS h rtol 1e-4 of its largest value,
 SNR atol 1e-3 dB and the phase slope atol 1e-5 rad (float32 FFTs of two
-libraries).
+libraries); ta_s rtol 1e-6 (the same delay-profile bins); RACH
+indications: the same preambles and TA bins, metric rtol 1e-4.
 """
 
 import dataclasses
@@ -69,16 +70,20 @@ def _dl_both(jphy, tphy, req, data):
     return gj, to_np(gt)
 
 
-def _ul_both(jphy, tphy, req, grid):
-    """Both packages' SlotResults of one UL_TTI.request on the same grid,
-    held equal; returns the port's."""
-    rj = jphy.process_ul_tti(req, grid)
-    rt = tphy.process_ul_tti(tfapi.UlTtiRequest.from_reference(req), torch.from_numpy(grid))
+def _ul_both(jphy, tphy, req, grid, prach_fd=None):
+    """Both packages' SlotResults of one UL_TTI.request on the same grid
+    (and PRACH buffer), held equal; returns the port's."""
+    rj = jphy.process_ul_tti(req, grid,
+                             prach_fd=None if prach_fd is None else jnp.asarray(prach_fd))
+    rt = tphy.process_ul_tti(tfapi.UlTtiRequest.from_reference(req), torch.from_numpy(grid),
+                             prach_fd=None if prach_fd is None else torch.from_numpy(prach_fd))
     assert [(c.rnti, c.harq_id, c.tb_crc_ok) for c in rt.crc] == \
         [(c.rnti, c.harq_id, c.tb_crc_ok) for c in rj.crc]
     for ct, cj in zip(rt.crc, rj.crc):
         assert abs(ct.snr_db - cj.snr_db) <= 1e-3, (ct.snr_db, cj.snr_db)
-        assert ct.ta_s is None and cj.ta_s is None
+        assert (ct.ta_s is None) == (cj.ta_s is None)
+        if cj.ta_s is not None:
+            np.testing.assert_allclose(ct.ta_s, cj.ta_s, rtol=1e-6)
     assert [(d.rnti, d.harq_id) for d in rt.rx_data] == [(d.rnti, d.harq_id) for d in rj.rx_data]
     for dt, dj in zip(rt.rx_data, rj.rx_data):
         np.testing.assert_array_equal(dt.payload, np.asarray(dj.payload))
@@ -93,7 +98,11 @@ def _ul_both(jphy, tphy, req, grid):
         assert np.abs(st.h - h_j).max() <= 1e-4 * np.abs(h_j).max()
         assert abs(st.snr_db - sj.snr_db) <= 1e-3
         assert abs(st.phase_slope - sj.phase_slope) <= 1e-5
-    assert len(rt.errors) == len(rj.errors) and not rt.rach
+    assert len(rt.errors) == len(rj.errors)
+    assert [(r.preamble_index, r.ta_samples) for r in rt.rach] == \
+        [(r.preamble_index, r.ta_samples) for r in rj.rach]
+    for r_t, r_j in zip(rt.rach, rj.rach):
+        np.testing.assert_allclose(r_t.metric, r_j.metric, rtol=1e-4)
     return rt
 
 
@@ -367,14 +376,20 @@ def test_validators():
 
 
 def test_ul_tti_refuses_prach_and_other_devices():
-    """A PRACH PDU raises NotImplementedError naming its ROADMAP item; a
-    received grid on another device than the PHY's, or not a tensor,
-    raises ValueError (no silent move)."""
+    """A PRACH PDU without a PRACH buffer gets an ErrorIndication, as in
+    the reference, and the rest of the request is still answered; a
+    received grid or PRACH buffer on another device than the PHY's, or not
+    a tensor, raises ValueError (no silent move)."""
     tphy = TUpperPhy(TUpperPhyConfig(device="cpu"))
     prach = tfapi.UlPrachPdu(tfapi.PrachConfig(l_ra=839, zero_correlation_zone=1))
     grid = torch.zeros((1, 14, 624), dtype=torch.complex64)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP Q1\.10\.1\b"):
-        tphy.process_ul_tti(tfapi.UlTtiRequest(slot=_slot(), prach=[prach]), grid)
+    res = tphy.process_ul_tti(tfapi.UlTtiRequest(slot=_slot(), prach=[prach]), grid)
+    assert [e.message for e in res.errors] == ["PRACH requested, no buffer"] and not res.rach
+    with pytest.raises(ValueError, match="lives on cpu"):
+        TUpperPhy(TUpperPhyConfig(device="meta")).process_ul_tti(
+            tfapi.UlTtiRequest(slot=_slot(), prach=[prach]),
+            torch.zeros((1, 14, 624), device="meta"),
+            prach_fd=torch.zeros((1, 839), dtype=torch.complex64))
     with pytest.raises(ValueError, match="torch tensor"):
         tphy.process_ul_tti(tfapi.UlTtiRequest(slot=_slot()), np.zeros((1, 14, 624), np.complex64))
     meta = TUpperPhy(TUpperPhyConfig(device="meta"))
@@ -396,3 +411,66 @@ def test_pucch_f34_error_indication():
     jphy, tphy = _phys(nof_ports=1)
     rt = _ul_both(jphy, tphy, req, np.zeros((1, 14, 624), np.complex64))
     assert len(rt.errors) == 1 and not rt.uci
+
+
+def _prach_fd(cfg, preambles, ports: int, seed: int) -> np.ndarray:
+    """(ports, L_RA) demodulated occasion: each (preamble, delay in bins
+    of the dft_size-point profile) at unit power a subcarrier through a
+    random gain per port, plus AWGN at 0 dB."""
+    from srsran_project_tpu.phy import prach as jprach
+
+    rng = np.random.default_rng(seed)
+    n = np.arange(cfg.l_ra)
+    rx = np.zeros((ports, cfg.l_ra), np.complex128)
+    for pi, d in preambles:
+        g = (rng.standard_normal(ports) + 1j * rng.standard_normal(ports)) / np.sqrt(2)
+        rx += g[:, None] * (jprach.generate_preamble(cfg, pi) / np.sqrt(cfg.l_ra)
+                            * np.exp(-2j * np.pi * n * d / cfg.dft_size))[None]
+    rx += np.sqrt(0.5) * (rng.standard_normal(rx.shape) + 1j * rng.standard_normal(rx.shape))
+    return rx.astype(np.complex64)
+
+
+@pytest.mark.parametrize("case", ["two-preambles", "short", "noise-only"])
+def test_ul_tti_prach(case):
+    """A PUSCH grant and a PRACH PDU in one UL_TTI: both packages' CRC and
+    RACH indications equal on the same prach_fd (PRACH processed after
+    the rest), the sent preambles found with their TA bins."""
+    from srsran_project_tpu.phy import prach as jprach
+
+    kw, preambles = {
+        "two-preambles": (dict(zero_correlation_zone=8, nof_rx_ports=2), ((5, 3), (50, 12))),
+        "short": (dict(l_ra=139, zero_correlation_zone=7, nof_rx_ports=2, dft_size=256,
+                       root_sequence_index=5), ((40, 4),)),
+        "noise-only": (dict(zero_correlation_zone=8, nof_rx_ports=2), ()),
+    }[case]
+    pcfg = jprach.PrachConfig(**kw)
+    tx_cfg, rx_cfg = _pxsch_cfgs(iters=6)
+    rng = np.random.default_rng(11)
+    tb = rng.integers(0, 2, size=(tx_cfg.tbs,), dtype=np.uint8)
+    jphy, tphy = _phys(nof_ports=1)
+    grid = np.asarray(jpdsch.process(jnp.asarray(tb), jnp.uint32(0x4601),
+                                     jnp.eye(1, dtype=jnp.complex64), tx_cfg))
+    req = jfapi.UlTtiRequest(slot=_slot(4), pusch=[jfapi.UlPuschPdu(rx_cfg, 0x4601, 0)],
+                             prach=[jfapi.UlPrachPdu(pcfg)])
+    rt = _ul_both(jphy, tphy, req, grid.astype(np.complex64),
+                  prach_fd=_prach_fd(pcfg, preambles, 2, seed=len(case)))
+    assert [c.tb_crc_ok for c in rt.crc] == [True] and not rt.errors
+    assert [r.preamble_index for r in rt.rach] == sorted(pi for pi, _d in preambles)
+    for r, (_pi, d) in zip(rt.rach, sorted(preambles)):
+        assert 0 <= r.ta_samples - d <= 1
+
+
+def test_ul_tti_reports_ta():
+    """A grant with compute_ta: the CRC indication's ta_s equal to the
+    reference's and within one bin of the delay."""
+    tx_cfg, rx_cfg = _pxsch_cfgs(iters=6)
+    rx_cfg = dataclasses.replace(rx_cfg, compute_ta=True)
+    rng = np.random.default_rng(12)
+    tb = rng.integers(0, 2, size=(tx_cfg.tbs,), dtype=np.uint8)
+    grid = np.asarray(jpdsch.process(jnp.asarray(tb), jnp.uint32(0x4601),
+                                     jnp.eye(1, dtype=jnp.complex64), tx_cfg))
+    grid = (grid * np.exp(-2j * np.pi * np.arange(624) * 30e3 * 0.3e-6)).astype(np.complex64)
+    jphy, tphy = _phys(nof_ports=1)
+    req = jfapi.UlTtiRequest(slot=_slot(5), pusch=[jfapi.UlPuschPdu(rx_cfg, 0x4601, 0)])
+    rt = _ul_both(jphy, tphy, req, grid)
+    assert rt.crc[0].tb_crc_ok and abs(rt.crc[0].ta_s - 0.3e-6) < 1.0 / (4096 * 120e3)

@@ -31,6 +31,15 @@ each alone on the call's own inputs: ``ul_slot.process_slot`` with the
 PUCCH occasions, the two-step CSI grant's ``pusch.process``, and the
 SRS estimate.
 
+So are the calls of chip_smoke.py's path 7: its first UL_TTI call (two
+PUSCH grants with TA and CFO compensation and a format-0 PRACH occasion,
+its demodulation included; timed in turns as well) and that call's
+parts, each alone on the call's own inputs: ``ul_slot.process_slot``,
+the PRACH demodulation (``lower_phy.prach_demodulate``), ``prach.detect``
+and the indications (CRC and RxData of both grants, the RACH
+indications); and path 7's PUCCH F3/F4 occasions, batched F1 detector
+and PRS estimate.
+
 Path 4 is also split into its host-heavy parts, each profiled alone on
 the slot's own inputs: the UCI decodes of its three config groups (short
 block and the polar SC decoder on the demultiplexed LLRs), and the six
@@ -138,7 +147,45 @@ def main() -> int:
         "fapi UL_TTI SRS": lambda: srs.estimate(grid6, srs6),
     }
 
+    # chip_smoke.py's path 7: the UL_TTI call with PRACH and its parts.
+    from srsran_project_tpu_torch.fapi import messages as fapi_msg
+    from srsran_project_tpu_torch.phy import prach, ptrs_prs, pucch_f34, upper_phy
+
+    ues7, noise7 = cs.p7_plan()
+    grid7 = cs.p7_grid(ues7, noise7, dev)
+    samples7 = cs.p7_prach_samples("a", cs.SEED + 70, dev)
+    req7 = cs.p7_request("a", ues7)
+    fd7 = cs.p7_prach_fd("a", samples7)
+    pdus7 = [ul_slot.UlSlotPdu(rnti=u["rnti"], first_rb=u["first_rb"], config=u["config"])
+             for u in ues7]
+    pcfg7 = req7.prach[0].config
+    outs7 = ul_slot.process_slot(grid7, pdus7)[0]
+    det7 = prach.detect(fd7, pcfg7)
+
+    def indications7():
+        res = fapi_msg.SlotResults(slot=req7.slot)
+        for pdu, out in zip(req7.pusch, outs7):
+            phy._pusch_indications(res, pdu, out)
+        upper_phy.rach_indications(res, det7)
+
+    f34_7, f1_7, _n7 = plan7 = cs.p7_pucch_plan()
+    g34_7, g1_7 = cs.p7_pucch_grids(plan7, dev)
+    prs7 = ptrs_prs.PrsConfig(**cs.P7_PRS)
+    prs_grid7 = ptrs_prs.generate_prs(prs7, device=dev)
+    path7 = {
+        "prach UL_TTI": lambda: phy.process_ul_tti(req7, grid7,
+                                                   prach_fd=cs.p7_prach_fd("a", samples7)),
+        "prach UL_TTI process_slot": lambda: ul_slot.process_slot(grid7, pdus7),
+        "prach UL_TTI PRACH demodulation": lambda: cs.p7_prach_fd("a", samples7),
+        "prach UL_TTI detect": lambda: prach.detect(fd7, pcfg7),
+        "prach UL_TTI indications": indications7,
+        "pucch F3/F4": lambda: [pucch_f34.process(g34_7, c) for c, _b, _h in f34_7],
+        "pucch F1 batch": lambda: pucch.format1_detect_batch(g1_7, f1_7[0][0]),
+        "prs": lambda: ptrs_prs.prs_toa_estimate(prs_grid7, prs7, dft_size=4096),
+    }
+
     calls = {
+        **path7,
         **shapes,
         **fapi,
         "ul_slot": lambda: ul_slot.process_slot(grid, pdus),
@@ -152,7 +199,8 @@ def main() -> int:
     }
     for name in ("float b=8", "plane b=8", "plane b=8", "float b=8", "ul_slot", "ul_slot",
                  "ul_slot_uci", "ul_slot_uci", "shapes slot", "shapes slot", "fapi UL_TTI",
-                 "ul_slot_uci", "ul_slot_uci", "fapi UL_TTI", "fapi DL_TTI", "fapi DL_TTI"):
+                 "ul_slot_uci", "ul_slot_uci", "fapi UL_TTI", "fapi DL_TTI", "fapi DL_TTI",
+                 "prach UL_TTI", "fapi UL_TTI", "fapi UL_TTI", "prach UL_TTI"):
         print(f"# turn {name}: {cs.cuda_ms(calls[name], reps=10, warmup=2):.4f} ms/call")
 
     reps = 5
