@@ -9,7 +9,7 @@ Run from the repository root on a machine with one NVIDIA Hopper card:
 It builds the port's CUDA kernels from ``srsran_project_tpu_torch/csrc``
 (into ``build/``, one ``nvcc`` per source, side by side), checks each
 kernel against its plain torch version on the card at the shapes of the
-paths below, then drives seven paths through the port's public entry
+paths below, then drives eight paths through the port's public entry
 points, each with every kernel launch counter set to 0 just before it and
 read just after:
 
@@ -92,7 +92,22 @@ read just after:
    and two F4 UEs on one PRB (OCC 4, indices 0 and 2) at 20 dB; (e)
    ``pucch.format1_detect_batch`` on four F1 UEs on one PRB (shifts
    0/3/6/9, OCC 0/1); (f) ``prs_toa_estimate`` on a 270-PRB comb-4 PRS
-   delayed by 37.3 samples.  (b)-(f) launch no kernel.
+   delayed by 37.3 samples.  (b)-(f) launch no kernel;
+8. the reference-exact conformance modes: (a) ``pusch.process`` on the
+   flagship grant (273 PRB, 4x4 over a random unitary channel, 256QAM r
+   948/1024, DM-RS on symbol 2, 30 dB) with ``estimator="reference"``: K3
+   and K1 once each, both held against their plain versions on the call's
+   inputs; (b) the whole conformance chain (reference estimator,
+   ``zf_ref`` / ``mmse_ref``, the int8 demapper, ``decode_i8`` without
+   early stop) on 273-PRB 64QAM MCS 20 grants, 2 layers on 2 ports and 1
+   layer on 4 ports, DM-RS on symbols 2 and 11: no kernel; (c) the
+   BLER-parity harness (``apps/bler_parity.run_case``, reference
+   estimator) on manifest rows 0 (TDL-A 9 dB), 7 (one tap, 60 dB) and 8
+   (TDL-A 12 dB, rank 2) at 60, 30 and 60 slots, each CRC BLER within 3
+   binomial sigmas + 0.02 of the reference's: K2 once per 30-slot chunk,
+   held against its plain version on one chunk's buffers; (d)
+   ``apps/du_low_sim`` with ``configs/conformance_parity.yml`` for 20
+   slots, exit 0 and BLER below 1: no kernel.
 
 Every CRC, every TB and UCI bit, every ``_ok`` flag and every PUCCH value
 is checked, and each PUCCH metric against its DTX threshold.  It then times each path per slot and
@@ -105,7 +120,8 @@ Output: progress and timing lines, then one JSON line with the kernels
 (time, plain version's time, the bound computed from this run's inputs,
 launches per path, device time and bound at path 5's shapes
 ("shapes_ms") and, for K2 and K3, on path 7 (a)'s inputs
-("prach_ul_tti_ms"); the resident blocks per SM, and for K3 and K4 the
+("prach_ul_tti_ms"), and for K1, K2 and K3 on path 8's inputs
+("refmodes_ms", "refmodes_bound_ms"); the resident blocks per SM, and for K3 and K4 the
 registers a thread and the same three numbers at 8 flagship slots, "b8_",
 K3 also at the uplink slot's group A, "group_a_"), the
 card's name and power limit, and as the LAST line
@@ -2426,6 +2442,228 @@ def prs_phase(card: str) -> dict:
     return counts
 
 
+# ---- the reference-exact conformance modes -------------------------------------
+
+P8_RNTI = 0x4B01
+P8_SNR_DB = 30.0
+# (b): the whole conformance chain (reference estimator, equalizer, int8
+# demapper and int8 min-sum decoder) on the 273-PRB carrier, symbols 0-13
+# with DM-RS on 2 and 11, 64QAM MCS 20 (567/1024), no early stop:
+# name -> (layers, RX ports, equalizer).
+P8_CHAIN = {"b1": (2, 2, "zf_ref"), "b2": (1, 4, "mmse_ref")}
+# (c): BLER-parity manifest rows and their slots; the harness batches
+# P8_CHUNK slots a decode (one K2 launch).
+P8_BLER = ((0, 60), (7, 30), (8, 60))
+P8_CHUNK = 30
+P8_APP = ["--config", "configs/conformance_parity.yml", "--slots", "20"]
+
+
+def p8_channel(rng, layers: int, ports: int) -> np.ndarray:
+    """(layers, ports) complex64: a random unitary matrix (layers = ports)
+    or orthonormal rows scaled to unit power a port."""
+    h = rng.standard_normal((ports, layers)) + 1j * rng.standard_normal((ports, layers))
+    return (np.linalg.qr(h)[0].T * np.sqrt(ports / layers)).astype(np.complex64)
+
+
+def p8_received(cfg, rng, device):
+    """One slot of ``cfg`` over a random channel at P8_SNR_DB a port, the
+    port's own UE side: (TB (1, A), received (1, P, 14, nsc))."""
+    import torch
+
+    from srsran_project_tpu_torch.phy import pusch
+
+    tb = torch.from_numpy(rng.integers(0, 2, size=(1, cfg.tbs), dtype=np.uint8)).to(device)
+    w = torch.from_numpy(p8_channel(rng, cfg.nof_layers, cfg.nof_rx_ports)).to(device)
+    grid = pusch.transmit(tb, torch.tensor([P8_RNTI], device=device), cfg, precoding=w)
+    noise = rng.standard_normal(tuple(grid.shape) + (2,)) * np.sqrt(0.5 * 10 ** (-P8_SNR_DB / 10))
+    noise = torch.from_numpy((noise[..., 0] + 1j * noise[..., 1]).astype(np.complex64))
+    return tb, grid + noise.to(device)
+
+
+def p8_check(what: str, out: dict, tb) -> None:
+    crc = bool(out["tb_crc_ok"][0])
+    errs = int((out["tb_bits"][0] != tb[0]).sum())
+    snr = float(out["snr_db"][0])
+    print(f"# refmodes {what}: CRC {crc}, bit errors {errs}, SINR {snr:.2f} dB")
+    if not crc or errs:
+        fail(f"refmodes {what}: CRC {crc} with {errs} bit errors")
+    if not (np.isfinite(float(out["noise_var"][0])) and np.isfinite(snr)):
+        fail(f"refmodes {what}: non-finite noise_var / snr_db")
+
+
+def refmodes_phase(card: str) -> tuple[dict, dict, dict, dict, dict, dict]:
+    """Path 8: the reference-exact conformance modes.  (a) the flagship
+    grant through ``pusch.process`` with the reference estimator (K1 and
+    K3 once, both held against their plain versions on the call's
+    inputs); (b) the whole conformance chain, no kernel; (c) the
+    BLER-parity harness on three manifest rows (K2 once a chunk, held
+    against its plain version on one chunk's buffers); (d) du_low_sim
+    with the conformance profile.  Returns the launch counts of (a), (b),
+    (c) and (d), the kernels' largest differences and their device times
+    and bounds on these inputs."""
+    import contextlib
+    import io
+    import json as json_mod
+    import re
+
+    import torch
+
+    from srsran_project_tpu_torch.apps import bler_parity, du_low_sim
+    from srsran_project_tpu_torch.models import cell
+    from srsran_project_tpu_torch.ops import equalizer
+    from srsran_project_tpu_torch.ops.ldpc import decoder
+    from srsran_project_tpu_torch.ops.modulation import Modulation
+    from srsran_project_tpu_torch.phy import pusch, sch as sch_mod
+    from srsran_project_tpu_torch.phy.allocation import Allocation
+    from srsran_project_tpu_torch.ran import tbs as tbs_mod
+
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(SEED + 80)
+    errs, times = {}, {}
+
+    # (a) The flagship grant (273 PRB, 4x4, 256QAM r 948/1024, DM-RS on
+    # symbol 2) with the reference estimator: K3 weights, K1 decode.
+    pc = dataclasses.replace(cell.CellConfig().pusch_cfg, estimator="reference")
+    tb, rx = p8_received(pc, rng, dev)
+    rnti = torch.tensor([P8_RNTI], device=dev)
+    torch.cuda.synchronize()
+    reset_counts()
+    out = pusch.process(rx, rnti, pc)
+    torch.cuda.synchronize()
+    counts_a = read_counts()
+    expect_counts("refmodes (a)", counts_a, {"decode_dematch": 1, "mmse_weights_4x4": 1})
+    p8_check("(a) flagship, estimator=reference", out, tb)
+    _gflat, h, nv = pusch._estimate_stage(rx, pc)
+    hs = h.transpose(1, 2)
+    errs["mmse_weights_4x4"], w_k, ev_k = check_k3_on(hs, nv, "refmodes (a) K3")
+    llr_i8 = pusch._front_end(rx, rnti, pc)[0]
+    bits, iters = sch_mod._fused_decode(llr_i8, pc.sch, pc.nof_ldpc_iterations, True)
+    errs["decode_dematch"] = check_k1_batch(llr_i8, bits, iters, pc, "refmodes (a)")
+    seg = pc.sch.seg
+    e_groups = sch_mod._e_groups(pc.sch.cb_e_bits)
+    k1_plan = decoder.dematch_decode_plan(seg.base_graph, seg.lifting_size,
+                                          seg.nof_payload_bits_per_cb, e_groups[0][2],
+                                          pc.sch.rv, pc.sch.qm,
+                                          pc.sch.n_cb or seg.full_codeword_bits)
+    times["decode_dematch"] = (
+        kernel_ms(lambda: sch_mod._fused_decode(llr_i8, pc.sch, 6, True)),
+        ldpc_bound(k1_plan, iters, (llr_i8,), (bits, iters))[0])
+    # K3's bound as in check_k3: about 1.5k float32 operations a subcarrier.
+    times["mmse_weights_4x4"] = (kernel_ms(lambda: equalizer.mmse_weights_4x4(hs, nv)),
+                                 bound(nbytes(hs, nv, w_k, ev_k),
+                                       1500.0 * hs.shape[0] * hs.shape[1])[0])
+    report_call(card, "refmodes (a) pusch.process, 273 PRB 4x4 256QAM, estimator=reference",
+                lambda: pusch.process(rx, rnti, pc))
+    report_call(card, "refmodes (a) estimate stage, estimator=reference",
+                lambda: pusch._estimate_stage(rx, pc))
+    fast = dataclasses.replace(pc, estimator="fast")
+    report_call(card, "refmodes (a) estimate stage, estimator=fast (same grid)",
+                lambda: pusch._estimate_stage(rx, fast))
+
+    # (b) The conformance chain: no kernel of the port runs.
+    counts_b = {}
+    for name, (layers, ports, eq) in P8_CHAIN.items():
+        rate = 567.0 / 1024.0
+        alloc = Allocation(rb_start=0, rb_count=273, sym_start=0, sym_count=14,
+                           dmrs_symbols=(2, 11))
+        cfg = pusch.PuschConfig(
+            tbs=tbs_mod.calculate_tbs(273, 14, 24, rate, 6, layers), target_code_rate=rate,
+            modulation=Modulation.QAM64, alloc=alloc, nof_layers=layers, nof_rx_ports=ports,
+            nof_grid_sc=273 * 12, estimator="reference", equalizer=eq, demapper="reference",
+            ldpc_decoder="reference_i8", ldpc_early_stop=False)
+        tb_b, rx_b = p8_received(cfg, rng, dev)
+        torch.cuda.synchronize()
+        reset_counts()
+        out = pusch.process(rx_b, rnti, cfg)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        expect_counts(f"refmodes ({name})", counts, {})
+        p8_check(f"({name}) conformance chain {layers} layer(s) x {ports} ports, {eq}, "
+                 f"C={cfg.sch.seg.nof_codeblocks}", out, tb_b)
+        for k, v in counts.items():
+            counts_b[k] = counts_b.get(k, 0) + v
+        report_call(card, f"refmodes ({name}) pusch.process, conformance chain {layers}x{ports}",
+                    lambda c=cfg, r=rx_b: pusch.process(r, rnti, c))
+        llr_b = pusch._front_end(rx_b, rnti, cfg)[0]
+        buf = sch_mod._dematch_stage(llr_b, None, cfg.sch)
+        report_call(card, f"refmodes ({name}) decode_i8, {buf.shape[-2]} codeblocks, 6 iterations",
+                    lambda b=buf, c=cfg: sch_mod._decode_i8_stage(b, c.sch, 6, False))
+
+    # (c) The BLER-parity harness: K2 once a chunk.
+    manifest = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "golden",
+                            "bler_parity", "manifest.json")
+    with open(manifest) as f:
+        cases = json_mod.load(f)
+    counts_c = {}
+    for row, slots in P8_BLER:
+        case = cases[row]
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        res = bler_parity.run_case(case, slots, chunk=P8_CHUNK, parity_kernels=True,
+                                   device=DEVICE)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        expect_counts(f"refmodes (c) row {row}", counts, {"decode": -(-slots // P8_CHUNK)})
+        lim = bler_parity.bler_bound(case, slots)
+        print(f"# [{card}] refmodes (c) row {row} {case['profile']} {case['sinr_db']} dB "
+              f"MCS {case['mcs']} rank {case.get('layers', 1)}: CRC BLER {res['crc_bler']:.4f} "
+              f"(reference {case['crc_bler']:.4f}, bound +-{lim:.4f}), data BLER "
+              f"{res['data_bler']:.4f}, iterations {res['iter_min']}/{res['iter_mean']:.3f}/"
+              f"{res['iter_max']} (reference mean {case['iter_mean']:.3f}); {slots} slots in "
+              f"{wall:.3f} s")
+        if not abs(res["crc_bler"] - case["crc_bler"]) <= lim:
+            fail(f"refmodes (c) row {row}: CRC BLER {res['crc_bler']} outside "
+                 f"{case['crc_bler']} +- {lim:.4f}")
+        for k, v in counts.items():
+            counts_c[k] = counts_c.get(k, 0) + v
+    # K2 on one chunk of row 0's buffers.
+    cfg0, ch0 = bler_parity.case_config(cases[0], True)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 81)
+    tb0 = torch.from_numpy(rng.integers(0, 2, size=(P8_CHUNK, cfg0.tbs), dtype=np.uint8)).to(dev)
+    buf0 = bler_parity.received_buffers(tb0, cfg0, ch0, gen)
+    s0 = cfg0.sch.seg
+    errs["decode"] = check_k2(buf0, s0.base_graph, s0.lifting_size, cfg0.sch.n_cb,
+                              "refmodes (c) row 0 chunk")
+    kargs = (s0.base_graph, s0.lifting_size, 6, True, True, cfg0.sch.n_cb)
+    bits0, _, its0 = decoder.decode(buf0, *kargs)
+    plan0 = decoder.decode_plan(s0.base_graph, s0.lifting_size, buf0.shape[-1], cfg0.sch.n_cb)
+    times["decode"] = (kernel_ms(lambda: decoder.decode(buf0, *kargs)),
+                       ldpc_bound(plan0, its0, (buf0,), (bits0, its0))[0])
+    report_call(card, f"refmodes (c) one chunk of row 0 ({P8_CHUNK} slots)",
+                lambda: bler_parity.run_case(cases[0], P8_CHUNK, chunk=P8_CHUNK,
+                                             parity_kernels=True, device=DEVICE))
+
+    # (d) du_low_sim with the conformance profile: no kernel.
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    reset_counts()
+    with contextlib.redirect_stderr(buf):
+        rc = du_low_sim.main(list(P8_APP))
+    torch.cuda.synchronize()
+    counts_d = read_counts()
+    text = buf.getvalue()
+    for line in text.splitlines():
+        print(f"# du_low_sim {' '.join(P8_APP)}: {line.lstrip('# ')}")
+    m = re.search(r"# (\d+) slots in ([0-9.]+)s \(([0-9.]+) slot-pairs/s\), BLER=([0-9.]+)", text)
+    if m is None:
+        fail(f"du_low_sim {P8_APP}: no summary line (rc {rc})")
+    bler = float(m.group(4))
+    print(f"# [{card}] refmodes (d) du_low_sim conformance profile: rc {rc}, BLER {bler:.3f}, "
+          f"{m.group(3)} slot-pairs/s")
+    if rc != 0 or not bler < 1.0:
+        fail(f"refmodes (d) du_low_sim: rc {rc}, BLER {bler}, want rc 0 and BLER < 1")
+    expect_counts("refmodes (d)", counts_d, {})
+
+    def one_slot():
+        with contextlib.redirect_stderr(io.StringIO()):
+            du_low_sim.main([*P8_APP[:2], "--slots", "1"])
+
+    report_call(card, "refmodes (d) du_low_sim, one slot (DL, channel and UL)", one_slot)
+    return counts_a, counts_b, counts_c, counts_d, errs, times
+
+
 def main() -> int:
     import torch
 
@@ -2476,6 +2714,10 @@ def main() -> int:
         errs[name] = max(errs.get(name, 0.0), err)
     per_path["pucch_f34"], per_path["pucch_f1_batch"] = pucch_f34_phase(card)
     per_path["prs"] = prs_phase(card)
+    (per_path["refmodes_a"], per_path["refmodes_b"], per_path["refmodes_c"],
+     per_path["refmodes_d"], errs8, times8) = refmodes_phase(card)
+    for name, err in errs8.items():
+        errs[name] = max(errs.get(name, 0.0), err)
     # Each kernel's launches on the path it serves (one call of it), and
     # on every path.
     home = {"decode_dematch": "flagship", "mmse_weights_4x4": "flagship", "decode": "ul_slot",
@@ -2488,6 +2730,8 @@ def main() -> int:
             k["shapes_ms"] = times5[k["name"]]
         if k["name"] in times7:  # and on path 7 (a)'s inputs
             k["prach_ul_tti_ms"] = times7[k["name"]]
+        if k["name"] in times8:  # device ms and bound on path 8's inputs
+            k["refmodes_ms"], k["refmodes_bound_ms"] = times8[k["name"]]
     print(f"# chip_smoke took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -8,6 +8,10 @@ dimension, and run on the device of their input tensor: on a CUDA tensor
 the UL goes through the hand-written kernels K1 (LDPC) and K3 (MMSE
 weights), and with ``demapper="planes"`` K4 (apply + demap into the
 decoder's bit-planes); on a CPU tensor through their plain torch versions.
+The reference-exact modes (``equalizer="mmse_ref"/"zf_ref"``,
+``demapper="reference"``, ``ldpc_decoder="reference_i8"``) run in plain
+torch on either device; with ``reference_i8`` the decode takes the
+two-stage path into ``decode_i8``, as the reference's fused program does.
 """
 
 from __future__ import annotations
@@ -21,7 +25,7 @@ from ..ops import ofdm
 from ..ops.modulation import Modulation
 from ..phy import pdsch, pusch
 from ..phy.allocation import Allocation
-from ..phy.sch import _desegment_stage, _fused_decode, decode_from_planes
+from ..phy.sch import _desegment_stage, _fused_decode, decode_from_planes, decode_transport_block
 from ..ran import tbs as tbs_mod
 from ..ran.constants import NRE, CyclicPrefix, SubcarrierSpacing, min_dft_size
 
@@ -162,9 +166,13 @@ def decode_slot(iq: torch.Tensor, rnti, cfg: CellConfig) -> dict:
                                     early_stop=pc.ldpc_early_stop)
     else:
         llr_i8, noise_var, snr_acc = pusch._front_end(grid, rntis, pc)
-        bits, _iters = _fused_decode(llr_i8, pc.sch, pc.nof_ldpc_iterations,
-                                     pc.ldpc_early_stop)
-        tb, ok = _desegment_stage(bits, pc.sch, llr_i8.shape[:-1])
+        if pc.sch.decoder == "reference_i8":
+            tb, ok, _harq = decode_transport_block(llr_i8, pc.sch, pc.nof_ldpc_iterations,
+                                                   early_stop=pc.ldpc_early_stop)
+        else:
+            bits, _iters = _fused_decode(llr_i8, pc.sch, pc.nof_ldpc_iterations,
+                                         pc.ldpc_early_stop)
+            tb, ok = _desegment_stage(bits, pc.sch, llr_i8.shape[:-1])
     out = {
         "tb_bits": tb,
         "tb_crc_ok": ok,

@@ -22,12 +22,16 @@ equalizer.py, tx_scaling = 1) and of the TPU kernel
 * ``equalize(y, h, noise_var, method)`` equalizes each resource element
   with its own channel, for allocations whose data REs do not fill whole
   rows (data on the DM-RS symbols): plain torch, as in the reference.
+* ``equalize_ref`` is the reference-parity equalizer of the conformance
+  modes (``equalizer="mmse_ref"/"zf_ref"``, 1-2 layers, per-port noise):
+  plain torch, as in the reference.
 """
 
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from . import cuda_lib
@@ -329,3 +333,69 @@ def equalize(y: torch.Tensor, h: torch.Tensor, noise_var: torch.Tensor, method: 
         mu = torch.clamp((cinv * gram.transpose(-1, -2)).sum(dim=-1).real, 1e-9, 1.0 - 1e-9)
         return xt / mu, (1.0 - mu) / mu
     return xt, nv * torch.diagonal(cinv, dim1=-2, dim2=-1).real
+
+
+# ---- reference parity (channel_equalizer_generic_impl, 1-2 layers) ---------
+
+_TINY = 1.1754944e-38  # smallest normal float32 (the reference's isnormal gate)
+
+
+def _isnormal(x: torch.Tensor) -> torch.Tensor:
+    return torch.isfinite(x) & (x.abs() >= _TINY)
+
+
+def equalize_ref(y: torch.Tensor, h: torch.Tensor, noise_var_port: torch.Tensor,
+                 tx_scaling: float = 1.0, method: str = "zf"):
+    """Reference-parity equalizer, port of the reference's ``equalize_ref``
+    (channel_equalizer_generic_impl semantics): y (..., nre, P) complex64,
+    h (..., nre, P, L) complex64, noise_var_port (..., P) per-port noise
+    variances (the leading dimensions of y without nre) -> (x_hat (...,
+    nre, L), eq_nvar (..., nre, L)).
+
+    * L = 1, ZF and MMSE alike (the reference reduces 1-layer MMSE to ZF):
+      per-port accumulation with per-port noise weighting, ports whose
+      |h|^2 or noise is not a normal positive float left out;
+      eq_nvar = sum(|h|^2 sigma_p) / (beta sum |h|^2)^2.
+    * L = 2 (ZF): the adjugate solve with the largest port noise,
+      eq_nvar_l = sigma_max [G^-1]_ll / beta.
+    An abnormal denominator gives (0, inf), as in the reference; above 2
+    layers it raises ValueError, as the reference does."""
+    nlayers = h.shape[-1]
+    beta = float(np.float32(tx_scaling))
+    nv = torch.as_tensor(noise_var_port, dtype=torch.float32, device=h.device)
+    zero = torch.zeros((), dtype=torch.complex64, device=h.device)
+    if nlayers == 1:
+        nv = nv[..., None, :]  # (..., 1, P)
+        h1 = h[..., 0]
+        norm = h1.abs() ** 2
+        port_ok = _isnormal(norm) & _isnormal(nv) & (nv > 0)
+        norm = torch.where(port_ok, norm, 0.0)
+        mf = torch.where(port_ok, y * h1.conj(), zero)
+        ch_mod_sq = norm.sum(dim=-1)
+        nvar_acc = (norm * nv).sum(dim=-1)
+        re_out = mf.sum(dim=-1)
+        d_pinv = beta * ch_mod_sq
+        ok = _isnormal(d_pinv) & _isnormal(nvar_acc)
+        rcp = torch.where(ok, 1.0 / torch.where(ok, d_pinv, 1.0), 0.0)
+        x = torch.where(ok, re_out * rcp, zero)
+        nvar = torch.where(ok, nvar_acc * rcp * rcp, torch.inf)
+        return x[..., None], nvar[..., None]
+    if nlayers == 2:
+        sigma = nv.amax(dim=-1)[..., None]  # (..., 1)
+        h0, h1 = h[..., 0], h[..., 1]
+        g00 = (h0.abs() ** 2).sum(dim=-1)
+        g11 = (h1.abs() ** 2).sum(dim=-1)
+        xi = (h1 * h0.conj()).sum(dim=-1)
+        m0 = (y * h0.conj()).sum(dim=-1)
+        m1 = (y * h1.conj()).sum(dim=-1)
+        d_pinv = beta * (g00 * g11 - xi.abs() ** 2)
+        ok = _isnormal(d_pinv) & (d_pinv > 0)
+        rcp = torch.where(ok, 1.0 / torch.where(ok, d_pinv, 1.0), 0.0)
+        x0 = torch.where(ok, (m0 * g11 - xi * m1) * rcp, zero)
+        x1 = torch.where(ok, (m1 * g00 - xi.conj() * m0) * rcp, zero)
+        nv0 = torch.where(ok, g11 * sigma * rcp, torch.inf)
+        nv1 = torch.where(ok, g00 * sigma * rcp, torch.inf)
+        return torch.stack([x0, x1], dim=-1), torch.stack([nv0, nv1], dim=-1)
+    raise ValueError(
+        f"reference parity covers 1-2 layers (the open-source reference stubs "
+        f"3-4 layer equalizers); got {nlayers}; use equalize() instead")

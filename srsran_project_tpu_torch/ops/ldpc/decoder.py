@@ -555,3 +555,95 @@ def decode(llrs: torch.Tensor, bg: int, z: int, nof_iterations: int = 6,
 
 
 decode.launches = 0
+
+
+# ---- reference-exact int8 mode ----------------------------------------------
+
+LLR_INF = 127  # fixed-bit marker (log_likelihood_ratio.h:250)
+LLR_MAX = 120  # saturation bound (log_likelihood_ratio.h:255)
+# The largest check-to-variable magnitude, floor(0.8f * LLR_MAX + 0.5).
+_R_MAX = 96
+
+
+def _i8_layer_index(bg: int, z: int, li: int) -> np.ndarray:
+    """(deg*Z,) flat a-posteriori positions of check row li's edges,
+    col*Z + (z + shift) mod Z edge by edge."""
+    zi = np.arange(z)
+    return np.concatenate([col * z + (zi + shift) % z
+                           for col, shift in graphs.get_graph(bg, z).row_edges(li)])
+
+
+def _i8_tables(which: str) -> np.ndarray:
+    """The int8 decoder's two lookup tables (int32).
+
+    "message": the signed check-to-variable message of a magnitude m in
+    0..LLR_MAX, floor(0.8f m + 0.5) in float32 (the reference's
+    scale_llr), at index m, and its negation at LLR_MAX + 1 + m.
+    "promote": the reference's promotion sum of a variable-to-check value
+    and its new message, s = v + r, at index s + LLR_INF + _R_MAX: s where
+    |s| <= LLR_MAX, else +-LLR_INF.  (The sum's other branches cannot
+    fire here: |r| <= _R_MAX < LLR_INF, a fixed +-LLR_INF v is kept
+    apart, and v == -r gives s = 0 anyway.)"""
+    if which == "message":
+        m = np.arange(LLR_MAX + 1, dtype=np.float32)
+        r = np.floor(m * np.float32(SCALING) + np.float32(0.5)).astype(np.int32)
+        return np.concatenate([r, -r])
+    s = np.arange(-LLR_INF - _R_MAX, LLR_INF + _R_MAX + 1, dtype=np.int32)
+    return np.where(np.abs(s) > LLR_MAX, np.sign(s) * LLR_INF, s).astype(np.int32)
+
+
+_i8_layer_on = device_table(lambda bg, z, li: _i8_layer_index(bg, z, li).astype(np.int64))
+_i8_table_on = device_table(_i8_tables)
+
+
+def decode_i8(llrs: torch.Tensor, bg: int, z: int, nof_iterations: int = 6,
+              nof_layers: int | None = None):
+    """Reference-exact int8 layered min-sum decode (port of the reference's
+    ``decode_i8``, ldpc_decoder_generic.cpp semantics) on int32 lanes,
+    where torch's int8 would wrap: every sum saturates explicitly.
+
+    llrs: (C, N) int8 or int32 circular-buffer LLRs (N <= (n-2)*Z, the
+    punctured 2Z prefix left out; missing tail positions are erasures).
+    Returns (bits (C, Kb*Z) uint8, app (C, n*Z) int32 final LLRs).
+
+    Numerics: input clamped to +-64; variable-to-check v = the saturated
+    difference clip(APP - r, +-LLR_MAX), a fixed +-LLR_INF APP passing
+    through (the reference's sum: r never reaches LLR_INF); check minima
+    capped at LLR_MAX (the reference's min registers start there, so
+    +-LLR_INF never wins the min), the smallest and second smallest with
+    duplicates counted (two equal minima give every edge m1);
+    check-to-variable magnitude floor(0.8f * min + 0.5) in float32 and
+    sign the parity of the other edges; soft bits = the promotion sum
+    (beyond +-LLR_MAX -> +-LLR_INF); hard bit = 1 iff LLR <= 0.  The
+    message and the promotion are lookups in ``_i8_tables``.  Each layer
+    gathers and writes back exactly its own edges (no padded columns), so
+    the write-back has no duplicate index.  Plain torch on the device of
+    the input: about twenty tensor operations a layer."""
+    g = graphs.get_graph(bg, z)
+    nl = g.m if nof_layers is None else nof_layers
+    c, n_in = llrs.shape
+    if n_in > (g.n - 2) * z:
+        raise ValueError(f"decode_i8: {n_in} LLRs exceed the (n-2)*Z = {(g.n - 2) * z} "
+                         "circular buffer")
+    dev = llrs.device
+    app = torch.zeros((c, g.n * z), dtype=torch.int32, device=dev)
+    app[:, 2 * z : 2 * z + n_in] = llrs.to(torch.int32).clamp(-int(INPUT_CLAMP),
+                                                               int(INPUT_CLAMP))
+    message = _i8_table_on(dev, "message")
+    promote = _i8_table_on(dev, "promote")
+    idx = [_i8_layer_on(dev, bg, z, li) for li in range(nl)]
+    r = [torch.zeros((c, ix.numel() // z, z), dtype=torch.int32, device=dev) for ix in idx]
+    for _ in range(nof_iterations):
+        for li, ix in enumerate(idx):
+            a = app[:, ix].view(r[li].shape)
+            fixed = a.abs() == LLR_INF
+            v = torch.where(fixed, a, (a - r[li]).clamp_(-LLR_MAX, LLR_MAX))
+            absv = v.abs().clamp_max_(LLR_MAX)
+            two = absv.topk(2, dim=1, largest=False).values  # (m1, m2), duplicates counted
+            mag = torch.where(absv == two[:, :1], two[:, 1:], two[:, :1])
+            neg = v >> 31  # -1 where negative
+            flip = (neg.sum(dim=1, keepdim=True, dtype=torch.int32) - neg) & 1
+            r[li] = message[mag + flip * (LLR_MAX + 1)]
+            out = promote[v + r[li] + (LLR_INF + _R_MAX)]
+            app[:, ix] = torch.where(fixed, v, out).view(c, -1)
+    return (app[:, : g.kb * z] <= 0).to(torch.uint8), app

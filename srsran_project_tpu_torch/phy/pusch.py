@@ -21,9 +21,16 @@ follows the decoded RI, ``phy/ulsch_demux``) and HARQ (``finish``).  ``process``
 with ``compute_ta`` both add ``ta_s``, the signed delay in seconds.
 The plane path (``demapper="planes"``) runs apply + demap + quantize +
 descramble in kernel K4 straight into the decoder's bit-planes
-(``_front_end_planes``).  Every function takes a leading batch dimension
-(B, ...): slots, or the grants of a slot.  Field values outside these
-paths raise ``NotImplementedError`` naming their ROADMAP sub-item.
+(``_front_end_planes``).  The reference-exact conformance modes run too:
+``estimator="reference"`` (the 31-tap reference estimator of
+``ops/estimator_reftorch``, with its epoch-based CFO derotation and TA,
+then PT-RS tracking, which the reference skips: ROADMAP Q3),
+``equalizer="mmse_ref"/"zf_ref"`` (``equalizer.equalize_ref`` per RE),
+``demapper="reference"`` (the int8 interval demapper
+``demapper_i8.demap_llr_i8``) and ``ldpc_decoder="reference_i8"``
+(``SchConfig.decoder``: the int8 layered min-sum ``decode_i8``).  Every
+function takes a leading batch dimension (B, ...): slots, or the grants
+of a slot.
 """
 
 from __future__ import annotations
@@ -34,12 +41,13 @@ import functools
 import numpy as np
 import torch
 
-from ..ops import scrambling, transform_precoding
+from ..ops import estimator_reftorch, scrambling, transform_precoding
 from ..ops._tables import device_table
 from ..ops.demap_planes import demap_planes
-from ..ops.equalizer import equalize, equalize_weights, mmse_weights_4x4
+from ..ops.equalizer import equalize, equalize_ref, equalize_weights, mmse_weights_4x4
 from ..ops.estimator import channel_metrics, estimate_h
 from ..ops.modulation import Modulation, demap_soft, quantize_llr
+from ..ops.modulation.demapper_i8 import demap_llr_i8
 from ..ops.modulation.evm import evm
 from ..ran import csi as csi_mod
 from ..ran import dmrs as dmrs_mod
@@ -49,12 +57,12 @@ from . import pdsch as pdsch_mod
 from . import ulsch_demux
 from .sch import SchConfig, _fused_decode_ok, decode_transport_block
 
-# Field -> (the values this port runs, the ROADMAP item that ports the rest).
-_SLICE_ONLY = {
-    "equalizer": (("mmse", "zf"), "Q1.8.8"),
-    "estimator": (("fast",), "Q1.8.7"),
-    "demapper": (("float", "planes"), "Q1.8.8"),
-    "ldpc_decoder": (("auto",), "Q1.8.8"),
+# Kernel selections -> the values they take (the reference's).
+MODES = {
+    "equalizer": ("mmse", "zf", "mmse_ref", "zf_ref"),
+    "estimator": ("fast", "reference"),
+    "demapper": ("float", "planes", "reference"),
+    "ldpc_decoder": ("auto", "reference_i8"),
 }
 
 
@@ -122,11 +130,10 @@ class PuschConfig:
     compute_ta: bool = False
 
     def __post_init__(self):
-        for name, (ported, item) in _SLICE_ONLY.items():
-            if getattr(self, name) not in ported:
-                raise NotImplementedError(
-                    f"PuschConfig.{name}={getattr(self, name)!r} is not ported yet "
-                    f"(ROADMAP {item}); the port runs {name} in {ported!r}")
+        for name, values in MODES.items():
+            if getattr(self, name) not in values:
+                raise ValueError(f"PuschConfig.{name}={getattr(self, name)!r}: want one of "
+                                 f"{values}")
 
     @classmethod
     def from_reference(cls, ref) -> "PuschConfig":
@@ -245,6 +252,8 @@ def _estimate(grid: torch.Tensor, cfg: PuschConfig, r_override=None):
     nsym_d, Np) replaces the config's DM-RS pilot values per batch element
     (the grants of a multi-UE slot share a compact config, but their
     pilots follow each grant's absolute CRB)."""
+    if cfg.estimator == "reference":
+        return _estimate_reference(grid, cfg, r_override)
     a = cfg.alloc
     nl, npr = cfg.nof_layers, cfg.nof_rx_ports
     nsym_d = len(a.dmrs_symbols)
@@ -304,6 +313,71 @@ def _estimate(grid: torch.Tensor, cfg: PuschConfig, r_override=None):
         # was before, which undoes the CFO compensation (ROADMAP Q3).
         gflat = _ptrs_derotate(grid, gflat, h, cfg)
     return gflat, h, nv, extras
+
+
+@functools.lru_cache(maxsize=None)
+def _reference_config(cfg: PuschConfig) -> estimator_reftorch.RefEstimatorConfig:
+    """The reference estimator's config of a grant: the allocation's PRBs
+    and symbols, the DM-RS pattern of CDM group 0 (and of group 1 above 2
+    layers) relative to the allocation, the DM-RS boost as the scaling,
+    the 31-tap filter, the time average, and CFO compensation with two or
+    more DM-RS symbols."""
+    a = cfg.alloc
+    nl = cfg.nof_layers
+    if nl > 4:
+        raise ValueError("estimator='reference' supports <=4 layers (2 CDM groups)")
+    ppb = dmrs_mod.pilots_per_prb(a.dmrs_config_type)
+
+    def pattern(port):
+        ks, _ = dmrs_mod.pilot_subcarriers(a.dmrs_config_type, port, a.rb_count, a.rb_start)
+        return tuple(int(k - a.sc_start) for k in ks[:ppb])
+
+    return estimator_reftorch.RefEstimatorConfig(
+        scs_khz=cfg.scs_khz, nof_prb=a.rb_count, first_symbol=a.sym_start,
+        nof_symbols=a.sym_count, dmrs_symbol_mask=sum(1 << s for s in a.dmrs_symbols),
+        re_pattern=pattern(0), re_pattern2=pattern(2) if nl > 2 else None, nof_layers=nl,
+        scaling=float(dmrs_mod.sch_to_dmrs_beta(a.nof_cdm_groups_without_data)),
+        smoothing="filter", td_strategy="average",
+        compensate_cfo=cfg.cfo_compensation and len(a.dmrs_symbols) > 1)
+
+
+_grid_epochs_on = device_table(estimator_reftorch.symbol_epochs)
+
+
+def _estimate_reference(grid: torch.Tensor, cfg: PuschConfig, r_override=None):
+    """``_estimate`` with ``estimator="reference"``: the reference
+    estimator on every receive port of each grant (both CDM groups, so up
+    to 4 layers), its noise, SNR, CFO and TA averaged over the ports, with
+    CFO compensation the grid derotated at each symbol's start epoch, and
+    with PT-RS the common-phase-error tracking of ``_estimate``.  The
+    reference returns before its PT-RS tracking, so that its PT-RS grants
+    fail under phase noise that the fast estimator's pass: repaired here
+    (ROADMAP Q3)."""
+    a = cfg.alloc
+    rcfg = _reference_config(cfg)
+    dev = grid.device
+    b = grid.shape[0]
+    # Per-layer pilots with the OCC, at transmit amplitude (the LS table
+    # is descaled by the DM-RS boost; the estimator takes raw pilots and
+    # the boost as its scaling).
+    r_all = _est_on(dev, cfg, 2)[None] if r_override is None else r_override
+    pilots = (r_all * rcfg.scaling) * _est_on(dev, cfg, 1)[:, None, :]  # (B|1, nl, nsym_d, Np)
+    window = grid[..., a.sc_start : a.sc_start + a.nof_sc]
+    outs = estimator_reftorch.estimate_port_ref(window, pilots[:, None], rcfg, ce=False)
+    h = outs["freq_resp"][..., 0, :].transpose(-1, -2)  # (B, P, nof_sc, nl)
+    if rcfg.compensate_cfo:
+        cfo = outs["cfo"].mean(dim=1)
+        phase = -2 * np.pi * _grid_epochs_on(dev, cfg.nof_grid_symbols, cfg.scs_khz) * cfo[:, None]
+        grid = grid * torch.polar(torch.ones_like(phase), phase)[:, None, :, None]
+    extras = {}
+    if cfg.sinr_method != "post_equalization":
+        extras["snr"] = outs["snr"].mean(dim=1)
+    if cfg.compute_ta:
+        extras["ta_s"] = outs["ta_s"].mean(dim=1)
+    gflat = grid.reshape(b, cfg.nof_rx_ports, -1)
+    if cfg.ptrs_enabled:
+        gflat = _ptrs_derotate(grid, gflat, h, cfg)
+    return gflat, h, outs["noise_var"].mean(dim=1), extras
 
 
 def _second_difference_noise(h_pair: torch.Tensor, nsym_d: int, beta2: float) -> torch.Tensor:
@@ -413,16 +487,19 @@ def _equalize_stage(gflat: torch.Tensor, h: torch.Tensor, noise_var: torch.Tenso
                     cfg: PuschConfig):
     """(x_hat (B, ndata, nl) complex64, eq_nvar (B, ndata, nl)) in data-RE
     order.  Full data rows: per-subcarrier weights applied to every data
-    symbol.  Otherwise (data on the DM-RS symbols): the data-RE gather and
-    the per-RE ``equalize`` with each RE's channel, as the reference
-    does."""
+    symbol.  Otherwise (data on the DM-RS symbols), and for the reference
+    equalizers: the data-RE gather and the per-RE ``equalize`` (or
+    ``equalize_ref``) with each RE's channel, as the reference does."""
     nl, npr = cfg.nof_layers, cfg.nof_rx_ports
-    if not pdsch_mod.uniform_data_rows(cfg.alloc):
+    if not pdsch_mod.uniform_data_rows(cfg.alloc) or cfg.equalizer.endswith("_ref"):
         dev = gflat.device
-        y = gflat[:, :, _data_re_on(dev, cfg)]  # (B, P, ndata)
-        h_data = h[:, :, _data_sc_on(dev, cfg), :]  # (B, P, ndata, nl)
-        return equalize(y.transpose(1, 2), h_data.transpose(1, 2), noise_var[:, None],
-                        method=cfg.equalizer)
+        y = gflat[:, :, _data_re_on(dev, cfg)].transpose(1, 2)  # (B, ndata, P)
+        h_data = h[:, :, _data_sc_on(dev, cfg), :].transpose(1, 2)  # (B, ndata, P, nl)
+        if cfg.equalizer.endswith("_ref"):
+            # The reference's per-port noise: the grant's, on every port.
+            return equalize_ref(y, h_data, noise_var[:, None].expand(-1, npr),
+                                method=cfg.equalizer[: -len("_ref")])
+        return equalize(y, h_data, noise_var[:, None], method=cfg.equalizer)
     y = _data_rows(gflat, cfg)  # (B, P, nsym_d, nof_sc)
     b, _, nsym_d, nsc = y.shape
     w, eq_sc = _weights(h, noise_var, cfg)
@@ -468,10 +545,14 @@ def _demap_stage(x_hat: torch.Tensor, eq_nvar: torch.Tensor, rnti: torch.Tensor,
     (llr_i8 (B, G), sinr (B,))."""
     b, _, nl = x_hat.shape
     qm = cfg.sch.qm
-    llr = demap_soft(x_hat.transpose(1, 2), eq_nvar.transpose(1, 2), cfg.modulation)
-    llr = llr.reshape(b, nl, -1, qm).transpose(1, 2).reshape(b, -1)  # (B, G)
-    llr_i8 = scrambling.descramble_llrs(quantize_llr(llr, cfg.llr_range_limit),
-                                        _pusch_c_init(rnti, cfg.n_id))
+    if cfg.demapper == "reference":
+        # RE-major layer interleave = the codeword order.
+        llr_i8 = demap_llr_i8(x_hat.reshape(b, -1), eq_nvar.reshape(b, -1), cfg.modulation)
+    else:
+        llr = demap_soft(x_hat.transpose(1, 2), eq_nvar.transpose(1, 2), cfg.modulation)
+        llr = llr.reshape(b, nl, -1, qm).transpose(1, 2).reshape(b, -1)  # (B, G)
+        llr_i8 = quantize_llr(llr, cfg.llr_range_limit)
+    llr_i8 = scrambling.descramble_llrs(llr_i8, _pusch_c_init(rnti, cfg.n_id))
     if cfg.ptrs_enabled:
         llr_i8 = llr_i8.index_fill(-1, _ptrs_bits_on(llr_i8.device, cfg), 0)
     e = evm(x_hat.reshape(b, -1), cfg.modulation)
@@ -652,12 +733,15 @@ def process_multi(grid: torch.Tensor, rntis, first_rbs, cfg: PuschConfig,
 
 def _demap_planes_ok(cfg: PuschConfig) -> bool:
     """Gate of the plane path (kernel K4 + K1 in plane layout): opted in
-    with ``demapper="planes"``, no repetition, no UCI, no PT-RS, no CFO
-    compensation, no transform precoding, square 16/64/256QAM and full-row
-    data symbols.
+    with ``demapper="planes"``, the fast estimator and the MMSE or ZF
+    equalizer (closed to the reference modes, as in the reference), no
+    repetition, no UCI, no PT-RS, no CFO compensation, no transform
+    precoding, square 16/64/256QAM and full-row data symbols.
     Unlike the reference, the gate does not ask which device runs it: the
     device follows the input tensor."""
     return (cfg.demapper == "planes"
+            and cfg.estimator == "fast"
+            and cfg.equalizer in ("mmse", "zf")
             and not cfg.transform_precoding
             and not cfg.ptrs_enabled
             and not cfg.cfo_compensation

@@ -5,7 +5,9 @@ CRC, LDPC encode with LBRM-truncated parity, per-E-group rate match), the
 fused decode (one K1 launch over every E-group, then desegment + CRC),
 its plane-layout twin ``decode_from_planes``, and the two-stage decode for
 HARQ retransmissions and repetition geometry (rate dematch + HARQ
-combine, then one K2 launch).
+combine, then one K2 launch), and the reference-exact int8 mode
+(``decoder="reference_i8"``: the two-stage dematch, then ``decode_i8``
+with the reference's CRC-gated two-phase early stop).
 """
 
 from __future__ import annotations
@@ -18,7 +20,12 @@ import torch
 from ..ops.ldpc import encoder as ldpc_encoder
 from ..ops.ldpc import rate_match as rm
 from ..ops.ldpc import segmenter
-from ..ops.ldpc.decoder import decode, decode_dematch_groups
+from ..ops import crc as crc_mod
+from ..ops.ldpc.decoder import decode, decode_dematch_groups, decode_i8
+
+# LDPC decoder selections: "auto" runs K1 / K2 (the plain torch versions on
+# the CPU), "reference_i8" the reference-exact int8 min-sum in torch.
+DECODERS = ("auto", "reference_i8")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,10 +44,8 @@ class SchConfig:
     decoder: str = "auto"
 
     def __post_init__(self):
-        if self.decoder != "auto":
-            raise NotImplementedError(
-                f"decoder={self.decoder!r}: the reference-exact int8 decoder is "
-                "not ported yet (ROADMAP Q1.8.8)")
+        if self.decoder not in DECODERS:
+            raise ValueError(f"SchConfig.decoder={self.decoder!r}: want one of {DECODERS}")
 
     @functools.cached_property
     def seg(self) -> segmenter.SegmentParams:
@@ -150,6 +155,28 @@ def _dematch_stage(llrs: torch.Tensor, harq_buffer, cfg: SchConfig) -> torch.Ten
     return buf
 
 
+def _decode_i8_stage(buf: torch.Tensor, cfg: SchConfig, nof_iterations: int,
+                     early_stop: bool) -> torch.Tensor:
+    """The reference-exact int8 decode of (..., C, N) codeword buffers ->
+    (lead*C, K) bits.  With early stop (and a budget above 2), the
+    reference's CRC-gated two-phase decode: 2 iterations, and the whole
+    budget when any codeblock's CRC fails.  This is the reference's CPU
+    branch; its TPU branch runs the whole budget (ROADMAP Q3)."""
+    seg = cfg.seg
+    flat = buf.reshape((-1,) + buf.shape[-1:])
+
+    def run(iters):
+        return decode_i8(flat, seg.base_graph, seg.lifting_size, iters)[0]
+
+    if not (early_stop and nof_iterations > 2):
+        return run(nof_iterations)
+    bits = run(2)
+    crc_name = "24B" if seg.nof_codeblocks > 1 else seg.tb_crc
+    if bool(crc_mod.crc(bits[:, : seg.nof_payload_bits_per_cb], crc_name).any()):
+        bits = run(nof_iterations)
+    return bits
+
+
 def decode_transport_block(llrs: torch.Tensor, cfg: SchConfig, nof_iterations: int = 6,
                            harq_buffer: torch.Tensor | None = None,
                            early_stop: bool = False):
@@ -160,11 +187,14 @@ def decode_transport_block(llrs: torch.Tensor, cfg: SchConfig, nof_iterations: i
     (None for new data).  New data without repetition decodes through the
     fused K1 path and still returns its buffer; a retransmission or a
     repetition geometry takes the two-stage path: dematch + combine, then
-    one K2 launch over every codeblock."""
+    one K2 launch over every codeblock.  ``decoder="reference_i8"`` always
+    takes the two-stage path, into ``decode_i8``."""
     if llrs.dtype != torch.int8:
         raise ValueError(f"decode_transport_block: want int8 LLRs, got {llrs.dtype}")
     new_harq = _dematch_stage(llrs, harq_buffer, cfg)
-    if harq_buffer is None and _fused_decode_ok(cfg):
+    if cfg.decoder == "reference_i8":
+        bits = _decode_i8_stage(new_harq, cfg, nof_iterations, early_stop)
+    elif harq_buffer is None and _fused_decode_ok(cfg):
         bits, _iters = _fused_decode(llrs, cfg, nof_iterations, early_stop)
     else:
         seg = cfg.seg

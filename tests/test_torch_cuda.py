@@ -2,6 +2,10 @@
 and the 24-PRB 4x4 slice and the small multi-UE slot on the card against
 the port's CPU path.
 
+The reference-exact modes (plain torch on both devices) are held against
+the CPU the same way: decode_i8 and the int8 demapper bitwise, the
+reference estimator within 1e-4 x RMS.
+
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without
 one.  The file imports no JAX, so it also runs on a GPU host that has
 none; there, skip the suite's conftest (which pins JAX to the CPU):
@@ -443,6 +447,70 @@ def test_new_shapes_on_card_match_cpu(cuda_device, shape):  # noqa: F811
         outs[str(dev)] = pusch.process(grid.to(dev), rnti, cfg)
     d = (llrs["cpu"].int() - llrs[str(cuda_device)].int()).abs()
     assert int(d.max()) <= 1
+    for key in ("cpu", str(cuda_device)):
+        assert bool(outs[key]["tb_crc_ok"][0])
+        np.testing.assert_array_equal(to_np(outs[key]["tb_bits"][0].cpu()), tb)
+
+
+# ---- the reference-exact conformance modes -----------------------------------------
+
+def test_decode_i8_card_matches_cpu(cuda_device):  # noqa: F811
+    """decode_i8 on the card: bits and a-posteriori LLRs equal to the CPU's
+    (integer lanes; the only float step, floor(0.8f m + 0.5), is one
+    rounding on either device)."""
+    from srsran_project_tpu_torch.ops.ldpc import graphs
+
+    for bg, z in ((1, 384), (2, 52)):
+        rng = np.random.default_rng(bg)
+        n = (graphs.get_graph(bg, z).n - 2) * z
+        x = torch.from_numpy(np.round(rng.standard_normal((4, n)) * 30).clip(-127, 127)
+                             .astype(np.int8))
+        cpu = decoder.decode_i8(x, bg, z, 6)
+        gpu = decoder.decode_i8(x.to(cuda_device), bg, z, 6)
+        for a, b in zip(cpu, gpu):
+            assert torch.equal(a, b.cpu()), (bg, z)
+
+
+@pytest.mark.parametrize("mod", [Modulation.PI_2_BPSK, Modulation.QPSK, Modulation.QAM16,
+                                 Modulation.QAM64, Modulation.QAM256])
+def test_demap_llr_i8_card_matches_cpu(cuda_device, mod):  # noqa: F811
+    """The int8 interval demapper on the card: every LLR equal to the CPU's."""
+    from srsran_project_tpu_torch.ops.modulation import demapper_i8
+
+    rng = np.random.default_rng(int(mod))
+    x = torch.from_numpy(((rng.standard_normal(20000) + 1j * rng.standard_normal(20000)) * 0.8)
+                         .astype(np.complex64))
+    nv = torch.from_numpy(np.abs(rng.standard_normal(20000) * 0.3).astype(np.float32))
+    nv[:50] = 0.0
+    cpu = demapper_i8.demap_llr_i8(x, nv, mod)
+    gpu = demapper_i8.demap_llr_i8(x.to(cuda_device), nv.to(cuda_device), mod)
+    assert torch.equal(cpu, gpu.cpu())
+
+
+@pytest.mark.parametrize("kw", [dict(layers=4, ports=4, mod=Modulation.QAM256, rate=0.7),
+                                dict(layers=2, ports=2, mod=Modulation.QAM64)],
+                         ids=["ref-est-4x4", "conformance-2x2"])
+def test_reference_modes_on_card_match_cpu(cuda_device, kw):  # noqa: F811
+    """The reference estimator (4x4: then K3 and K1) and the whole
+    conformance chain (reference estimator, zf_ref, the int8 demapper,
+    decode_i8) through pusch.process on the card against the CPU: the
+    estimate within 1e-4 x its RMS (cuFFT and pocketfft round apart),
+    int8 LLRs within +-1, TB bits and CRC equal (and right)."""
+    tx, cfg = _shape_configs(**kw)
+    fields = dict(estimator="reference")
+    if kw["layers"] == 2:
+        fields.update(equalizer="zf_ref", demapper="reference", ldpc_decoder="reference_i8")
+    cfg = pusch.dataclasses.replace(cfg, **fields)
+    tb, grid = _shape_grid(tx, seed=5, snr_db=30.0)
+    outs, llrs, hs = {}, {}, {}
+    for dev in ("cpu", cuda_device):
+        rnti = torch.tensor([0x4601], device=dev)
+        hs[str(dev)] = pusch._estimate_stage(grid.to(dev), cfg)[1].cpu()
+        llrs[str(dev)] = pusch._front_end(grid.to(dev), rnti, cfg)[0].cpu()
+        outs[str(dev)] = pusch.process(grid.to(dev), rnti, cfg)
+    h_cpu, h_gpu = hs["cpu"], hs[str(cuda_device)]
+    assert float((h_cpu - h_gpu).abs().max()) <= 1e-4 * float(h_cpu.abs().pow(2).mean().sqrt())
+    assert int((llrs["cpu"].int() - llrs[str(cuda_device)].int()).abs().max()) <= 1
     for key in ("cpu", str(cuda_device)):
         assert bool(outs[key]["tb_crc_ok"][0])
         np.testing.assert_array_equal(to_np(outs[key]["tb_bits"][0].cpu()), tb)

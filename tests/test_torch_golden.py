@@ -31,7 +31,26 @@ the JAX package's vector tests' bounds:
 * ``prs_generator``: ``generate_prs`` within 8e-3
   (tests/vectors/test_golden_dl_proc.py); ``pucch_format34``: the port's
   ``pucch_f34.process`` with the reference's ok flag and its bits
-  (tests/vectors/test_golden_pucch.py).
+  (tests/vectors/test_golden_pucch.py);
+* the reference-exact modes: ``estimator`` through the port's copy of the
+  numpy oracle and through ``estimator_reftorch`` (CE within 2 % of the
+  channel scale, EPRE rtol 2e-3, RSRP 5e-3, noise 2e-2 / 3e-2, SNR 3e-2 /
+  5e-2, TA within 0.02 us, CFO within 1 Hz;
+  tests/vectors/test_golden_estimator.py); ``demod_mapper``: every
+  ``demap_llr_i8`` LLR bit-exact (tests/vectors/test_golden_modulation.py);
+  ``equalizer``: ``equalize_ref`` within 0.008 a RE and the noise within
+  rtol 5e-3 (tests/vectors/test_golden_phy.py); ``pusch_demodulator``:
+  ``equalize_ref`` + ``demap_llr_i8`` + descrambling, more than 99 % of
+  the codeword's LLRs exact and the rest bounded
+  (tests/vectors/test_golden_pusch_demodulator.py); ``ldpc_decoder``:
+  ``decode_i8`` bit-exact, and the message at 6 dB and above
+  (tests/vectors/test_golden_ldpc_decoder.py); ``harq_retx``: the
+  transmissions of each case through ``decoder="reference_i8"`` with early
+  stop, per-transmission CRC verdicts, the combined buffers bit-exact and
+  the TB (tests/vectors/test_golden_harq_retx.py); ``dmrs_pusch``:
+  ``estimator="reference"`` through ``pusch._estimate_stage``, the
+  channel within 2 % RMS and the noise within rtol 0.05
+  (tests/vectors/test_golden_tail.py).
 
 The vectors are read with the JAX package's ``read_vector``; the port
 itself reads none.
@@ -46,9 +65,15 @@ import torch
 from torch_parity import to_np, to_torch
 
 from srsran_project_tpu.support.file_vector import read_vector
+from srsran_project_tpu_torch.ops import equalizer as teq
+from srsran_project_tpu_torch.ops import estimator_ref as tref
+from srsran_project_tpu_torch.ops import estimator_reftorch as trefT
 from srsran_project_tpu_torch.ops import lower_phy as tlower
+from srsran_project_tpu_torch.ops import scrambling as tscr
 from srsran_project_tpu_torch.ops import transform_precoding as ttp
 from srsran_project_tpu_torch.ops.modulation import Modulation
+from srsran_project_tpu_torch.ops.ldpc import decoder as tdec
+from srsran_project_tpu_torch.ops.modulation import demapper_i8 as tdem
 from srsran_project_tpu_torch.ops.modulation import mapper as tmap
 from srsran_project_tpu_torch.phy import csi_rs as tcsi
 from srsran_project_tpu_torch.phy import pdcch as tpdcch
@@ -57,6 +82,7 @@ from srsran_project_tpu_torch.phy import prach as tprach
 from srsran_project_tpu_torch.phy import ptrs_prs as tprs
 from srsran_project_tpu_torch.phy import pucch_f34 as tf34
 from srsran_project_tpu_torch.phy import pusch as tpusch
+from srsran_project_tpu_torch.phy import sch as tsch
 from srsran_project_tpu_torch.phy import srs as tsrs
 from srsran_project_tpu_torch.phy import ssb as tssb
 from srsran_project_tpu_torch.phy.allocation import Allocation, nof_data_re
@@ -346,3 +372,193 @@ def test_pucch_format34(idx):
     np.testing.assert_array_equal(got, ref_bits)
     np.testing.assert_array_equal(got, payload)
     assert np.isfinite(float(snr_db))
+
+
+# ---- the reference-exact modes ---------------------------------------------------
+
+EST_PATTERNS = {1: tuple(range(0, 12, 2)), 3: (1, 4, 7, 10), 4: tuple(range(12))}
+
+
+def _est_case(idx):
+    """(case, its config fields, grid (14, nsc), pilots, reference CE)."""
+    case = _suite("estimator")[idx]
+    nsc = case["nof_prb"] * 12
+    pattern = EST_PATTERNS[case["dmrs_type"]]
+    nsym_d = bin(case["symbol_mask"]).count("1")
+    grid = read_vector(_path("estimator", f"grid{case['idx']}.dat"), "cf32").reshape(14, nsc)
+    pilots = read_vector(_path("estimator", f"pilots{case['idx']}.dat"), "cf32").reshape(
+        case["layers"], nsym_d, case["nof_prb"] * len(pattern))
+    ref_ce = read_vector(_path("estimator", f"ce{case['idx']}.dat"), "cf32").reshape(
+        case["layers"], 14, nsc)
+    fields = dict(scs_khz=30, nof_prb=case["nof_prb"], first_symbol=0, nof_symbols=14,
+                  dmrs_symbol_mask=case["symbol_mask"], re_pattern=pattern,
+                  re_pattern2=tuple(range(1, 12, 2)) if case.get("cdm_groups", 1) == 2 else None,
+                  nof_layers=case["layers"], smoothing=case["smoothing"], td_strategy=case["td"],
+                  compensate_cfo=case["cfo_comp"] == 1)
+    return case, fields, grid, pilots, ref_ce
+
+
+@pytest.mark.parametrize("idx", range(12))
+def test_estimator(idx):
+    """The port's copy of the numpy oracle and ``estimate_port_ref`` on one
+    golden case, each at the reference's vector-test bounds."""
+    case, fields, grid, pilots, ref_ce = _est_case(idx)
+    scale = max(1.0, float(np.abs(ref_ce).max()))
+    res = tref.estimate_port(grid, pilots, tref.EstimatorConfig(**fields))
+    assert np.abs(res.ce - ref_ce).max() < 0.02 * scale, case
+    assert np.isclose(res.epre, case["epre"], rtol=2e-3), case
+    assert np.isclose(res.rsrp, case["rsrp"], rtol=5e-3), case
+    assert np.isclose(res.noise_var, case["noise_var"], rtol=2e-2), case
+    assert np.isclose(res.snr, case["snr_est"], rtol=3e-2), case
+    assert abs(res.time_alignment_s * 1e6 - case["ta_us"]) < 0.02, case
+    if case["cfo_comp"]:
+        assert abs((res.cfo_hz or 0.0) - case["cfo_hz"]) < 1.0, case
+    out = {k: to_np(v) for k, v in trefT.estimate_port_ref(
+        to_torch(grid), to_torch(pilots), trefT.RefEstimatorConfig(**fields)).items()}
+    assert np.abs(out["ce"] - ref_ce).max() < 0.02 * scale, case
+    assert np.isclose(out["epre"], case["epre"], rtol=2e-3), case
+    assert np.isclose(out["rsrp"], case["rsrp"], rtol=5e-3), case
+    assert np.isclose(out["noise_var"], case["noise_var"], rtol=3e-2), case
+    assert np.isclose(out["snr"], case["snr_est"], rtol=5e-2), case
+    assert abs(float(out["ta_s"]) * 1e6 - case["ta_us"]) < 0.02, case
+
+
+DEMOD_MODS = {"pi2bpsk": Modulation.PI_2_BPSK, "bpsk": Modulation.BPSK, "qpsk": Modulation.QPSK,
+              "qam16": Modulation.QAM16, "qam64": Modulation.QAM64, "qam256": Modulation.QAM256}
+
+
+@pytest.mark.parametrize("idx", range(12))
+def test_demod_mapper(idx):
+    case = _suite("demod_mapper")[idx]
+    syms = read_vector(_path("demod_mapper", case["symbols"]), "cf32")
+    nvar = read_vector(_path("demod_mapper", case["noise_vars"]), "f32")
+    ref = read_vector(_path("demod_mapper", case["llrs"]), "i8")
+    got = to_np(tdem.demap_llr_i8(to_torch(syms), to_torch(nvar), DEMOD_MODS[case["mod"]]))
+    np.testing.assert_array_equal(got, ref, err_msg=case["mod"])
+
+
+@pytest.mark.parametrize("idx", range(8))
+def test_equalizer(idx):
+    case = _suite("equalizer")[idx]
+    ports, layers, nof_re = case["ports"], case["layers"], case["nof_re"]
+    syms = read_vector(_path("equalizer", f"syms{case['idx']}.dat"), "cf32").reshape(ports, nof_re)
+    est = read_vector(_path("equalizer", f"est{case['idx']}.dat"), "cf32").reshape(
+        ports, layers, nof_re)
+    nvar = read_vector(_path("equalizer", f"nvar{case['idx']}.dat"), "f32")
+    ref_eq = read_vector(_path("equalizer", f"eq{case['idx']}.dat"), "cf32").reshape(nof_re,
+                                                                                    layers)
+    ref_nv = read_vector(_path("equalizer", f"eqnvar{case['idx']}.dat"), "f32").reshape(
+        nof_re, layers)
+    x, nv = teq.equalize_ref(to_torch(syms.T), to_torch(np.moveaxis(est, [0, 1, 2], [1, 2, 0])),
+                             to_torch(nvar), 1.0, case["alg"])
+    np.testing.assert_allclose(to_np(x), ref_eq, atol=0.008, err_msg=str(case))
+    np.testing.assert_allclose(to_np(nv), ref_nv, rtol=5e-3, atol=1e-5, err_msg=str(case))
+
+
+@pytest.mark.parametrize("idx", range(4))
+def test_pusch_demodulator(idx):
+    """equalize_ref (MMSE for 1 layer, ZF above) + demap_llr_i8 +
+    descrambling against the reference demodulator's codeword LLRs, at
+    its vector test's bounds."""
+    case = _suite("pusch_demodulator")[idx]
+    nsc = case["nof_prb"] * 12
+    p, nl = case["ports"], case["layers"]
+    grid = read_vector(_path("pusch_demodulator", f"grid{case['idx']}.dat"), "cf32").reshape(
+        p, 14, nsc)
+    est = read_vector(_path("pusch_demodulator", f"est{case['idx']}.dat"), "cf32").reshape(
+        p, nl, 14, nsc)
+    ref = read_vector(_path("pusch_demodulator", f"llrs{case['idx']}.dat"), "i8").astype(np.int32)
+    dmrs = {s for s in range(14) if (case["dmrs_mask"] >> s) & 1}
+    data = [s for s in range(case["start_sym"], case["start_sym"] + case["nof_syms"])
+            if s not in dmrs]
+    y = np.concatenate([grid[:, s, :].T for s in data])
+    h = np.concatenate([np.moveaxis(est[:, :, s, :], [0, 1, 2], [1, 2, 0]) for s in data])
+    x, eq_nv = teq.equalize_ref(to_torch(y), to_torch(h),
+                                torch.full((p,), case["noise_var"], dtype=torch.float32), 1.0,
+                                "mmse" if nl == 1 else "zf")
+    llr = tdem.demap_llr_i8(x.reshape(-1), eq_nv.reshape(-1), MODS[case["qm"]])
+    c_init = torch.tensor((case["rnti"] << 15) + case["n_id"])
+    got = to_np(tscr.descramble_llrs(llr, c_init)).astype(np.int32)
+    assert got.shape == ref.shape
+    diff = np.abs(got - ref)
+    big = diff > 1
+    assert float((diff == 0).mean()) > 0.99, case
+    assert float(big.mean()) < 2e-3, case
+    assert np.all(np.abs(ref[big]) <= 4), case
+    assert diff.max() <= 8, case
+
+
+LDPC_CASES = _suite("ldpc_decoder")
+
+
+@pytest.mark.parametrize("idx", range(len(LDPC_CASES)))
+def test_ldpc_decoder_i8(idx):
+    case = LDPC_CASES[idx]
+    llrs = read_vector(_path("ldpc_decoder", case["llrs"]), "i8")
+    ref_bits = read_vector(_path("ldpc_decoder", case["output"]), "u8")
+    bits, _ = tdec.decode_i8(to_torch(llrs)[None], case["bg"], case["ls"],
+                             nof_iterations=case["max_iter"])
+    np.testing.assert_array_equal(to_np(bits)[0], ref_bits, err_msg=str(case))
+    if case["snr_db"] >= 6.0:
+        msg = read_vector(_path("ldpc_decoder", case["message"]), "u8")
+        np.testing.assert_array_equal(to_np(bits)[0], msg, err_msg=str(case))
+
+
+@pytest.mark.parametrize("idx", range(5))
+def test_harq_retx(idx):
+    """The reference decoder's RV sequence 0-2-3-1 with a persistent
+    buffer, through ``decoder="reference_i8"`` with early stop: each
+    transmission's CRC verdict, the combined soft bits after each, and
+    the TB."""
+    case = _suite("harq_retx")[idx]
+    tbs = case["tbs_bytes"] * 8
+    tb_ref = np.unpackbits(np.fromfile(_path("harq_retx", case["tb"]), dtype=np.uint8))
+    harq = None
+    for t, (rv, want_ok) in enumerate(zip((int(x) for x in case["rv_seq"].split(",")),
+                                          (int(x) for x in case["verdicts"].split(",")))):
+        llr = np.fromfile(_path("harq_retx", f"llr{case['idx']}_{t}.dat"), dtype=np.int8)
+        cfg = tsch.SchConfig(tbs=tbs, target_code_rate=tbs / case["g_bits"], qm=case["qm"],
+                             nof_layers=1, nof_total_bits=case["g_bits"], rv=rv,
+                             decoder="reference_i8")
+        tb, ok, harq = tsch.decode_transport_block(to_torch(llr), cfg, nof_iterations=6,
+                                                   harq_buffer=harq, early_stop=True)
+        assert bool(ok) == bool(want_ok), (case["idx"], t, rv)
+        buf = to_np(harq)
+        assert buf.shape[0] == case["nof_cbs"]
+        for cb in range(case["nof_cbs"]):
+            soft = np.fromfile(_path("harq_retx", f"soft{case['idx']}_{t}_{cb}.dat"),
+                               dtype=np.int8)
+            np.testing.assert_array_equal(buf[cb, : case["full_length"]], soft,
+                                          err_msg=f"case {case['idx']} tx {t} cb {cb}")
+        if bool(ok):
+            np.testing.assert_array_equal(to_np(tb), tb_ref[:tbs])
+
+
+@pytest.mark.parametrize("idx", range(6))
+def test_dmrs_pusch_reference_estimator(idx):
+    """dmrs_pusch_estimator_impl parity through the port's PUSCH estimate
+    with ``estimator="reference"``: the c_init / Gold draw, the type-1
+    mapping of both CDM groups, the beta scaling and the filter/average
+    estimate on the recorded grid."""
+    case = _suite("dmrs_pusch")[idx]
+    nsc = case["grid_prbs"] * 12
+    grid = _c64(_path("dmrs_pusch", f"grid{case['idx']}.dat")).reshape(1, 1, 14, nsc)
+    cfg = tpusch.PuschConfig(
+        tbs=2048, target_code_rate=0.5, modulation=Modulation.QAM16,
+        alloc=Allocation(rb_start=case["rb_start"], rb_count=case["nof_prb"], sym_start=0,
+                         sym_count=14,
+                         dmrs_symbols=tuple(s for s in range(14)
+                                            if case["symbol_mask"] & (1 << s))),
+        nof_layers=case["layers"], nof_rx_ports=1, nof_grid_symbols=14, nof_grid_sc=nsc,
+        scs_khz=30, slot_in_frame=case["slot_idx"], dmrs_scrambling_id=case["scrambling_id"],
+        n_scid=case["n_scid"], estimator="reference")
+    _gflat, h, nv = tpusch._estimate_stage(to_torch(grid), cfg)
+    h = to_np(h)[0, 0]  # (nof_sc, nl)
+    ce_ref = _c64(_path("dmrs_pusch", f"ce{case['idx']}.dat")).reshape(case["layers"], nsc)
+    band = slice(case["rb_start"] * 12, (case["rb_start"] + case["nof_prb"]) * 12)
+    for layer in range(case["layers"]):
+        ref_l = ce_ref[layer, band]
+        scale = np.sqrt(np.mean(np.abs(ref_l) ** 2)) + 1e-12
+        err = np.sqrt(np.mean(np.abs(h[:, layer] - ref_l) ** 2)) / scale
+        assert err < 2e-2, (case, layer, err)
+    assert np.isclose(float(nv[0]), case["noise_var"], rtol=0.05), case

@@ -92,11 +92,14 @@ def _import_targets(name: str) -> list[str]:
 
 
 @pytest.mark.parametrize("target", ["package", "chip_smoke.py", "tools/profile_torch_paths.py",
-                                    "srsran_project_tpu_torch/apps/du_low_sim.py"])
+                                    "srsran_project_tpu_torch/apps/du_low_sim.py",
+                                    "srsran_project_tpu_torch/apps/bler_parity.py"])
 def test_package_imports_no_jax(target):
     """The port's package (its FAPI, DL channels, upper PHY, channel
-    emulator, config and app modules among them), chip_smoke.py, the
-    profiler script and the app name neither jax nor anything of
+    emulator, config and app modules, and the reference-exact modes'
+    estimator_ref / estimator_reftorch / demapper_i8 among them),
+    chip_smoke.py, the profiler script and the two apps (du_low_sim, the
+    BLER-parity harness) name neither jax nor anything of
     srsran_project_tpu in any import, and loading them (with every module
     they name) in a fresh interpreter leaves both out of sys.modules."""
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -265,9 +268,16 @@ def test_cell_config_twin(make):
     ("equalizer", "zf_ref"),
 ])
 def test_out_of_slice_values_raise(field, value):
+    """The CellConfig values that were outside the port before the
+    reference-exact modes were ported now reach its PuschConfig and
+    SchConfig as in the reference, and only unknown values raise."""
     cfg = tcell.CellConfig(**{field: value})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cfg.pusch_cfg  # noqa: B018
+    ref = jcell.CellConfig(**{field: value})
+    assert getattr(cfg.pusch_cfg, field) == value
+    _same_fields(ref.pusch_cfg, cfg.pusch_cfg)
+    _same_fields(ref.pusch_cfg.sch, cfg.pusch_cfg.sch)
+    with pytest.raises(ValueError, match=field):
+        tcell.CellConfig(**{field: value + "_unknown"}).pusch_cfg  # noqa: B018
 
 
 # Every NotImplementedError the port raises, with the ROADMAP sub-item its
@@ -284,14 +294,38 @@ def _app_flag(*argv):
     return lambda: du_low_sim.main(["--cpu", *argv])
 
 
-RAISES = [
-    ("PuschConfig.equalizer", _pusch_field("equalizer", "mmse_ref"), "Q1.8.8"),
-    ("PuschConfig.estimator", _pusch_field("estimator", "reference"), "Q1.8.7"),
-    ("PuschConfig.demapper", _pusch_field("demapper", "reference"), "Q1.8.8"),
-    ("PuschConfig.ldpc_decoder", _pusch_field("ldpc_decoder", "reference_i8"), "Q1.8.8"),
+# The reference-exact modes: (what takes the value, how to build it, the
+# field and its value).
+REFERENCE_MODES = [
+    ("PuschConfig.equalizer", _pusch_field("equalizer", "mmse_ref"), "equalizer", "mmse_ref"),
+    ("PuschConfig.estimator", _pusch_field("estimator", "reference"), "estimator", "reference"),
+    ("PuschConfig.demapper", _pusch_field("demapper", "reference"), "demapper", "reference"),
+    ("PuschConfig.ldpc_decoder", _pusch_field("ldpc_decoder", "reference_i8"), "ldpc_decoder",
+     "reference_i8"),
     ("SchConfig.decoder", lambda: tsch.SchConfig(tbs=1000, target_code_rate=0.5, qm=4,
                                                  nof_layers=1, nof_total_bits=2400,
-                                                 decoder="reference_i8"), "Q1.8.8"),
+                                                 decoder="reference_i8"), "decoder",
+     "reference_i8"),
+]
+
+
+@pytest.mark.parametrize("what, build, field, value", REFERENCE_MODES,
+                         ids=[r[0] for r in REFERENCE_MODES])
+def test_reference_mode_is_accepted(what, build, field, value):
+    """Each reference-exact mode builds, carries its value, and equals the
+    reference's config of the same fields; PuschConfig hands ldpc_decoder
+    on to SchConfig.decoder."""
+    cfg = build()
+    assert getattr(cfg, field) == value
+    if isinstance(cfg, tpusch.PuschConfig):
+        ref = jpusch.PuschConfig(tbs=1000, target_code_rate=0.5,
+                                 modulation=jmap.Modulation.QAM16,
+                                 alloc=jcell.CellConfig().alloc, **{field: value})
+        assert tpusch.PuschConfig.from_reference(ref) == cfg
+        assert cfg.sch.decoder == ref.sch.decoder == cfg.ldpc_decoder
+
+
+RAISES = [
     ("du_low_sim --trace", _app_flag("--trace", "t.json"), "Q1.10.2"),
     ("du_low_sim --ues", _app_flag("--ues", "4"), "Q1.10.3"),
     ("du_low_sim --cells", _app_flag("--cells", "2"), "Q1.10.4"),
@@ -310,14 +344,13 @@ def test_raise_names_its_sub_item(what, trigger, item):
 
 
 def test_every_raise_is_pinned():
-    """The package raises NotImplementedError at three places (the
-    PuschConfig field table, SchConfig, the app's deferred flags), all
-    pinned above; a new one must be added to RAISES."""
+    """The package raises NotImplementedError at one place (the app's
+    deferred flags), pinned above; a new one must be added to RAISES."""
     pkg = os.path.join(REPO, "srsran_project_tpu_torch")
     sites = sorted(os.path.relpath(os.path.join(d, f), pkg) for d, _, fs in os.walk(pkg)
                    for f in fs if f.endswith(".py")
                    for line in open(os.path.join(d, f)) if "raise NotImplementedError" in line)
-    assert sites == ["apps/du_low_sim.py", "phy/pusch.py", "phy/sch.py"], sites
+    assert sites == ["apps/du_low_sim.py"], sites
 
 
 # A UCI config with a CSI report configuration: two-step CSI.
