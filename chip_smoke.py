@@ -9,7 +9,7 @@ Run from the repository root on a machine with one NVIDIA Hopper card:
 It builds the port's CUDA kernels from ``srsran_project_tpu_torch/csrc``
 (into ``build/``, one ``nvcc`` per source, side by side), checks each
 kernel against its plain torch version on the card at the shapes of the
-paths below, then drives eight paths through the port's public entry
+paths below, then drives nine paths through the port's public entry
 points, each with every kernel launch counter set to 0 just before it and
 read just after:
 
@@ -107,7 +107,25 @@ read just after:
    binomial sigmas + 0.02 of the reference's: K2 once per 30-slot chunk,
    held against its plain version on one chunk's buffers; (d)
    ``apps/du_low_sim`` with ``configs/conformance_parity.yml`` for 20
-   slots, exit 0 and BLER below 1: no kernel.
+   slots, exit 0 and BLER below 1: no kernel;
+9. the DU-low's scheduler mode on the app's default cell (273 PRB, 30
+   kHz, 4 ports): (a) ``du_low_sim --ues 8 --tdd --policy qos --common
+   --slots 40 --metrics-json --metrics-interval-slots 10`` in-process on
+   TDL-A at 25 dB: exit 0 with BLER below 1, four periodic reports, the
+   common-channel counters of 40 slots (SSB 1, SIB1 1, CSI-RS 1, PRACH 2,
+   each PRACH PDU an error indication without a buffer), and K2 once per
+   code group on every UL slot of two or more grants (K2 held against its
+   plain version on the first such call's code groups); (b) ``--ues 8
+   --cells 2 --slots 20``: per-cell reports, exit 0, K2 in each cell's UL
+   calls; (c) ``l2sim.RoundRobinScheduler`` at 4 layers on 4 ports, 8 UEs
+   at MCS 20, with PDCCH allocation and DCI 1_0, PUCCH, SRS and TA loops,
+   20 FDD slots through ``SlotPipeline(depth=2)`` and ``UpperPhy`` over a
+   random unitary channel at 30 dB: every grant CRC-clean, one DCI per DL
+   grant decoding back from the DL grid, K2 and K3 held against their
+   plain versions on one slot's inputs, the pipeline's late ratio against
+   0.5 ms printed.  Every UL_TTI call's launches are checked against the
+   ones its grants imply (K2 per code group and K3 per 4x4 config group
+   with two or more grants, else K1 and K3).
 
 Every CRC, every TB and UCI bit, every ``_ok`` flag and every PUCCH value
 is checked, and each PUCCH metric against its DTX threshold.  It then times each path per slot and
@@ -2664,6 +2682,324 @@ def refmodes_phase(card: str) -> tuple[dict, dict, dict, dict, dict, dict]:
     return counts_a, counts_b, counts_c, counts_d, errs, times
 
 
+# ---- the DU-low's scheduler mode ---------------------------------------------
+
+# (a) The app's scheduler mode on its default cell (273 PRB, 30 kHz, 4
+# ports; 1 layer, as the app sets it), TDL-A at 25 dB: 8 UEs, 7D1S2U, PF
+# with QoS, the common channels, a periodic report every 10 slots.
+P9_APP_TDD = ["--ues", "8", "--tdd", "--policy", "qos", "--common", "--slots", "40",
+              "--metrics-json", "--metrics-interval-slots", "10"]
+# The common-channel occasions CommonSchedulingConfig's defaults give in 40
+# slots (SSB and CSI-RS every 40 at 0 and 10, SIB1 at 1, PRACH at 19 and 39).
+P9_COMMON = {"ssb": 1, "sib1": 1, "csi_rs": 1, "prach": 2, "paging": 0, "cbs": 0,
+             "fallback": 0, "si": 0}
+# (b) The multi-cell mode: two cells of 4 UEs each, FDD.
+P9_APP_CELLS = ["--ues", "8", "--cells", "2", "--slots", "20"]
+# (c) RoundRobinScheduler driven directly: 4 layers on 4 ports, MCS 20 of
+# the 64QAM table, every allocator and loop that needs no CSI report, 20
+# FDD slots through SlotPipeline(depth=2); the DL grid loops back through
+# one random unitary 4x4 channel and AWGN at 30 dB per RE and port.
+P9_RNTI = 0x4C01
+P9_UES = 8
+P9_MCS = 20
+P9_SLOTS = 20
+P9_SNR_DB = 30.0
+P9_SLOT_S = 500e-6
+
+
+def p9_slot(i: int):
+    from srsran_project_tpu_torch.ran.constants import SubcarrierSpacing
+    from srsran_project_tpu_torch.ran.slot_point import SlotPoint
+
+    return SlotPoint.from_sfn_slot(SubcarrierSpacing.KHZ30, i // 20, i % 20)
+
+
+def p9_expected(pdus) -> dict:
+    """The kernel launches ``UpperPhy.process_ul_tti`` makes for a request
+    of these compact grants: with two or more, K2 once per code group and
+    K3 once per 4x4 MMSE config group (``process_slot``); a single grant
+    through ``pusch.process``: K1 (K2 where its geometry repeats) and K3
+    for 4x4 MMSE."""
+    from srsran_project_tpu_torch.phy import ul_slot
+
+    def k3(c) -> int:
+        return int((c.nof_layers, c.nof_rx_ports, c.equalizer) == (4, 4, "mmse"))
+
+    if len(pdus) >= 2:
+        groups = ul_slot._config_groups(pdus)
+        codes = {(c.sch.seg.base_graph, c.sch.seg.lifting_size, c.nof_ldpc_iterations,
+                  c.ldpc_early_stop, c.sch.n_cb) for c in groups}
+        return {"decode": len(codes), "mmse_weights_4x4": sum(k3(c) for c in groups)}
+    want = {"decode_dematch": 0, "decode": 0, "mmse_weights_4x4": 0}
+    for p in pdus:
+        want["decode_dematch" if _fused_ok(p.config) else "decode"] += 1
+        want["mmse_weights_4x4"] += k3(p.config)
+    return want
+
+
+class UlTtiRecorder:
+    """While active, observes every ``UpperPhy.process_ul_tti`` call: its
+    request, received grid, the UlSlotPdus of its compact grants (HARQ
+    buffers as the pool held them before the call), its results and the
+    kernel launches it made (counter differences; nothing is reset)."""
+
+    def __enter__(self):
+        from srsran_project_tpu_torch.phy.upper_phy import UpperPhy
+
+        self.calls = []
+        self._orig = orig = UpperPhy.process_ul_tti
+
+        def observed(phy, request, rx_grid, prach_fd=None):
+            pdus = p6_slot_pdus(request, phy.harq_pool)
+            before = read_counts()
+            res = orig(phy, request, rx_grid, prach_fd=prach_fd)
+            after = read_counts()
+            self.calls.append(dict(req=request, grid=rx_grid, pdus=pdus, res=res,
+                                   launches={k: after[k] - before[k] for k in after}))
+            return res
+
+        UpperPhy.process_ul_tti = observed
+        return self
+
+    def __exit__(self, *exc):
+        from srsran_project_tpu_torch.phy.upper_phy import UpperPhy
+
+        UpperPhy.process_ul_tti = self._orig
+        return False
+
+
+def p9_check_calls(what: str, calls: list, total: dict) -> None:
+    """Every recorded UL_TTI call made the launches its grants imply, K2
+    on every call of two or more grants; and they add up to the path's
+    counts."""
+    summed = {k: 0 for k in total}
+    for n, call in enumerate(calls):
+        want = p9_expected(call["pdus"])
+        got = {k: v for k, v in call["launches"].items() if v}
+        if got != {k: v for k, v in want.items() if v}:
+            fail(f"{what} UL_TTI call {n} (slot {call['req'].slot.count}, "
+                 f"{len(call['pdus'])} grants): kernel launches {got}, want {want}")
+        if len(call["pdus"]) >= 2 and not got.get("decode"):
+            fail(f"{what} UL_TTI call {n}: {len(call['pdus'])} grants and no K2 launch")
+        for k, v in call["launches"].items():
+            summed[k] += v
+    if summed != total:
+        fail(f"{what}: the calls' launches {summed} do not add up to the path's {total}")
+    multi = sum(len(c["pdus"]) >= 2 for c in calls)
+    print(f"# {what}: {len(calls)} UL_TTI calls, {multi} with two or more grants, each with "
+          f"its K2 launches")
+
+
+def p9_run_app(argv) -> tuple[int, str, str, dict, list]:
+    """du_low_sim.main(argv) in-process with its stdout and stderr
+    captured and its UL_TTI calls recorded; returns (rc, stdout, stderr,
+    the launch counts of the run, the calls)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from srsran_project_tpu_torch.apps import du_low_sim
+
+    out, err = io.StringIO(), io.StringIO()
+    torch.cuda.synchronize()
+    reset_counts()
+    with UlTtiRecorder() as rec, contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = du_low_sim.main(list(argv))
+    torch.cuda.synchronize()
+    counts = read_counts()
+    for line in err.getvalue().splitlines() + out.getvalue().splitlines():
+        print(f"# du_low_sim {' '.join(argv)}: {line.lstrip('# ')}")
+    return rc, out.getvalue(), err.getvalue(), counts, rec.calls
+
+
+def p9_report_ul_call(card: str, name: str, call) -> None:
+    """Time and profile one recorded UL_TTI request again on a new
+    UpperPhy (retransmissions decode without a pooled buffer)."""
+    from srsran_project_tpu_torch.phy.upper_phy import UpperPhy, UpperPhyConfig
+
+    grid = call["grid"]
+    phy = UpperPhy(UpperPhyConfig(nof_ports=grid.shape[0], nof_grid_sc=grid.shape[2],
+                                  device=DEVICE))
+    report_call(card, name, lambda: phy.process_ul_tti(call["req"], grid))
+
+
+def sched_app_phase(card: str) -> tuple[dict, dict, float]:
+    """Path 9 (a) and (b): du_low_sim's scheduler mode (TDD, QoS, common
+    channels, periodic reports) and its multi-cell mode in-process on the
+    app's default cell.  Returns the launch counts of (a) and (b) and K2's
+    largest a-posteriori difference on (a)'s first multi-grant call."""
+    import ast
+    import re
+
+    # (a)
+    rc, out, err, counts_a, calls = p9_run_app(P9_APP_TDD)
+    m = re.search(r"# scheduler mode: (\d+) UEs, (\d+) grants, (\d+) CRC OK", err)
+    s = re.search(r"# (\d+) slots in ([0-9.]+)s, BLER=([0-9.]+)", err)
+    c = re.search(r"# common channels: (\{.*\})", err)
+    if m is None or s is None or c is None:
+        fail(f"sched (a): summary lines missing (rc {rc})")
+    grants, bler = int(m.group(2)), float(s.group(3))
+    if rc != 0 or not bler < 1.0:
+        fail(f"sched (a): rc {rc} with BLER {bler}, want rc 0 and BLER < 1")
+    counters = ast.literal_eval(c.group(1))
+    if counters != P9_COMMON:
+        fail(f"sched (a): common-channel counters {counters}, want {P9_COMMON}")
+    lines = [json.loads(x) for x in out.splitlines() if x.startswith("{")]
+    periodic = [x for x in lines if x.get("type") == "periodic"]
+    if [p["slot"] for p in periodic] != [10, 20, 30, 40] or len(lines) != 5:
+        fail(f"sched (a): periodic reports at {[p['slot'] for p in periodic]} and "
+             f"{len(lines)} JSON lines, want slots 10/20/30/40 and the metrics line")
+    if any(len(p) != 2 + P9_UES for p in periodic):
+        fail("sched (a): a periodic report does not cover the 8 UEs")
+    if sum(len(x["res"].crc) for x in calls) != grants or len(calls) != 8:
+        fail(f"sched (a): {len(calls)} UL_TTI calls with {grants} grants, want the 8 UL slots")
+    if sum(len(x["res"].errors) for x in calls) != P9_COMMON["prach"]:
+        fail("sched (a): want one error indication per PRACH occasion (no PRACH buffer)")
+    p9_check_calls("sched (a)", calls, counts_a)
+    first = next(x for x in calls if len(x["pdus"]) >= 2)
+    k2_err, geometries = check_code_groups(first["grid"], first["pdus"], "sched (a) UL_TTI")
+    slots = int(s.group(1))
+    print(f"# [{card}] sched (a) du_low_sim {' '.join(P9_APP_TDD)}: rc {rc}, {grants} grants, "
+          f"{m.group(3)} CRC OK, BLER {bler:.3f}, {1e3 * float(s.group(2)) / slots:.2f} ms a "
+          f"slot (host clock, {slots} slots); K2 code groups {geometries}")
+    p9_report_ul_call(card, f"sched (a) UL_TTI of {len(first['pdus'])} scheduled grants "
+                      f"(slot {first['req'].slot.count})", first)
+
+    # (b)
+    rc, out, err, counts_b, calls = p9_run_app(P9_APP_CELLS)
+    m = re.search(r"# multi-cell mode: (\d+) cells, (\d+) UEs, (\d+) grants, (\d+) CRC OK in "
+                  r"([0-9.]+)s", err)
+    cells = re.findall(r"# cell (\d+): (\{.*\})", err)
+    if m is None or [int(cid) for cid, _ in cells] != [0, 1]:
+        fail(f"sched (b): summary or per-cell lines missing (rc {rc})")
+    grants, ok = int(m.group(3)), int(m.group(4))
+    bler = 1.0 - ok / max(grants, 1)
+    if rc != 0 or not bler < 1.0:
+        fail(f"sched (b): rc {rc} with BLER {bler}")
+    for cid, rep in cells:
+        rep = ast.literal_eval(rep)
+        if rep["nof_ul_grants"] != 4 * 20 or rep["nof_crc_ok"] + rep["nof_crc_nok"] != 4 * 20:
+            fail(f"sched (b) cell {cid}: {rep}, want 80 UL grants and their CRCs")
+    if len(calls) != 2 * 20:
+        fail(f"sched (b): {len(calls)} UL_TTI calls, want one per cell and slot")
+    p9_check_calls("sched (b)", calls, counts_b)
+    print(f"# [{card}] sched (b) du_low_sim {' '.join(P9_APP_CELLS)}: rc {rc}, {grants} grants, "
+          f"{ok} CRC OK, {1e3 * float(m.group(5)) / 20:.2f} ms a slot of both cells (host clock)")
+    p9_report_ul_call(card, "sched (b) UL_TTI of one cell's 4 grants", calls[-1])
+    return counts_a, counts_b, k2_err
+
+
+def sched_pipeline_phase(card: str) -> tuple[dict, dict]:
+    """Path 9 (c): the RoundRobinScheduler with PDCCH (DCI 1_0), PUCCH, SRS
+    and TA loops on, 4 layers on 4 ports, driving ``UpperPhy`` through
+    ``SlotPipeline(depth=2)`` for 20 FDD slots.  Every grant passes its
+    CRC, every DL grant that got its PDCCH carries one DCI, which decodes
+    back from the DL grid with its bits, and K2 and K3
+    are held against their plain versions on one slot's own inputs.
+    Returns the launch counts and the kernels' largest differences."""
+    import torch
+
+    from srsran_project_tpu_torch.l2sim.scheduler import RoundRobinScheduler, SchedulerConfig
+    from srsran_project_tpu_torch.phy import pdcch, pusch, ul_slot
+    from srsran_project_tpu_torch.phy.slot_pipeline import SlotPipeline
+    from srsran_project_tpu_torch.phy.upper_phy import UpperPhy, UpperPhyConfig
+
+    dev = torch.device(DEVICE)
+    nof_sc = UL_NOF_PRB * 12
+    # The PDCCH allocator's CORESET takes symbols 0 and 1: PDSCH and PUSCH
+    # start at symbol 2, their DM-RS symbol.
+    cfg = SchedulerConfig(nof_grid_sc=nof_sc, nof_rb=UL_NOF_PRB, sym_start=2,
+                          max_ues_per_slot=4, nof_layers=4, nof_ports=UL_NOF_PORTS,
+                          use_pdcch_alloc=True,
+                          emit_dci=True, use_pucch_alloc=True, use_srs=True, use_ta_manager=True)
+
+    def build():
+        sched = RoundRobinScheduler(cfg)
+        for i in range(P9_UES):
+            sched.add_ue(P9_RNTI + i, mcs=P9_MCS)
+        phy = UpperPhy(UpperPhyConfig(nof_ports=UL_NOF_PORTS, nof_grid_sc=nof_sc, device=DEVICE))
+        seen = {}
+        phy.add_tap(lambda event, _slot, payload: seen.__setitem__(event, payload))
+        return sched, phy, seen
+
+    rng = np.random.default_rng(SEED + 9)
+    u = torch.from_numpy(_unit_rows(rng, UL_NOF_PORTS)).to(dev)  # (4, 4) unitary
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    sigma = math.sqrt(0.5 * 10 ** (-P9_SNR_DB / 10))
+
+    def channel(grid):
+        noise = torch.randn((2,) + tuple(grid.shape), generator=gen, device=dev) * sigma
+        return torch.einsum("rp,psk->rsk", u, grid) + torch.complex(noise[0], noise[1])
+
+    sched, phy, seen = build()
+    pipe = SlotPipeline(phy, slot_duration_s=P9_SLOT_S, depth=2)
+    nof_grants = nof_dl = nof_pdcch = nof_pucch = nof_srs = 0
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.monotonic()
+    with UlTtiRecorder() as rec:
+        for i in range(P9_SLOTS):
+            dl, tx, ul, grants = sched.run_slot(p9_slot(i), rng)
+            if [p.rnti for p in dl.pdcch] != [p.rnti for p in dl.pdsch]:
+                fail(f"sched (c) slot {i}: PDCCH for {[p.rnti for p in dl.pdcch]}, PDSCH for "
+                     f"{[p.rnti for p in dl.pdsch]}: want one DCI per DL grant")
+            deadline = t0 + (i + 1) * P9_SLOT_S
+            pipe.push_dl_slot(dl, tx, deadline)
+            for p in dl.pdcch:  # every DCI back from the DL grid
+                bits, ok = pdcch.receive(seen["dl_grid"][0], p.rnti, p.config)
+                if not bool(ok) or not np.array_equal(bits.cpu().numpy(), p.payload):
+                    fail(f"sched (c) slot {i}: the DCI of {p.rnti:#x} does not decode back")
+            pipe.push_ul_slot(ul, channel(seen["dl_grid"]), deadline)
+            res = seen["ul_results"]
+            sched.handle_results(res)
+            bad = [(c.rnti, c.harq_id) for c in res.crc if not c.tb_crc_ok]
+            if bad or len(res.crc) != len(grants):
+                fail(f"sched (c) slot {i}: CRC failed for {bad} of {len(res.crc)} grants")
+            nof_grants += len(grants)
+            nof_dl += len(dl.pdsch)
+            nof_pdcch += len(dl.pdcch)
+            nof_pucch += len(ul.pucch)
+            nof_srs += len(ul.srs)
+        pipe.flush()
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    counts = read_counts()
+    p9_check_calls("sched (c)", rec.calls, counts)
+    if min(nof_pucch, nof_srs, nof_grants) == 0:
+        fail(f"sched (c): {nof_grants} grants, {nof_pucch} PUCCH, {nof_srs} SRS PDUs")
+    rep = pipe.report()
+    print(f"# [{card}] sched (c) RoundRobinScheduler + SlotPipeline(depth=2): {P9_SLOTS} slots, "
+          f"{nof_dl} DL grants with {nof_pdcch} DCIs ({sched.nof_pdcch_blocked} PDCCH "
+          f"allocations blocked), {nof_grants} UL grants all CRC OK, {nof_pucch} PUCCH and "
+          f"{nof_srs} SRS PDUs; {1e3 * wall / P9_SLOTS:.2f} ms a slot (host clock); pipeline "
+          f"{rep['slots']} slots, late ratio {rep['late_ratio']:.3f} against "
+          f"{P9_SLOT_S * 1e3:.1f} ms, mean lateness {rep['mean_lateness_us']:.0f} us")
+
+    # K2 and K3 against their plain versions on one multi-grant slot's inputs.
+    call = next(c for c in rec.calls if len(c["pdus"]) >= 2)
+    errs = {}
+    errs["decode"], geometries = check_code_groups(call["grid"], call["pdus"], "sched (c)")
+    groups = ul_slot._config_groups(call["pdus"])
+    cfg_a, idx_a = next(iter(groups.items()))
+    first_rbs = tuple(call["pdus"][i].first_rb for i in idx_a)
+    grid = call["grid"]
+    win = torch.stack([grid[:, :, 12 * r : 12 * r + cfg_a.nof_grid_sc] for r in first_rbs])
+    _g, h, nv = pusch._estimate_stage(win, cfg_a, r_override=pusch._pilot_bank_on(
+        dev, cfg_a, first_rbs))
+    errs["mmse_weights_4x4"] = check_k3_on(h.transpose(1, 2), nv, "sched (c) K3")[0]
+    print(f"# sched (c): K2 code groups {geometries} of slot {call['req'].slot.count}")
+
+    # One slot (DL_TTI, channel, UL_TTI) again on a new UpperPhy.
+    dl, tx, ul, _ = sched.run_slot(p9_slot(P9_SLOTS), rng)
+    timing = UpperPhy(UpperPhyConfig(nof_ports=UL_NOF_PORTS, nof_grid_sc=nof_sc, device=DEVICE))
+    report_call(card, f"sched (c) one slot: DL_TTI of {len(dl.pdsch)} PDSCH + "
+                f"{len(dl.pdcch)} PDCCH, channel, UL_TTI of {len(ul.pusch)} PUSCH + "
+                f"{len(ul.pucch)} PUCCH + {len(ul.srs)} SRS",
+                lambda: timing.process_ul_tti(ul, channel(timing.process_dl_tti(dl, tx))))
+    return counts, errs
+
+
 def main() -> int:
     import torch
 
@@ -2717,6 +3053,11 @@ def main() -> int:
     (per_path["refmodes_a"], per_path["refmodes_b"], per_path["refmodes_c"],
      per_path["refmodes_d"], errs8, times8) = refmodes_phase(card)
     for name, err in errs8.items():
+        errs[name] = max(errs.get(name, 0.0), err)
+    per_path["sched_app_tdd"], per_path["sched_app_cells"], k2_err9 = sched_app_phase(card)
+    errs["decode"] = max(errs["decode"], k2_err9)
+    per_path["sched_pipeline"], errs9 = sched_pipeline_phase(card)
+    for name, err in errs9.items():
         errs[name] = max(errs.get(name, 0.0), err)
     # Each kernel's launches on the path it serves (one call of it), and
     # on every path.

@@ -3,8 +3,9 @@
 Port of ``srsran_project_tpu/support/config.py`` (the reference's CLI11 +
 YAML config machinery, apps/units/flexible_o_du/o_du_low/du_low_config.h):
 dataclass-schema configs loaded from YAML with dotted-path overrides,
-validation, round-trip dumping, and ``to_cell_config``, which returns the
-port's ``CellConfig``.  PyYAML is imported only by ``load_config`` with a
+validation, round-trip dumping, ``to_cell_config``, which returns the
+port's ``CellConfig``, and ``to_scheduler_config``, which returns the
+port's ``l2sim.scheduler.SchedulerConfig``.  PyYAML is imported only by ``load_config`` with a
 path and by ``dump_config``: the defaults and the overrides need no YAML.
 """
 
@@ -207,4 +208,31 @@ def to_cell_config(cfg: DuLowConfig):
         demapper=e.pusch_demapper,
         ldpc_decoder=e.pusch_decoder_kernel,
         noise_method=e.pusch_noise_estimator,
+    )
+
+
+def to_scheduler_config(cfg: DuLowConfig, nof_grid_sc: int | None = None):
+    """Build the l2sim SchedulerConfig from the YAML schema."""
+    from ..l2sim.scheduler import SchedulerConfig
+    from ..ran.tdd import TddPattern
+
+    s = cfg.scheduler
+    tdd = None
+    if s.tdd_period_slots:
+        tdd = TddPattern(period_slots=s.tdd_period_slots,
+                         nof_dl_slots=s.tdd_dl_slots, nof_ul_slots=s.tdd_ul_slots)
+    return SchedulerConfig(
+        nof_grid_sc=nof_grid_sc or cfg.cell.nof_rb * 12,
+        nof_rb=cfg.cell.nof_rb,
+        max_ues_per_slot=s.max_ues_per_slot,
+        nof_layers=cfg.cell.nof_layers,
+        nof_ports=cfg.cell.nof_ports,
+        tdd_pattern=tdd,
+        policy=s.policy,
+        ul_demand_driven=s.ul_demand_driven,
+        ntn_koffset=cfg.ntn.cell_specific_koffset,
+        use_pdcch_alloc=s.use_pdcch_alloc,
+        use_pucch_alloc=s.use_pucch_alloc,
+        use_srs=s.use_srs,
+        k1=s.k1,
     )

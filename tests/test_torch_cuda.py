@@ -514,3 +514,74 @@ def test_reference_modes_on_card_match_cpu(cuda_device, kw):  # noqa: F811
     for key in ("cpu", str(cuda_device)):
         assert bool(outs[key]["tb_crc_ok"][0])
         np.testing.assert_array_equal(to_np(outs[key]["tb_bits"][0].cpu()), tb)
+
+
+def test_slot_pipeline_waits_on_the_card(cuda_device):  # noqa: F811
+    """SlotPipeline on the card: a DL slot in flight carries a CUDA event
+    recorded at dispatch; the flushed grids equal UpperPhy's own, in
+    dispatch order; a slot whose deadline passed a second ago is late."""
+    import time
+
+    from srsran_project_tpu_torch.fapi import messages as fapi
+    from srsran_project_tpu_torch.phy.allocation import Allocation
+    from srsran_project_tpu_torch.phy.pdsch import PdschConfig
+    from srsran_project_tpu_torch.phy.slot_pipeline import SlotPipeline
+    from srsran_project_tpu_torch.phy.upper_phy import UpperPhy, UpperPhyConfig
+    from srsran_project_tpu_torch.ran.constants import SubcarrierSpacing
+    from srsran_project_tpu_torch.ran.slot_point import SlotPoint
+
+    cfg = PdschConfig(tbs=304, target_code_rate=0.3, modulation=Modulation.QPSK,
+                      alloc=Allocation(rb_start=0, rb_count=6, sym_start=1, sym_count=12,
+                                       dmrs_symbols=(2,)))
+    rng = np.random.default_rng(0)
+    reqs = []
+    for i in range(4):
+        slot = SlotPoint.from_sfn_slot(SubcarrierSpacing.KHZ30, 0, i)
+        tb = rng.integers(0, 2, size=(304,), dtype=np.uint8)
+        reqs.append((fapi.DlTtiRequest(slot=slot, pdsch=[
+            fapi.DlPdschPdu(cfg, 0x11, np.eye(1, dtype=np.complex64), 0)]),
+            fapi.TxDataRequest(slot=slot, payloads=[tb])))
+    phy = UpperPhy(UpperPhyConfig(nof_ports=1, device="cuda"))
+    pipe = SlotPipeline(phy, depth=2)
+    now = time.monotonic()
+    for req in reqs[:3]:
+        pipe.push_dl_slot(*req, deadline_s=now + 30.0)
+        assert isinstance(pipe._inflight[-1][2][1], torch.cuda.Event)
+    grids = pipe.flush()
+    assert pipe.report()["late"] == 0 and len(grids) == 3
+    for grid, req in zip(grids, reqs):
+        assert grid.is_cuda and torch.equal(grid, phy.process_dl_tti(*req))
+    pipe.push_dl_slot(*reqs[3], deadline_s=now - 1.0)
+    pipe.flush()
+    assert pipe.report()["late"] == 1 and pipe.errors
+
+
+def test_scheduled_slot_on_card_matches_cpu(cuda_device):  # noqa: F811
+    """Two slots of the port's RoundRobinScheduler (24 PRB, 2 grants a
+    slot) through UpperPhy on the card (K2 for the two grants) and on the
+    CPU, on the same received grid: the same CRCs and TB bits."""
+    from srsran_project_tpu_torch.l2sim.scheduler import RoundRobinScheduler, SchedulerConfig
+    from srsran_project_tpu_torch.phy import channel_emulator as chem
+    from srsran_project_tpu_torch.phy.upper_phy import UpperPhy, UpperPhyConfig
+    from srsran_project_tpu_torch.ran.constants import SubcarrierSpacing
+    from srsran_project_tpu_torch.ran.slot_point import SlotPoint
+
+    s = RoundRobinScheduler(SchedulerConfig(nof_rb=24, nof_grid_sc=288, max_ues_per_slot=2))
+    for i in range(3):
+        s.add_ue(0x900 + i, mcs=12)
+    phys = {d: UpperPhy(UpperPhyConfig(nof_ports=1, nof_grid_sc=288, device=d))
+            for d in ("cpu", "cuda")}
+    ch = chem.ChannelConfig(profile="single", sinr_db=30.0, nof_sc=288)
+    gen = torch.Generator().manual_seed(0)
+    rng = np.random.default_rng(0)
+    for k in range(2):
+        dl, tx, ul, grants = s.run_slot(SlotPoint(SubcarrierSpacing.KHZ30, k), rng)
+        rx, _, _ = chem.apply_channel(phys["cpu"].process_dl_tti(dl, tx), gen, ch)
+        before = decoder.decode.launches
+        got = {d: phy.process_ul_tti(ul, rx.to(d)) for d, phy in phys.items()}
+        assert decoder.decode.launches == before + 1
+        for c_cpu, c_gpu in zip(got["cpu"].crc, got["cuda"].crc):
+            assert c_cpu.tb_crc_ok and c_gpu.tb_crc_ok
+        for r_cpu, r_gpu in zip(got["cpu"].rx_data, got["cuda"].rx_data):
+            np.testing.assert_array_equal(r_cpu.payload, r_gpu.payload)
+        s.handle_results(got["cuda"])

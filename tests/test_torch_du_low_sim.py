@@ -1,12 +1,21 @@
-"""The port's ``du_low_sim`` (single-UE mode) and its configuration
-against the JAX package's.
+"""The port's ``du_low_sim`` and its configuration against the JAX
+package's.
 
 The app runs on the CPU here (``--cpu``) at a small ``--set`` config; one
 of its slots, the same TB and the same received grid through the JAX
 package's ``UpperPhy`` give the same DL grid (within 1e-6 x RMS) and the
-same indications (CRC and TB bits exact, snr_db atol 1e-3)."""
+same indications (CRC and TB bits exact, snr_db atol 1e-3).  Its scheduler
+and multi-cell modes at 24 PRB and 1 port on one tap at 30 dB print the
+reference app's summaries (grants, CRCs, BLER, common-channel counters,
+per-cell metrics) and its stdout lines (periodic reports, metrics JSON)
+exactly, wall-clock figures aside."""
 
 import dataclasses
+import importlib.util
+import json
+import os
+import re
+import sys
 
 import numpy as np
 import pytest
@@ -26,6 +35,9 @@ from srsran_project_tpu_torch.phy import channel_emulator as tchem
 from srsran_project_tpu_torch.phy.upper_phy import UpperPhy as TUpperPhy
 from srsran_project_tpu_torch.phy.upper_phy import UpperPhyConfig as TUpperPhyConfig
 from srsran_project_tpu_torch.support import config as tconfig
+from srsran_project_tpu_torch.support import tracing as ttracing
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 SMALL = ["--cpu", "--set", "cell.nof_rb=24", "--set", "cell.nof_ports=2",
          "--set", "cell.nof_layers=1", "--set", "cell.modulation=qam16",
@@ -107,3 +119,140 @@ def test_one_slot_against_the_reference():
     assert abs(res_t.crc[0].snr_db - res_j.crc[0].snr_db) <= 1e-3
     np.testing.assert_array_equal(res_t.rx_data[0].payload, np.asarray(res_j.rx_data[0].payload))
     np.testing.assert_array_equal(res_t.rx_data[0].payload, tb)
+
+
+# ---- scheduler and multi-cell modes ------------------------------------------
+
+SCHED = ["--cpu", "--set", "cell.nof_rb=24", "--set", "cell.nof_ports=1", "--set",
+         "cell.nof_layers=1", "--channel", "single", "--snr-db", "30"]
+MODES = {
+    "qos": ["--ues", "2", "--policy", "qos", "--slots", "6"],
+    "tdd": ["--ues", "3", "--tdd", "--slots", "12"],
+    "common": ["--ues", "3", "--common", "--slots", "20"],
+    "tdd_common_metrics": ["--ues", "4", "--tdd", "--common", "--slots", "20",
+                           "--metrics-interval-slots", "5", "--metrics-json"],
+    "cells": ["--ues", "3", "--cells", "2", "--slots", "8", "--metrics-json"],
+}
+
+
+def _reference_app():
+    spec = importlib.util.spec_from_file_location("reference_du_low_sim",
+                                                  os.path.join(REPO, "apps", "du_low_sim.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _summary(err: str) -> list[str]:
+    """The app's '# ' lines without the cell header and the wall-clock
+    figures."""
+    out = []
+    for line in err.splitlines():
+        if not line.startswith("# ") or line.startswith("# cell: "):
+            continue
+        line = re.sub(r"in [0-9.]+s", "in Ts", line)
+        out.append(re.sub(r"[0-9.]+ Mbps", "R Mbps", line))
+    return out
+
+
+def run_both(argv, monkeypatch, capsys):
+    """(rc, summary, stdout lines) of the reference app and of the port's."""
+    monkeypatch.setattr(sys, "argv", ["du_low_sim.py", *argv])
+    ref_rc = _reference_app().main()
+    ref = capsys.readouterr()
+    port_rc = du_low_sim.main(list(argv))
+    port = capsys.readouterr()
+    return ((ref_rc, _summary(ref.err), ref.out.splitlines()),
+            (port_rc, _summary(port.err), port.out.splitlines()))
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_mode_against_the_reference_app(mode, monkeypatch, capsys):
+    ref, port = run_both(SCHED + MODES[mode], monkeypatch, capsys)
+    assert port == ref
+    rc, summary, out = port
+    assert rc == 0
+    if "--common" not in MODES[mode]:
+        assert summary[-1].endswith(("BLER=0.000", "CRC OK in Ts"))
+    if mode == "tdd_common_metrics":
+        assert summary[0] == ("# common channels: {'ssb': 1, 'sib1': 1, 'paging': 0, "
+                              "'csi_rs': 1, 'prach': 1, 'cbs': 0, 'fallback': 0, 'si': 0}")
+        periodic = [json.loads(line) for line in out[:-1]]
+        assert [p["slot"] for p in periodic] == [5, 10, 15, 20]
+        assert all(p["type"] == "periodic" and len(p) == 2 + 4 for p in periodic)
+        # Nothing records into the metrics collector (kept for parity).
+        assert out[-1] == "{}"
+    if mode == "cells":
+        rep = json.loads(out[-1])
+        assert sorted(rep["cells"]) == ["0", "1"] and rep["bler"] == 0.0
+        assert rep["cells"]["0"]["nof_ul_grants"] > 0 and rep["cells"]["1"]["nof_ul_grants"] > 0
+
+
+def test_common_broadcast_slots_fail_the_loopback(capsys):
+    """With --common the loopback fails grants the common channels
+    overwrite: slot 0's SSB (PRBs 0-19, symbols 2-5) fails the grant on
+    PRBs 8-15, and slot 1's SIB1
+    broadcast PDSCH takes the band while the three UE grants keep their
+    PUSCH (as in the reference app: test_mode_against_the_reference_app)."""
+    assert du_low_sim.main(SCHED + ["--ues", "3", "--common", "--slots", "3"]) == 0
+    summary = _summary(capsys.readouterr().err)
+    assert summary[1] == "# scheduler mode: 3 UEs, 9 grants, 5 CRC OK, R Mbps UL"
+
+
+@pytest.fixture
+def fresh_tracer(monkeypatch):
+    """The L1 tracer with no events, its state restored afterwards."""
+    tr = ttracing.l1_tracer
+    monkeypatch.setattr(tr, "_events", [])
+    monkeypatch.setattr(tr, "enabled", tr.enabled)
+    monkeypatch.setattr(tr, "threshold_us", tr.threshold_us)
+    return tr
+
+
+@pytest.mark.parametrize("mode", ["single", "scheduler"])
+def test_trace_is_chrome_json(mode, tmp_path, fresh_tracer, capsys):
+    """--trace writes Chrome trace JSON: a DL and a UL span a slot in the
+    single-UE loop; none in scheduler mode, whose loop has no spans in the
+    reference either (kept for parity)."""
+    path = tmp_path / "trace.json"
+    argv = (SMALL if mode == "single" else SCHED + ["--ues", "2", "--slots", "3"])
+    assert du_low_sim.main(argv + ["--trace", str(path), "--metrics-json"]) == 0
+    events = json.loads(path.read_text())["traceEvents"]
+    assert capsys.readouterr().out.splitlines()[-1] == "{}"
+    if mode == "scheduler":
+        assert events == []
+        return
+    assert [e["name"] for e in events] == [f"{d}_slot_{i}" for i in range(3) for d in ("dl", "ul")]
+    assert all(e["ph"] == "X" and e["dur"] >= 0 and e["cat"] == "L1" for e in events)
+
+
+def test_scheduler_mode_config_and_ul_synthesis():
+    """The scheduler mode's config is the reference app's, and a UL-only
+    TDD slot's synthesized grid equals the sum of each grant's own
+    pusch.transmit at its PRB offset."""
+    from srsran_project_tpu.l2sim import scheduler as jsched
+    from srsran_project_tpu.ran import tdd as jtdd
+    from srsran_project_tpu_torch.l2sim import scheduler as tsched
+    from srsran_project_tpu_torch.phy import pusch as tpusch
+
+    cell = tconfig.to_cell_config(tconfig.load_config(None, {"cell.nof_rb": 24, "cell.nof_ports": 1,
+                                                            "cell.nof_layers": 1}))
+    args = du_low_sim._parser().parse_args(["--ues", "6", "--tdd", "--policy", "qos"])
+    cfg = du_low_sim.scheduler_config(cell, args)
+    assert cfg == tsched.SchedulerConfig.from_reference(jsched.SchedulerConfig(
+        nof_grid_sc=cell.nof_sc, nof_rb=cell.nof_rb, max_ues_per_slot=4, nof_layers=1,
+        nof_ports=1, tdd_pattern=jtdd.PATTERN_7D2U, policy="qos"))
+    s = tsched.RoundRobinScheduler(cfg)
+    for i in range(6):
+        s.add_ue(0x100 + i, mcs=10)
+    rng = np.random.default_rng(0)
+    for n in range(9):
+        _, _, ul, _ = s.run_slot(du_low_sim._slot_point(cell, n), rng)
+    assert len(ul.pusch) == 4
+    tx = du_low_sim.synthesize_ul(s, ul, cell, torch.device("cpu"))
+    want = torch.zeros_like(tx)
+    for pdu in ul.pusch:
+        sub = tpusch.transmit(torch.as_tensor(s.ues[pdu.rnti].harqs[pdu.harq_id].tb),
+                              torch.tensor(pdu.rnti), pdu.config)
+        want[:, :, pdu.first_rb * 12:pdu.first_rb * 12 + sub.shape[2]] = sub
+    assert torch.equal(tx, want)

@@ -71,7 +71,7 @@ if files[0].name == "__init__.py":
     loaded = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + ".")]
     for n in loaded:
         importlib.import_module(n)
-    assert len(loaded) >= 45, loaded
+    assert len(loaded) >= 89, loaded
 else:
     spec = importlib.util.spec_from_file_location(files[0].stem, files[0])
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
@@ -96,8 +96,9 @@ def _import_targets(name: str) -> list[str]:
                                     "srsran_project_tpu_torch/apps/bler_parity.py"])
 def test_package_imports_no_jax(target):
     """The port's package (its FAPI, DL channels, upper PHY, channel
-    emulator, config and app modules, and the reference-exact modes'
-    estimator_ref / estimator_reftorch / demapper_i8 among them),
+    emulator, config and app modules, the reference-exact modes'
+    estimator_ref / estimator_reftorch / demapper_i8, and the scheduler
+    slice's modules, SLICE_MODULES below, among them),
     chip_smoke.py, the profiler script and the two apps (du_low_sim, the
     BLER-parity harness) name neither jax nor anything of
     srsran_project_tpu in any import, and loading them (with every module
@@ -106,6 +107,36 @@ def test_package_imports_no_jax(target):
     proc = subprocess.run([sys.executable, "-c", _IMPORT_CHECK, *_import_targets(target)],
                           cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+# The scheduler slice's modules: each is among those the package check
+# above loads in a fresh interpreter.
+SLICE_MODULES = ["ran.tdd", "ran.dci", "ran.precoding", "l2sim", "l2sim.link_adaptation",
+                 "l2sim.power_control", "l2sim.srs_alloc", "l2sim.ue_context_loops",
+                 "l2sim.pdcch_alloc", "l2sim.pucch_alloc", "l2sim.uci_alloc", "l2sim.scheduler",
+                 "l2sim.common_scheduling", "l2sim.multi_cell", "support.timers",
+                 "support.metrics", "support.tracing", "support.logger", "phy.slot_pipeline"]
+
+
+@pytest.mark.parametrize("module", SLICE_MODULES)
+def test_slice_module_is_checked(module):
+    """The module is one the package check walks, and no import in it
+    (those inside functions too) names jax or the JAX package."""
+    import ast
+    import pkgutil
+
+    import srsran_project_tpu_torch as p
+
+    name = f"{p.__name__}.{module}"
+    assert name in {m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + ".")}
+    path = os.path.join(REPO, p.__name__, *module.split("."))
+    path = os.path.join(path, "__init__.py") if os.path.isdir(path) else path + ".py"
+    for node in ast.walk(ast.parse(open(path).read())):
+        names = ([a.name for a in node.names] if isinstance(node, ast.Import) else
+                 [node.module or ""] if isinstance(node, ast.ImportFrom) and node.level == 0
+                 else [])
+        assert not [n for n in names if n.split(".")[0] in ("jax", "jaxlib",
+                                                             "srsran_project_tpu")], (path, names)
 
 
 def test_app_runs_without_yaml():
@@ -325,13 +356,22 @@ def test_reference_mode_is_accepted(what, build, field, value):
         assert cfg.sch.decoder == ref.sch.decoder == cfg.ldpc_decoder
 
 
+def _cell_scheduler_stage(stage):
+    from srsran_project_tpu_torch.l2sim import common_scheduling as cs
+    from srsran_project_tpu_torch.l2sim import scheduler
+
+    return lambda: cs.CellScheduler(cs.CommonSchedulingConfig(), scheduler.RoundRobinScheduler(
+        scheduler.SchedulerConfig()), **{stage: object()})
+
+
 RAISES = [
-    ("du_low_sim --trace", _app_flag("--trace", "t.json"), "Q1.10.2"),
-    ("du_low_sim --ues", _app_flag("--ues", "4"), "Q1.10.3"),
-    ("du_low_sim --cells", _app_flag("--cells", "2"), "Q1.10.4"),
     ("du_low_sim --ru", _app_flag("--ru", "ofh"), "Q1.10.5"),
     ("du_low_sim --pcap", _app_flag("--pcap", "mac.pcap"), "Q1.10.6"),
     ("du_low_sim --remote-port", _app_flag("--remote-port", "0"), "Q1.10.7"),
+    ("CellScheduler fallback", _cell_scheduler_stage("fallback"), "Q1.10.11"),
+    ("CellScheduler si_scheduler", _cell_scheduler_stage("si_scheduler"), "Q1.10.12"),
+    ("CellScheduler paging_po", _cell_scheduler_stage("paging_po"), "Q1.10.12"),
+    ("CellScheduler csi_rs_scheduler", _cell_scheduler_stage("csi_rs_scheduler"), "Q1.10.12"),
 ]
 
 
@@ -344,13 +384,14 @@ def test_raise_names_its_sub_item(what, trigger, item):
 
 
 def test_every_raise_is_pinned():
-    """The package raises NotImplementedError at one place (the app's
-    deferred flags), pinned above; a new one must be added to RAISES."""
+    """The package raises NotImplementedError at two places (the app's
+    deferred flags and the CellScheduler's deferred stages), pinned above;
+    a new one must be added to RAISES."""
     pkg = os.path.join(REPO, "srsran_project_tpu_torch")
     sites = sorted(os.path.relpath(os.path.join(d, f), pkg) for d, _, fs in os.walk(pkg)
                    for f in fs if f.endswith(".py")
                    for line in open(os.path.join(d, f)) if "raise NotImplementedError" in line)
-    assert sites == ["apps/du_low_sim.py"], sites
+    assert sites == ["apps/du_low_sim.py", "l2sim/common_scheduling.py"], sites
 
 
 # A UCI config with a CSI report configuration: two-step CSI.

@@ -4,6 +4,9 @@ Inputs are made with numpy from a seed and handed to both packages; arrays
 cross between JAX and torch as numpy arrays.
 """
 
+import dataclasses
+import enum
+
 import numpy as np
 import pytest
 import torch
@@ -20,6 +23,30 @@ def to_torch(x) -> torch.Tensor:
 
 def to_np(x: torch.Tensor) -> np.ndarray:
     return x.detach().cpu().numpy()
+
+
+def plain(x):
+    """x as plain, package-independent data: a dataclass or another object
+    with attributes as its class name and fields, an enum by value, an
+    array with its dtype and shape; containers element by element."""
+    if isinstance(x, enum.Enum):
+        return (type(x).__name__, x.value)
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return (type(x).__name__,
+                {f.name: plain(getattr(x, f.name)) for f in dataclasses.fields(x)})
+    if isinstance(x, np.ndarray):
+        return ("ndarray", str(x.dtype), x.shape, x.tolist())
+    if isinstance(x, np.generic):
+        return (str(x.dtype), x.item())
+    if isinstance(x, dict):
+        return {plain(k): plain(v) for k, v in x.items()}
+    if isinstance(x, (set, frozenset)):
+        return ("set", sorted(plain(v) for v in x))
+    if isinstance(x, (list, tuple)):
+        return [plain(v) for v in x]
+    if hasattr(x, "__dict__") and not isinstance(x, type) and not callable(x):
+        return (type(x).__name__, plain(vars(x)))
+    return x
 
 
 @pytest.fixture
