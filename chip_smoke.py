@@ -9,7 +9,7 @@ Run from the repository root on a machine with one NVIDIA Hopper card:
 It builds the port's CUDA kernels from ``srsran_project_tpu_torch/csrc``
 (into ``build/``, one ``nvcc`` per source, side by side), checks each
 kernel against its plain torch version on the card at the shapes of the
-paths below, then drives nine paths through the port's public entry
+paths below, then drives ten paths through the port's public entry
 points, each with every kernel launch counter set to 0 just before it and
 read just after:
 
@@ -126,6 +126,28 @@ read just after:
    0.5 ms printed.  Every UL_TTI call's launches are checked against the
    ones its grants imply (K2 per code group and K3 per 4x4 config group
    with two or more grants, else K1 and K3).
+10. initial access and the MAC's remaining stages on the app's default
+   cell (273 PRB, 30 kHz, 4 ports): (a) 4-step random access into
+   connected data, slots 136-164 through ``CellScheduler`` with every
+   stage (the RR data scheduler at 4 layers and MCS 20 with PDCCH
+   allocation, three UEs connected, one a slot; the fallback stage; the SI,
+   PF/PO paging and CSI-RS engines) and ``RaManager``, every request
+   reaching ``UpperPhy`` through ``MessageBufferer(l2_nof_slots_ahead=2)``:
+   a format-0 preamble delayed 25 us through ``lower_phy.prach_demodulate``,
+   the RAR read back (RAPID, TC-RNTI, TA command), Msg3 alone in its
+   UL_TTI (K1), Msg4 with the ConRes CE NACKed once and retransmitted,
+   SRB1, then the UE's data grants (K1 and K3 a call), every CRC OK; the
+   SI and paging PDSCH read back, the counters, the bufferer's stats and
+   each UL_TTI call's launches checked; K1 and K3 against their plain
+   versions on the calls' inputs; (b) ``SliceScheduler`` over an ``rr``
+   and a ``qos`` slice of 4 UEs each for 10 FDD slots, the RRM policy
+   raising slice 2's minimum after slot 5: quotas, disjoint PRBs, every
+   CRC, each call's launches (slice 1's grants through ``process_slot``,
+   K2 and K3; slice 2's, whose window is not at their crb_start, one by
+   one, K1 and K3), K2 and K3 against their plain versions; (c) the
+   helpers on CUDA tensors against their CPU results: ``decode_count_iters``
+   on the flagship's 141 codeblocks (beside K1's iterations on the same
+   LLRs), ``detect_ref``, ``hard_decision_bits`` and ``selection_indices``.
 
 Every CRC, every TB and UCI bit, every ``_ok`` flag and every PUCCH value
 is checked, and each PUCCH metric against its DTX threshold.  It then times each path per slot and
@@ -904,6 +926,41 @@ def check_k3_on(h, nv, what: str):
              f"{float((ev_k - ev_p).abs().max()):.3e})")
     print(f"# {what} {tuple(h.shape)}: W and eq_nvar bitwise equal to the plain version")
     return err, w_k, ev_k
+
+
+def check_k3_group(grid, pdus, what: str) -> float:
+    """K3 against its plain version on the channel estimate of the first
+    config group of ``pdus`` (UlSlotPdus) in ``grid``, each grant's pilots
+    from its first PRB, as ``process_slot`` estimates them.  Returns the
+    largest difference."""
+    import torch
+
+    from srsran_project_tpu_torch.phy import pusch, ul_slot
+
+    cfg, idx = next(iter(ul_slot._config_groups(pdus).items()))
+    first_rbs = tuple(pdus[i].first_rb for i in idx)
+    win = torch.stack([grid[:, :, 12 * r : 12 * r + cfg.nof_grid_sc] for r in first_rbs])
+    _g, h, nv = pusch._estimate_stage(win, cfg, r_override=pusch._pilot_bank_on(
+        grid.device, cfg, first_rbs))
+    return check_k3_on(h.transpose(1, 2), nv, what)[0]
+
+
+def check_k1_grant(grid, pdu, what: str) -> float:
+    """K1 against its plain version on the LLRs of one compact PUSCH PDU
+    (its window of ``grid``), as ``pusch.process`` decodes it.  Returns the
+    largest bit difference."""
+    import torch
+
+    from srsran_project_tpu_torch.phy import pusch, sch as sch_mod
+
+    cfg = pdu.config
+    sc0 = 12 * pdu.first_rb
+    llr = pusch._front_end(grid[None, :, :, sc0 : sc0 + cfg.nof_grid_sc],
+                           torch.tensor([pdu.rnti], device=grid.device), cfg)[0]
+    data, _ = pusch.split_uci(llr, cfg)
+    bits, iters = sch_mod._fused_decode(data, cfg.sch, cfg.nof_ldpc_iterations,
+                                        cfg.ldpc_early_stop)
+    return check_k1_batch(data, bits, iters, cfg, what)
 
 
 def p5_inputs(device):
@@ -1903,7 +1960,7 @@ def fapi_ul_phase(card: str) -> tuple[dict, dict]:
     calls and the kernels' largest differences."""
     import torch
 
-    from srsran_project_tpu_torch.phy import pusch, sch as sch_mod, ul_slot
+    from srsran_project_tpu_torch.phy import ul_slot
     from srsran_project_tpu_torch.phy.upper_phy import UpperPhy, UpperPhyConfig
 
     dev = torch.device(DEVICE)
@@ -1940,21 +1997,8 @@ def fapi_ul_phase(card: str) -> tuple[dict, dict]:
     # K3 on group A's estimate and K1 on the two-step CSI grant's LLRs, from
     # the first call's grid.
     grid, req = calls[0]
-    groups = ul_slot._config_groups(p6_slot_pdus(req))
-    cfg_a, idx_a = next(iter(groups.items()))
-    first_rbs = tuple(req.pusch[i].first_rb for i in idx_a)
-    win = torch.stack([grid[:, :, 12 * r : 12 * r + cfg_a.nof_grid_sc] for r in first_rbs])
-    _g, h, nv = pusch._estimate_stage(win, cfg_a, r_override=pusch._pilot_bank_on(
-        dev, cfg_a, first_rbs))
-    errs["mmse_weights_4x4"] = check_k3_on(h.transpose(1, 2), nv, "fapi UL_TTI group A K3")[0]
-    p = req.pusch[-1]
-    sc0 = 12 * p.first_rb
-    llr = pusch._front_end(grid[None, :, :, sc0 : sc0 + p.config.nof_grid_sc],
-                           torch.tensor([p.rnti], device=dev), p.config)[0]
-    data, _ = pusch.split_uci(llr, p.config)
-    bits, iters = sch_mod._fused_decode(data, p.config.sch, p.config.nof_ldpc_iterations,
-                                        p.config.ldpc_early_stop)
-    errs["decode_dematch"] = check_k1_batch(data, bits, iters, p.config, "fapi UL_TTI two-step CSI")
+    errs["mmse_weights_4x4"] = check_k3_group(grid, p6_slot_pdus(req), "fapi UL_TTI group A K3")
+    errs["decode_dematch"] = check_k1_grant(grid, req.pusch[-1], "fapi UL_TTI two-step CSI")
     timing = UpperPhy(UpperPhyConfig(nof_ports=UL_NOF_PORTS, nof_grid_sc=UL_NOF_PRB * 12,
                                      device=DEVICE))
     report_call(card, "fapi UL_TTI (call 1's request: 8 PUSCH, a two-step CSI grant, 6 PUCCH, "
@@ -2716,24 +2760,28 @@ def p9_slot(i: int):
 
 def p9_expected(pdus) -> dict:
     """The kernel launches ``UpperPhy.process_ul_tti`` makes for a request
-    of these compact grants: with two or more, K2 once per code group and
-    K3 once per 4x4 MMSE config group (``process_slot``); a single grant
-    through ``pusch.process``: K1 (K2 where its geometry repeats) and K3
-    for 4x4 MMSE."""
+    of these compact grants: two or more whose window starts at their
+    crb_start go through ``process_slot``, K2 once per code group and K3
+    once per 4x4 MMSE config group; every other grant through
+    ``pusch.process``: K1 (K2 where its geometry repeats) and K3 for 4x4
+    MMSE."""
     from srsran_project_tpu_torch.phy import ul_slot
 
     def k3(c) -> int:
         return int((c.nof_layers, c.nof_rx_ports, c.equalizer) == (4, 4, "mmse"))
 
-    if len(pdus) >= 2:
-        groups = ul_slot._config_groups(pdus)
+    want = {"decode_dematch": 0, "decode": 0, "mmse_weights_4x4": 0}
+    batch = [p for p in pdus if p.config.alloc.crb_start == p.first_rb]
+    if len(batch) >= 2:
+        groups = ul_slot._config_groups(batch)
         codes = {(c.sch.seg.base_graph, c.sch.seg.lifting_size, c.nof_ldpc_iterations,
                   c.ldpc_early_stop, c.sch.n_cb) for c in groups}
-        return {"decode": len(codes), "mmse_weights_4x4": sum(k3(c) for c in groups)}
-    want = {"decode_dematch": 0, "decode": 0, "mmse_weights_4x4": 0}
+        want["decode"] += len(codes)
+        want["mmse_weights_4x4"] += sum(k3(c) for c in groups)
     for p in pdus:
-        want["decode_dematch" if _fused_ok(p.config) else "decode"] += 1
-        want["mmse_weights_4x4"] += k3(p.config)
+        if len(batch) < 2 or p not in batch:
+            want["decode_dematch" if _fused_ok(p.config) else "decode"] += 1
+            want["mmse_weights_4x4"] += k3(p.config)
     return want
 
 
@@ -2787,7 +2835,7 @@ def p9_check_calls(what: str, calls: list, total: dict) -> None:
         fail(f"{what}: the calls' launches {summed} do not add up to the path's {total}")
     multi = sum(len(c["pdus"]) >= 2 for c in calls)
     print(f"# {what}: {len(calls)} UL_TTI calls, {multi} with two or more grants, each with "
-          f"its K2 launches")
+          f"the launches its grants imply")
 
 
 def p9_run_app(argv) -> tuple[int, str, str, dict, list]:
@@ -2901,7 +2949,7 @@ def sched_pipeline_phase(card: str) -> tuple[dict, dict]:
     import torch
 
     from srsran_project_tpu_torch.l2sim.scheduler import RoundRobinScheduler, SchedulerConfig
-    from srsran_project_tpu_torch.phy import pdcch, pusch, ul_slot
+    from srsran_project_tpu_torch.phy import pdcch
     from srsran_project_tpu_torch.phy.slot_pipeline import SlotPipeline
     from srsran_project_tpu_torch.phy.upper_phy import UpperPhy, UpperPhyConfig
 
@@ -2980,14 +3028,7 @@ def sched_pipeline_phase(card: str) -> tuple[dict, dict]:
     call = next(c for c in rec.calls if len(c["pdus"]) >= 2)
     errs = {}
     errs["decode"], geometries = check_code_groups(call["grid"], call["pdus"], "sched (c)")
-    groups = ul_slot._config_groups(call["pdus"])
-    cfg_a, idx_a = next(iter(groups.items()))
-    first_rbs = tuple(call["pdus"][i].first_rb for i in idx_a)
-    grid = call["grid"]
-    win = torch.stack([grid[:, :, 12 * r : 12 * r + cfg_a.nof_grid_sc] for r in first_rbs])
-    _g, h, nv = pusch._estimate_stage(win, cfg_a, r_override=pusch._pilot_bank_on(
-        dev, cfg_a, first_rbs))
-    errs["mmse_weights_4x4"] = check_k3_on(h.transpose(1, 2), nv, "sched (c) K3")[0]
+    errs["mmse_weights_4x4"] = check_k3_group(call["grid"], call["pdus"], "sched (c) K3")
     print(f"# sched (c): K2 code groups {geometries} of slot {call['req'].slot.count}")
 
     # One slot (DL_TTI, channel, UL_TTI) again on a new UpperPhy.
@@ -2998,6 +3039,657 @@ def sched_pipeline_phase(card: str) -> tuple[dict, dict]:
                 f"{len(ul.pucch)} PUCCH + {len(ul.srs)} SRS",
                 lambda: timing.process_ul_tti(ul, channel(timing.process_dl_tti(dl, tx))))
     return counts, errs
+
+
+# ---- initial access and the MAC's remaining stages ------------------------------
+
+# Path 10 (a): 4-step random access into connected data, on the app's
+# default cell (273 PRB, 30 kHz, 4 RX ports).  The data scheduler keeps the
+# top RA band (12 PRB) free: Msg2 goes there, and Msg3 on its first 2 PRB
+# (QPSK, 72 bits: a CCCH48 subPDU and padding).  The three connected UEs
+# (4 layers, MCS 20, PDCCH allocation and DCI 1_0) take one grant a slot
+# in turn, the whole data band, and share a measurement gap of 8 slots
+# every 80 (counts 144-151): Msg3's UL_TTI carries it alone, and the
+# fallback grants never move the data grants' PRBs.  One UE a slot keeps
+# every DL and UL DCI clear of CCE blocking: a UL DCI blocked leaves a TB
+# sent on the DL only, which the scheduler later retransmits on the UL at
+# rv 2 with no first transmission to combine (ROADMAP Q3).
+# Slot counts 136-164 (SFN 6 slot 16 to SFN 8 slot 4) hold a PRACH
+# occasion at 139 (and a noise-only one at 159), the paged UE's PO at 140,
+# CSI-RS at 148 and 164, the SSB and the SI window at 160.
+P10_A = dict(nof_rb=273, ports=4, layers=4, ra_prbs=12, ues=3, mcs=20, srate_hz=122.88e6)
+P10_RNTI = 0x4D01
+P10_START, P10_END = 136, 164
+P10_GAP = dict(mgrp_ms=40, mgl_ms=4.0, gap_offset_ms=32)
+P10_PREAMBLE = 23
+P10_ZCZ = 8
+P10_DELAY_S = 25e-6  # 32 bins of the detector's 1024-point profile: TA command 2
+P10_MSG3_DELAY = 4  # slots from the RAR to Msg3
+P10_MSG3_PRBS = 2
+P10_MSG3_TBS = 72
+P10_RAR_TBS = 128
+P10_IDENTITY = bytes.fromhex("5a1e0c3f9b27")  # the UE's 48-bit CCCH identity
+P10_RRC_SETUP = bytes(range(0x20, 0x20 + 24))
+P10_RRC_SRB1 = bytes(range(0x60, 0x60 + 16))
+P10_SIB2 = b"SIB2"
+P10_PAGED = 7  # UE_ID paged: PF at SFN mod 8 = 7, PO slot 0
+P10_SNR_DB = 30.0
+P10_COUNTERS = {"ssb": 1, "sib1": 0, "paging": 1, "csi_rs": 2, "prach": 2, "cbs": 0,
+                "fallback": 3, "si": 1}
+# (b) RAN slicing: two slices of 4 UEs each (4 layers, MCS 20), 10 FDD
+# slots, slice 2's minimum raised to 50 % after slot 5.
+P10_SLICES = (dict(slice_id=1, min_ratio=0.3, max_ratio=0.7, policy="rr", sd=0),
+              dict(slice_id=2, min_ratio=0.3, max_ratio=0.7, policy="qos", sd=1))
+P10_SLICE_SLOTS = 10
+P10_POLICY_AFTER = 5
+P10_POLICY = {"members": [{"sst": 1, "sd": 1}], "min_ratio": 50, "max_ratio": 70}
+P10_QUOTAS = ({1: 137, 2: 136}, {1: 109, 2: 164})  # before and after the policy
+
+
+def p10_modules():
+    """The port's modules path 10 runs, as one namespace (the CPU tests
+    build the same namespace of the JAX package's)."""
+    import types
+
+    from srsran_project_tpu_torch.fapi import bufferer, messages
+    from srsran_project_tpu_torch.l2 import mac_pdu
+    from srsran_project_tpu_torch.l2sim import (common_scheduling, fallback, ra, scheduler,
+                                                si_paging, slicing, ue_context_loops)
+    from srsran_project_tpu_torch.ops.modulation import Modulation
+    from srsran_project_tpu_torch.phy import allocation, prach, pusch, upper_phy
+    from srsran_project_tpu_torch.ran.constants import SubcarrierSpacing
+    from srsran_project_tpu_torch.ran.slot_point import SlotPoint
+
+    return types.SimpleNamespace(
+        fapi=messages, buf=bufferer, mac=mac_pdu, cs=common_scheduling, fb=fallback, ra=ra,
+        sched=scheduler, sp=si_paging, slicing=slicing, ucl=ue_context_loops, prach=prach,
+        pusch=pusch, alloc=allocation, Modulation=Modulation, UpperPhy=upper_phy.UpperPhy,
+        UpperPhyConfig=upper_phy.UpperPhyConfig, Slot=SlotPoint, Scs=SubcarrierSpacing)
+
+
+def p10_slot(m, n: int):
+    return m.Slot.from_sfn_slot(m.Scs.KHZ30, (n // 20) % 1024, n % 20)
+
+
+class AccessCell:
+    """The gNB of path 10 (a) over the modules of namespace ``m``: a
+    ``CellScheduler`` with every stage (the data scheduler, the fallback
+    stage on the data scheduler's CORESET, the SI, paging and CSI-RS
+    engines), the ``RaManager`` with the RA band's Msg2 and Msg3, and the
+    FAPI boundary: each slot's DL_TTI, TX_Data and UL_TTI go through a
+    ``MessageBufferer`` two slots ahead to ``phy`` (an ``UpperPhy``)."""
+
+    def __init__(self, m, geo: dict, phy):
+        self.m, self.geo, self.phy = m, geo, phy
+        nof_rb, sc = geo["nof_rb"], geo["nof_rb"] * 12
+        self.ra_rb0 = nof_rb - geo["ra_prbs"]
+        self.ue = m.sched.RoundRobinScheduler(m.sched.SchedulerConfig(
+            nof_grid_sc=sc, nof_rb=self.ra_rb0, sym_start=2, max_ues_per_slot=1,
+            nof_layers=geo["layers"], nof_ports=geo["ports"], use_pdcch_alloc=True,
+            emit_dci=True, meas_gap=m.ucl.MeasGapConfig(**P10_GAP)))
+        for i in range(geo["ues"]):
+            self.ue.add_ue(P10_RNTI + i, mcs=geo["mcs"])
+        self.fallback = m.fb.FallbackScheduler(self.ue.coresets, self.ue.search_spaces,
+                                               common_ss_id=2, nof_rb=nof_rb)
+        self.paging = m.sp.PagingOccasionScheduler(m.sp.PagingConfig(
+            drx_cycle_frames=8, nof_pf_per_drx=8, nof_po_per_pf=1))
+        self.paging.page(P10_PAGED, {"domain": "ps"})
+        self.cell = m.cs.CellScheduler(
+            m.cs.CommonSchedulingConfig(
+                nof_rb=nof_rb, nof_grid_sc=sc, sib1_period_slots=640, sib1_slot_offset=1,
+                prach_config=m.prach.PrachConfig(l_ra=839, zero_correlation_zone=P10_ZCZ,
+                                                 nof_rx_ports=geo["ports"])),
+            self.ue, fallback=self.fallback,
+            si_scheduler=m.sp.SiMessageScheduler(m.sp.SiSchedulerConfig(
+                si_window_len_slots=5,
+                messages=(m.sp.SiMessageConfig(period_radio_frames=8, payload=P10_SIB2),))),
+            paging_po=self.paging,
+            csi_rs_scheduler=m.sp.CsiRsScheduler([m.sp.CsiRsResourceConfig(
+                period_slots=16, offset_slots=4, rb_count=nof_rb)]))
+        self.ra = m.ra.RaManager()
+        self.inbox: dict[int, dict] = {}
+        self.bufferer = m.buf.MessageBufferer(self._deliver, l2_nof_slots_ahead=2)
+        self.msg3_due: dict[int, list] = {}
+        self.fb_harq: dict[int, tuple] = {}  # slot -> (rnti, HARQ id) of its fallback grant
+        self.ul_tbs: dict[int, list] = {}  # slot -> each PUSCH's TB (None for Msg3)
+        self.msg3_bits: dict[int, np.ndarray] = {}  # slot -> the Msg3 TB received
+
+    def _deliver(self, msg) -> None:
+        self.inbox.setdefault(msg.slot.count, {})[type(msg).__name__] = msg
+
+    def msg3_config(self):
+        m = self.m
+        return m.pusch.PuschConfig(
+            tbs=P10_MSG3_TBS, target_code_rate=0.25, modulation=m.Modulation.QPSK,
+            alloc=m.alloc.Allocation(rb_start=0, rb_count=P10_MSG3_PRBS, sym_start=2,
+                                     sym_count=12, dmrs_symbols=(2,), crb_start=self.ra_rb0),
+            nof_layers=1, nof_rx_ports=self.geo["ports"], nof_grid_symbols=14,
+            nof_grid_sc=P10_MSG3_PRBS * 12)
+
+    def schedule(self, count: int, rng) -> tuple:
+        """The MAC for slot ``count``: the cell scheduler's requests, Msg2
+        in the RA band on the first slot without a broadcast after a RACH
+        indication, Msg3's PUSCH P10_MSG3_DELAY slots after its RAR; the
+        three messages handed to the bufferer.  Returns them and the
+        grants."""
+        m = self.m
+        slot = p10_slot(m, count)
+        dl, tx, ul, grants = self.cell.run_slot(slot, rng)
+        pdsch, payloads, pusch = list(dl.pdsch), list(tx.payloads), list(ul.pusch)
+        tbs = [self.ue.ues[p.rnti].harqs[p.harq_id].tb.copy() for p in pusch]
+        if not any(p.rnti in (m.cs.SI_RNTI, m.cs.P_RNTI, m.cs.CBS_RNTI) for p in pdsch):
+            bits = self.ra.build_rar_tb(count, P10_RAR_TBS)
+            if bits is not None:
+                cfg, _ = m.cs._bcast_pdsch(self.geo["ra_prbs"], self.geo["ra_prbs"] * 12,
+                                           np.packbits(bits).tobytes())
+                pdsch.append(m.fapi.DlPdschPdu(cfg, self.ra.ra_rnti,
+                                               np.eye(1, dtype=np.complex64), len(payloads),
+                                               first_rb=self.ra_rb0))
+                payloads.append(bits)
+                self.msg3_due[count + P10_MSG3_DELAY] = [
+                    c.tc_rnti for c in self.ra.pending.values() if c.rar_slot == count]
+        for tc_rnti in self.msg3_due.pop(count, []):
+            pusch.append(m.fapi.UlPuschPdu(self.msg3_config(), tc_rnti, harq_id=0,
+                                           first_rb=self.ra_rb0))
+            tbs.append(None)
+        for rnti, ue in self.fallback.ues.items():
+            for p in ue.queue:
+                if p.awaiting_ack and any(q.rnti == rnti for q in pdsch):
+                    self.fb_harq[count] = (rnti, p.harq_id)
+        dl = m.fapi.DlTtiRequest(slot=slot, pdsch=pdsch, pdcch=dl.pdcch, ssb=dl.ssb,
+                                 csi_rs=dl.csi_rs)
+        tx = m.fapi.TxDataRequest(slot=slot, payloads=payloads)
+        ul = m.fapi.UlTtiRequest(slot=slot, pusch=pusch, pucch=ul.pucch, prach=ul.prach,
+                                 srs=ul.srs)
+        for msg in (dl, tx, ul):
+            if not self.bufferer.handle_message(msg):
+                fail(f"access slot {count}: the bufferer refused {type(msg).__name__}")
+        self.ul_tbs[count] = tbs
+        return dl, tx, ul, grants
+
+    def downlink(self, count: int):
+        """Slot indication ``count``: the bufferer forwards the slot's
+        requests; the DL_TTI and TX_Data through ``process_dl_tti``."""
+        self.bufferer.on_slot_indication(p10_slot(self.m, count))
+        box = self.inbox[count]
+        if set(box) != {"DlTtiRequest", "TxDataRequest", "UlTtiRequest"}:
+            fail(f"access slot {count}: the bufferer forwarded {sorted(box)}")
+        return self.phy.process_dl_tti(box["DlTtiRequest"], box["TxDataRequest"])
+
+    def uplink(self, count: int, grid, prach_fd):
+        """The slot's UL_TTI through ``process_ul_tti``; the MAC takes its
+        indications: RACH to the RaManager, a CRC-clean Msg3 to
+        ``handle_msg3`` (its UE into the fallback stage with its ConRes
+        identity and RRC Setup on SRB0), the data CRCs to the scheduler."""
+        box = self.inbox.pop(count)
+        res = self.phy.process_ul_tti(box["UlTtiRequest"], grid, prach_fd=prach_fd)
+        for r in res.rach:
+            self.ra.handle_rach_indication(count, r)
+        ok = {(c.rnti, c.harq_id): c.tb_crc_ok for c in res.crc}
+        for rx in res.rx_data:
+            if rx.rnti in self.ue.ues or not ok[(rx.rnti, rx.harq_id)]:
+                continue
+            bits = np.asarray(rx.payload).astype(np.uint8)
+            ctx = self.ra.handle_msg3(count, bits)
+            if ctx is None:
+                fail(f"access slot {count}: Msg3 of {rx.rnti:#x} matched no RA context")
+            self.msg3_bits[count] = bits
+            (ce,) = self.ra.build_msg4_subpdus(ctx)
+            self.fallback.add_ue(ctx.tc_rnti, conres_id=ce.payload)
+            self.fallback.handle_dl_buffer_state(ctx.tc_rnti, self.m.mac.encode_mac_pdu(
+                [self.m.mac.MacSubPdu(int(self.m.mac.DlLcid.CCCH), P10_RRC_SETUP)]),
+                is_srb0=True)
+        self.ue.handle_results(res)
+        return res
+
+    def feedback(self, count: int, ack: bool) -> None:
+        """The UE's HARQ feedback on slot ``count``'s fallback grant; an
+        ACK moves the UE on: SRB1 after SRB0, then out of fallback and into
+        the data scheduler."""
+        rnti, harq_id = self.fb_harq.pop(count)
+        queue = self.fallback.ues[rnti].queue
+        srb0 = next(p.is_srb0 for p in queue if p.harq_id == harq_id)
+        self.fallback.handle_ack(rnti, harq_id, ack)
+        if ack and srb0:
+            self.fallback.handle_dl_buffer_state(rnti, self.m.mac.encode_mac_pdu(
+                [self.m.mac.MacSubPdu(1, P10_RRC_SRB1)]))
+        elif ack:
+            self.fallback.exit_fallback(rnti)
+            self.ue.add_ue(rnti, mcs=self.geo["mcs"])
+
+
+def p10_rx_config(cfg, ports: int):
+    """The UE side's receiver of a PDSCH config: the PUSCH twin of its
+    fields (the PDSCH and PUSCH chains share coding, scrambling and DM-RS)."""
+    from srsran_project_tpu_torch.phy import pusch
+
+    shared = ("tbs", "target_code_rate", "modulation", "alloc", "nof_layers",
+              "nof_grid_symbols", "nof_grid_sc", "n_id", "rv", "slot_in_frame",
+              "dmrs_scrambling_id", "n_scid")
+    return pusch.PuschConfig(nof_rx_ports=ports, **{f: getattr(cfg, f) for f in shared})
+
+
+def p10_prach_fd(geo: dict, preamble, rng, device):
+    """The PRACH occasion's (ports, 839) subcarriers through
+    ``lower_phy.prach_demodulate``: format 0 at the RA band's first PRB,
+    sampled at geo's rate and built on ``device`` as path 7 (a) builds it;
+    ``preamble`` (index, delay in s) or None for noise alone, at 0 dB a
+    subcarrier and port."""
+    import torch
+
+    from srsran_project_tpu_torch.ops import lower_phy
+    from srsran_project_tpu_torch.phy import prach
+
+    ports, srate = geo["ports"], geo["srate_hz"]
+    p = lower_phy.prach_window_params("0", 30000, 1, 0, 0, srate, geo["nof_rb"] - geo["ra_prbs"],
+                                      0, geo["nof_rb"], 839)
+    dft, l_ra = p["dft_size"], p["l_ra"]
+    bins = (p["k_offset"] + np.arange(l_ra)) % dft
+    freq = np.where(bins >= dft // 2, bins - dft, bins) * (srate / dft)
+    spec = torch.zeros((ports, dft), dtype=torch.complex64, device=device)
+    if preamble is not None:
+        index, tau = preamble
+        g = (rng.standard_normal(ports) + 1j * rng.standard_normal(ports)) / np.sqrt(2)
+        ramp = np.exp(-2j * np.pi * freq * tau) / np.sqrt(l_ra)
+        y = prach.generate_preamble_ref("0", 0, index, P10_ZCZ, device=device)
+        spec[:, torch.from_numpy(bins.astype(np.int64)).to(device)] += (
+            torch.from_numpy(g.astype(np.complex64)).to(device)[:, None]
+            * (y * torch.from_numpy(ramp.astype(np.complex64)).to(device))[None])
+    body = (torch.fft.ifft(spec, dim=-1) * float(np.sqrt(dft))).repeat(1, p["nof_symbols"])
+    sig = torch.cat([body[:, body.shape[-1] - p["cp_samples"]:], body], dim=-1)
+    noise = rng.standard_normal((ports, sig.shape[-1], 2)).astype(np.float32) * np.sqrt(0.5)
+    sig = sig + torch.view_as_complex(torch.from_numpy(noise)).to(device)
+    return lower_phy.prach_demodulate(sig[..., p["sample_offset"]:], l_ra=l_ra, dft_size=dft,
+                                      nof_symbols=p["nof_symbols"], cp_samples=p["cp_samples"],
+                                      k_offset=p["k_offset"])
+
+
+class AccessUe:
+    """The UE side of path 10 (a), on the port's functions: the preamble
+    at the first PRACH occasion, the RAR read from the RA-RNTI PDSCH, Msg3
+    (a CCCH48 subPDU of its identity), and every TC-RNTI, SI-RNTI and
+    P-RNTI PDSCH decoded from port 0 of the DL grid at P10_SNR_DB."""
+
+    def __init__(self, m, geo: dict, device, rng):
+        self.m, self.geo, self.device, self.rng = m, geo, device, rng
+        self.tc_rnti = self.rar = self.msg3 = None
+        self.decoded: list = []  # (slot, rnti, CRC, bytes) of every PDSCH read
+        self.launches: dict = {}  # the kernel launches of its reads
+
+    def decode(self, count: int, grid, pdu, data):
+        import torch
+
+        cfg = p10_rx_config(pdu.config, 1)
+        sc0 = 12 * pdu.first_rb
+        win = grid[0:1, :, sc0 : sc0 + cfg.nof_grid_sc]
+        sigma = math.sqrt(0.5 * 10 ** (-P10_SNR_DB / 10))
+        noise = self.rng.standard_normal((2,) + tuple(win.shape)).astype(np.float32) * sigma
+        win = win + torch.complex(*torch.from_numpy(noise).to(self.device))
+        before = read_counts()
+        res = self.m.pusch.process(win[None], torch.tensor([pdu.rnti], device=self.device), cfg)
+        for k, v in read_counts().items():
+            self.launches[k] = self.launches.get(k, 0) + v - before[k]
+        ok = bool(res["tb_crc_ok"][0])
+        bits = res["tb_bits"][0].cpu().numpy()
+        if ok and not np.array_equal(bits, np.asarray(data.payloads[pdu.tb_index])):
+            fail(f"access slot {count}: PDSCH of {pdu.rnti:#x} CRC-clean with other bits")
+        out = np.packbits(bits).tobytes()
+        self.decoded.append((count, pdu.rnti, ok, out))
+        return ok, out
+
+    def downlink(self, count: int, box, grid, ra_rnti: int) -> dict:
+        """Reads this slot's PDSCH for the RA-RNTI (while waiting for its
+        RAR), its TC-RNTI and the broadcast RNTIs.  Returns {rnti: (CRC,
+        bytes)} of what it read."""
+        m = self.m
+        seen = {}
+        for pdu in box["DlTtiRequest"].pdsch:
+            want = (pdu.rnti in (m.cs.SI_RNTI, m.cs.P_RNTI) or pdu.rnti == self.tc_rnti
+                    or (pdu.rnti == ra_rnti and self.tc_rnti is None))
+            if not want:
+                continue
+            ok, data = self.decode(count, grid, pdu, box["TxDataRequest"])
+            seen[pdu.rnti] = (ok, data)
+            if pdu.rnti == ra_rnti and ok:
+                _backoff, grants = m.mac.decode_rar_pdu(data)
+                mine = [g for g in grants if g.rapid == P10_PREAMBLE]
+                if len(mine) == 1:
+                    self.rar = (count, mine[0])
+                    self.tc_rnti = mine[0].tc_rnti
+                    pdu3 = m.mac.encode_mac_pdu(
+                        [m.mac.MacSubPdu(int(m.mac.UlLcid.CCCH48), P10_IDENTITY)],
+                        tb_size=P10_MSG3_TBS // 8, uplink=True)
+                    self.msg3 = (count + P10_MSG3_DELAY,
+                                 np.unpackbits(np.frombuffer(pdu3, np.uint8)))
+        return seen
+
+    def uplink(self, count: int, box, tbs, channel, gen):
+        """The slot's received grid: every PUSCH's ``pusch.transmit`` (the
+        data UEs' TBs, this UE's Msg3) at its first PRB, through the
+        (ports x ports) channel, plus AWGN at P10_SNR_DB; and the PRACH
+        buffer on an occasion (this UE's preamble until its RAR)."""
+        import torch
+
+        m, geo = self.m, self.geo
+        req = box["UlTtiRequest"]
+        tx = torch.zeros((geo["ports"], 14, geo["nof_rb"] * 12), dtype=torch.complex64,
+                         device=self.device)
+        for pdu, tb in zip(req.pusch, tbs):
+            if tb is None:
+                if self.msg3 is None or self.msg3[0] != count or pdu.rnti != self.tc_rnti:
+                    fail(f"access slot {count}: a Msg3 grant the UE did not expect")
+                tb = self.msg3[1]
+            sub = m.pusch.transmit(torch.from_numpy(np.asarray(tb)).to(self.device),
+                                   torch.tensor(pdu.rnti, device=self.device), pdu.config)
+            sc0 = 12 * pdu.first_rb
+            tx[:, :, sc0 : sc0 + sub.shape[-1]] += sub
+        sigma = math.sqrt(0.5 * 10 ** (-P10_SNR_DB / 10))
+        noise = torch.randn((2,) + tuple(tx.shape), generator=gen, device=self.device) * sigma
+        grid = torch.einsum("rp,psk->rsk", channel, tx) + torch.complex(noise[0], noise[1])
+        fd = None
+        if req.prach:
+            fd = p10_prach_fd(geo, None if self.tc_rnti else (P10_PREAMBLE, P10_DELAY_S),
+                              self.rng, self.device)
+        return grid, fd
+
+
+def p10_access_run(cells, ue, channel, gen, on_slot) -> dict:
+    """Path 10 (a)'s sequence: every cell in ``cells`` (one per package
+    under test, the port's last) scheduled from its own numpy generator of
+    one seed, two slots ahead of the bufferer; per slot the DL grids, the
+    UE side on the last cell's, one received grid and PRACH buffer for
+    all cells' UL_TTI, and the UE's HARQ feedback on its fallback grants
+    (the first NACKed).  ``on_slot(count, boxes, dl_grids, results)``
+    sees each slot.  Returns the UE's events."""
+    rngs = [np.random.default_rng(SEED + 10) for _ in cells]
+    for count in (P10_START, P10_START + 1):
+        for c, r in zip(cells, rngs):
+            c.schedule(count, r)
+    events = dict(fallback=[], rach=None, msg3_slot=None)
+    nacked = False
+    for count in range(P10_START, P10_END + 1):
+        dl_grids = [c.downlink(count) for c in cells]
+        port = cells[-1]
+        box = port.inbox[count]
+        seen = ue.downlink(count, box, dl_grids[-1], port.ra.ra_rnti)
+        boxes = [dict(c.inbox[count]) for c in cells]
+        grid, fd = ue.uplink(count, box, port.ul_tbs[count], channel, gen)
+        results = [c.uplink(count, grid, fd) for c in cells]
+        if results[-1].rach:
+            events["rach"] = (count, results[-1].rach)
+        if count in port.msg3_bits:
+            events["msg3_slot"] = count
+        if count in port.fb_harq:
+            ok = seen.get(ue.tc_rnti, (False, b""))[0]
+            ack = ok and nacked
+            nacked = True
+            events["fallback"].append((count, ok, ack))
+            for c in cells:
+                c.feedback(count, ack)
+        on_slot(count, boxes, dl_grids, results, seen)
+        if count + 2 <= P10_END:
+            for c, r in zip(cells, rngs):
+                c.schedule(count + 2, r)
+    return events
+
+
+def access_phase(card: str) -> tuple[dict, dict]:
+    """Path 10 (a) on the card: the sequence of ``p10_access_run`` through
+    the port's ``UpperPhy`` at P10_A, with every check of the procedure,
+    the common channels, the bufferer and the launches of each UL_TTI
+    call; K1 (on Msg3's call and a connected UE's) and K3 (the connected
+    UE's) against their plain versions on the calls' own inputs.  Returns
+    the launch counts and the kernels' largest differences."""
+    import torch
+
+    m, geo, dev = p10_modules(), P10_A, torch.device(DEVICE)
+    sc = geo["nof_rb"] * 12
+    cell = AccessCell(m, geo, m.UpperPhy(m.UpperPhyConfig(nof_ports=geo["ports"],
+                                                          nof_grid_sc=sc, device=DEVICE)))
+    rng = np.random.default_rng(SEED + 10)
+    ue = AccessUe(m, geo, dev, rng)
+    channel = torch.from_numpy(_unit_rows(rng, geo["ports"])).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    crc = []
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.monotonic()
+    with UlTtiRecorder() as rec:
+        events = p10_access_run([cell], ue, channel, gen, lambda count, boxes, grids, results,
+                                seen: crc.extend((count, c.rnti, c.tb_crc_ok)
+                                                 for c in results[-1].crc))
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    counts = read_counts()
+    nslots = P10_END - P10_START + 1
+    p10_check_access(cell, ue, events, crc, nslots)
+    # The UE side reads its PDSCH through pusch.process on the card too.
+    p9_check_calls("access", rec.calls, {k: v - ue.launches.get(k, 0) for k, v in counts.items()})
+    print(f"# access: the UE side's {len(ue.decoded)} PDSCH reads launched "
+          f"{ {k: v for k, v in ue.launches.items() if v} }")
+    print(f"# [{card}] access: {nslots} slots through MessageBufferer(2) and UpperPhy in "
+          f"{wall:.2f} s, {1e3 * wall / nslots:.2f} ms a slot (host clock, the UE side's "
+          f"decodes and transmits included)")
+
+    msg3 = next(c for c in rec.calls if c["req"].slot.count == events["msg3_slot"])
+    data = next(c for c in reversed(rec.calls) if c["req"].pusch
+                and c["req"].pusch[0].config.nof_layers == 4)
+    errs = {"decode_dematch": max(
+        check_k1_grant(c["grid"], c["req"].pusch[0], f"access {what} (slot "
+                       f"{c['req'].slot.count})")
+        for what, c in (("Msg3", msg3), ("a connected UE's grant", data))),
+        "mmse_weights_4x4": check_k3_group(data["grid"], data["pdus"], "access K3")}
+    p9_report_ul_call(card, f"access UL_TTI of one connected UE's grant (slot "
+                      f"{data['req'].slot.count})", data)
+    p9_report_ul_call(card, f"access UL_TTI of Msg3 alone (slot {events['msg3_slot']})", msg3)
+    return counts, errs
+
+
+def p10_check_access(cell, ue, events, crc, nslots: int) -> None:
+    """Path 10 (a)'s checks on the port's cell and UE side."""
+    m = cell.m
+    rach = events["rach"]
+    if rach is None or rach[0] != 139 or [r.preamble_index for r in rach[1]] != [P10_PREAMBLE]:
+        fail(f"access: RACH indications {rach}, want preamble {P10_PREAMBLE} at slot 139")
+    want_ta = P10_DELAY_S * 1024 * 1250.0
+    ta = rach[1][0].ta_samples
+    if not abs(ta - want_ta) <= 1.5:
+        fail(f"access: TA {ta} bins, want {want_ta:.1f}")
+    (ctx,) = cell.ra.resolved
+    slot_rar, grant = ue.rar
+    if (grant.rapid, grant.tc_rnti, grant.ta) != (P10_PREAMBLE, ctx.tc_rnti, ctx.ta_cmd) or \
+            ctx.ta_cmd != round(ta / 16):
+        fail(f"access: RAR {grant} at slot {slot_rar}, want RAPID {P10_PREAMBLE}, TC-RNTI "
+             f"{ctx.tc_rnti:#x} and TA command {ctx.ta_cmd} = round({ta} / 16)")
+    if events["msg3_slot"] != slot_rar + P10_MSG3_DELAY or not np.array_equal(
+            cell.msg3_bits[events["msg3_slot"]], ue.msg3[1]) or ctx.ccch != P10_IDENTITY:
+        fail(f"access: Msg3 at {events['msg3_slot']}, CCCH {ctx.ccch!r}")
+    fb = events["fallback"]
+    if [(ok, ack) for _s, ok, ack in fb] != [(True, False), (True, True), (True, True)]:
+        fail(f"access: fallback grants (slot, CRC, ACK) {fb}, want Msg4 NACKed once, its "
+             f"retransmission and SRB1 ACKed")
+    reads = {s: data for s, rnti, ok, data in ue.decoded if rnti == ctx.tc_rnti and ok}
+    msg4, retx, srb1 = (reads[s] for s, _ok, _ack in fb)
+    sub = m.mac.decode_mac_pdu(msg4[6:])
+    if msg4[:6] != P10_IDENTITY or msg4 != retx or (sub[0].lcid, sub[0].payload) != (
+            int(m.mac.DlLcid.CCCH), P10_RRC_SETUP):
+        fail(f"access: Msg4 {msg4.hex()} (retransmission {retx.hex()}), want the ConRes "
+             f"identity {P10_IDENTITY.hex()} and RRC Setup on CCCH")
+    sub1 = m.mac.decode_mac_pdu(srb1)
+    if (sub1[0].lcid, sub1[0].payload) != (1, P10_RRC_SRB1):
+        fail(f"access: SRB1 {srb1.hex()}")
+    new = [(s, ok) for s, rnti, ok in crc if rnti == ctx.tc_rnti and s > events["msg3_slot"]]
+    bad = [(s, hex(r)) for s, r, ok in crc if not ok]
+    if bad or len({s for s, _ok in new}) < 2 or ctx.tc_rnti not in cell.ue.ues:
+        fail(f"access: CRC failures {bad}; the new UE's UL grants {new}")
+    bcast = {rnti: (s, ok, data) for s, rnti, ok, data in ue.decoded
+             if rnti in (m.cs.SI_RNTI, m.cs.P_RNTI)}
+    si, pg = bcast.get(m.cs.SI_RNTI), bcast.get(m.cs.P_RNTI)
+    if si is None or si[:2] != (160, True) or si[2] != P10_SIB2:
+        fail(f"access: SI read {si}, want {P10_SIB2!r} at 160")
+    if pg is None or pg[:2] != (140, True) or json.loads(pg[2]) != {
+            "paging_records": [{"domain": "ps", "ue_paging_id": P10_PAGED}]}:
+        fail(f"access: paging read {pg}, want UE {P10_PAGED} at 140")
+    if cell.cell.counters != P10_COUNTERS:
+        fail(f"access: counters {cell.cell.counters}, want {P10_COUNTERS}")
+    st = cell.bufferer.stats
+    if (st.nof_late, st.nof_too_early, st.nof_unsent_overwritten) != (0, 0, 0) or \
+            st.nof_forwarded != 3 * nslots or st.nof_cached != 3 * nslots:
+        fail(f"access: bufferer {st}, want {3 * nslots} cached and forwarded, none late")
+    print(f"# access: RACH preamble {P10_PREAMBLE} at 139, TA {ta} bins; RAR at {slot_rar} "
+          f"(TC-RNTI {ctx.tc_rnti:#x}, TA command {ctx.ta_cmd}); Msg3 CRC OK at "
+          f"{events['msg3_slot']}; Msg4 (ConRes {msg4[:6].hex()}) at {fb[0][0]}, NACKed, its "
+          f"retransmission at {fb[1][0]} and SRB1 at {fb[2][0]} ACKed; the UE connected with "
+          f"{len(new)} UL grants, every one of the run's {len(crc)} CRCs OK; SI at 160 and "
+          f"paging at 140 read back; counters {cell.cell.counters}; bufferer {st}")
+
+
+def slicing_phase(card: str) -> tuple[dict, float, dict]:
+    """Path 10 (b): ``SliceScheduler`` over two slices of 4 UEs at 4
+    layers, MCS 20, 10 FDD slots through ``UpperPhy`` with the DL grid
+    looped back through a random unitary channel at 30 dB, the RRM policy
+    applied after slot 5.  Checks quotas, disjoint PRBs, every CRC and
+    the launches of each UL_TTI call; K2 and K3 against their plain
+    versions on one call's inputs.  Returns the launch counts, the ms a
+    slot and the kernels' largest differences."""
+    import torch
+
+    from srsran_project_tpu_torch.l2sim.scheduler import SchedulerConfig
+    from srsran_project_tpu_torch.l2sim.slicing import SliceConfig, SliceScheduler
+    from srsran_project_tpu_torch.phy.upper_phy import UpperPhy, UpperPhyConfig
+
+    dev = torch.device(DEVICE)
+    nof_sc = UL_NOF_PRB * 12
+    ss = SliceScheduler(SchedulerConfig(nof_grid_sc=nof_sc, nof_rb=UL_NOF_PRB, max_ues_per_slot=4,
+                                        nof_layers=4, nof_ports=UL_NOF_PORTS),
+                        [SliceConfig(**s) for s in P10_SLICES])
+    for k, s in enumerate(P10_SLICES):
+        for i in range(4):
+            ss.add_ue(s["slice_id"], P10_RNTI + 0x100 * (k + 1) + i, mcs=P9_MCS)
+    phy = UpperPhy(UpperPhyConfig(nof_ports=UL_NOF_PORTS, nof_grid_sc=nof_sc, device=DEVICE))
+    rng = np.random.default_rng(SEED + 11)
+    u = torch.from_numpy(_unit_rows(rng, UL_NOF_PORTS)).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    sigma = math.sqrt(0.5 * 10 ** (-P9_SNR_DB / 10))
+
+    def channel(grid):
+        noise = torch.randn((2,) + tuple(grid.shape), generator=gen, device=dev) * sigma
+        return torch.einsum("rp,psk->rsk", u, grid) + torch.complex(noise[0], noise[1])
+
+    quotas, nof_grants = [], 0
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.monotonic()
+    with UlTtiRecorder() as rec:
+        for i in range(P10_SLICE_SLOTS):
+            if i == P10_POLICY_AFTER and not ss.apply_rrm_policy(P10_POLICY):
+                fail("slicing: the RRM policy matched no slice")
+            dl, tx, ul, grants = ss.run_slot(p9_slot(i), rng)
+            quotas.append(dict(ss.last_quotas))
+            spans = sorted((p.first_rb, p.first_rb + p.config.alloc.rb_count) for p in dl.pdsch)
+            if any(b > c for (_a, b), (c, _d) in zip(spans, spans[1:])) or spans[-1][1] > UL_NOF_PRB:
+                fail(f"slicing slot {i}: PRB spans {spans} overlap or leave the carrier")
+            for sid, q in ss.last_quotas.items():
+                used = [p for g, p in zip(grants, dl.pdsch) if g[0] == sid]
+                if sum(p.config.alloc.rb_count for p in used) > q:
+                    fail(f"slicing slot {i}: slice {sid} uses more than its {q} PRB")
+            res = phy.process_ul_tti(ul, channel(phy.process_dl_tti(dl, tx)))
+            ss.handle_results(res)
+            bad = [(c.rnti, c.harq_id) for c in res.crc if not c.tb_crc_ok]
+            if bad or len(res.crc) != len(grants):
+                fail(f"slicing slot {i}: CRC failed for {bad} of {len(res.crc)} grants")
+            nof_grants += len(grants)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    counts = read_counts()
+    want = [P10_QUOTAS[i >= P10_POLICY_AFTER] for i in range(P10_SLICE_SLOTS)]
+    if quotas != want:
+        fail(f"slicing: quotas {quotas}, want {want}")
+    p9_check_calls("slicing", rec.calls, counts)
+    rep = ss.report()
+    if any(v["ul_bits_ok"] == 0 for r in rep.values() for v in r.values()):
+        fail(f"slicing: a UE with no bit delivered: {rep}")
+    ms = 1e3 * wall / P10_SLICE_SLOTS
+    print(f"# [{card}] slicing: 2 slices x 4 UEs, {P10_SLICE_SLOTS} slots, {nof_grants} grants "
+          f"all CRC OK, quotas {P10_QUOTAS[0]} then {P10_QUOTAS[1]} after the RRM policy; "
+          f"{ms:.2f} ms a slot (host clock)")
+    errs = {}
+    call = rec.calls[-1]
+    # Slice 1's grants (window at their crb_start) go through process_slot.
+    batch = [p for p in call["pdus"] if p.config.alloc.crb_start == p.first_rb]
+    errs["decode"], geometries = check_code_groups(call["grid"], batch, "slicing")
+    errs["mmse_weights_4x4"] = check_k3_group(call["grid"], batch, "slicing K3")
+    print(f"# slicing: K2 code groups {geometries} of the last slot")
+    p9_report_ul_call(card, f"slicing UL_TTI of {len(call['pdus'])} grants (last slot)", call)
+    return counts, ms, errs
+
+
+def helpers_phase(card: str, rx) -> None:
+    """Path 10 (c): the Q1.8.12 helpers on CUDA tensors against their CPU
+    results: ``decode_count_iters`` on the flagship's 141 codeblocks at 30
+    dB (path 1's first received slot ``rx``, its LLRs rate-dematched; the
+    counts printed beside K1's per-codeblock iterations on the same LLRs),
+    ``detect_ref``, ``hard_decision_bits`` and ``selection_indices``."""
+    import torch
+
+    from srsran_project_tpu_torch.models import cell
+    from srsran_project_tpu_torch.ops import ofdm, short_block
+    from srsran_project_tpu_torch.ops.ldpc import decoder, graphs, rate_match
+    from srsran_project_tpu_torch.ops.modulation import Modulation, evm
+    from srsran_project_tpu_torch.phy import pusch, sch as sch_mod
+
+    dev = torch.device(DEVICE)
+    cfg = cell.CellConfig()
+    pc = cfg.pusch_cfg
+    sc, seg = pc.sch, pc.sch.seg
+    grid = ofdm.demodulate_slot(rx[:1], cfg.nof_rb, cfg.scs, cfg.dft_size, cfg.cp, 0,
+                                f_center_hz=cfg.f_center_hz)
+    llrs = pusch._front_end(grid, torch.tensor([RNTI], device=dev), pc)[0]  # (1, G) int8
+    n_cb = sc.n_cb or seg.full_codeword_bits
+    z = seg.lifting_size
+    full = torch.zeros((seg.nof_codeblocks, (graphs.get_graph(seg.base_graph, z).n - 2) * z),
+                       dtype=torch.int8, device=dev)
+    row = off = 0
+    for _s, count, e in sch_mod._e_groups(sc.cb_e_bits):
+        span = llrs[0, off : off + count * e].reshape(count, e)
+        full[row : row + count] = rate_match.rate_dematch(
+            span, seg.base_graph, z, seg.nof_payload_bits_per_cb, e, sc.rv, sc.qm, n_cb)
+        row, off = row + count, off + count * e
+    got = decoder.decode_count_iters(full, seg.base_graph, z, 6)
+    torch.cuda.synchronize()
+    want = decoder.decode_count_iters(full.cpu(), seg.base_graph, z, 6)
+    for a, b, what in zip(got, want, ("bits", "a-posteriori LLRs", "counts")):
+        if not torch.equal(a.cpu(), b):
+            fail(f"helpers: decode_count_iters {what} differ between the card and the CPU")
+    rng = np.random.default_rng(SEED + 12)
+    _bits, it_k1 = sch_mod._fused_decode(llrs, sc, 6, True)
+    torch.cuda.synchronize()
+    counts = got[2].cpu().numpy()
+    k1 = it_k1.cpu().numpy()
+    diff = np.nonzero(counts != k1)[0]
+    print(f"# helpers: decode_count_iters on the flagship's {len(counts)} codeblocks (BG"
+          f"{seg.base_graph} Z={z}, n_cb {n_cb}, {SNR_DB} dB) equals the CPU; counts "
+          f"{np.bincount(counts).tolist()} by iteration, K1's early-stop iterations "
+          f"{np.bincount(k1).tolist()}; they differ on {len(diff)} codeblocks "
+          f"{[(int(i), int(counts[i]), int(k1[i])) for i in diff[:8]]}")
+    for k, e, qm in ((1, 8, 2), (2, 24, 4), (6, 64, 6), (11, 252, 8)):
+        x = torch.from_numpy(rng.integers(-127, 128, size=(4096, e)).astype(np.int8))
+        a, b = short_block.detect_ref(x.to(dev), k, e, qm), short_block.detect_ref(x, k, e, qm)
+        if not all(torch.equal(u.cpu(), v) for u, v in zip(a, b)):
+            fail(f"helpers: detect_ref K={k} E={e} differs between the card and the CPU")
+    for mod in (Modulation.QPSK, Modulation.QAM16, Modulation.QAM64, Modulation.QAM256):
+        s = torch.from_numpy((rng.standard_normal((4, 3276)) + 1j * rng.standard_normal(
+            (4, 3276))).astype(np.complex64))
+        if not torch.equal(evm.hard_decision_bits(s.to(dev), mod).cpu(),
+                           evm.hard_decision_bits(s, mod)):
+            fail(f"helpers: hard_decision_bits {mod.name} differs between the card and the CPU")
+    args = (seg.base_graph, seg.lifting_size, seg.nof_payload_bits_per_cb, sc.cb_e_bits[0],
+            sc.rv, sc.qm, n_cb)
+    if not np.array_equal(rate_match.selection_indices(*args, device=dev).cpu().numpy(),
+                          rate_match.selection_indices(*args)):
+        fail("helpers: selection_indices differ between the card and the CPU")
+    print("# helpers: detect_ref (K 1/2/6/11), hard_decision_bits (QPSK to 256QAM) and "
+          "selection_indices (the flagship's first E) equal their CPU results")
 
 
 def main() -> int:
@@ -3059,6 +3751,11 @@ def main() -> int:
     per_path["sched_pipeline"], errs9 = sched_pipeline_phase(card)
     for name, err in errs9.items():
         errs[name] = max(errs.get(name, 0.0), err)
+    per_path["access"], errs10 = access_phase(card)
+    per_path["slicing"], _slicing_ms, errs10b = slicing_phase(card)
+    for name, err in list(errs10.items()) + list(errs10b.items()):
+        errs[name] = max(errs.get(name, 0.0), err)
+    helpers_phase(card, rx)
     # Each kernel's launches on the path it serves (one call of it), and
     # on every path.
     home = {"decode_dematch": "flagship", "mmse_weights_4x4": "flagship", "decode": "ul_slot",

@@ -10,10 +10,9 @@ yield the band, mirroring the priority order.
 
 Port of ``srsran_project_tpu/l2sim/common_scheduling.py`` with the port's
 FAPI and PHY config twins (``CommonSchedulingConfig.from_reference``
-copies a JAX package config with its PRACH config).  The CellScheduler's
-optional stages (the fallback scheduler, the SI-window, PF/PO paging and
-CSI-RS resource engines) are not ported yet: passing one raises
-NotImplementedError naming its ROADMAP item.
+copies a JAX package config with its PRACH config), and the same optional
+stages: the fallback scheduler (``fallback.FallbackScheduler``) and the
+SI-window, PF/PO paging and CSI-RS resource engines (``si_paging``).
 """
 
 from __future__ import annotations
@@ -30,6 +29,7 @@ from ..phy.prach import PrachConfig
 from ..phy.ssb import SsbConfig
 from ..ops.modulation import Modulation
 from ..ran.slot_point import SlotPoint
+from . import pdcch_alloc
 
 SI_RNTI = 0xFFFF
 P_RNTI = 0xFFFE
@@ -68,15 +68,6 @@ class CommonSchedulingConfig:
         return cls(**kw)
 
 
-# CellScheduler stage -> the ROADMAP item that ports the module it needs.
-DEFERRED_STAGES = {
-    "fallback": "Q1.10.11",
-    "si_scheduler": "Q1.10.12",
-    "paging_po": "Q1.10.12",
-    "csi_rs_scheduler": "Q1.10.12",
-}
-
-
 def _bcast_pdsch(nof_rb: int, nof_grid_sc: int, payload: bytes):
     """QPSK broadcast PDSCH config sized for the payload (SIB1/paging)."""
     tbs = 8 * len(payload)
@@ -111,16 +102,20 @@ class CellScheduler:
     def __init__(self, common: CommonSchedulingConfig, ue_scheduler,
                  fallback=None, si_scheduler=None, paging_po=None,
                  csi_rs_scheduler=None):
-        given = dict(fallback=fallback, si_scheduler=si_scheduler, paging_po=paging_po,
-                     csi_rs_scheduler=csi_rs_scheduler)
-        for name, item in DEFERRED_STAGES.items():
-            if given[name] is not None:
-                raise NotImplementedError(
-                    f"CellScheduler({name}=...) is not ported yet (ROADMAP {item}); the port "
-                    "schedules the common channels on their modulo occasions")
         self.common = common
         self.ue_scheduler = ue_scheduler
+        # Optional l2sim.fallback.FallbackScheduler, run between common
+        # occasions and UE data like the reference's run_slot order
+        # (... -> ra -> FALLBACK -> UE data).
+        self.fallback = fallback
         self.paging = PagingScheduler()
+        # Optional spec-math engines (l2sim/si_paging.py): SI-message
+        # windows (TS 38.331 5.2.2.3.2), PF/PO paging (TS 38.304 7.1) and
+        # the periodic CSI-RS resource scheduler.  When given, they take
+        # over from the simple modulo occasions.
+        self.si_scheduler = si_scheduler
+        self.paging_po = paging_po
+        self.csi_rs_scheduler = csi_rs_scheduler
         self.cbs = CbsScheduler()
         self.counters = {"ssb": 0, "sib1": 0, "paging": 0, "csi_rs": 0,
                          "prach": 0, "cbs": 0, "fallback": 0, "si": 0}
@@ -137,13 +132,24 @@ class CellScheduler:
         ssb, csi_rs, prach = [], [], []
 
         # Broadcast decision first: on SIB1/paging/CBS slots the broadcast
-        # PDSCH takes the band and UE data yield (cell_scheduler.cpp
-        # run_slot priority order).
+        # PDSCH takes the band and neither fallback nor UE data run
+        # (cell_scheduler.cpp run_slot priority order).
         broadcast = None
         if count % c.sib1_period_slots == c.sib1_slot_offset:
             broadcast = (SI_RNTI, c.sib1_payload)
             self.counters["sib1"] += 1
-        elif count % c.paging_period_slots == 0:
+        elif self.si_scheduler is not None and (
+                si := self.si_scheduler.run_slot(slot)) is not None:
+            # Other-SI window transmission (si_message_scheduler role).
+            broadcast = (SI_RNTI, si[1])
+            self.counters["si"] += 1
+        elif self.paging_po is not None:
+            recs = self.paging_po.run_slot(slot)
+            if recs:
+                broadcast = (P_RNTI,
+                             json.dumps({"paging_records": recs}).encode())
+                self.counters["paging"] += 1
+        elif self.paging_po is None and count % c.paging_period_slots == 0:
             recs = self.paging.drain()
             if recs is not None:
                 broadcast = (P_RNTI, recs)
@@ -156,11 +162,35 @@ class CellScheduler:
                 broadcast = (CBS_RNTI, recs)
                 self.counters["cbs"] += 1
 
-        # The UE scheduler runs on every slot (its draws and HARQ state
-        # advance as in the reference); a broadcast replaces its PDSCH.
-        dl, tx, ul, grants = self.ue_scheduler.run_slot(slot, rng)
+        # Fallback (SRB0/SRB1) runs before UE data — reference run_slot order
+        # (... -> ra -> fallback -> UE data) — allocating PRBs from 0 and
+        # CCEs from the slot's shared PdcchSlotAllocator so the stages never
+        # collide (shared per-slot resource map, cell_resource_allocator
+        # role).
+        fallback_grants = []
+        fb_span = 0
+        shared_pdcch = None
+        if self.fallback is not None and broadcast is None:
+            ue_cfg = getattr(self.ue_scheduler, "cfg", None)
+            if ue_cfg is not None and getattr(ue_cfg, "use_pdcch_alloc", False):
+                shared_pdcch = pdcch_alloc.PdcchSlotAllocator(
+                    self.ue_scheduler.coresets, self.ue_scheduler.search_spaces)
+            fallback_grants = self.fallback.run_slot(count, pdcch=shared_pdcch)
+            self.counters["fallback"] += len(fallback_grants)
+            fb_span = max((g.rb_start + g.rb_count for g in fallback_grants),
+                          default=0)
+
+        dl, tx, ul, grants = self.ue_scheduler.run_slot(
+            slot, rng, rb_offset=fb_span, pdcch_slot=shared_pdcch)
         pdsch = list(dl.pdsch)
         payloads = list(tx.payloads)
+        for g in fallback_grants:
+            cfg, bits = _bcast_pdsch(g.rb_count, c.nof_grid_sc, g.payload)
+            pdsch.append(fapi.DlPdschPdu(cfg, g.rnti,
+                                         np.eye(1, dtype=np.complex64),
+                                         len(payloads), first_rb=g.rb_start))
+            payloads.append(bits)
+
         if broadcast is not None:
             # broadcast PDSCH takes the band this slot (priority order)
             rnti, payload = broadcast
@@ -178,7 +208,13 @@ class CellScheduler:
                 first_symbol=c.ssb_first_symbol))
             self.counters["ssb"] += 1
 
-        if count % c.csi_rs_period_slots == c.csi_rs_slot_offset:
+        if self.csi_rs_scheduler is not None:
+            for r in self.csi_rs_scheduler.run_slot(slot):
+                csi_rs.append(fapi.DlCsiRsPdu(
+                    row=r.row, rb_start=r.rb_start, rb_count=r.rb_count,
+                    symbol=r.symbol, scrambling_id=r.scrambling_id))
+                self.counters["csi_rs"] += 1
+        elif count % c.csi_rs_period_slots == c.csi_rs_slot_offset:
             csi_rs.append(fapi.DlCsiRsPdu(row=1, rb_start=0, rb_count=c.nof_rb,
                                           symbol=12, scrambling_id=c.pci))
             self.counters["csi_rs"] += 1

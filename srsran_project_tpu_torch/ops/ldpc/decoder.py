@@ -557,6 +557,32 @@ def decode(llrs: torch.Tensor, bg: int, z: int, nof_iterations: int = 6,
 decode.launches = 0
 
 
+def decode_count_iters(llrs: torch.Tensor, bg: int, z: int, nof_iterations: int = 6):
+    """Like ``decode_plain`` on the whole graph without early stop, also
+    counting per codeblock the first iteration (1-based) after which the
+    hard decision satisfies every parity check, or ``nof_iterations`` if
+    none does: every iteration runs, only the count reflects convergence
+    (the reference's ``decode_count_iters``).  Plain torch on the device
+    of llrs (C, N); returns (bits (C, Kb*Z) uint8, a-posteriori
+    (C, n*Z) float32, iterations (C,) int32)."""
+    plan = decode_plan(bg, z, llrs.shape[1])
+    app = decode_buffer(llrs, plan)
+    r = torch.zeros((app.shape[0], plan.total_edges, z), dtype=torch.float32,
+                    device=app.device)
+    first = torch.zeros(app.shape[0], dtype=torch.int32, device=app.device)
+    for it in range(1, nof_iterations + 1):
+        _iteration(app, r, plan, early_stop=False)
+        hard = (app < 0).to(torch.int32)
+        ok = first == 0
+        for li in range(len(plan.layers)):
+            ok &= (hard[:, _layer_index_on(app.device, plan, li)].sum(dim=1) % 2 == 0).all(dim=1)
+        first = torch.where(ok, torch.full_like(first, it), first)
+    iters = torch.where(first > 0, first, torch.full_like(first, nof_iterations))
+    full = torch.zeros((app.shape[0], plan.n * z), dtype=torch.float32, device=app.device)
+    full[:, : plan.ncols * z] = app
+    return hard_bits(app, plan), full, iters
+
+
 # ---- reference-exact int8 mode ----------------------------------------------
 
 LLR_INF = 127  # fixed-bit marker (log_likelihood_ratio.h:250)

@@ -18,6 +18,7 @@ import functools
 import numpy as np
 import torch
 
+from .._tables import device_table
 from . import graphs
 
 # Redundancy-version starting offsets k0 = floor(num * N_cb / (den * Z)) * Z
@@ -39,6 +40,36 @@ def _filler_mask(bg: int, z: int, k_prime: int, n_cb: int) -> np.ndarray:
     m = np.zeros(n_cb, dtype=bool)
     m[k_prime - 2 * z : g.kb * z - 2 * z] = True
     return m
+
+
+@functools.lru_cache(maxsize=None)
+def _selection(bg: int, z: int, k_prime: int, e: int, rv: int, qm: int,
+               n_cb: int | None) -> np.ndarray:
+    g = graphs.get_graph(bg, z)
+    if n_cb is None:
+        n_cb = g.nof_codeword_bits
+    is_filler = np.zeros(n_cb, dtype=bool)
+    is_filler[k_prime - 2 * z : g.kb * z - 2 * z] = True
+    order = (k0_offset(bg, z, rv, n_cb) + np.arange(n_cb)) % n_cb
+    valid = order[~is_filler[order]]
+    sel = np.tile(valid, -(-e // len(valid)))[:e].astype(np.int32)
+    assert e % qm == 0, (e, qm)
+    # Interleave: E viewed as (qm, E/qm), read column-major.
+    return sel.reshape(qm, e // qm).T.reshape(-1)
+
+
+_selection_on = device_table(_selection)
+
+
+def selection_indices(bg: int, z: int, k_prime: int, e: int, rv: int, qm: int,
+                      n_cb: int | None = None, device=None):
+    """(E,) int32 gather indices into the N-bit circular buffer d: bit
+    selection (circular from k0, skipping the filler positions) followed
+    by the Qm-row block interleaver, out[j*qm + i] = e[i*(E/qm) + j].
+    A numpy array, as the reference's, or with ``device`` a tensor there."""
+    if device is None:
+        return _selection(bg, z, k_prime, e, rv, qm, n_cb)
+    return _selection_on(torch.device(device), bg, z, k_prime, e, rv, qm, n_cb)
 
 
 @functools.lru_cache(maxsize=None)

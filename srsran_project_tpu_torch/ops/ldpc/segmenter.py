@@ -74,6 +74,20 @@ def compute_segment_params_bg(tbs: int, base_graph: int) -> SegmentParams:
     )
 
 
+def rate_matched_length(params: SegmentParams, cb_index: int, qm: int, nof_layers: int,
+                        nof_ch_symbols: int) -> int:
+    """Rate-matched length E_j of segment ``cb_index`` (TS 38.212 §5.4.2.1;
+    the reference's ldpc_segmenter_helpers.h compute_rm_length).
+    ``nof_ch_symbols`` counts channel symbols over all layers."""
+    c = params.nof_codeblocks
+    symbols_per_layer = nof_ch_symbols // nof_layers
+    if cb_index < c - (symbols_per_layer % c):
+        tmp = symbols_per_layer // c
+    else:
+        tmp = -(-symbols_per_layer // c)
+    return tmp * nof_layers * qm
+
+
 def segment_tx(tb_bits: torch.Tensor, params: SegmentParams) -> torch.Tensor:
     """TB payload bits (..., A) -> (..., C, K) encoder-ready codeblocks:
     TB CRC, C equal segments, a CRC24B per segment when C > 1, and F

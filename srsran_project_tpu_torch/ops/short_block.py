@@ -128,3 +128,79 @@ def detect(llrs: torch.Tensor, k: int, e: int):
     denom = folded.abs().sum(dim=-1) + 1e-9
     metric = torch.gather(scores, -1, best[..., None])[..., 0] / denom
     return bits, metric
+
+
+def _sat_fold(x: torch.Tensor, n: int) -> torch.Tensor:
+    """Fold (..., E) int32 LLRs onto n positions with the reference's
+    saturated LLR sum, repetition by repetition: a == -b -> 0, a +-127
+    operand passes through, else clip(a + b, +-120)."""
+    reps = -(-x.shape[-1] // n)
+    v = torch.nn.functional.pad(x, (0, reps * n - x.shape[-1]))
+    blocks = v.reshape(v.shape[:-1] + (reps, n))
+    out = blocks[..., 0, :]
+    for r in range(1, reps):
+        b = blocks[..., r, :]
+        res = torch.where(b.abs() == 127, b, (out + b).clamp(-120, 120))
+        res = torch.where(out.abs() == 127, out, res)
+        out = torch.where(out == -b, torch.zeros_like(out), res)
+    return out
+
+
+_K2_TABLE = np.array([[1, 1, 1], [-1, 1, -1], [1, -1, -1], [-1, -1, 1]], np.float32)
+_k2_table_on = device_table(lambda: _K2_TABLE)
+_rm_signs_on = device_table(lambda k: 1.0 - 2.0 * (
+    (((2 * np.arange(1 << (k - 1)))[:, None] >> np.arange(11)) & 1) @ BASIS % 2
+).astype(np.float32))
+# GLRT thresholds of the reference's detector, by K - 1.
+REF_THRESHOLDS = (0, 0, 12, 14, 16, 18, 20, 22, 24, 26, 29)
+
+
+def detect_ref(llrs: torch.Tensor, k: int, e: int, qm: int):
+    """Reference-exact short-block detection on (..., E) int8-valued LLRs
+    (short_block_detector_impl.cpp): the saturated fold onto the mother
+    length (Qm for K = 1, 3 Qm for K = 2, 32 otherwise), the per-K
+    detector and its GLRT threshold.  Returns (bits (..., K) uint8,
+    ok (...,) bool), on the device of llrs.
+
+    float32 throughout, as the reference computes it: the scores and norms
+    are sums of integers below 2^24, exact in any order, and the metric is
+    the same few rounded operations on both devices, so the card and the
+    CPU agree bit for bit."""
+    x = llrs.to(torch.int32)
+    batch = x.shape[:-1]
+    if k == 1:
+        tmp = _sat_fold(x, max(qm, 1))
+        bit = (tmp[..., 0] <= 0).to(torch.uint8)
+        return bit[..., None], torch.ones(batch, dtype=torch.bool, device=x.device)
+    if k == 2:
+        n = 3 * qm if qm > 1 else 3
+        x2 = _sat_fold(x, n)
+        if n == 3:
+            l0, l1, l2 = x2[..., 0], x2[..., 1], x2[..., 2]
+        else:
+            step = qm - 2
+            l0 = x2[..., 0] + x2[..., step + 3]
+            l1 = x2[..., 1] + x2[..., 2 * step + 4]
+            l2 = x2[..., step + 2] + x2[..., 2 * step + 5]
+        lv = torch.stack([l0, l1, l2], dim=-1).to(torch.float32)
+        scores = (lv[..., None, :] * _k2_table_on(x.device)).sum(dim=-1)  # (..., 4)
+        best = torch.argmax(scores, dim=-1)
+        # Strict '>' against a tiny positive start: all-nonpositive -> 0.
+        best = torch.where(scores.amax(dim=-1) > 0, best, torch.zeros_like(best))
+        bits = torch.stack([best & 1, (best >> 1) & 1], dim=-1).to(torch.uint8)
+        m = torch.gather(scores, -1, best[..., None])[..., 0]
+        norm = (lv * lv).sum(dim=-1)
+        metric = 2.0 * m * m / (3.0 * norm - m * m)
+        return bits, metric > 0.0
+    folded = _sat_fold(x, 32).to(torch.float32)
+    scores = (folded[..., None, :] * _rm_signs_on(x.device, k)).sum(dim=-1)  # (..., 2^(K-1))
+    absval = scores.abs()
+    best = torch.argmax(absval, dim=-1)
+    m = absval.amax(dim=-1)
+    bit0 = (torch.gather(scores, -1, best[..., None])[..., 0] < 0).to(torch.int64)
+    full_idx = 2 * best + bit0
+    shifts = torch.arange(k, device=x.device)
+    bits = ((full_idx[..., None] >> shifts) & 1).to(torch.uint8)
+    norm = (folded * folded).sum(dim=-1)
+    metric = 31.0 * m * m / (32.0 * norm - m * m)
+    return bits, metric > REF_THRESHOLDS[k - 1]

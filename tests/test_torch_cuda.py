@@ -585,3 +585,55 @@ def test_scheduled_slot_on_card_matches_cpu(cuda_device):  # noqa: F811
         for r_cpu, r_gpu in zip(got["cpu"].rx_data, got["cuda"].rx_data):
             np.testing.assert_array_equal(r_cpu.payload, r_gpu.payload)
         s.handle_results(got["cuda"])
+
+
+@pytest.mark.parametrize("early_stop", [False, True])
+def test_k1_msg3_grant_matches_plain(cuda_device, early_stop):  # noqa: F811
+    """K1 at a Msg3-sized grant (72 bits, QPSK, one layer, 2 PRB: BG2,
+    no repetition, so the fused path takes it) against its plain version:
+    bits and iterations equal."""
+    from srsran_project_tpu_torch.phy.allocation import Allocation
+
+    cfg = pusch.PuschConfig(
+        tbs=72, target_code_rate=0.25, modulation=Modulation.QPSK,
+        alloc=Allocation(rb_start=0, rb_count=2, sym_start=2, sym_count=12, dmrs_symbols=(2,)),
+        nof_layers=1, nof_rx_ports=4, nof_grid_sc=24).sch
+    assert sch._fused_decode_ok(cfg)
+    llrs = torch.stack([_noisy_llrs(cfg, s) for s in (3, 4, 5)])
+    before = decoder.decode_dematch.launches
+    bits_k, it_k = sch._decode_groups(llrs.to(cuda_device), cfg, 6, early_stop)
+    assert decoder.decode_dematch.launches == before + 1
+    bits_p, it_p = sch._decode_groups(llrs, cfg, 6, early_stop)
+    np.testing.assert_array_equal(to_np(bits_k), to_np(bits_p))
+    np.testing.assert_array_equal(to_np(it_k), to_np(it_p))
+
+
+@pytest.mark.parametrize("bg, z", [(1, 384), (2, 36)])
+def test_decode_count_iters_card_matches_cpu(cuda_device, bg, z):  # noqa: F811
+    """decode_count_iters (plain torch, no kernel) on a CUDA tensor: bits,
+    a-posteriori LLRs and counts equal its CPU result exactly."""
+    from srsran_project_tpu_torch.ops.ldpc import encoder, graphs
+
+    g = graphs.get_graph(bg, z)
+    rng = np.random.default_rng(z)
+    msg = torch.from_numpy(rng.integers(0, 2, size=(6, g.kb * z), dtype=np.uint8))
+    cw = to_np(encoder.encode_to_buffer(msg, bg, z))
+    sigma = 4.0 * (1.0 + 0.3 * np.arange(6))[:, None]
+    llr = np.clip(np.round((1.0 - 2.0 * cw) * 8.0 + rng.normal(0.0, 1.0, cw.shape) * sigma),
+                  -120, 120).astype(np.int8)
+    got = decoder.decode_count_iters(torch.from_numpy(llr).to(cuda_device), bg, z, 6)
+    want = decoder.decode_count_iters(torch.from_numpy(llr), bg, z, 6)
+    for a, b in zip(got, want):
+        assert a.is_cuda and torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("k, e, qm", [(1, 8, 2), (2, 16, 4), (3, 32, 2), (11, 252, 8)])
+def test_detect_ref_card_matches_cpu(cuda_device, k, e, qm):  # noqa: F811
+    """short_block.detect_ref on CUDA int8 LLRs: bits and ok flags equal
+    its CPU result exactly (integer scores, the same float32 metric)."""
+    x = torch.from_numpy(np.random.default_rng(k).integers(-127, 128, size=(2048, e))
+                         .astype(np.int8))
+    got = short_block.detect_ref(x.to(cuda_device), k, e, qm)
+    want = short_block.detect_ref(x, k, e, qm)
+    for a, b in zip(got, want):
+        assert a.is_cuda and torch.equal(a.cpu(), b)
