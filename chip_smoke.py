@@ -9,7 +9,7 @@ Run from the repository root on a machine with one NVIDIA Hopper card:
 It builds the port's CUDA kernels from ``srsran_project_tpu_torch/csrc``
 (into ``build/``, one ``nvcc`` per source, side by side), checks each
 kernel against its plain torch version on the card at the shapes of the
-paths below, then drives ten paths through the port's public entry
+paths below, then drives eleven paths through the port's public entry
 points, each with every kernel launch counter set to 0 just before it and
 read just after:
 
@@ -148,6 +148,26 @@ read just after:
    helpers on CUDA tensors against their CPU results: ``decode_count_iters``
    on the flagship's 141 codeblocks (beside K1's iterations on the same
    LLRs), ``detect_ref``, ``hard_decision_bits`` and ``selection_indices``.
+11. the radio-unit path on the app's default cell (273 PRB, 4 ports, 4
+   layers, 256QAM r 948/1024, a 4096-point DFT at 122.88 MHz): (a)
+   ``du_low_sim --ru generic --slots 10 --snr-db 30`` in-process (the DL
+   grid OFDM-modulated by ``ru.RuGeneric``, looped back with AWGN and
+   demodulated as the uplink): every CRC OK, K1 + K3 in each UL_TTI call,
+   both against their plain versions on its first call's grid; the RU's
+   modulate and demodulate on one slot against the CPU within 1e-4 x RMS;
+   a format-0 PRACH occasion (path 7's two preambles) through the RU at
+   122.88 MHz, detected with its delays (no kernel); (b) ``--ru ofh``
+   (``ru.RuOfh``: paced C-/U-plane frames with 9-bit BFP from the port's
+   native library, the wire looped back): every CRC OK, K1 + K3 a call, no
+   late, early, lost or evicted frame, 8 C-plane and 112 U-plane frames a
+   slot; then one slot replayed stage by stage (DL_TTI, the grid's copy to
+   the host, serdes, the copy back, UL_TTI); (c) one 273-PRB 4-layer
+   16QAM grant through the RU and the time-domain TDL-A
+   (``apply_channel_time_taps`` on the card against the CPU on the same
+   draws), CRC OK (K1 + K3); (d) the scheduler mode with ``--pcap`` and
+   ``--remote-port 0``: a WebSocket client subscribes, reads a periodic
+   report, asks for the metrics and quits the run; the pcap holds one
+   record per scheduled DL TB (K2 per code group in each UL_TTI call).
 
 Every CRC, every TB and UCI bit, every ``_ok`` flag and every PUCCH value
 is checked, and each PUCCH metric against its DTX threshold.  It then times each path per slot and
@@ -3692,6 +3712,446 @@ def helpers_phase(card: str, rx) -> None:
           "selection_indices (the flagship's first E) equal their CPU results")
 
 
+# ---- the radio-unit path -------------------------------------------------------
+
+# (a) and (b): the app's single-UE mode on its default cell (273 PRB, 30
+# kHz, 4 ports, 4 layers, 256QAM r 948/1024, a 4096-point DFT at 122.88
+# MHz) through the generic RU (OFDM baseband looped back with AWGN) and
+# the OFH RU (paced C-/U-plane frames with 9-bit BFP looped back, AWGN on
+# the reassembled grid).  Each UL_TTI: K1 + K3.
+P11_APP = {"generic": ["--ru", "generic", "--slots", "10", "--snr-db", "30"],
+           "ofh": ["--ru", "ofh", "--slots", "10", "--snr-db", "30"]}
+P11_SLOTS = 10
+# The RU against the CPU: modulated samples, demodulated grid and PRACH
+# buffer within this share of the CPU result's RMS (cuFFT and pocketfft
+# round differently).
+P11_RU_TOL = 1e-4
+# Frames a slot at 273 PRB and 4 ports: per port a DL and a UL C-plane
+# message, and 14 symbols x 2 U-plane sections (255 + 18 PRB).
+P11_FRAMES = {"c": 2 * UL_NOF_PORTS, "u": 14 * 2 * UL_NOF_PORTS}
+# (c) One UL grant of the full carrier through the RU and the time-domain
+# TDL-A (4x4, 122.88 MHz, the taps' delays 0-36 samples): 4 layers of
+# 16QAM at r 0.5 and 30 dB.  A CPU rehearsal decodes it on channel seeds
+# 0-7 and 11 (the one used), as it does 64QAM r 0.55; 64QAM r 0.7 fails
+# on one seed of the eight.  The channel is drawn on the CPU from the
+# seed (the same draws as the rehearsal's) and applied on the card.
+P11_TDL = dict(layers=4, qm=4, rate=0.5, snr_db=30.0, seed=SEED + 11, rnti=0x4E01)
+# (d) The scheduler mode with a MAC-NR pcap and the remote-control
+# endpoint: a client subscribes, reads a periodic report, asks for the
+# metrics and quits the run long before its last slot.
+P11_SCHED = ["--ues", "4", "--slots", "400", "--metrics-interval-slots", "5",
+             "--remote-port", "0"]
+
+
+class OfhRecorder:
+    """While active, each ``RuOfh`` built keeps itself in ``rus`` and
+    counts the C-plane and U-plane frames it puts on the wire."""
+
+    def __enter__(self):
+        from srsran_project_tpu_torch.ru import ofh_ru
+
+        self.rus, self.frames = [], {"c": 0, "u": 0}
+        self._orig = orig = ofh_ru.RuOfh.__init__
+        rec = self
+
+        def init(ru, *a, **kw):
+            orig(ru, *a, **kw)
+            send = ru.send_frame
+
+            def counted(frame):
+                rec.frames["u" if frame[1] == 0x00 else "c"] += 1
+                send(frame)
+
+            ru.send_frame = counted
+            rec.rus.append(ru)
+
+        ofh_ru.RuOfh.__init__ = init
+        return self
+
+    def __exit__(self, *exc):
+        from srsran_project_tpu_torch.ru import ofh_ru
+
+        ofh_ru.RuOfh.__init__ = self._orig
+        return False
+
+
+def p11_check_app(what: str, rc: int, err: str, calls: list, counts: dict) -> float:
+    """An RU run of the app: exit 0, BLER 0, every UL_TTI call one grant
+    with its CRC OK and K1 + K3 launched.  Returns the ms a slot on the
+    host's clock."""
+    import re
+
+    m = re.search(r"# (\d+) slots in ([0-9.]+)s \(([0-9.]+) slot-pairs/s\), BLER=([0-9.]+)", err)
+    if m is None or rc != 0 or float(m.group(4)) != 0.0:
+        fail(f"{what}: rc {rc}, summary {m and m.group(0)}, want rc 0 and BLER 0.000")
+    crcs = [bool(c.tb_crc_ok) for x in calls for c in x["res"].crc]
+    if len(calls) != P11_SLOTS or crcs != [True] * P11_SLOTS:
+        fail(f"{what}: {len(calls)} UL_TTI calls with CRCs {crcs}, want {P11_SLOTS} all OK")
+    for n, call in enumerate(calls):
+        got = {k: v for k, v in call["launches"].items() if v}
+        if got != {"decode_dematch": 1, "mmse_weights_4x4": 1}:
+            fail(f"{what} UL_TTI call {n}: kernel launches {got}, want K1 1 and K3 1")
+    expect_counts(what, counts, {"decode_dematch": P11_SLOTS, "mmse_weights_4x4": P11_SLOTS})
+    return 1e3 * float(m.group(2)) / int(m.group(1))
+
+
+def p11_slot_kernels(call, what: str) -> dict:
+    """K1 and K3 against their plain versions on one recorded UL_TTI call's
+    received grid (its one full-band grant)."""
+    import types
+
+    from srsran_project_tpu_torch.phy import ul_slot
+
+    pdu = call["req"].pusch[0]
+    grant = types.SimpleNamespace(config=pdu.config, rnti=pdu.rnti, first_rb=0)
+    return {"decode_dematch": check_k1_grant(call["grid"], grant, f"{what} K1"),
+            "mmse_weights_4x4": check_k3_group(
+                call["grid"], [ul_slot.UlSlotPdu(rnti=pdu.rnti, first_rb=0, config=pdu.config)],
+                f"{what} K3")}
+
+
+def p11_close(what: str, got, want, tol: float = P11_RU_TOL) -> float:
+    """got (card) within tol x the RMS of want (CPU); returns the ratio."""
+    got, want = got.detach().cpu(), want.detach().cpu()
+    if got.shape != want.shape:
+        fail(f"{what}: shape {tuple(got.shape)} on the card, {tuple(want.shape)} on the CPU")
+    rms = float(want.abs().pow(2).mean().sqrt())
+    err = float((got - want).abs().max()) / rms
+    if not err <= tol:
+        fail(f"{what}: the card's result is {err:.3e} x RMS from the CPU's, above {tol}")
+    return err
+
+
+def p11_generic_ru(device, ru_cls, cfg_cls, slot, grid):
+    """One slot through a RuGeneric on ``device`` (273 PRB, 4096-point DFT):
+    modulate ``grid``; returns (the RU, its collector, the samples)."""
+    from srsran_project_tpu_torch.apps.du_low_sim import RuCollector
+    from srsran_project_tpu_torch.ru import ResourceGridContext
+
+    col, sent = RuCollector(), {}
+    ru = ru_cls(cfg_cls(dft_size=4096, nof_rb=UL_NOF_PRB, device=str(device)), col,
+                transmit_cb=sent.__setitem__)
+    ru.handle_dl_data(ResourceGridContext(slot=slot), grid)
+    ru.advance_slot(slot)
+    return ru, col, sent.pop(slot)
+
+
+def ru_generic_phase(card: str) -> tuple[dict, dict]:
+    """Path 11 (a): ``du_low_sim --ru generic`` on the card (every CRC, K1
+    and K3 a UL_TTI), K1 and K3 against their plain versions on its first
+    call's received grid; the RU's modulate and demodulate on one slot
+    against the CPU; a format-0 PRACH occasion through the RU at 122.88
+    MHz, detected with its delays.  Returns the run's launch counts and
+    the kernels' largest differences."""
+    import torch
+
+    from srsran_project_tpu_torch.apps import du_low_sim
+    from srsran_project_tpu_torch.phy.upper_phy import UpperPhy, UpperPhyConfig
+    from srsran_project_tpu_torch.ru import (PrachBufferContext, ResourceGridContext,
+                                             RuGeneric, RuGenericConfig)
+    from srsran_project_tpu_torch.support import config as cfg_mod
+
+    argv = P11_APP["generic"]
+    rc, _out, err, counts, calls = p9_run_app(argv)
+    ms = p11_check_app("ru generic", rc, err, calls, counts)
+    errs = p11_slot_kernels(calls[0], "ru generic UL_TTI slot 0")
+    print(f"# [{card}] ru generic du_low_sim {' '.join(argv)}: {ms:.2f} ms a slot pair "
+          f"(host clock, {P11_SLOTS} slots: DL_TTI, modulate, AWGN, demodulate, UL_TTI)")
+    p9_report_ul_call(card, "ru generic UL_TTI of the full-band 4-layer grant", calls[0])
+
+    # The RU's modulate and demodulate on slot 0's DL grid, card against CPU.
+    dev = torch.device(DEVICE)
+    cell = cfg_mod.to_cell_config(cfg_mod.load_config())
+    tb = np.random.default_rng(SEED).integers(0, 2, size=(cell.tbs,), dtype=np.uint8)
+    dl, tx_data, _ul = du_low_sim.slot_requests(cell, 0, tb)
+    grid = UpperPhy(UpperPhyConfig(nof_ports=cell.nof_ports, nof_grid_sc=cell.nof_sc,
+                                   device=DEVICE)).process_dl_tti(dl, tx_data)
+    slot = dl.slot
+    ru, col, samples = p11_generic_ru(dev, RuGeneric, RuGenericConfig, slot, grid)
+    ru_c, col_c, samples_c = p11_generic_ru("cpu", RuGeneric, RuGenericConfig, slot, grid.cpu())
+    e_mod = p11_close("ru generic modulate", samples, samples_c)
+    noisy = du_low_sim.add_awgn(samples, SNR_DB, np.random.default_rng(SEED + 11), occupied=True)
+    for r, c, s in ((ru, col, noisy), (ru_c, col_c, noisy.cpu())):
+        r.push_ul_samples(slot, s)
+        r.handle_new_uplink_slot(ResourceGridContext(slot=slot))
+        r.advance_slot(slot)
+    e_demod = p11_close("ru generic demodulate", col.rx[slot], col_c.rx[slot])
+    if col.rx[slot].device.type != dev.type or samples.device.type != dev.type:
+        fail("ru generic: the RU's samples or grid left the card")
+
+    def slot_pair():
+        ru.handle_dl_data(ResourceGridContext(slot=slot), grid)
+        ru.push_ul_samples(slot, noisy)
+        ru.handle_new_uplink_slot(ResourceGridContext(slot=slot))
+        ru.advance_slot(slot)
+
+    print(f"# ru generic: modulate {tuple(samples.shape)} and demodulate on the card within "
+          f"{e_mod:.2e} and {e_demod:.2e} x RMS of the CPU (tolerance {P11_RU_TOL})")
+    report_call(card, "ru generic modulate + demodulate of one slot (4 ports, 4096-point)",
+                slot_pair)
+
+    # A format-0 PRACH occasion through the RU, at path 7's slot: its two
+    # preambles at 2.0 and 9.0 us come back through prach.detect.
+    p7 = p7_slot()
+    samples = p7_prach_samples("a", SEED + 11, dev)
+    buffers = []
+    col = du_low_sim.RuCollector()
+    col.on_new_prach_window_data = lambda ctx, buf: buffers.append(buf)
+    prach_ru = RuGeneric(RuGenericConfig(dft_size=4096, nof_rb=UL_NOF_PRB, device=DEVICE), col)
+    _fmt, _zcz, _root, rb0, sym0 = P7_PRACH["a"][:5]
+    prach_ru.handle_prach_occasion(PrachBufferContext(slot=p7, start_symbol=sym0, format="0",
+                                                      rb_offset=rb0))
+    prach_ru.push_ul_samples(p7, samples)
+    torch.cuda.synchronize()
+    reset_counts()
+    prach_ru.advance_slot(p7)
+    buf = buffers[0]
+    want = p7_prach_fd("a", samples.to(torch.complex64))  # the RU keeps complex64
+    if buf.shape != (UL_NOF_PORTS, 1, 839) or not torch.equal(buf[:, 0], want):
+        fail(f"ru generic PRACH: buffer {tuple(buf.shape)} is not lower_phy.prach_demodulate's")
+    phy = UpperPhy(UpperPhyConfig(nof_ports=UL_NOF_PORTS, nof_grid_sc=UL_NOF_PRB * 12,
+                                  device=DEVICE))
+    res = phy.process_ul_tti(p7_request("a"), torch.zeros(
+        (UL_NOF_PORTS, 14, UL_NOF_PRB * 12), dtype=torch.complex64, device=dev),
+        prach_fd=buf[:, 0])
+    torch.cuda.synchronize()
+    expect_counts("ru generic PRACH occasion", read_counts(), {})
+    p7_check_rach("ru generic format-0 PRACH at 122.88 MHz", res, "a")
+    return counts, errs
+
+
+def ru_ofh_phase(card: str) -> tuple[dict, dict]:
+    """Path 11 (b): ``du_low_sim --ru ofh`` on the card: every CRC, K1 and
+    K3 a UL_TTI, no late frame and no eviction, the frames a slot; K1 and
+    K3 against their plain versions on its first call's grid; then one
+    slot replayed stage by stage (the DL_TTI call, the grid's copy to the
+    host, serdes, the copy back, the UL_TTI call).  Returns the run's
+    launch counts and the kernels' largest differences."""
+    import torch
+
+    from srsran_project_tpu_torch.apps import du_low_sim
+    from srsran_project_tpu_torch.phy.upper_phy import UpperPhy, UpperPhyConfig
+    from srsran_project_tpu_torch.ru import ResourceGridContext, RuOfh, RuOfhConfig
+    from srsran_project_tpu_torch.support import config as cfg_mod
+
+    argv = P11_APP["ofh"]
+    with OfhRecorder() as ofh:
+        rc, _out, err, counts, calls = p9_run_app(argv)
+    ms = p11_check_app("ru ofh", rc, err, calls, counts)
+    if len(ofh.rus) != 1:
+        fail(f"ru ofh: {len(ofh.rus)} RuOfh built, want 1")
+    ru = ofh.rus[0]
+    m = ru.get_metrics()
+    late = (m.late_dl_requests, m.late_ul_requests, m.late_prach_requests, m.late_ul_frames,
+            ru.window.stats.early, ru.window.stats.late, ru.seqid.lost, ru.seqid.duplicates)
+    if any(late) or ru._ul_pending or ru._tx_queue:
+        fail(f"ru ofh: late/evicted/early/lost counts {late}, pending {len(ru._ul_pending)}, "
+             f"queued {len(ru._tx_queue)}; want none")
+    per_slot = {k: v / P11_SLOTS for k, v in ofh.frames.items()}
+    if per_slot != P11_FRAMES:
+        fail(f"ru ofh: frames a slot {per_slot}, want {P11_FRAMES}")
+    errs = p11_slot_kernels(calls[0], "ru ofh UL_TTI slot 0")
+    print(f"# [{card}] ru ofh du_low_sim {' '.join(argv)}: {ms:.2f} ms a slot pair (host "
+          f"clock, {P11_SLOTS} slots); {per_slot['c']:.0f} C-plane and {per_slot['u']:.0f} "
+          f"U-plane frames a slot, {ru.window.stats.on_time} U-plane frames on time, none "
+          f"late, early, lost or evicted")
+    p9_report_ul_call(card, "ru ofh UL_TTI of the full-band 4-layer grant", calls[0])
+
+    # One slot replayed stage by stage, each stage synchronized.
+    dev = torch.device(DEVICE)
+    cell = cfg_mod.to_cell_config(cfg_mod.load_config())
+    phy = UpperPhy(UpperPhyConfig(nof_ports=cell.nof_ports, nof_grid_sc=cell.nof_sc,
+                                  device=DEVICE))
+    tb = np.random.default_rng(SEED).integers(0, 2, size=(cell.tbs,), dtype=np.uint8)
+    dl, tx_data, ul = du_low_sim.slot_requests(cell, 0, tb)
+    col, wire = du_low_sim.RuCollector(), []
+    ru = RuOfh(RuOfhConfig(scs=cell.scs, nof_prb=cell.nof_rb, nof_ports=cell.nof_ports,
+                           device=DEVICE), col, send_frame=wire.append)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - t0)
+
+    stages = {}
+    for rep in range(3):  # the last repetition is kept
+        slot = dl.slot + 2 * rep
+        air = slot + 1
+        grid, stages["DL_TTI call"] = timed(lambda: phy.process_dl_tti(dl, tx_data))
+        host, stages["grid to host"] = timed(lambda: grid.cpu().numpy())
+
+        def serdes():
+            ru.ota_tick(slot)
+            ru.handle_new_uplink_slot(ResourceGridContext(slot=air))
+            ru.handle_dl_data(ResourceGridContext(slot=air), host)
+            for tick in (slot, air):
+                for sym in range(14):
+                    ru.ota_tick(tick, sym)
+                    while wire:
+                        f = wire.pop(0)
+                        if f[1] == 0x00:
+                            ru.push_uplane_frame(f)
+            return col.rx.pop(air)
+
+        rx, stages["serdes (frames out and back)"] = timed(serdes)
+        back = rx.cpu().numpy()
+        _x, stages["grid back to the card"] = timed(lambda: torch.from_numpy(back).to(dev))
+        stages["serdes (frames out and back)"] -= stages["grid back to the card"]
+        res, stages["UL_TTI call"] = timed(lambda: phy.process_ul_tti(ul, rx))
+        if not res.crc[0].tb_crc_ok:
+            fail("ru ofh replay: the slot's CRC failed")
+    print(f"# [{card}] ru ofh one slot by stage (host clock, synchronized): "
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in stages.items()))
+    return counts, errs
+
+
+def ru_tdl_phase(card: str) -> tuple[dict, dict]:
+    """Path 11 (c): one full-carrier UL grant (P11_TDL) transmitted by the
+    UE side through a RuGeneric, the time-domain TDL-A (4x4, 122.88 MHz,
+    the draws made on the CPU from the seed, applied on the card), the RU's
+    demodulator and ``UpperPhy.process_ul_tti``: CRC OK and TB bits equal,
+    K1 + K3.  Returns the launch counts and K3's difference on its
+    estimate."""
+    import torch
+
+    from srsran_project_tpu_torch.fapi import messages as fapi
+    from srsran_project_tpu_torch.phy import channel_emulator as chem
+    from srsran_project_tpu_torch.phy import pusch, ul_slot
+    from srsran_project_tpu_torch.phy.upper_phy import UpperPhy, UpperPhyConfig
+    from srsran_project_tpu_torch.ru import ResourceGridContext, RuGeneric, RuGenericConfig
+
+    dev = torch.device(DEVICE)
+    t = P11_TDL
+    cfg = ul_config(t["layers"], t["qm"], t["rate"], UL_NOF_PRB, 0)
+    rng = np.random.default_rng(t["seed"])
+    tb = rng.integers(0, 2, size=(cfg.tbs,), dtype=np.uint8)
+    slot = p7_slot() + 4
+    tx = pusch.transmit(torch.from_numpy(tb).to(dev), torch.tensor(t["rnti"], device=dev), cfg)
+    ru, col, samples = p11_generic_ru(dev, RuGeneric, RuGenericConfig, slot, tx)
+    ch = chem.ChannelConfig(profile="tdla", sinr_db=t["snr_db"], nof_tx_ports=UL_NOF_PORTS,
+                            nof_rx_ports=UL_NOF_PORTS, nof_sc=UL_NOF_PRB * 12)
+    gen = torch.Generator().manual_seed(t["seed"])
+    gains = chem.draw_channel_time(gen, ch, 122.88e6)
+    noise = chem._complex_normal(tuple(samples.shape), gen)
+    rx = chem.apply_channel_time_taps(samples, gains.to(dev), noise.to(dev), ch, 122.88e6)
+    want = chem.apply_channel_time_taps(samples.cpu(), gains, noise, ch, 122.88e6)
+    e_ch = p11_close("ru tdl apply_channel_time_taps", rx, want, 1e-5)
+    ru.push_ul_samples(slot, rx)
+    ru.handle_new_uplink_slot(ResourceGridContext(slot=slot))
+    ru.advance_slot(slot)
+    grid = col.rx.pop(slot)
+    phy = UpperPhy(UpperPhyConfig(nof_ports=UL_NOF_PORTS, nof_grid_sc=UL_NOF_PRB * 12,
+                                  device=DEVICE))
+    req = fapi.UlTtiRequest(slot=slot, pusch=[fapi.UlPuschPdu(cfg, t["rnti"], first_rb=0)])
+    torch.cuda.synchronize()
+    reset_counts()
+    res = phy.process_ul_tti(req, grid)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    expect_counts("ru tdl UL_TTI", counts, {"decode_dematch": 1, "mmse_weights_4x4": 1})
+    ok = bool(res.crc[0].tb_crc_ok)
+    if not ok or not np.array_equal(np.asarray(res.rx_data[0].payload), tb):
+        fail(f"ru tdl: CRC {ok} on the TDL-A grant, want OK and the TB back")
+    k3 = check_k3_group(grid, [ul_slot.UlSlotPdu(rnti=t["rnti"], first_rb=0, config=cfg)],
+                        "ru tdl K3")
+    print(f"# [{card}] ru tdl: a {UL_NOF_PRB}-PRB {t['layers']}-layer qm {t['qm']} r "
+          f"{t['rate']} grant ({cfg.tbs} bits) through RuGeneric and the time-domain TDL-A "
+          f"(taps at {chem._time_taps('tdla', 122.88e6)[0]} samples) at {t['snr_db']} dB: CRC "
+          f"OK, SNR {res.crc[0].snr_db:.2f} dB; the channel on the card within {e_ch:.2e} x "
+          f"RMS of the CPU")
+    return counts, {"mmse_weights_4x4": k3}
+
+
+def ru_sched_phase(card: str) -> dict:
+    """Path 11 (d): the scheduler mode with ``--pcap`` and ``--remote-port
+    0`` on the app's default cell: a WsClient subscribes, reads a periodic
+    report, asks for the metrics and sends "quit", which ends the run
+    long before its last slot; the pcap holds one record per DL TB the
+    scheduler put in a DL_TTI call, with its RNTI, SFN and slot.  Returns
+    the run's launch counts."""
+    import queue
+    import threading
+
+    from srsran_project_tpu_torch.phy.upper_phy import UpperPhy
+    from srsran_project_tpu_torch.support import pcap
+    from srsran_project_tpu_torch.support import remote_server as rs
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    path = os.path.join(here, "build", "path11_mac.pcap")
+    if os.path.exists(path):
+        os.remove(path)
+    started, got, dl_tbs = queue.Queue(), {}, []
+    orig_start, orig_dl = rs.RemoteServer.start, UpperPhy.process_dl_tti
+
+    def start(server):
+        orig_start(server)
+        started.put(server)
+
+    def process_dl_tti(phy, request, tx_data):
+        dl_tbs.extend((p.rnti, request.slot.sfn, request.slot.slot_in_frame, bytes(
+            np.packbits(tb))) for p, tb in zip(request.pdsch, tx_data.payloads))
+        return orig_dl(phy, request, tx_data)
+
+    def client():
+        try:
+            srv = started.get(timeout=120)
+            cli = rs.WsClient("127.0.0.1", srv.port, timeout=30.0)
+            try:
+                def until(pred):
+                    for _ in range(1000):
+                        msg = cli.recv_json()
+                        if pred(msg):
+                            return msg
+                    raise RuntimeError("no such message")
+
+                cli.send_json({"cmd": "metrics_subscribe"})
+                until(lambda m: m.get("cmd") == "metrics_subscribe")
+                got["report"] = until(lambda m: m.get("type") == "periodic")
+                cli.send_json({"cmd": "metrics"})
+                got["metrics"] = until(lambda m: m.get("cmd") == "metrics")
+                cli.send_json({"cmd": "quit"})
+                got["quit"] = until(lambda m: m.get("cmd") == "quit")
+            finally:
+                cli.close()
+        except Exception as e:  # reported by the main thread
+            got["error"] = repr(e)
+
+    argv = P11_SCHED + ["--pcap", path]
+    thread = threading.Thread(target=client, daemon=True)
+    rs.RemoteServer.start, UpperPhy.process_dl_tti = start, process_dl_tti
+    try:
+        thread.start()
+        rc, out, err, counts, calls = p9_run_app(argv)
+    finally:
+        rs.RemoteServer.start, UpperPhy.process_dl_tti = orig_start, orig_dl
+    thread.join(timeout=60)
+    if thread.is_alive() or "error" in got or got.get("quit", {}).get("cmd") != "quit":
+        fail(f"ru sched: the remote-control client did not finish: {got}")
+    periodic = [json.loads(x) for x in out.splitlines() if x.startswith("{")]
+    if rc != 0 or got["report"] not in periodic or not 1 <= len(periodic) < 400 // 5:
+        fail(f"ru sched: rc {rc}, {len(periodic)} periodic reports, want rc 0 and the run "
+             f"quit early with the client's report among them")
+    if sorted(got["metrics"]["report"]) != [str(0x100 + i) for i in range(4)]:
+        fail(f"ru sched: metrics command answered {got['metrics']}")
+    dlt, pkts = pcap.read_pcap(path)
+    recs = []
+    for _ts, payload in pkts:
+        ctx, pdu = pcap.parse_mac_nr_context(payload)
+        recs.append((ctx["rnti"], ctx["sfn"], ctx["slot"], pdu))
+    if dlt != pcap.DLT_USER_2 or recs != dl_tbs or not recs:
+        fail(f"ru sched: {len(recs)} pcap records, {len(dl_tbs)} DL TBs scheduled; want one "
+             f"record per TB with its RNTI, SFN, slot and bytes")
+    crc = [c.tb_crc_ok for x in calls for c in x["res"].crc]
+    p9_check_calls("ru sched", calls, counts)
+    print(f"# [{card}] ru sched du_low_sim {' '.join(P11_SCHED)} --pcap: quit by the remote "
+          f"client after {len(calls)} UL slots and {len(periodic)} periodic reports; "
+          f"{len(recs)} pcap records = the {len(dl_tbs)} DL TBs scheduled; {sum(crc)} of "
+          f"{len(crc)} grants CRC OK (TDL-A at 25 dB)")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -3756,6 +4216,12 @@ def main() -> int:
     for name, err in list(errs10.items()) + list(errs10b.items()):
         errs[name] = max(errs.get(name, 0.0), err)
     helpers_phase(card, rx)
+    per_path["ru_generic"], errs11a = ru_generic_phase(card)
+    per_path["ru_ofh"], errs11b = ru_ofh_phase(card)
+    per_path["ru_tdl"], errs11c = ru_tdl_phase(card)
+    per_path["ru_sched"] = ru_sched_phase(card)
+    for name, err in list(errs11a.items()) + list(errs11b.items()) + list(errs11c.items()):
+        errs[name] = max(errs.get(name, 0.0), err)
     # Each kernel's launches on the path it serves (one call of it), and
     # on every path.
     home = {"decode_dematch": "flagship", "mmse_weights_4x4": "flagship", "decode": "ul_slot",

@@ -30,9 +30,24 @@ Usage:
   python -m srsran_project_tpu_torch.apps.du_low_sim --cpu --ues 2 --policy qos \\
       --set cell.nof_rb=24 --set cell.nof_ports=1 --channel single --snr-db 30
 
-It runs on the GPU unless ``--cpu`` is given.  The reference's RU, pcap
-and remote-control options are accepted by the parser and exit with the
-ROADMAP item that ports them.
+``--ru generic|ofh`` routes the single-UE loop's grids through the RU
+layer: ``generic`` OFDM-modulates the DL grid to baseband
+(``ru.RuGeneric``), loops it back with AWGN at ``--snr-db`` and
+demodulates it as the uplink; ``ofh`` frames the grid as paced eCPRI
+C-/U-plane messages (``ru.RuOfh``: T1a windows against a per-symbol OTA
+clock, BFP compression), loops the wire back as the RU's uplink and adds
+the AWGN to the reassembled grid.  The TBs and the loopback noise come
+from the one numpy stream, in the reference app's order; the noise is
+drawn on the host and added on the device.  In scheduler mode ``--pcap``
+writes each DL TB as a MAC-NR pcap record and ``--remote-port`` serves
+the remote-control WebSocket (``metrics``, ``metrics_subscribe``, which
+also receives the periodic reports, and ``quit``, which ends the run).
+
+It runs on the GPU unless ``--cpu`` is given.
+
+  python -m srsran_project_tpu_torch.apps.du_low_sim --cpu --ru ofh --slots 3 \\
+      --set cell.nof_rb=24 --set cell.nof_ports=1 --set cell.nof_layers=1 \\
+      --channel single --snr-db 30
 """
 
 from __future__ import annotations
@@ -40,19 +55,13 @@ from __future__ import annotations
 import argparse
 import json
 import sys
+import threading
 import time
 
 import numpy as np
 import torch
 
 RNTI = 0x4601
-
-# Flag -> (its default, the ROADMAP sub-item that ports the mode it opens).
-DEFERRED = {
-    "ru": ("none", "Q1.10.5"),
-    "pcap": (None, "Q1.10.6"),
-    "remote_port": (None, "Q1.10.7"),
-}
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -82,22 +91,16 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--metrics-json", action="store_true", help="print metrics JSON line")
     ap.add_argument("--metrics-interval-slots", type=int, default=0,
                     help="scheduler mode: emit a periodic metrics JSON line every N slots")
-    # The reference's other modes: parsed, not ported.
-    ap.add_argument("--pcap", default=None)
-    ap.add_argument("--remote-port", type=int, default=None)
-    ap.add_argument("--ru", default="none", choices=["none", "generic", "ofh"])
+    ap.add_argument("--pcap", default=None,
+                    help="scheduler mode: write a MAC-NR pcap of the DL TBs here")
+    ap.add_argument("--remote-port", type=int, default=None,
+                    help="scheduler mode: serve the remote-control WebSocket endpoint here "
+                         "(0 = ephemeral)")
+    ap.add_argument("--ru", default="none", choices=["none", "generic", "ofh"],
+                    help="single-UE mode: route DL/UL through the RU layer ('generic': "
+                         "OFDM baseband loopback through RuGeneric; 'ofh': paced eCPRI "
+                         "C/U-plane frames with BFP through RuOfh, the wire looped back)")
     return ap
-
-
-def check_deferred(args: argparse.Namespace) -> None:
-    """Raise NotImplementedError naming the ROADMAP sub-item of the first
-    flag that asks for a mode the port does not run yet."""
-    for name, (default, item) in DEFERRED.items():
-        if getattr(args, name) != default:
-            flag = "--" + name.replace("_", "-")
-            raise NotImplementedError(
-                f"du_low_sim {flag}={getattr(args, name)!r} is not ported yet (ROADMAP {item}); "
-                "the port runs the single-UE, scheduler and multi-cell modes")
 
 
 def _overrides(items: list[str]) -> dict:
@@ -163,6 +166,97 @@ def synthesize_ul(sched, request, cell, device) -> torch.Tensor:
     return tx
 
 
+# ---- the RU loop (--ru generic|ofh) -----------------------------------------
+
+class RuCollector:
+    """The RU's uplink notifications: the valid grid of each slot."""
+
+    def __init__(self):
+        self.rx = {}
+
+    def on_new_uplink_symbol(self, context, grid, is_valid) -> None:
+        if is_valid:
+            self.rx[context.slot] = grid
+
+    def on_new_prach_window_data(self, context, buffer) -> None:
+        pass
+
+
+def add_awgn(x: torch.Tensor, snr_db: float, rng: np.random.Generator,
+             occupied: bool) -> torch.Tensor:
+    """x plus AWGN at snr_db: the noise drawn on the host from rng (every
+    real part, then every imaginary part, as the reference app draws it)
+    and added on x's device.  The signal power is the mean over the
+    nonzero samples (``occupied``: the zero REs of a partly filled grid
+    must not dilute it) or over all of them."""
+    power = x.abs() ** 2
+    if occupied:
+        power = power[power > 0]
+    sig = float(power.mean()) if power.numel() else 1.0
+    nstd = np.sqrt(sig * 10.0 ** (-snr_db / 10.0) / 2.0)
+    shape = tuple(x.shape)
+    noise = (rng.standard_normal(shape) + 1j * rng.standard_normal(shape)).astype(np.complex64)
+    return x + float(nstd) * torch.from_numpy(noise).to(x.device)
+
+
+class RuLoop:
+    """One slot's grid through the RU layer and back as the uplink grid,
+    with the AWGN of the reference app's RU modes.
+
+    ``generic``: ``RuGeneric`` modulates the DL grid to baseband, which
+    loops back with AWGN against the occupied samples' power and is
+    demodulated through the RU's uplink plane.  ``ofh``: the DL data is
+    submitted one slot ahead of air time, as a DU would; ``RuOfh`` paces
+    its C-/U-plane frames in their T1a windows against the OTA symbol
+    clock ticked through this slot and the air slot, every U-plane frame
+    loops back as the RU's uplink on the same eAxC map, and the
+    reassembled grid gets the AWGN."""
+
+    def __init__(self, kind: str, cell, device: torch.device):
+        from ..ru import RuGeneric, RuGenericConfig, RuOfh, RuOfhConfig
+
+        self.kind = kind
+        self.collector = RuCollector()
+        self.sent = {}
+        self.wire = []
+        if kind == "generic":
+            self.ru = RuGeneric(RuGenericConfig(scs=cell.scs, dft_size=cell.dft_size,
+                                                nof_rb=cell.nof_rb, device=str(device)),
+                                self.collector, transmit_cb=self.sent.__setitem__)
+        else:
+            self.ru = RuOfh(RuOfhConfig(scs=cell.scs, nof_prb=cell.nof_rb,
+                                        nof_ports=cell.nof_ports, device=str(device)),
+                            self.collector, send_frame=self.wire.append)
+        self.ru.start()
+
+    def run(self, slot, grid: torch.Tensor, snr_db: float,
+            rng: np.random.Generator) -> torch.Tensor:
+        from ..ru import ResourceGridContext
+
+        ru = self.ru
+        if self.kind == "generic":
+            ctx = ResourceGridContext(slot=slot)
+            ru.handle_dl_data(ctx, grid)
+            ru.handle_new_uplink_slot(ctx)
+            ru.advance_slot(slot)  # transmits; this UL request has no samples yet
+            ru.push_ul_samples(slot, add_awgn(self.sent.pop(slot), snr_db, rng, occupied=True))
+            ru.handle_new_uplink_slot(ctx)
+            ru.advance_slot(slot)
+            return self.collector.rx.pop(slot)
+        air = slot + 1
+        ru.ota_tick(slot)
+        ru.handle_new_uplink_slot(ResourceGridContext(slot=air))
+        ru.handle_dl_data(ResourceGridContext(slot=air), grid)
+        for tick_slot in (slot, air):
+            for sym in range(14):
+                ru.ota_tick(tick_slot, sym)
+                while self.wire:
+                    frame = self.wire.pop(0)
+                    if frame[1] == 0x00:  # U-plane (eCPRI message type 0)
+                        ru.push_uplane_frame(frame)
+        return add_awgn(self.collector.rx.pop(air), snr_db, rng, occupied=False)
+
+
 def _multi_cell(args, cell, ch_cfg, rng, gen, device) -> int:
     """Multi-cell scheduler mode (the reference's cell_scheduler per cell):
     each cell its own scheduler, PHY, channel draw and FAPI stream; UEs
@@ -206,7 +300,6 @@ def _scheduler(args, cell, phy, ch_cfg, rng, gen, device) -> int:
     """Scheduler-driven multi-UE mode: RR/QoS policy + HARQ lifecycle,
     optionally under the common-channel CellScheduler."""
     from ..l2sim.scheduler import RoundRobinScheduler
-    from ..phy import channel_emulator as chem
     from ..support import tracing
     from ..support.metrics import collector
     from ..support.timers import TimerManager
@@ -226,32 +319,46 @@ def _scheduler(args, cell, phy, ch_cfg, rng, gen, device) -> int:
     # Periodic metrics reports: a TimerManager ticked once per slot
     # re-arms itself (reference periodic_metrics_report_controller).
     tm = TimerManager()
+    # Remote control (reference remote_server.cpp): JSON commands over a
+    # WebSocket; subscribed clients get the periodic metrics lines, and
+    # "quit" stops the slot loop.
+    stop_flag = threading.Event()
+    remote = None
+    if args.remote_port is not None:
+        from ..support.remote_server import RemoteServer
+
+        remote = RemoteServer("127.0.0.1", args.remote_port,
+                              commands={"metrics": lambda msg: {"report": sched.report()}},
+                              on_quit=stop_flag.set)
+        remote.start()
+        print(f"# remote control: ws://127.0.0.1:{remote.port}", file=sys.stderr)
     if args.metrics_interval_slots > 0:
         report_timer = tm.create_timer()
 
         def _periodic_report():
-            print(json.dumps({"slot": tm.now, "type": "periodic", **sched.report()}))
+            line = json.dumps({"slot": tm.now, "type": "periodic", **sched.report()})
+            print(line)
+            if remote is not None:
+                remote.broadcast_metrics(line)
             report_timer.run()
 
         report_timer.set(args.metrics_interval_slots, _periodic_report)
+    pcap_w = None
+    if args.pcap:
+        from ..support.pcap import MacNrPcapWriter
+
+        pcap_w = MacNrPcapWriter(args.pcap)
     t_start = time.monotonic()
-    crc_ok = nof_grants = 0
-    for i in range(args.slots):
-        slot = _slot_point(cell, i)
-        tm.tick()
-        dl, txd, ulr, _grants = sched.run_slot(slot, rng)
-        rx_grid = None
-        if dl.pdsch:
-            rx_grid, _, _ = chem.apply_channel(phy.process_dl_tti(dl, txd), gen, ch_cfg)
-        if ulr.pusch:
-            if rx_grid is None:
-                rx_grid, _, _ = chem.apply_channel(synthesize_ul(sched, ulr, cell, device),
-                                                   gen, ch_cfg)
-            res = phy.process_ul_tti(ulr, rx_grid)
-            sched.handle_results(res)
-            crc_ok += sum(c.tb_crc_ok for c in res.crc)
-            nof_grants += len(res.crc)
+    try:
+        crc_ok, nof_grants = _scheduler_loop(args, cell, phy, sched, tm, ch_cfg, rng, gen,
+                                             device, stop_flag, pcap_w)
+    finally:
+        if remote is not None:
+            remote.stop()
     elapsed = time.monotonic() - t_start
+    if pcap_w is not None:
+        pcap_w.close()
+        print(f"# pcap: {pcap_w.nof_packets} MAC PDUs -> {args.pcap}", file=sys.stderr)
     if args.common:
         print(f"# common channels: {sched.counters}", file=sys.stderr)
     rep = sched.report()
@@ -267,9 +374,43 @@ def _scheduler(args, cell, phy, ch_cfg, rng, gen, device) -> int:
     return 0 if bler < 1.0 else 1
 
 
+def _scheduler_loop(args, cell, phy, sched, tm, ch_cfg, rng, gen, device, stop_flag,
+                    pcap_w) -> tuple[int, int]:
+    """The scheduler mode's slots until ``--slots`` or a remote "quit":
+    each slot's DL grid loops back as its uplink (a UL-only TDD slot
+    synthesizes the UEs' PUSCH), every DL TB goes to the pcap.  Returns
+    (CRCs OK, grants)."""
+    from ..phy import channel_emulator as chem
+    from ..support.pcap import DIRECTION_DOWNLINK
+
+    crc_ok = nof_grants = 0
+    for i in range(args.slots):
+        if stop_flag.is_set():
+            break
+        slot = _slot_point(cell, i)
+        tm.tick()
+        dl, txd, ulr, _grants = sched.run_slot(slot, rng)
+        rx_grid = None
+        if dl.pdsch:
+            if pcap_w is not None:
+                for pdu, tb in zip(dl.pdsch, txd.payloads):
+                    pcap_w.write_pdu(np.packbits(tb).tobytes(), rnti=pdu.rnti,
+                                     direction=DIRECTION_DOWNLINK, sfn=slot.sfn,
+                                     slot=slot.slot_in_frame)
+            rx_grid, _, _ = chem.apply_channel(phy.process_dl_tti(dl, txd), gen, ch_cfg)
+        if ulr.pusch:
+            if rx_grid is None:
+                rx_grid, _, _ = chem.apply_channel(synthesize_ul(sched, ulr, cell, device),
+                                                   gen, ch_cfg)
+            res = phy.process_ul_tti(ulr, rx_grid)
+            sched.handle_results(res)
+            crc_ok += sum(c.tb_crc_ok for c in res.crc)
+            nof_grants += len(res.crc)
+    return crc_ok, nof_grants
+
+
 def main(argv: list[str] | None = None) -> int:
     args = _parser().parse_args(argv)
-    check_deferred(args)
     from ..phy import channel_emulator as chem
     from ..phy.slot_pipeline import SlotPipeline
     from ..phy.upper_phy import UpperPhy, UpperPhyConfig
@@ -311,12 +452,17 @@ def main(argv: list[str] | None = None) -> int:
     if args.ues > 0:
         return _scheduler(args, cell, phy, ch_cfg, rng, gen, device)
 
+    ru = RuLoop(args.ru, cell, device) if args.ru != "none" else None
+
     def run_slot(i: int) -> bool:
         tb = rng.integers(0, 2, size=(cell.tbs,), dtype=np.uint8)
         dl, tx_data, ul = slot_requests(cell, i, tb)
         with tracing.l1_tracer.span(f"dl_slot_{i}"):
             grid = phy.process_dl_tti(dl, tx_data)
-        rx_grid, _, _ = chem.apply_channel(grid, gen, ch_cfg)
+        if ru is not None:
+            rx_grid = ru.run(dl.slot, grid, args.snr_db, rng)
+        else:
+            rx_grid, _, _ = chem.apply_channel(grid, gen, ch_cfg)
         with tracing.l1_tracer.span(f"ul_slot_{i}"):
             res = phy.process_ul_tti(ul, rx_grid)
         return res.crc[0].tb_crc_ok
@@ -335,7 +481,4 @@ def main(argv: list[str] | None = None) -> int:
 
 
 if __name__ == "__main__":
-    try:
-        sys.exit(main())
-    except NotImplementedError as e:
-        sys.exit(f"du_low_sim: {e}")
+    sys.exit(main())

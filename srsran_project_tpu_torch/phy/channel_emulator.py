@@ -1,4 +1,5 @@
-"""TDL fading channel emulator for BLER tests, on resource grids.
+"""TDL fading channel emulator for BLER tests, on resource grids and, in
+``apply_channel_time``, on baseband sample streams.
 
 Port of ``srsran_project_tpu/phy/channel_emulator.py``: TDL-A/B/C tap
 profiles (TS 38.104 annex G delay and power tables), Rayleigh fading per
@@ -8,9 +9,10 @@ in the frequency domain: H(r, t, k) = sum_taps g exp(-j 2 pi k scs tau).
 Randomness comes from an explicit ``torch.Generator`` on the grid's
 device in place of the JAX key, so draws differ from the reference's;
 the tap table, the steering, the application of a drawn channel, the CFO
-phases and the noise scaling are the same.  The sums over taps and over
-transmit ports are elementwise float32 multiply-adds, not matrix
-products, so no TF32 path can touch them.
+phases and the noise scaling are the same (``apply_channel_time_taps``
+takes its draws as arguments).  The sums over taps and over transmit
+ports are elementwise float32 multiply-adds, not matrix products, so no
+TF32 path can touch them.
 """
 
 from __future__ import annotations
@@ -195,3 +197,64 @@ def apply_channel(grid: torch.Tensor, generator: torch.Generator, cfg: ChannelCo
     nvar = _noise_var(rx, cfg)
     noise = _complex_normal(rx.shape, generator) * torch.sqrt(nvar / 2)
     return rx + noise, h, nvar
+
+
+# ---- the time-domain TDL (baseband sample streams) ---------------------------
+
+@functools.lru_cache(maxsize=None)
+def _time_taps(profile: str, srate_hz: float):
+    """(tap delays in samples, rounded to the sample grid; tap amplitudes
+    sqrt(p / 2) float32, p the tap powers normalized to unit total)."""
+    taps = PROFILES[profile]
+    delays_s = np.asarray([t[0] for t in taps], np.float64) * 1e-9
+    p = 10.0 ** (np.asarray([t[1] for t in taps], np.float64) / 10.0)
+    p = p / p.sum()
+    delays = np.round(delays_s * srate_hz).astype(np.int32)
+    return tuple(int(d) for d in delays), np.sqrt(p / 2.0).astype(np.float32)
+
+
+_time_amp_on = device_table(lambda profile, srate_hz: _time_taps(profile, srate_hz)[1])
+
+
+def draw_channel_time(generator: torch.Generator, cfg: ChannelConfig,
+                      srate_hz: float) -> torch.Tensor:
+    """Rayleigh tap gains (nrx, ntx, T) complex64 on the generator's device:
+    CN(0, p_n) per tap of the profile."""
+    amp = _time_amp_on(generator.device, cfg.profile, float(srate_hz))
+    return _complex_normal((cfg.nof_rx_ports, cfg.nof_tx_ports, amp.shape[0]), generator) * amp
+
+
+def apply_channel_time_taps(samples: torch.Tensor, gains: torch.Tensor, noise: torch.Tensor,
+                            cfg: ChannelConfig, srate_hz: float) -> torch.Tensor:
+    """The applying part of ``apply_channel_time``: (ntx, nsamples) samples
+    through the sparse FIR of ``gains`` (nrx, ntx, T) at the profile's
+    delays (one zero-padded shift per tap, summed over the transmit ports
+    by multiply-adds), plus ``noise`` (nrx, nsamples), a unit complex
+    normal (real and imaginary parts N(0, 1)), scaled to the configured
+    SINR against the faded signal's mean power."""
+    delays, _ = _time_taps(cfg.profile, float(srate_hz))
+    x = samples.to(torch.complex64)
+    n = x.shape[-1]
+    out = torch.zeros((gains.shape[0], n), dtype=torch.complex64, device=x.device)
+    for ti, d in enumerate(delays):
+        shifted = torch.cat([x.new_zeros((x.shape[0], d)), x], dim=-1)[:, :n]
+        out = out + sum(gains[:, t, ti, None] * shifted[t] for t in range(x.shape[0]))
+    sig_pow = (out.abs() ** 2).mean()
+    nstd = torch.sqrt(sig_pow * 10.0 ** (-cfg.sinr_db / 10.0) / 2.0)
+    return out + noise.to(torch.complex64) * nstd
+
+
+def apply_channel_time(samples: torch.Tensor, generator: torch.Generator, cfg: ChannelConfig,
+                       srate_hz: float) -> torch.Tensor:
+    """Time-domain TDL channel for baseband sample streams (the RU / lower
+    PHY path): per-tap Rayleigh gains at the TS 38.104 delay profile
+    applied as a sparse FIR per (rx, tx) pair, the delays rounded to the
+    sample grid, then AWGN at the configured SINR.  (ntx, nsamples)
+    complex64 -> (nrx, nsamples).  ``generator`` lives on the samples'
+    device; the gains are drawn first, then the noise.  The frequency-domain
+    ``apply_channel`` is the per-slot-grid equivalent; this one runs true
+    multipath through the OFDM cyclic prefix."""
+    _check_generator(generator, samples.device)
+    gains = draw_channel_time(generator, cfg, srate_hz)
+    noise = _complex_normal((cfg.nof_rx_ports, samples.shape[-1]), generator)
+    return apply_channel_time_taps(samples, gains, noise, cfg, srate_hz)

@@ -637,3 +637,78 @@ def test_detect_ref_card_matches_cpu(cuda_device, k, e, qm):  # noqa: F811
     want = short_block.detect_ref(x, k, e, qm)
     for a, b in zip(got, want):
         assert a.is_cuda and torch.equal(a.cpu(), b)
+
+
+# ---- the RU path -------------------------------------------------------------------
+
+@pytest.mark.parametrize("fmt", ["0", "B4"])
+def test_generic_ru_on_card_matches_cpu(cuda_device, fmt):  # noqa: F811
+    """RuGeneric on CUDA tensors (DL grid, UL samples with a PRACH window)
+    equals the same RU on the CPU: modulated samples, demodulated grid and
+    PRACH buffer within 1e-4 x RMS (cuFFT against pocketfft), each left on
+    its device."""
+    from srsran_project_tpu_torch.ran.constants import SubcarrierSpacing
+    from srsran_project_tpu_torch.ran.slot_point import SlotPoint
+    from srsran_project_tpu_torch.ru import (PrachBufferContext, ResourceGridContext,
+                                             RuGeneric, RuGenericConfig)
+
+    class Col:
+        def __init__(self):
+            self.grid, self.prach = None, None
+
+        def on_new_uplink_symbol(self, context, grid, is_valid):
+            self.grid = grid
+
+        def on_new_prach_window_data(self, context, buffer):
+            self.prach = buffer
+
+    rng = np.random.default_rng(3)
+    grid = (rng.standard_normal((4, 14, 3276)) + 1j * rng.standard_normal((4, 14, 3276))
+            ).astype(np.complex64)
+    slot = SlotPoint.from_sfn_slot(SubcarrierSpacing.KHZ30, 2, 1)
+    tail = (rng.standard_normal((4, 61440)) + 1j * rng.standard_normal((4, 61440))
+            ).astype(np.complex64)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        col, sent = Col(), {}
+        ru = RuGeneric(RuGenericConfig(dft_size=4096, nof_rb=273, device=str(dev)), col,
+                       transmit_cb=sent.__setitem__)
+        ctx = ResourceGridContext(slot=slot)
+        ru.handle_dl_data(ctx, torch.from_numpy(grid).to(dev))
+        ru.advance_slot(slot)
+        samples = sent[slot]
+        assert samples.device.type == torch.device(dev).type
+        # A format-0 occasion (1 ms) runs into the next slot: push two
+        # slots of baseband, numpy in, moved to the RU's device.
+        ru.push_ul_samples(slot, np.concatenate([to_np(samples), tail], axis=-1))
+        ru.handle_new_uplink_slot(ctx)
+        ru.handle_prach_occasion(PrachBufferContext(slot=slot, format=fmt, rb_offset=258
+                                                    if fmt == "0" else 200))
+        ru.advance_slot(slot)
+        assert col.grid.device.type == col.prach.device.type == torch.device(dev).type
+        out[str(dev)] = [to_np(x) for x in (samples, col.grid, col.prach)]
+    for got, want in zip(out[str(cuda_device)], out["cpu"]):
+        rms = np.sqrt(np.mean(np.abs(want) ** 2))
+        assert np.abs(got - want).max() <= 1e-4 * rms
+
+
+def test_apply_channel_time_on_card_matches_cpu(cuda_device):  # noqa: F811
+    """The time-domain TDL's applying part on the card equals the CPU on
+    the same draws within 1e-5 x RMS; the card's own draws run there."""
+    from srsran_project_tpu_torch.phy import channel_emulator as chem
+
+    cfg = chem.ChannelConfig(profile="tdla", sinr_db=20.0, nof_tx_ports=4, nof_rx_ports=4)
+    rng = np.random.default_rng(8)
+    x = (rng.standard_normal((4, 61440)) + 1j * rng.standard_normal((4, 61440))).astype(np.complex64)
+    gen = torch.Generator().manual_seed(2)
+    gains = chem.draw_channel_time(gen, cfg, 122.88e6)
+    noise = chem._complex_normal((4, 61440), gen)
+    want = to_np(chem.apply_channel_time_taps(torch.from_numpy(x), gains, noise, cfg, 122.88e6))
+    got = to_np(chem.apply_channel_time_taps(torch.from_numpy(x).to(cuda_device),
+                                             gains.to(cuda_device), noise.to(cuda_device), cfg,
+                                             122.88e6))
+    rms = np.sqrt(np.mean(np.abs(want) ** 2))
+    assert np.abs(got - want).max() <= 1e-5 * rms
+    y = chem.apply_channel_time(torch.from_numpy(x).to(cuda_device),
+                                torch.Generator(device=cuda_device).manual_seed(2), cfg, 122.88e6)
+    assert y.device.type == cuda_device.type and y.shape == (4, 61440) and torch.isfinite(y).all()

@@ -35,6 +35,7 @@ from srsran_project_tpu_torch.phy import channel_emulator as tchem
 from srsran_project_tpu_torch.phy.upper_phy import UpperPhy as TUpperPhy
 from srsran_project_tpu_torch.phy.upper_phy import UpperPhyConfig as TUpperPhyConfig
 from srsran_project_tpu_torch.support import config as tconfig
+from srsran_project_tpu_torch.support import pcap as tpcap
 from srsran_project_tpu_torch.support import tracing as ttracing
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -57,16 +58,6 @@ def test_app_needs_a_card_without_cpu(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert du_low_sim.main([a for a in SMALL if a != "--cpu"]) == 2
     assert "no CUDA device" in capsys.readouterr().err
-
-
-@pytest.mark.parametrize("flag", sorted(du_low_sim.DEFERRED))
-def test_deferred_flags_name_their_item(flag):
-    value = {"ues": "2", "policy": "qos", "cells": "2", "ru": "generic", "pcap": "x.pcap",
-             "remote_port": "0", "trace": "t.json", "metrics_interval_slots": "5"}.get(flag)
-    arg = ["--" + flag.replace("_", "-")] + ([value] if value is not None else [])
-    item = du_low_sim.DEFERRED[flag][1]
-    with pytest.raises(NotImplementedError, match=rf"ROADMAP {item}\b"):
-        du_low_sim.main(SMALL + arg)
 
 
 def test_config_twin(capsys):
@@ -132,6 +123,15 @@ MODES = {
     "tdd_common_metrics": ["--ues", "4", "--tdd", "--common", "--slots", "20",
                            "--metrics-interval-slots", "5", "--metrics-json"],
     "cells": ["--ues", "3", "--cells", "2", "--slots", "8", "--metrics-json"],
+    # The RU loop (single-UE mode): the TBs and the loopback AWGN from the
+    # one numpy stream, so every slot sees the reference's draws.
+    "ru_generic": ["--ru", "generic", "--slots", "3"],
+    "ru_ofh": ["--ru", "ofh", "--slots", "3"],
+    "ru_generic_low_snr": ["--ru", "generic", "--slots", "8", "--snr-db", "23.8"],
+    # Scheduler mode with a MAC-NR pcap of the DL TBs ({pcap}: a file per
+    # app) and the remote-control endpoint (no client: the loop runs on).
+    "pcap_remote": ["--ues", "3", "--tdd", "--slots", "12", "--pcap", "{pcap}",
+                    "--remote-port", "0", "--metrics-interval-slots", "4"],
 }
 
 
@@ -145,35 +145,70 @@ def _reference_app():
 
 def _summary(err: str) -> list[str]:
     """The app's '# ' lines without the cell header and the wall-clock
-    figures."""
+    figures, the remote-control port and the pcap path."""
     out = []
     for line in err.splitlines():
         if not line.startswith("# ") or line.startswith("# cell: "):
             continue
         line = re.sub(r"in [0-9.]+s", "in Ts", line)
+        line = re.sub(r"\([0-9.]+ slot-pairs/s\)", "(R slot-pairs/s)", line)
+        line = re.sub(r"ws://127\.0\.0\.1:\d+", "ws://127.0.0.1:P", line)
+        line = re.sub(r"-> \S+\.pcap", "-> F.pcap", line)
         out.append(re.sub(r"[0-9.]+ Mbps", "R Mbps", line))
     return out
 
 
-def run_both(argv, monkeypatch, capsys):
-    """(rc, summary, stdout lines) of the reference app and of the port's."""
-    monkeypatch.setattr(sys, "argv", ["du_low_sim.py", *argv])
+def _record_crcs(monkeypatch, cls, calls: list) -> None:
+    """Record the CRC flags of every ``cls.process_ul_tti`` call."""
+    orig = cls.process_ul_tti
+
+    def recorded(phy, *a, **kw):
+        res = orig(phy, *a, **kw)
+        calls.append([bool(c.tb_crc_ok) for c in res.crc])
+        return res
+
+    monkeypatch.setattr(cls, "process_ul_tti", recorded)
+
+
+def run_both(argv, monkeypatch, capsys, tmp_path=None):
+    """(rc, summary, stdout lines, CRCs of each UL_TTI call) of the
+    reference app and of the port's; '{pcap}' in argv becomes a file of
+    each app's own under tmp_path."""
+    ref_crcs, port_crcs = [], []
+    _record_crcs(monkeypatch, JUpperPhy, ref_crcs)
+    _record_crcs(monkeypatch, TUpperPhy, port_crcs)
+    ref_argv = [a.format(pcap=tmp_path / "ref.pcap") if tmp_path else a for a in argv]
+    port_argv = [a.format(pcap=tmp_path / "port.pcap") if tmp_path else a for a in argv]
+    monkeypatch.setattr(sys, "argv", ["du_low_sim.py", *ref_argv])
     ref_rc = _reference_app().main()
     ref = capsys.readouterr()
-    port_rc = du_low_sim.main(list(argv))
+    port_rc = du_low_sim.main(port_argv)
     port = capsys.readouterr()
-    return ((ref_rc, _summary(ref.err), ref.out.splitlines()),
-            (port_rc, _summary(port.err), port.out.splitlines()))
+    return ((ref_rc, _summary(ref.err), ref.out.splitlines(), ref_crcs),
+            (port_rc, _summary(port.err), port.out.splitlines(), port_crcs))
 
 
 @pytest.mark.parametrize("mode", list(MODES))
-def test_mode_against_the_reference_app(mode, monkeypatch, capsys):
-    ref, port = run_both(SCHED + MODES[mode], monkeypatch, capsys)
+def test_mode_against_the_reference_app(mode, monkeypatch, capsys, tmp_path):
+    ref, port = run_both(SCHED + MODES[mode], monkeypatch, capsys, tmp_path)
     assert port == ref
-    rc, summary, out = port
-    assert rc == 0
-    if "--common" not in MODES[mode]:
+    rc, summary, out, crcs = port
+    assert rc == 0 and crcs
+    if "--common" not in MODES[mode] and mode != "ru_generic_low_snr":
         assert summary[-1].endswith(("BLER=0.000", "CRC OK in Ts"))
+    if mode == "ru_generic_low_snr":  # the noise decides: some slots fail, some pass
+        assert [c for (c,) in crcs].count(True) not in (0, len(crcs))
+    if mode == "pcap_remote":
+        # The records equal the reference's but for the timestamps: one DL
+        # TB each, in scheduling order, with its RNTI, SFN and slot.
+        dlt, pkts = tpcap.read_pcap(str(tmp_path / "port.pcap"))
+        assert (dlt, [p for _, p in pkts]) == (lambda d, k: (d, [p for _, p in k]))(
+            *tpcap.read_pcap(str(tmp_path / "ref.pcap")))
+        assert summary[1] == f"# pcap: {len(pkts)} MAC PDUs -> F.pcap" and len(pkts) >= 12
+        assert {tpcap.parse_mac_nr_context(p)[0]["rnti"] for _, p in pkts} == {0x100, 0x101,
+                                                                             0x102}
+        assert summary[0] == "# remote control: ws://127.0.0.1:P"
+        assert [json.loads(x)["slot"] for x in out] == [4, 8, 12]
     if mode == "tdd_common_metrics":
         assert summary[0] == ("# common channels: {'ssb': 1, 'sib1': 1, 'paging': 0, "
                               "'csi_rs': 1, 'prach': 1, 'cbs': 0, 'fallback': 0, 'si': 0}")
@@ -256,3 +291,59 @@ def test_scheduler_mode_config_and_ul_synthesis():
                               torch.tensor(pdu.rnti), pdu.config)
         want[:, :, pdu.first_rb * 12:pdu.first_rb * 12 + sub.shape[2]] = sub
     assert torch.equal(tx, want)
+
+
+def test_remote_control_quits_the_run(monkeypatch, capsys):
+    """--remote-port in scheduler mode: a client subscribes, receives the
+    periodic metrics lines the app prints, asks for a report and sends
+    "quit", which ends the run long before its --slots."""
+    import queue
+    import threading
+
+    from srsran_project_tpu_torch.support import remote_server as trs
+
+    started = queue.Queue()
+    orig_start = trs.RemoteServer.start
+
+    def start(self):
+        orig_start(self)
+        started.put(self)
+
+    monkeypatch.setattr(trs.RemoteServer, "start", start)
+    got = {}
+
+    def until(cli, want):
+        for _ in range(100):
+            msg = cli.recv_json()
+            if want(msg):
+                return msg
+            got.setdefault("reports", []).append(msg)
+        raise AssertionError("no such message")
+
+    def client():
+        srv = started.get(timeout=60)
+        cli = trs.WsClient("127.0.0.1", srv.port, timeout=10.0)
+        try:
+            cli.send_json({"cmd": "metrics_subscribe"})
+            until(cli, lambda m: m.get("cmd") == "metrics_subscribe")
+            got["first"] = until(cli, lambda m: m.get("type") == "periodic")
+            cli.send_json({"cmd": "metrics"})
+            got["metrics"] = until(cli, lambda m: m.get("cmd") == "metrics")
+            cli.send_json({"cmd": "quit"})
+            got["quit"] = until(cli, lambda m: m.get("cmd") == "quit")
+        finally:
+            cli.close()
+
+    thread = threading.Thread(target=client, daemon=True)
+    thread.start()
+    rc = du_low_sim.main(SCHED + ["--ues", "2", "--slots", "400", "--metrics-interval-slots",
+                                  "2", "--remote-port", "0"])
+    thread.join(timeout=30)
+    assert not thread.is_alive()
+    out = capsys.readouterr()
+    printed = [json.loads(x) for x in out.out.splitlines()]
+    assert rc == 0 and got["quit"]["cmd"] == "quit"
+    assert got["first"] in printed and all(r in printed for r in got.get("reports", []))
+    assert sorted(got["metrics"]["report"]) == ["256", "257"]
+    assert 1 <= len(printed) < 100  # the run ended long before 400 slots
+    assert re.search(r"# remote control: ws://127\.0\.0\.1:\d+", out.err)

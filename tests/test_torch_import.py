@@ -36,6 +36,7 @@ from srsran_project_tpu_torch.phy import pdsch as tpdsch
 from srsran_project_tpu_torch.phy import pusch as tpusch
 from srsran_project_tpu_torch.phy import sch as tsch
 from srsran_project_tpu_torch.ran import csi as tcsi
+from srsran_project_tpu_torch.support import native
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -71,7 +72,7 @@ if files[0].name == "__init__.py":
     loaded = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + ".")]
     for n in loaded:
         importlib.import_module(n)
-    assert len(loaded) >= 99, loaded
+    assert len(loaded) >= 113, loaded
 else:
     spec = importlib.util.spec_from_file_location(files[0].stem, files[0])
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
@@ -109,15 +110,19 @@ def test_package_imports_no_jax(target):
     assert proc.returncode == 0, proc.stderr
 
 
-# The scheduler slice's and the initial-access slice's modules: each is
-# among those the package check above loads in a fresh interpreter.
+# The scheduler slice's, the initial-access slice's and the RU slice's
+# modules: each is among those the package check above loads in a fresh
+# interpreter.
 SLICE_MODULES = ["ran.tdd", "ran.dci", "ran.precoding", "l2sim", "l2sim.link_adaptation",
                  "l2sim.power_control", "l2sim.srs_alloc", "l2sim.ue_context_loops",
                  "l2sim.pdcch_alloc", "l2sim.pucch_alloc", "l2sim.uci_alloc", "l2sim.scheduler",
                  "l2sim.common_scheduling", "l2sim.multi_cell", "support.timers",
                  "support.metrics", "support.tracing", "support.logger", "phy.slot_pipeline",
                  "l2", "l2.mac_pdu", "l2sim.ra", "l2sim.fallback", "l2sim.si_paging",
-                 "l2sim.slicing", "l2sim.test_mode", "fapi.bufferer", "ran.sch_info", "ran.band"]
+                 "l2sim.slicing", "l2sim.test_mode", "fapi.bufferer", "ran.sch_info", "ran.band",
+                 "ofh", "ofh.ethernet", "ofh.receiver", "ofh.timing", "ru", "ru.interface",
+                 "ru.dummy", "ru.generic", "ru.ofh_ru", "ru.factory", "phy.lower_loop",
+                 "support.native", "support.pcap", "support.remote_server"]
 
 
 @pytest.mark.parametrize("module", SLICE_MODULES)
@@ -139,6 +144,33 @@ def test_slice_module_is_checked(module):
                  else [])
         assert not [n for n in names if n.split(".")[0] in ("jax", "jaxlib",
                                                              "srsran_project_tpu")], (path, names)
+
+
+def test_native_build_and_ru_modes_import_no_jax(tmp_path):
+    """In a fresh interpreter, building and loading the port's native
+    library (into a fresh build directory) and a small RU-mode run of the
+    app (--ru ofh: the serdes through it) leave jax and the JAX package
+    out of sys.modules."""
+    code = ("import sys\n"
+            "from srsran_project_tpu_torch.support import native\n"
+            f"native.BUILD_DIR = native.pathlib.Path({str(tmp_path)!r})\n"
+            "native.get_lib()\n"
+            "assert native.build_dir().parent == native.BUILD_DIR\n"
+            "from srsran_project_tpu_torch.apps import du_low_sim\n"
+            "rc = du_low_sim.main(sys.argv[1:])\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'srsran_project_tpu'))\n"
+            "assert not bad, bad\n"
+            "sys.exit(rc)")
+    args = ["--cpu", "--set", "cell.nof_rb=12", "--set", "cell.nof_ports=1", "--set",
+            "cell.nof_layers=1", "--set", "cell.modulation=qpsk", "--channel", "single",
+            "--snr-db", "30", "--slots", "1", "--ru", "ofh"]
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code, *args], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=180)
+    assert proc.returncode == 0, proc.stderr
+    assert "BLER=0.000" in proc.stderr
+    assert [p.name for p in tmp_path.iterdir()] == [native.build_dir().name]
 
 
 def test_app_runs_without_yaml():
@@ -313,18 +345,10 @@ def test_out_of_slice_values_raise(field, value):
         tcell.CellConfig(**{field: value + "_unknown"}).pusch_cfg  # noqa: B018
 
 
-# Every NotImplementedError the port raises, with the ROADMAP sub-item its
-# message names: (what raises, how to trigger it, the sub-item).
 def _pusch_field(field, value):
     return lambda: tpusch.PuschConfig(tbs=1000, target_code_rate=0.5,
                                       modulation=tmap.Modulation.QAM16,
                                       alloc=tcell.CellConfig().alloc, **{field: value})
-
-
-def _app_flag(*argv):
-    from srsran_project_tpu_torch.apps import du_low_sim
-
-    return lambda: du_low_sim.main(["--cpu", *argv])
 
 
 # The reference-exact modes: (what takes the value, how to build it, the
@@ -358,29 +382,16 @@ def test_reference_mode_is_accepted(what, build, field, value):
         assert cfg.sch.decoder == ref.sch.decoder == cfg.ldpc_decoder
 
 
-RAISES = [
-    ("du_low_sim --ru", _app_flag("--ru", "ofh"), "Q1.10.5"),
-    ("du_low_sim --pcap", _app_flag("--pcap", "mac.pcap"), "Q1.10.6"),
-    ("du_low_sim --remote-port", _app_flag("--remote-port", "0"), "Q1.10.7"),
-]
-
-
-@pytest.mark.parametrize("what, trigger, item", RAISES, ids=[r[0] for r in RAISES])
-def test_raise_names_its_sub_item(what, trigger, item):
-    """Each value the port does not run raises NotImplementedError naming
-    its ROADMAP sub-item, not a parent item."""
-    with pytest.raises(NotImplementedError, match=rf"ROADMAP {item}\b"):
-        trigger()
-
-
 def test_every_raise_is_pinned():
-    """The package raises NotImplementedError at one place (the app's
-    deferred flags), pinned above; a new one must be added to RAISES."""
+    """The package raises NotImplementedError nowhere: every mode of the
+    reference it meets is ported (the app's RU, pcap and remote-control
+    flags were the last refusals).  A new refusal must name its ROADMAP
+    sub-item and get a test of its own here."""
     pkg = os.path.join(REPO, "srsran_project_tpu_torch")
     sites = sorted(os.path.relpath(os.path.join(d, f), pkg) for d, _, fs in os.walk(pkg)
                    for f in fs if f.endswith(".py")
-                   for line in open(os.path.join(d, f)) if "raise NotImplementedError" in line)
-    assert sites == ["apps/du_low_sim.py"], sites
+                   for line in open(os.path.join(d, f)) if "NotImplementedError" in line)
+    assert sites == [], sites
 
 
 # A UCI config with a CSI report configuration: two-step CSI.

@@ -57,6 +57,53 @@ def cuda_device() -> torch.device:
     return torch.device("cuda")
 
 
+# ---- host runtime: the reference's native library, a fake clock ------------
+
+@pytest.fixture(scope="module")
+def ref_native():
+    """The JAX package's native module with its library loaded.  Its
+    ``get_lib`` runs ``make -C native`` in every test worker and gives up
+    for good (None) when it reads a library another worker is still
+    linking: let it look again until the link is done."""
+    import time
+
+    from srsran_project_tpu.support import native as jnative
+
+    for _ in range(100):
+        if jnative.get_lib() is not None:
+            return jnative
+        jnative._TRIED = False
+        time.sleep(0.2)
+    pytest.fail("the JAX package's native library did not build")
+
+
+class FakeClock:
+    """Stands in for the ``time`` module of a port module: ``monotonic``
+    reads a counter.  ``sleep`` advances it (``advance``), or leaves it to
+    the test; either way it yields the interpreter for ``yield_s`` real
+    seconds, so that other threads run.  A paced loop then goes the same
+    way under any load."""
+
+    def __init__(self, t0: float = 100.0, advance: bool = True, yield_s: float = 0.0):
+        import time
+
+        self.t = t0
+        self.advance = advance
+        self.yield_s = yield_s
+        self.sleeps = 0
+        self._real_sleep = time.sleep
+
+    def monotonic(self) -> float:
+        return self.t
+
+    def sleep(self, dt: float) -> None:
+        self.sleeps += 1
+        if self.advance:
+            self.t += dt
+        if self.yield_s:
+            self._real_sleep(self.yield_s)
+
+
 # ---- a small heterogeneous multi-UE uplink slot ---------------------------
 
 SLOT_PRB = 24
