@@ -9,7 +9,7 @@ Run from the repository root on a machine with one NVIDIA Hopper card:
 It builds the port's CUDA kernels from ``srsran_project_tpu_torch/csrc``
 (into ``build/``, one ``nvcc`` per source, side by side), checks each
 kernel against its plain torch version on the card at the shapes of the
-paths below, then drives eleven paths through the port's public entry
+paths below, then drives twelve paths through the port's public entry
 points, each with every kernel launch counter set to 0 just before it and
 read just after:
 
@@ -168,6 +168,20 @@ read just after:
    ``--remote-port 0``: a WebSocket client subscribes, reads a periodic
    report, asks for the metrics and quits the run; the pcap holds one
    record per scheduled DL TB (K2 per code group in each UL_TTI call).
+12. the monolithic gNB (``apps/gnb_sim.run``: AMF, CU-CP with mobility,
+   CU-UP, DU-high, E2 and the UE side; a 48-PRB scheduler on a 624-
+   subcarrier grid, 1 port, MCS 6): (a) ``--ues 4 --packets 8 --slots 80
+   --snr-db 25 --handover --e2 --pcap-dir``: 32/32 IP packets each way
+   bytes-exact through GTP-U, SDAP, PDCP (NEA2/NIA2), NR-U, RLC AM, MAC and
+   ``UpperPhy``; every UE on DU 2 after the handover; KPM indications; the
+   NGAP, F1AP, E1AP, E2AP and GTP-U pcaps written; every UL_TTI call's
+   launches as its grants imply (K2 per code group for two or more grants,
+   K1 for one new-data grant, K2 for a retransmission, no K3); K2 and K1
+   against their plain versions on the first UL slot's grid; the host time
+   of a slot split between the PHY calls, the scheduler and the ciphers;
+   (b) the same on TDL-A with 2 UEs and 4 packets; (c) ``--testmode 16
+   --slots 200`` (no PHY): its counters equal the ``--cpu`` run's; (d)
+   ``units.compose_gnb(with_phy=True)``: the upper PHY on the card.
 
 Every CRC, every TB and UCI bit, every ``_ok`` flag and every PUCCH value
 is checked, and each PUCCH metric against its DTX threshold.  It then times each path per slot and
@@ -2836,13 +2850,13 @@ class UlTtiRecorder:
         return False
 
 
-def p9_check_calls(what: str, calls: list, total: dict) -> None:
-    """Every recorded UL_TTI call made the launches its grants imply, K2
-    on every call of two or more grants; and they add up to the path's
-    counts."""
+def p9_check_calls(what: str, calls: list, total: dict, expected=p9_expected) -> None:
+    """Every recorded UL_TTI call made the launches its grants imply
+    (``expected``), K2 on every call of two or more grants; and they add
+    up to the path's counts."""
     summed = {k: 0 for k in total}
     for n, call in enumerate(calls):
-        want = p9_expected(call["pdus"])
+        want = expected(call["pdus"])
         got = {k: v for k, v in call["launches"].items() if v}
         if got != {k: v for k, v in want.items() if v}:
             fail(f"{what} UL_TTI call {n} (slot {call['req'].slot.count}, "
@@ -4152,6 +4166,216 @@ def ru_sched_phase(card: str) -> dict:
     return counts
 
 
+# ---- path 12: the monolithic gNB -------------------------------------------
+
+# (a) at the size the reference app was rehearsed at; (b) on TDL-A; (c) the
+# MAC test mode, no PHY, against the same run with --cpu.
+P12_APP = ["--ues", "4", "--packets", "8", "--slots", "80", "--snr-db", "25", "--handover",
+           "--e2", "--metrics-json"]
+P12_TDLA = ["--channel", "tdla", "--ues", "2", "--packets", "4", "--slots", "60",
+            "--metrics-json"]
+P12_TESTMODE = ["--testmode", "16", "--slots", "200", "--metrics-json"]
+P12_PCAPS = ("gnb_e1ap.pcap", "gnb_e2ap.pcap", "gnb_f1ap.pcap", "gnb_gtpu.pcap",
+             "gnb_ngap.pcap")
+
+
+def p12_expected(pdus) -> dict:
+    """The launches ``UpperPhy.process_ul_tti`` makes for the gNB's 1-layer
+    grants: two or more through ``process_slot`` (``p9_expected``: K2 per
+    code group); a single grant through ``pusch.process``: K1 for new data,
+    K2 for a retransmission combined with its HARQ buffer; never K3."""
+    if len(pdus) >= 2:
+        return p9_expected(pdus)
+    want = {"decode_dematch": 0, "decode": 0, "mmse_weights_4x4": 0}
+    for p in pdus:
+        fused = p.harq_buffer is None and _fused_ok(p.config)
+        want["decode_dematch" if fused else "decode"] += 1
+    return want
+
+
+class HostSplit:
+    """While active, times (host clock, the card synchronized at the end of
+    each call) every UpperPhy DL_TTI and UL_TTI call, the channel, the scheduler's
+    ``run_slot`` (with the DL TB assembly from RLC it calls) and every
+    PDCP/SRB protect and unprotect (the pure-Python ciphers and integrity),
+    and keeps each DL_TTI request.  ``seconds(t0, t1)``: the time of each
+    kind in the calls that started in [t0, t1) (``time.perf_counter``)."""
+
+    def __enter__(self):
+        import torch
+
+        from srsran_project_tpu_torch.l2 import security
+        from srsran_project_tpu_torch.l2sim.scheduler import RoundRobinScheduler
+        from srsran_project_tpu_torch.phy import channel_emulator
+        from srsran_project_tpu_torch.phy.upper_phy import UpperPhy
+
+        self.events = []  # (kind, start, seconds)
+        self.dl_requests = []
+        self._orig = [(cls, name, getattr(cls, name)) for cls, name in (
+            (UpperPhy, "process_dl_tti"), (UpperPhy, "process_ul_tti"),
+            (channel_emulator, "apply_channel"), (RoundRobinScheduler, "run_slot"), (security.SecurityEngine, "protect"),
+            (security.SecurityEngine, "unprotect"))]
+
+        def timed(kind, fn):
+            def wrapped(*a, **kw):
+                t0 = time.perf_counter()
+                out = fn(*a, **kw)
+                if kind in ("dl_tti", "ul_tti", "channel"):
+                    torch.cuda.synchronize()
+                self.events.append((kind, t0, time.perf_counter() - t0))
+                if kind == "dl_tti":
+                    self.dl_requests.append(a[1:3])
+                return out
+            return wrapped
+
+        for (cls, name, fn), kind in zip(self._orig, ("dl_tti", "ul_tti", "channel",
+                                                      "scheduler", "crypto", "crypto")):
+            setattr(cls, name, timed(kind, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for cls, name, fn in self._orig:
+            setattr(cls, name, fn)
+        return False
+
+    def seconds(self, t0: float, t1: float) -> dict:
+        out = {"dl_tti": 0.0, "ul_tti": 0.0, "channel": 0.0, "scheduler": 0.0, "crypto": 0.0}
+        for kind, start, dt in self.events:
+            if t0 <= start < t1:
+                out[kind] += dt
+        return out
+
+
+def p12_run(argv, host_split: bool = False):
+    """``gnb_sim.run`` in-process with its output captured and every UL_TTI
+    call recorded: (GnbRun, stdout, launch counts, UL_TTI calls, HostSplit
+    or None)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from srsran_project_tpu_torch.apps import gnb_sim
+
+    args = gnb_sim._parser().parse_args(list(argv))
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    reset_counts()
+    split = HostSplit() if host_split else contextlib.nullcontext()
+    with UlTtiRecorder() as rec, split, contextlib.redirect_stdout(out):
+        run = gnb_sim.run(args)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    for line in out.getvalue().splitlines():
+        print(f"# gnb_sim {' '.join(argv)}: {line}")
+    return run, out.getvalue(), counts, rec.calls, split if host_split else None
+
+
+def p12_check_delivery(what: str, run, ues: int, packets: int) -> None:
+    m = run.metrics
+    if not run.ok or (m["dl_packets"], m["ul_packets"]) != (ues * packets, ues * packets):
+        fail(f"{what}: ok {run.ok}, {m['dl_packets']} DL and {m['ul_packets']} UL packets, "
+             f"want ok and {ues * packets} each way bytes-exact")
+
+
+def gnb_phase(card: str) -> tuple[dict, float]:
+    """Path 12 (a): the monolithic gNB at the reference's rehearsed size:
+    every packet bytes-exact both ways, every UE on DU 2 after the
+    handover, KPM indications, every pcap written, each UL_TTI call's
+    launches as its grants imply; K2 and K1 against their plain versions
+    on the first UL slot's grid; the slot's host time split between the
+    PHY calls and the L2/L3.  Returns the launch counts and the largest K2
+    a-posteriori difference."""
+    import shutil
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    pcap_dir = os.path.join(here, "build", "path12_pcap")
+    shutil.rmtree(pcap_dir, ignore_errors=True)
+    from srsran_project_tpu_torch.support import pcap
+
+    argv = P12_APP + ["--pcap-dir", pcap_dir]
+    run, out, counts, calls, split = p12_run(argv, host_split=True)
+    p12_check_delivery("gnb (a)", run, 4, 8)
+    if [c.du_id for c in run.cucp.ues.values()] != [1] * 4:
+        fail(f"gnb (a): UEs on DUs {[c.du_id for c in run.cucp.ues.values()]}, want all on DU 2")
+    if not run.ric.indications:
+        fail("gnb (a): no KPM indication")
+    sizes = {os.path.basename(w.path): w.nof_packets for w in run.pcaps}
+    if sorted(sizes) != list(P12_PCAPS) or not all(sizes.values()):
+        fail(f"gnb (a): pcaps {sizes}, want {P12_PCAPS} each with packets")
+    for name in P12_PCAPS:
+        if len(pcap.read_pcap(os.path.join(pcap_dir, name))[1]) != sizes[name]:
+            fail(f"gnb (a): {name} does not read back its {sizes[name]} packets")
+    p9_check_calls("gnb (a)", calls, counts, p12_expected)
+    retx = sum(p.harq_buffer is not None for c in calls for p in c["pdus"])
+    print(f"# gnb (a): {retx} retransmitted grants among the calls' "
+          f"{sum(len(c['pdus']) for c in calls)}")
+    first = next(c for c in calls if len(c["pdus"]) >= 2)
+    k2_err, geometries = check_code_groups(first["grid"], first["pdus"], "gnb (a) UL_TTI")
+    single = next(c for c in calls if len(c["pdus"]) == 1 and c["pdus"][0].harq_buffer is None)
+    p = single["req"].pusch[0]
+    check_k1_grant(single["grid"], p, f"gnb (a) UL_TTI slot {single['req'].slot.count}")
+    slots = run.slots_run
+    s = split.seconds(run.loop_t0, run.loop_t0 + run.loop_s)
+    phy_s = s["dl_tti"] + s["ul_tti"]
+    l2l3 = run.loop_s - phy_s - s["channel"]
+    print(f"# [{card}] gnb (a) gnb_sim {' '.join(P12_APP)}: ok, 32/32 DL and 32/32 UL packets "
+          f"bytes-exact in {slots} slots, {len(run.ric.indications)} KPM indications, pcaps "
+          f"{sizes}; K2 code groups {geometries}")
+    print(f"# [{card}] gnb (a) host clock: {1e3 * run.loop_s / slots:.3f} ms a slot "
+          f"({slots} slots, {run.loop_s:.3f} s); of it the PHY calls {1e3 * phy_s / slots:.3f} "
+          f"ms a slot (DL_TTI {1e3 * s['dl_tti'] / slots:.3f}, UL_TTI "
+          f"{1e3 * s['ul_tti'] / slots:.3f}, each call ended by a synchronize), the channel "
+          f"{1e3 * s['channel'] / slots:.3f} and the rest, the L2/L3 and the UEs' stacks, "
+          f"{1e3 * l2l3 / slots:.3f} ms a slot, of which the scheduler's "
+          f"run_slot with the DL TB assembly {1e3 * s['scheduler'] / slots:.3f} and the "
+          f"PDCP ciphering and integrity {1e3 * s['crypto'] / slots:.3f} (the bring-up and "
+          f"the DL packets' ciphering before the loop not counted)")
+    phy = run.phy
+    dl_req = next(r for r in split.dl_requests if len(r[0].pdsch) >= 2)
+    report_call(card, f"gnb (a) DL_TTI of {len(dl_req[0].pdsch)} PDSCH grants",
+                lambda: phy.process_dl_tti(*dl_req))
+    p9_report_ul_call(card, f"gnb (a) UL_TTI of {len(first['pdus'])} grants "
+                      f"(slot {first['req'].slot.count})", first)
+    p9_report_ul_call(card, f"gnb (a) UL_TTI of one new-data grant (slot "
+                      f"{single['req'].slot.count})", single)
+    return counts, k2_err
+
+
+def gnb_more_phase(card: str) -> tuple[dict, dict]:
+    """Path 12 (b) TDL-A, (c) the test mode against its CPU run, (d) the
+    composed gNB's upper PHY on the card.  Returns (b)'s and (c)'s launch
+    counts."""
+    import torch
+
+    from srsran_project_tpu_torch import units
+
+    run, _out, counts_b, calls, _ = p12_run(P12_TDLA)
+    p12_check_delivery("gnb (b)", run, 2, 4)
+    p9_check_calls("gnb (b)", calls, counts_b, p12_expected)
+    print(f"# [{card}] gnb (b) gnb_sim {' '.join(P12_TDLA)}: ok, 8/8 packets each way in "
+          f"{run.slots_run} slots, {1e3 * run.loop_s / run.slots_run:.3f} ms a slot (host clock)")
+
+    run_c, _out, counts_c, calls, _ = p12_run(P12_TESTMODE)
+    run_cpu, _out, _counts, _calls, _ = p12_run(P12_TESTMODE + ["--cpu"])
+    keys = ("testmode_ues", "slots", "nof_crc", "nof_uci", "dl_bits", "ul_bits")
+    got, want = ({k: r.metrics[k] for k in keys} for r in (run_c, run_cpu))
+    if got != want or calls or any(counts_c.values()):
+        fail(f"gnb (c): counters {got}, with --cpu {want}; {len(calls)} UL_TTI calls and "
+             f"launches {counts_c}, want equal counters and no PHY")
+    print(f"# [{card}] gnb (c) gnb_sim {' '.join(P12_TESTMODE)}: counters {got} equal the "
+          f"--cpu run's; {run_c.metrics['slots_per_s']} slots/s "
+          f"({run_cpu.metrics['slots_per_s']} with --cpu)")
+
+    comp = units.compose_gnb(with_phy=True)
+    phy = comp.instances["upper_phy"]
+    if phy.device.type != "cuda" or not torch.zeros(1, device=phy.device).is_cuda:
+        fail(f"gnb (d): the composed upper PHY runs on {phy.device}, want cuda")
+    print(f"# gnb (d) compose_gnb(with_phy=True): units {list(comp.units)}, the upper PHY on "
+          f"{phy.device}")
+    return counts_b, counts_c
+
+
 def main() -> int:
     import torch
 
@@ -4222,6 +4446,9 @@ def main() -> int:
     per_path["ru_sched"] = ru_sched_phase(card)
     for name, err in list(errs11a.items()) + list(errs11b.items()) + list(errs11c.items()):
         errs[name] = max(errs.get(name, 0.0), err)
+    per_path["gnb"], k2_err12 = gnb_phase(card)
+    errs["decode"] = max(errs["decode"], k2_err12)
+    per_path["gnb_tdla"], per_path["gnb_testmode"] = gnb_more_phase(card)
     # Each kernel's launches on the path it serves (one call of it), and
     # on every path.
     home = {"decode_dematch": "flagship", "mmse_weights_4x4": "flagship", "decode": "ul_slot",

@@ -712,3 +712,71 @@ def test_apply_channel_time_on_card_matches_cpu(cuda_device):  # noqa: F811
     y = chem.apply_channel_time(torch.from_numpy(x).to(cuda_device),
                                 torch.Generator(device=cuda_device).manual_seed(2), cfg, 122.88e6)
     assert y.device.type == cuda_device.type and y.shape == (4, 61440) and torch.isfinite(y).all()
+
+
+def test_gnb_slot_pair_on_card_matches_cpu(cuda_device, monkeypatch):  # noqa: F811
+    """Two slots of the monolithic gNB (``apps/gnb_sim.run``, 2 UEs) on the
+    card and on the CPU, given one numpy-drawn channel: every UpperPhy
+    call's DL grid within 1e-5 x RMS, its CRCs and decoded TB bits exactly.
+    Every K1 and K2 launch of the card run (the slot's two grants through
+    K2, each UL-leg grant alone through K1) equals its plain version on the
+    same inputs bitwise."""
+    from srsran_project_tpu_torch.apps import gnb_sim
+    from srsran_project_tpu_torch.phy.upper_phy import UpperPhy
+
+    def channel(seed):
+        rng = np.random.default_rng(seed)
+
+        def apply(grid):
+            x = to_np(grid)
+            sigma = np.sqrt(10.0 ** (-25.0 / 10.0) / 2.0)
+            noise = sigma * (rng.standard_normal(x.shape) + 1j * rng.standard_normal(x.shape))
+            return torch.from_numpy((x + noise).astype(np.complex64)).to(grid.device)
+        return apply
+
+    launches = []
+
+    def capture(mod, name):
+        fn = getattr(mod, name)
+
+        def wrapped(llrs, *a, **kw):
+            out = fn(llrs, *a, **kw)
+            if llrs.is_cuda:
+                launches.append((fn, llrs.clone(), a, kw, out))
+            return out
+        monkeypatch.setattr(mod, name, wrapped)
+
+    capture(sch, "decode_dematch_groups")
+    capture(sch, "decode")
+    capture(ul_slot, "decode")
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        calls = []
+        dl, ul = UpperPhy.process_dl_tti, UpperPhy.process_ul_tti
+        monkeypatch.setattr(UpperPhy, "process_dl_tti",
+                            lambda self, r, t, f=dl, c=calls: c.append(f(self, r, t)) or c[-1])
+        monkeypatch.setattr(UpperPhy, "process_ul_tti",
+                            lambda self, r, g, f=ul, c=calls: c.append(f(self, r, g)) or c[-1])
+        argv = ["--ues", "2", "--packets", "2", "--slots", "2"] + (["--cpu"] if dev == "cpu" else [])
+        k1, k2 = decoder.decode_dematch.launches, decoder.decode.launches
+        gnb_sim.run(gnb_sim._parser().parse_args(argv), channel=channel(3))
+        runs[dev] = (calls, decoder.decode_dematch.launches - k1, decoder.decode.launches - k2)
+        monkeypatch.setattr(UpperPhy, "process_dl_tti", dl)
+        monkeypatch.setattr(UpperPhy, "process_ul_tti", ul)
+    (cpu, _, _), (gpu, n_k1, n_k2) = runs["cpu"], runs["cuda"]
+    assert len(cpu) == len(gpu) >= 4 and n_k1 >= 1 and n_k2 >= 1
+    for a, b in zip(cpu, gpu):
+        if isinstance(a, torch.Tensor):
+            assert b.is_cuda
+            rms = float(a.abs().pow(2).mean().sqrt())
+            assert float((b.cpu() - a).abs().max()) <= 1e-5 * rms
+        else:
+            assert [(c.rnti, c.tb_crc_ok) for c in a.crc] == [(c.rnti, c.tb_crc_ok) for c in b.crc]
+            for x, y in zip(a.rx_data, b.rx_data):
+                np.testing.assert_array_equal(x.payload, y.payload)
+    assert len(launches) == n_k1 + n_k2
+    for fn, llrs, a, kw, out in launches:
+        want = fn(llrs.cpu(), *a, **kw)
+        for x, y in zip(out, want):
+            if x is not None:
+                np.testing.assert_array_equal(to_np(x), to_np(y))

@@ -73,6 +73,9 @@ if files[0].name == "__init__.py":
     for n in loaded:
         importlib.import_module(n)
     assert len(loaded) >= 113, loaded
+elif files[0].resolve().parts[-3] == "srsran_project_tpu_torch":
+    importlib.import_module("srsran_project_tpu_torch." + files[0].resolve().parts[-2]
+                            + "." + files[0].stem)
 else:
     spec = importlib.util.spec_from_file_location(files[0].stem, files[0])
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
@@ -94,14 +97,17 @@ def _import_targets(name: str) -> list[str]:
 
 @pytest.mark.parametrize("target", ["package", "chip_smoke.py", "tools/profile_torch_paths.py",
                                     "srsran_project_tpu_torch/apps/du_low_sim.py",
-                                    "srsran_project_tpu_torch/apps/bler_parity.py"])
+                                    "srsran_project_tpu_torch/apps/bler_parity.py",
+                                    "srsran_project_tpu_torch/apps/gnb_sim.py",
+                                    "srsran_project_tpu_torch/apps/ue_sim.py"])
 def test_package_imports_no_jax(target):
     """The port's package (its FAPI, DL channels, upper PHY, channel
     emulator, config and app modules, the reference-exact modes'
     estimator_ref / estimator_reftorch / demapper_i8, and the scheduler
     slice's modules, SLICE_MODULES below, among them),
-    chip_smoke.py, the profiler script and the two apps (du_low_sim, the
-    BLER-parity harness) name neither jax nor anything of
+    chip_smoke.py, the profiler script and the apps (du_low_sim, the
+    BLER-parity harness, gnb_sim and its UE side ue_sim; a module of the
+    package's is imported by its dotted name) name neither jax nor anything of
     srsran_project_tpu in any import, and loading them (with every module
     they name) in a fresh interpreter leaves both out of sys.modules."""
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -110,8 +116,8 @@ def test_package_imports_no_jax(target):
     assert proc.returncode == 0, proc.stderr
 
 
-# The scheduler slice's, the initial-access slice's and the RU slice's
-# modules: each is among those the package check above loads in a fresh
+# The scheduler slice's, the initial-access slice's, the RU slice's and the
+# monolithic gNB slice's modules: each is among those the package check above loads in a fresh
 # interpreter.
 SLICE_MODULES = ["ran.tdd", "ran.dci", "ran.precoding", "l2sim", "l2sim.link_adaptation",
                  "l2sim.power_control", "l2sim.srs_alloc", "l2sim.ue_context_loops",
@@ -122,7 +128,11 @@ SLICE_MODULES = ["ran.tdd", "ran.dci", "ran.precoding", "l2sim", "l2sim.link_ada
                  "l2sim.slicing", "l2sim.test_mode", "fapi.bufferer", "ran.sch_info", "ran.band",
                  "ofh", "ofh.ethernet", "ofh.receiver", "ofh.timing", "ru", "ru.interface",
                  "ru.dummy", "ru.generic", "ru.ofh_ru", "ru.factory", "phy.lower_loop",
-                 "support.native", "support.pcap", "support.remote_server"]
+                 "support.native", "support.pcap", "support.remote_server",
+                 "l2.security", "l2.pdcp", "l2.sdap", "l2.gtpu", "l2.nru", "l2.rlc",
+                 "l2.cu_up_sim", "l2.du_high_sim", "l3", "l3.messages", "l3.amf_sim", "l3.rrc",
+                 "l3.cu_cp", "l3.cu_up_e1", "l3.du_f1", "l3.mobility", "l3.cu_cp_sim",
+                 "l3.e2_sim", "units", "apps.ue_sim", "apps.gnb_sim"]
 
 
 @pytest.mark.parametrize("module", SLICE_MODULES)

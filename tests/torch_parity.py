@@ -6,6 +6,9 @@ cross between JAX and torch as numpy arrays.
 
 import dataclasses
 import enum
+import functools
+import sys
+import types
 
 import numpy as np
 import pytest
@@ -47,6 +50,73 @@ def plain(x):
     if hasattr(x, "__dict__") and not isinstance(x, type) and not callable(x):
         return (type(x).__name__, plain(vars(x)))
     return x
+
+
+def plain_state(x):
+    """plain(x) for an object graph that holds callbacks: every function,
+    method or lambda (they differ by package) reads as "<callable>"."""
+    if isinstance(x, (types.FunctionType, types.MethodType, types.BuiltinFunctionType,
+                      functools.partial)):
+        return "<callable>"
+    if isinstance(x, (enum.Enum, np.ndarray, np.generic)):
+        return plain(x)
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return (type(x).__name__,
+                {f.name: plain_state(getattr(x, f.name)) for f in dataclasses.fields(x)})
+    if isinstance(x, dict):
+        return {plain_state(k): plain_state(v) for k, v in x.items()}
+    if isinstance(x, (set, frozenset)):
+        return ("set", sorted(plain_state(v) for v in x))
+    if isinstance(x, (list, tuple)):
+        return [plain_state(v) for v in x]
+    if hasattr(x, "__dict__") and not isinstance(x, type):
+        return (type(x).__name__, plain_state(vars(x)))
+    return x
+
+
+def reference_cases(module, skip=()):
+    """pytest params (module, test name, kwargs) for every test function
+    defined in the reference's test ``module``, one per combination of its
+    ``parametrize`` marks; for ``run_on_port``."""
+    cases = []
+    for name, fn in vars(module).items():
+        if (not name.startswith("test_") or not isinstance(fn, types.FunctionType)
+                or fn.__module__ != module.__name__ or name in skip):
+            continue
+        combos = [{}]
+        for mark in getattr(fn, "pytestmark", []):
+            if mark.name != "parametrize":
+                continue
+            names = [a.strip() for a in mark.args[0].split(",")]
+            values = [v.values if hasattr(v, "values") else v if len(names) > 1 else (v,)
+                      for v in mark.args[1]]
+            combos = [{**c, **dict(zip(names, v))} for c in combos for v in values]
+        for i, kw in enumerate(combos):
+            tag = f"{module.__name__}.{name}" + (f"[{i}]" if len(combos) > 1 else "")
+            cases.append(pytest.param(module, name, kw, id=tag))
+    return cases
+
+
+def run_on_port(monkeypatch, module, name: str, kwargs: dict, swaps: dict,
+                also=(), modules=None) -> None:
+    """Run the reference's test ``module.name(**kwargs)`` with the globals
+    named in ``swaps`` of ``module`` (and of the test modules in ``also``,
+    whose helpers it calls) replaced by the port's objects, and the
+    ``sys.modules`` entries in ``modules`` (imports inside its functions)
+    by the port's modules; no global of those test modules may still name
+    the JAX package's l2, l3, l2sim or units."""
+    for mod in (module, *also):
+        for attr, obj in swaps.items():
+            if hasattr(mod, attr):
+                monkeypatch.setattr(mod, attr, obj)
+        left = sorted(k for k, v in vars(mod).items()
+                      if (getattr(v, "__module__", None) or getattr(v, "__name__", "")).startswith(
+                          ("srsran_project_tpu.l2", "srsran_project_tpu.l3",
+                           "srsran_project_tpu.units")))
+        assert not left, (mod.__name__, left)
+    for name_, mod in (modules or {}).items():
+        monkeypatch.setitem(sys.modules, name_, mod)
+    getattr(module, name)(**kwargs)
 
 
 @pytest.fixture
