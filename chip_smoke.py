@@ -6,10 +6,15 @@ Run from the repository root on a machine with one NVIDIA Hopper card:
 
     python3 chip_smoke.py
 
+or, on a host with N cards, path 13 (b) alone with one NCCL rank a card
+(the ranks are processes of this script, joined on a free localhost port):
+
+    python3 chip_smoke.py --world 4
+
 It builds the port's CUDA kernels from ``srsran_project_tpu_torch/csrc``
 (into ``build/``, one ``nvcc`` per source, side by side), checks each
 kernel against its plain torch version on the card at the shapes of the
-paths below, then drives twelve paths through the port's public entry
+paths below, then drives thirteen paths through the port's public entry
 points, each with every kernel launch counter set to 0 just before it and
 read just after:
 
@@ -182,6 +187,29 @@ read just after:
    (b) the same on TDL-A with 2 UEs and 4 packets; (c) ``--testmode 16
    --slots 200`` (no PHY): its counters equal the ``--cpu`` run's; (d)
    ``units.compose_gnb(with_phy=True)``: the upper PHY on the card.
+13. the last slice: (a) ``cell.encode_slots_scan`` / ``decode_slots_scan``
+   at the flagship, 2 chunks of 4 slots: the energies against the
+   per-slot ``encode_slot``'s (``P13_ENERGY_RTOL``), every decode
+   CRC-clean with no bit error at 30 dB, K1 and K3 once a chunk, and with
+   ``demapper="planes"`` K1 (planes), K3 and K4 once a chunk; K1, K3 and
+   K4 against their plain versions on chunk 0's tensors; ms a chunk and
+   slots/s; (b) the parallel layer on a world of one (``parallel.mesh.
+   init_world``: NCCL, rank 0, the card; ``--world N``: N ranks): the
+   halo-exchange smoothing; ``sharded_transmit`` -> ``sharded_decode`` at
+   the flagship's PUSCH config, with the whole TB decoded (K1) and with the
+   codeblocks sharded (K2), against the port's unsharded front end (LLRs
+   within 1, 99.9 % equal; noise variance and SNR within
+   ``P13_METRIC_RTOL``) and decode (TB bits and CRC exact); K1 and K2
+   against their plain versions on the path's LLRs; on an even world the
+   sp x dp composition; ``metrics_allreduce`` of a known batch; the
+   process group destroyed in a ``finally``; (c) the port's ``apps.cu_sim`` and ``apps.du_sim`` as two
+   processes over UDP on a free port, 4 UEs attached with DRB 1 (host
+   code); (d) ``support.replay``: 4 UL slots at 273 PRB and 1 port through
+   ``UpperPhy`` on the card sequentially and then one thread a slot (K1
+   once a slot), ``diff_traces`` of the two empty, K1 against its plain
+   version on slot 0's grant; (e) three TRPs through
+   ``l3.positioning.PositioningProcedure`` with ``prs_toa_estimate`` on the
+   card (273-PRB comb-4 PRS), every RSTD within 0.7 samples (no kernel).
 
 Every CRC, every TB and UCI bit, every ``_ok`` flag and every PUCCH value
 is checked, and each PUCCH metric against its DTX threshold.  It then times each path per slot and
@@ -243,9 +271,9 @@ def fail(msg: str):
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
-def card_line() -> str:
+def card_line(index: int = 0) -> str:
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        ["nvidia-smi", f"--id={index}", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     return out.splitlines()[0].strip()
 
@@ -981,14 +1009,14 @@ def check_k3_group(grid, pdus, what: str) -> float:
 
 def check_k1_grant(grid, pdu, what: str) -> float:
     """K1 against its plain version on the LLRs of one compact PUSCH PDU
-    (its window of ``grid``), as ``pusch.process`` decodes it.  Returns the
-    largest bit difference."""
+    (its window of ``grid``; the whole grid when its ``first_rb`` is None),
+    as ``pusch.process`` decodes it.  Returns the largest bit difference."""
     import torch
 
     from srsran_project_tpu_torch.phy import pusch, sch as sch_mod
 
     cfg = pdu.config
-    sc0 = 12 * pdu.first_rb
+    sc0 = 12 * (pdu.first_rb or 0)
     llr = pusch._front_end(grid[None, :, :, sc0 : sc0 + cfg.nof_grid_sc],
                            torch.tensor([pdu.rnti], device=grid.device), cfg)[0]
     data, _ = pusch.split_uci(llr, cfg)
@@ -4376,7 +4404,515 @@ def gnb_more_phase(card: str) -> tuple[dict, dict]:
     return counts_b, counts_c
 
 
-def main() -> int:
+# ---- the last slice: the scans, the parallel layer, the split, replay, positioning ----
+
+# (a) The flagship scans: k chunks of B slots.  The scan's energies against
+# the per-slot encodes' within this relative tolerance (float32 sums of
+# the same samples; cuFFT may plan a batch of 4 slots and one slot apart).
+P13_CHUNKS = (2, 4)
+P13_ENERGY_RTOL = 1e-5
+# (b) The parallel layer (a world of one; ``--world N`` on N cards): the
+# halo-exchange smoothing within this absolute tolerance of the unsharded
+# smoother; against the port's unsharded front end, int8 LLRs within 1
+# with this share equal (ROADMAP's standing rule), noise variance and SNR
+# within this relative tolerance (the CPU tests' bounds at 2 and 4 ranks);
+# every rank ended within this time.
+P13_HALO_ATOL = 1e-5
+P13_LLR_EQUAL = 0.999
+P13_METRIC_RTOL = 1e-4
+P13_RANKS_TIMEOUT_S = 600
+# (c) The split: UEs attached over UDP.
+P13_UES = 4
+# (d) Replay: UL slots through UpperPhy, sequentially and from threads, at
+# 273 PRB with 1 port (256QAM r 948/1024, 30 dB; K1 a slot).
+P13_REPLAY_SLOTS = 4
+# (e) Positioning: a 273-PRB comb-4 PRS per TRP, delays in samples of a
+# 4096-point DFT, 20 dB; RSTD within 0.7 samples (the reference test's
+# bound).
+P13_PRS = dict(rb_start=0, rb_count=273, start_symbol=2, nof_symbols=4, comb_size=4,
+               n_id_prs=42, nof_grid_sc=273 * 12)
+P13_DELAYS = {1: 5.0, 2: 9.0, 3: 1.0}
+P13_RSTD_TOL = 0.7
+
+
+def scan_phase(card: str) -> tuple[dict, dict, dict]:
+    """Path 13 (a): ``encode_slots_scan`` and ``decode_slots_scan`` at the
+    flagship, k = 2 chunks of B = 4 slots: the energies against the
+    per-slot ``encode_slot``'s; every decode CRC-clean with no bit error at
+    30 dB, one K1 and one K3 a chunk, and on the plane path one K1 (plane
+    layout), one K3 and one K4 a chunk; K1, K3 and K4 against their plain
+    versions on chunk 0's tensors.  Returns both runs' launch counts and
+    the kernels' largest differences."""
+    import torch
+
+    from srsran_project_tpu_torch.models import cell
+    from srsran_project_tpu_torch.ops import ofdm
+    from srsran_project_tpu_torch.phy import pusch, sch as sch_mod
+
+    dev = torch.device(DEVICE)
+    k, b = P13_CHUNKS
+    cfg = cell.CellConfig()
+    rng = np.random.default_rng(SEED + 13)
+    tb = torch.from_numpy(rng.integers(0, 2, size=(k, b, cfg.tbs), dtype=np.uint8)).to(dev)
+    rnti = torch.full((k, b), RNTI, dtype=torch.int64, device=dev)
+    w = torch.eye(cfg.nof_layers, cfg.nof_ports, dtype=torch.complex64, device=dev)
+    energy = cell.encode_slots_scan(tb, rnti, w, cfg)
+    each = torch.stack([torch.stack([(cell.encode_slot(tb[i, j], RNTI, w, cfg).abs() ** 2).sum()
+                                     for j in range(b)]) for i in range(k)])
+    torch.cuda.synchronize()
+    rel = float(((energy - each).abs() / each).max())
+    if tuple(energy.shape) != (k, b) or not rel <= P13_ENERGY_RTOL:
+        fail(f"scan: encode_slots_scan energies {tuple(energy.shape)} off the per-slot "
+             f"encodes by {rel:.3e} (want (k, B) within {P13_ENERGY_RTOL})")
+    print(f"# scan: encode_slots_scan of {k} x {b} flagship slots: energies within {rel:.3e} "
+          f"of the per-slot encode_slot's")
+
+    # Every slot carries tb[0, 0], the decode scan's one expected payload.
+    iq = cell.encode_slot(tb[0, 0].expand(b, -1).contiguous(), RNTI, w, cfg)
+    sig_pow = (iq.abs() ** 2).mean(dim=(1, 2), keepdim=True)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 13)
+    noise = torch.randn((k,) + tuple(iq.shape), dtype=torch.complex64, device=dev, generator=gen)
+    rx = iq[None] + noise * torch.sqrt(sig_pow * 10.0 ** (-SNR_DB / 10.0))
+    out = {}
+    for name, demapper, want in (
+            ("scan", "float", {"decode_dematch": k, "mmse_weights_4x4": k}),
+            ("scan_planes", "planes", {"decode_dematch_planes": k, "mmse_weights_4x4": k,
+                                       "demap_planes": k})):
+        c = cell.CellConfig(demapper=demapper)
+        torch.cuda.synchronize()
+        reset_counts()
+        ok, errs = cell.decode_slots_scan(rx, rnti, tb[0, 0], c)
+        torch.cuda.synchronize()
+        out[name] = read_counts()
+        expect_counts(f"{name} decode_slots_scan", out[name], want)
+        if ok.dtype != torch.int32 or tuple(ok.shape) != (k, b) or not bool(ok.all()) \
+                or bool(errs.any()):
+            fail(f"{name}: crc_ok {ok.tolist()}, bit_errors {errs.tolist()}, want all 1 and 0")
+        print(f"# {name}: decode_slots_scan of {k} x {b} flagship slots at {SNR_DB} dB: crc_ok "
+              f"{ok.tolist()}, bit_errors {errs.tolist()}")
+
+    # The kernels against their plain versions on chunk 0's tensors.
+    pc = cfg.pusch_cfg
+    grid = ofdm.demodulate_slot(rx[0], cfg.nof_rb, cfg.scs, cfg.dft_size, cfg.cp, 0,
+                                f_center_hz=cfg.f_center_hz)
+    gflat, h, nv = pusch._estimate_stage(grid, pc)
+    k3_err = check_k3_on(h.transpose(1, 2), nv, "scan chunk 0 K3")[0]
+    x_hat, eq_nvar = pusch._equalize_stage(gflat, h, nv, pc)
+    llr_i8, _ = pusch._demap_stage(x_hat, eq_nvar, rnti[0], pc)
+    bits, iters = sch_mod._fused_decode(llr_i8, pc.sch, pc.nof_ldpc_iterations,
+                                        pc.ldpc_early_stop)
+    k1_err = check_k1_batch(llr_i8, bits, iters, pc, "scan chunk 0")
+    ppc = cell.CellConfig(demapper="planes").pusch_cfg
+    ins, _ = pusch._plane_inputs(grid, rnti[0], ppc)
+    k4_err = check_k4_on(ins, ppc.modulation, ppc.llr_range_limit, "scan chunk 0 K4")
+
+    enc = cuda_ms(lambda: cell.encode_slots_scan(tb, rnti, w, cfg), reps=3) / k
+    dec = cuda_ms(lambda: cell.decode_slots_scan(rx, rnti, tb[0, 0], cfg), reps=3) / k
+    pcfg = cell.CellConfig(demapper="planes")
+    decp = cuda_ms(lambda: cell.decode_slots_scan(rx, rnti, tb[0, 0], pcfg), reps=3) / k
+    print(f"# [{card}] scans, {k} chunks of {b} flagship slots: encode_slots_scan {enc:.4f} ms "
+          f"a chunk ({1000.0 * b / enc:.1f} slots/s), decode_slots_scan {dec:.4f} ms a chunk "
+          f"({1000.0 * b / dec:.1f} slots/s), on the plane path {decp:.4f} ms a chunk "
+          f"({1000.0 * b / decp:.1f} slots/s)")
+    return out["scan"], out["scan_planes"], {"decode_dematch": k1_err, "mmse_weights_4x4": k3_err,
+                                             "demap_planes": k4_err}
+
+
+def parallel_phase(card: str, rank: int = 0, world: int = 1,
+                   port: int | None = None) -> tuple[dict, dict, dict]:
+    """Path 13 (b): the parallel layer on ``world`` ranks, one card each
+    (NCCL; this rank on ``cuda:rank``, joined on localhost ``port`` when
+    there are several), every rank drawing the same inputs from the same
+    seeds: the halo-exchange smoothing against ``smooth_freq_reference``
+    (no P2P on a world of one); ``sharded_transmit``'s block against its
+    slice of ``pusch.transmit`` at the flagship's PUSCH config (273 PRB
+    pad to 69 a shard on 4 ranks); the sharded front end against the
+    port's unsharded one on the whole grid; ``sharded_decode`` with the
+    whole TB decoded (K1) and with the codeblocks sharded (K2), each
+    against the unsharded decode; K1 and K2 against their plain versions
+    on the path's LLRs; on an even world the sp x dp composition on a (2,
+    world/2) mesh; ``metrics_allreduce`` of a known batch.  The process
+    group is destroyed in a ``finally``.  Returns both decodes' launch
+    counts, the kernels' largest differences and this rank's results."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from srsran_project_tpu_torch.models import cell
+    from srsran_project_tpu_torch.ops import scrambling
+    from srsran_project_tpu_torch.parallel import (mesh, multihost, sharded_carrier,
+                                                   sharded_encode, sharded_estimator)
+    from srsran_project_tpu_torch.phy import pusch, sch as sch_mod
+
+    dev_type = torch.device(DEVICE).type
+    mesh.init_world(dev_type, rank=rank, world_size=world,
+                    init_method=None if world == 1 else f"tcp://127.0.0.1:{port}")
+    try:
+        if dist.get_backend() != mesh.backend_of(dev_type) or dist.get_world_size() != world:
+            fail(f"parallel: backend {dist.get_backend()}, world {dist.get_world_size()}, "
+                 f"want {mesh.backend_of(dev_type)} and {world} ranks")
+        sp = init_device_mesh(dev_type, (world,), mesh_dim_names=("sp",))
+        dev = mesh.device_of(sp)
+        res = {"rank": rank, "device": str(dev)}
+        tag = f"parallel rank {rank} of {world}"
+
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED + 13)
+        h = torch.randn((3, world * 64), dtype=torch.complex64, device=dev, generator=gen)
+        dp = mesh.make_mesh(tp=1, device_type=dev_type)
+        mine = slice(rank * 64, (rank + 1) * 64)
+        err = float((sharded_estimator.smooth_freq_sharded(h[:, mine], dp, "dp")
+                     - sharded_estimator.smooth_freq_reference(h)[:, mine]).abs().max())
+        if err > P13_HALO_ATOL:
+            fail(f"{tag}: halo-exchange smoothing off by {err} (want {P13_HALO_ATOL})")
+        res["halo_err"] = err
+
+        cfg = cell.CellConfig().pusch_cfg
+        sharded_carrier._check_shardable(cfg, world)  # raises naming the field it refuses
+        rng = np.random.default_rng(SEED + 14)
+        tb = torch.from_numpy(rng.integers(0, 2, size=(cfg.tbs,), dtype=np.uint8)).to(dev)
+        rnti_t = torch.tensor([RNTI], device=dev)
+        full = pusch.transmit(tb, rnti_t[0], cfg)
+        block = sharded_encode.sharded_transmit(tb, RNTI, cfg, sp)
+        want_block = sharded_encode.sc_slice(full, sp)
+        if block.device != dev or not torch.equal(block, want_block):
+            fail(f"{tag}: sharded_transmit's block differs from its slice of pusch.transmit's "
+                 f"grid (max {float((block - want_block).abs().max()):.3e})")
+        gen.manual_seed(SEED + 14)
+        sig_pow = (full.abs() ** 2).mean()
+        rx_full = full + torch.randn(full.shape, dtype=torch.complex64, device=dev,
+                                     generator=gen) * torch.sqrt(sig_pow * 10.0 ** (-SNR_DB / 10.0))
+        rx = sharded_encode.sc_slice(rx_full, sp)
+        res["local_sc"] = rx.shape[-1]
+
+        # The unsharded front end and decode of the same grid.
+        llr_u, nv_u, snr_u = pusch._front_end(rx_full[None], rnti_t, cfg)
+        ref = {k: v[0] for k, v in pusch.process(rx_full[None], rnti_t, cfg).items()
+               if k in ("tb_bits", "tb_crc_ok", "noise_var", "snr_db")}
+        llr, nv, snr = sharded_carrier.sharded_front_end(rx, cfg, sp)
+        llr = scrambling.descramble_llrs(llr, pusch._pusch_c_init(rnti_t[0], cfg.n_id))
+        diff = (llr.int() - llr_u[0].int()).abs()
+        equal = float((diff == 0).float().mean())
+        rel = [float((a - b).abs() / b.abs()) for a, b in ((nv, nv_u[0]), (snr, snr_u[0]))]
+        torch.cuda.synchronize()
+        if int(diff.max()) > 1 or equal < P13_LLR_EQUAL or max(rel) > P13_METRIC_RTOL:
+            fail(f"{tag}: sharded front end LLRs max |d| {int(diff.max())}, {equal:.5f} "
+                 f"equal, noise variance / SNR off by {rel} against the unsharded (want 1, "
+                 f"{P13_LLR_EQUAL}, {P13_METRIC_RTOL})")
+        res.update(llr_max_diff=int(diff.max()), llr_equal=equal, metric_rel=max(rel))
+        res["front_end_ms"] = cuda_ms(lambda: sharded_carrier.sharded_front_end(rx, cfg, sp), 3)
+        print(f"# [{card}] {tag}: halo smoothing within {err:.2e}; sharded front end "
+              f"({rx.shape[-1]} subcarriers a rank) against the unsharded: LLRs within "
+              f"{int(diff.max())}, {100 * equal:.4f} % equal; noise variance and SNR within "
+              f"{max(rel):.2e}; {res['front_end_ms']:.4f} ms a call")
+
+        counts, errs = {}, {}
+        for sharded_ldpc, name, want in ((False, "parallel_k1", {"decode_dematch": 1}),
+                                         (True, "parallel_k2", {"decode": 1})):
+            torch.cuda.synchronize()
+            reset_counts()
+            out = sharded_carrier.sharded_decode(rx, RNTI, cfg, sp, sharded_ldpc=sharded_ldpc)
+            torch.cuda.synchronize()
+            counts[name] = read_counts()
+            expect_counts(f"{tag} {name} sharded_decode(sharded_ldpc={sharded_ldpc})",
+                          counts[name], want)
+            if not (bool(out["tb_crc_ok"]) and torch.equal(out["tb_bits"], tb)
+                    and torch.equal(out["tb_bits"], ref["tb_bits"])
+                    and bool(ref["tb_crc_ok"])):
+                fail(f"{tag} {name}: CRC {bool(out['tb_crc_ok'])} (unsharded "
+                     f"{bool(ref['tb_crc_ok'])}), TB bits equal to the sent / unsharded: "
+                     f"{torch.equal(out['tb_bits'], tb)} / "
+                     f"{torch.equal(out['tb_bits'], ref['tb_bits'])}")
+            for key in ("noise_var", "snr_db"):
+                r = float((out[key] - ref[key]).abs() / ref[key].abs())
+                if r > P13_METRIC_RTOL:
+                    fail(f"{tag} {name}: {key} {float(out[key])} against the unsharded "
+                         f"{float(ref[key])}")
+            res[f"{name}_ms"] = cuda_ms(lambda: sharded_carrier.sharded_decode(
+                rx, RNTI, cfg, sp, sharded_ldpc=sharded_ldpc), 3)
+            print(f"# [{card}] {tag} {name}: sharded_decode(sharded_ldpc={sharded_ldpc}) of "
+                  f"the flagship grant: CRC ok, TB bits equal to the unsharded decode's, "
+                  f"{res[name + '_ms']:.4f} ms a call")
+
+        # K1 and K2 against their plain versions on the sharded path's LLRs.
+        sc = cfg.sch
+        bits, iters = sch_mod._fused_decode(llr[None], sc, cfg.nof_ldpc_iterations, False)
+        errs["decode_dematch"] = check_k1_batch(
+            llr[None], bits, iters, dataclasses.replace(cfg, ldpc_early_stop=False),
+            f"{tag} K1")
+        flat = sch_mod._dematch_stage(llr, None, sc)
+        errs["decode"] = check_k2(flat, sc.seg.base_graph, sc.seg.lifting_size, None,
+                                  f"{tag} sharded codeblocks")
+
+        if world % 2 == 0:
+            m2 = init_device_mesh(dev_type, (2, world // 2), mesh_dim_names=("sp", "dp"))
+            block2 = sharded_encode.sharded_transmit(tb, RNTI, cfg, m2, cb_axis="dp",
+                                                     sc_axis="sp")
+            if not torch.equal(block2, sharded_encode.sc_slice(full, m2, "sp")):
+                fail(f"{tag}: the sp x dp encode's block differs from pusch.transmit's slice")
+            out = sharded_carrier.sharded_decode(sharded_encode.sc_slice(rx_full, m2, "sp"),
+                                                 RNTI, cfg, m2, axis="sp", sharded_ldpc=True,
+                                                 decode_axis=("sp", "dp"))
+            if not (bool(out["tb_crc_ok"]) and torch.equal(out["tb_bits"], tb)):
+                fail(f"{tag}: the sp x dp decode: CRC {bool(out['tb_crc_ok'])}")
+            print(f"# {tag}: sp x dp on a (2, {world // 2}) mesh: the encode's block and the "
+                  f"decode's TB right")
+
+        hm = multihost.host_mesh(nof_hosts=2 if world % 2 == 0 else 1, device_type=dev_type)
+        cells = torch.arange(8.0, device=dev).reshape(8, 1)
+        per = 8 // world
+        total = multihost.metrics_allreduce(hm)(multihost.global_batch(
+            hm, cells[rank * per : (rank + 1) * per]))
+        if total.device != dev or total.tolist() != [[28.0]]:
+            fail(f"{tag}: metrics_allreduce of 0..7 gave {total.tolist()} on {total.device}")
+        print(f"# {tag}: host_mesh {tuple(hm.mesh.shape)} {hm.mesh_dim_names}, "
+              f"metrics_allreduce of 0..7 over 8 cells: {total.tolist()} on {total.device}")
+        return counts, errs, res
+    finally:
+        dist.destroy_process_group()
+
+
+def parallel_ranks(world: int) -> int:
+    """Path 13 (b) on ``world`` cards of one host: the kernels built once,
+    then ``world`` processes of this script (``--rank r``), one NCCL rank
+    a card, joined on a free localhost port; each rank's output is printed
+    after the cards' names and power limits, and the run fails if a rank
+    failed or did not end within ``P13_RANKS_TIMEOUT_S``."""
+    import socket
+    import tempfile
+
+    import torch
+
+    from srsran_project_tpu_torch.ops import cuda_lib
+
+    if torch.cuda.device_count() < world:
+        fail(f"parallel: {torch.cuda.device_count()} cards, want {world}")
+    for i in range(world):
+        print(f"# card {i}: {card_line(i)}")
+    cuda_lib.library()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    logs = [tempfile.TemporaryFile(mode="w+") for _ in range(world)]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--world", str(world),
+                               "--rank", str(r), "--port", str(port)], stdout=logs[r],
+                              stderr=subprocess.STDOUT, text=True, cwd=here)
+             for r in range(world)]
+    bad = []
+    try:
+        for r, p in enumerate(procs):
+            try:
+                p.wait(timeout=max(1.0, P13_RANKS_TIMEOUT_S - (time.perf_counter() - t0)))
+            except subprocess.TimeoutExpired:
+                bad.append(f"rank {r} did not end in {P13_RANKS_TIMEOUT_S} s")
+                continue
+            if p.returncode:
+                bad.append(f"rank {r} rc {p.returncode}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, log in enumerate(logs):
+        log.seek(0)
+        print(f"# ---- rank {r}\n{log.read()[-6000:]}", end="")
+        log.close()
+    if bad:
+        fail(f"parallel on {world} cards: {'; '.join(bad)}")
+    print(f"# parallel on {world} cards: every rank passed, {time.perf_counter() - t0:.1f} s")
+    return 0
+
+
+def split_phase(card: str) -> None:
+    """Path 13 (c): the port's cu_sim and du_sim as two processes on a free
+    UDP port, ``P13_UES`` UEs attached, each with DRB 1."""
+    import socket
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=here)
+    app = [sys.executable, "-m", "srsran_project_tpu_torch.apps."]
+    t0 = time.perf_counter()
+    cu = subprocess.Popen([*app[:-1], app[-1] + "cu_sim", "--f1-port", str(port),
+                           "--expect-ues", str(P13_UES), "--timeout", "60"],
+                          stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=here,
+                          env=env)
+    try:
+        first = cu.stdout.readline()
+        if "F1-C listening" not in first:
+            fail(f"split: cu_sim did not come up: {first!r} {cu.stderr.read()[-2000:]}")
+        du = subprocess.run([*app[:-1], app[-1] + "du_sim", "--cu-port", str(port), "--ues",
+                             str(P13_UES), "--timeout", "60"], capture_output=True, text=True,
+                            timeout=120, cwd=here, env=env)
+        cu_out, cu_err = cu.communicate(timeout=120)
+    finally:
+        if cu.poll() is None:
+            cu.kill()
+            cu.communicate()
+    if du.returncode or cu.returncode:
+        fail(f"split: du_sim rc {du.returncode}, cu_sim rc {cu.returncode}\n{du.stdout}"
+             f"{du.stderr[-2000:]}{cu_out}{cu_err[-2000:]}")
+    du_res, cu_res = json.loads(du.stdout.splitlines()[-1]), json.loads(cu_out.splitlines()[-1])
+    drbs = [[d["drb_id"] for d in u["drbs"]] for u in du_res["ues"]]
+    if not (du_res["ok"] and cu_res["ok"] and drbs == [[1]] * P13_UES
+            and cu_res["connected_ues"] == list(range(1, P13_UES + 1))
+            and all(u["state"] == "connected" for u in du_res["ues"])):
+        fail(f"split: du_sim {du_res}, cu_sim {cu_res}")
+    print(f"# [{card}] split: cu_sim and du_sim as two processes over UDP: {P13_UES} UEs "
+          f"connected, DRB ids {drbs}, sessions {cu_res['sessions']}, "
+          f"{time.perf_counter() - t0:.2f} s with the interpreters' start")
+
+
+def p13_replay_run(recorder, threaded: bool) -> list:
+    """``P13_REPLAY_SLOTS`` UL slots through the port's UpperPhy on the card,
+    one per thread when ``threaded``, tapped by ``recorder``; returns each
+    slot's CRC, and slot 0's received grid and PUSCH PDU."""
+    import threading
+
+    import torch
+
+    from srsran_project_tpu_torch.fapi import messages as fapi
+    from srsran_project_tpu_torch.models import cell
+    from srsran_project_tpu_torch.phy import pdsch
+    from srsran_project_tpu_torch.phy.upper_phy import UpperPhy, UpperPhyConfig
+    from srsran_project_tpu_torch.ran.constants import SubcarrierSpacing
+    from srsran_project_tpu_torch.ran.slot_point import SlotPoint
+
+    dev = torch.device(DEVICE)
+    c = cell.CellConfig(nof_ports=1, nof_layers=1)
+    phy = UpperPhy(UpperPhyConfig(nof_ports=1, nof_grid_sc=c.nof_sc, device=DEVICE))
+    phy.add_tap(recorder.tap)
+    grids = []
+    for i in range(P13_REPLAY_SLOTS):  # per-slot seeds: the same inputs every run
+        rng = np.random.default_rng(SEED + 100 + i)
+        tb = torch.from_numpy(rng.integers(0, 2, size=(c.tbs,), dtype=np.uint8)).to(dev)
+        g = pdsch.process(tb, 0x41 + i, torch.eye(1, dtype=torch.complex64), c.pdsch_cfg)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED + 100 + i)
+        scale = torch.sqrt((g.abs() ** 2).mean() * 10.0 ** (-SNR_DB / 10.0))
+        grids.append(g + scale * torch.randn(g.shape, dtype=torch.complex64, device=dev,
+                                             generator=gen))
+    torch.cuda.synchronize()
+    crc = [None] * P13_REPLAY_SLOTS
+    pdus = [fapi.UlPuschPdu(c.pusch_cfg, 0x41 + i, harq_id=0) for i in range(len(grids))]
+
+    def one_slot(i):
+        req = fapi.UlTtiRequest(slot=SlotPoint.from_sfn_slot(SubcarrierSpacing.KHZ30, 0, i),
+                                pusch=[pdus[i]])
+        crc[i] = phy.process_ul_tti(req, grids[i]).crc[0].tb_crc_ok
+
+    if threaded:
+        threads = [threading.Thread(target=one_slot, args=(i,)) for i in range(len(grids))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        if any(t.is_alive() for t in threads):
+            fail("replay: a slot's thread did not finish in 120 s")
+    else:
+        for i in range(len(grids)):
+            one_slot(i)
+    torch.cuda.synchronize()
+    return crc, grids[0], pdus[0]
+
+
+def replay_phase(card: str) -> tuple[dict, dict, float]:
+    """Path 13 (d): the port's UpperPhy on the card over ``P13_REPLAY_SLOTS``
+    UL slots, sequentially and then from one thread a slot: both runs
+    CRC-clean, K1 once a slot, and ``diff_traces`` of their tapped digests
+    empty; K1 against its plain version on slot 0's grant (1 port, 1
+    layer, 273 PRB, 256QAM).  Returns both runs' launch counts and K1's
+    largest bit difference."""
+    import torch
+
+    from srsran_project_tpu_torch.support import replay
+
+    counts, recs = {}, {}
+    for name, threaded in (("replay_sequential", False), ("replay_threaded", True)):
+        recs[name] = replay.SlotRecorder()
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        crc, grid0, pdu0 = p13_replay_run(recs[name], threaded)
+        dt = time.perf_counter() - t0
+        counts[name] = read_counts()
+        expect_counts(name, counts[name], {"decode_dematch": P13_REPLAY_SLOTS})
+        if crc != [True] * P13_REPLAY_SLOTS:
+            fail(f"{name}: CRCs {crc}")
+        print(f"# [{card}] {name}: {P13_REPLAY_SLOTS} UL slots through UpperPhy on the card "
+              f"(273 PRB, 1 port), CRC {crc}, {len(recs[name].entries)} taps, {dt:.3f} s with "
+              f"the grids' set-up")
+    problems = replay.diff_traces(recs["replay_sequential"], recs["replay_threaded"])
+    if problems:
+        fail("replay: the threaded run's digests differ from the sequential golden:\n  "
+             + "\n  ".join(problems))
+    print("# replay: diff_traces(sequential, threaded) is empty")
+    k1_err = check_k1_grant(grid0, pdu0, "replay slot 0")
+    return counts["replay_sequential"], counts["replay_threaded"], k1_err
+
+
+def positioning_phase(card: str) -> dict:
+    """Path 13 (e): three TRPs through ``PositioningProcedure`` with
+    ``prs_toa_estimate`` on the card (a 273-PRB comb-4 PRS each, delayed
+    and at 20 dB): every RSTD within ``P13_RSTD_TOL`` samples of the true
+    delays; no kernel.  Returns the launch counts."""
+    import torch
+
+    from srsran_project_tpu_torch.l3 import messages as m
+    from srsran_project_tpu_torch.l3 import positioning as pos
+    from srsran_project_tpu_torch.phy import ptrs_prs
+
+    dev = torch.device(DEVICE)
+    cfg = ptrs_prs.PrsConfig(**P13_PRS)
+    dft = 4096
+    base = ptrs_prs.generate_prs(cfg, device=dev)
+    k = torch.arange(cfg.nof_grid_sc, device=dev, dtype=torch.float64)
+    devices = []
+
+    def measure(trp):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED + 200 + trp)
+        phase = torch.polar(torch.ones_like(k), -2 * math.pi * k * P13_DELAYS[trp] / dft)
+        noise = torch.randn(base.shape, dtype=torch.complex64, device=dev, generator=gen)
+        grid = base * phase.to(torch.complex64) + noise * math.sqrt(10 ** (-20 / 10))
+        devices.append(grid.device.type)
+        return ptrs_prs.prs_toa_estimate(grid, cfg, dft_size=dft)
+
+    proc = pos.PositioningProcedure(measure)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    resp = m.decode(proc.rx(m.encode(pos.PositioningMeasurementRequest(
+        lmf_meas_id=13, trp_ids=sorted(P13_DELAYS)))))
+    dt = time.perf_counter() - t0
+    counts = read_counts()
+    expect_counts("positioning", counts, {})
+    rstd = {x["trp_id"]: x["rstd_samples"] for x in resp.measurements}
+    first = min(P13_DELAYS)
+    off = {t: rstd[t] - (P13_DELAYS[t] - P13_DELAYS[first]) for t in P13_DELAYS}
+    if devices != [dev.type] * len(P13_DELAYS) or max(abs(v) for v in off.values()) > P13_RSTD_TOL:
+        fail(f"positioning: RSTD {rstd} against delays {P13_DELAYS} on {devices}")
+    print(f"# [{card}] positioning: 3 TRPs through PositioningProcedure on the card, RSTD "
+          f"{ {t: round(v, 3) for t, v in rstd.items()} } samples (off the true delays by at "
+          f"most {max(abs(v) for v in off.values()):.3f}), {1e3 * dt:.3f} ms for the request")
+    return counts
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="The port's smoke run on the card: every path, or "
+                                 "with --world N path 13 (b) alone on N cards of this host.")
+    ap.add_argument("--world", type=int, default=1,
+                    help="run only the parallel layer, one NCCL rank a card on this many cards")
+    ap.add_argument("--rank", type=int, help=argparse.SUPPRESS)  # one rank of --world
+    ap.add_argument("--port", type=int, help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
     import torch
 
     t_start = time.perf_counter()
@@ -4386,13 +4922,19 @@ def main() -> int:
     if not os.path.isdir(os.path.join(here, "srsran_project_tpu_torch")):
         fail("run from a checkout of the repository (srsran_project_tpu_torch/ missing)")
     sys.path.insert(0, here)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    if args.rank is not None:
+        print(json.dumps(parallel_phase(card_line(args.rank), args.rank, args.world,
+                                        args.port)[2]))
+        return 0
+    if args.world > 1:
+        return parallel_ranks(args.world)
     card = card_line()
     print(f"# card: {card}")
     print(f"# torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}", flush=True)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
 
     from srsran_project_tpu_torch.ops import cuda_lib
 
@@ -4449,6 +4991,17 @@ def main() -> int:
     per_path["gnb"], k2_err12 = gnb_phase(card)
     errs["decode"] = max(errs["decode"], k2_err12)
     per_path["gnb_tdla"], per_path["gnb_testmode"] = gnb_more_phase(card)
+    t13 = time.perf_counter()
+    per_path["scan"], per_path["scan_planes"], errs13a = scan_phase(card)
+    counts13b, errs13b, _res13b = parallel_phase(card)
+    per_path.update(counts13b)
+    for name, err in list(errs13a.items()) + list(errs13b.items()):
+        errs[name] = max(errs.get(name, 0.0), err)
+    split_phase(card)
+    per_path["replay_sequential"], per_path["replay_threaded"], k1_err13d = replay_phase(card)
+    errs["decode_dematch"] = max(errs["decode_dematch"], k1_err13d)
+    per_path["positioning"] = positioning_phase(card)
+    print(f"# path 13 took {time.perf_counter() - t13:.1f} s")
     # Each kernel's launches on the path it serves (one call of it), and
     # on every path.
     home = {"decode_dematch": "flagship", "mmse_weights_4x4": "flagship", "decode": "ul_slot",

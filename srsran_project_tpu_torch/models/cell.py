@@ -4,10 +4,12 @@ decode (UL), OFDM included, for one static cell configuration.
 Port of ``srsran_project_tpu/models/cell.py``: ``encode_slot`` is the
 counterpart of ``encode_slot_fused`` and ``decode_slot`` of
 ``decode_slot_fused``.  Both take an optional leading slot-batch
-dimension, and run on the device of their input tensor: on a CUDA tensor
-the UL goes through the hand-written kernels K1 (LDPC) and K3 (MMSE
-weights), and with ``demapper="planes"`` K4 (apply + demap into the
-decoder's bit-planes); on a CPU tensor through their plain torch versions.
+dimension (``encode_slots_scan`` / ``decode_slots_scan`` run k chunks of
+such a batch where the reference scans), and run on the device of their
+input tensor: on a CUDA tensor the UL goes through the hand-written
+kernels K1 (LDPC) and K3 (MMSE weights), and with ``demapper="planes"``
+K4 (apply + demap into the decoder's bit-planes); on a CPU tensor through
+their plain torch versions.
 The reference-exact modes (``equalizer="mmse_ref"/"zf_ref"``,
 ``demapper="reference"``, ``ldpc_decoder="reference_i8"``) run in plain
 torch on either device; with ``reference_i8`` the decode takes the
@@ -180,3 +182,45 @@ def decode_slot(iq: torch.Tensor, rnti, cfg: CellConfig) -> dict:
         "snr_db": 10.0 * torch.log10(torch.clamp_min(snr_acc, 1e-12)),
     }
     return {k: v[0] for k, v in out.items()} if squeeze else out
+
+
+def encode_slots_scan(tb_chunks: torch.Tensor, rnti_chunks, precoding: torch.Tensor,
+                      cfg: CellConfig) -> torch.Tensor:
+    """k*B DL slots: k chunks, each one batched ``encode_slot`` of B slots
+    (the reference's ``lax.scan`` over a vmapped body; the slot batch
+    takes the scan's place).
+
+    tb_chunks: (k, B, A) uint8; rnti_chunks: (k, B) integers; precoding:
+    (nl, P).  Returns the (k, B) float32 per-slot IQ energy, a checksum of
+    every sample, on tb_chunks' device (no host read in the loop)."""
+    if tb_chunks.dim() != 3:
+        raise ValueError(f"encode_slots_scan: want (k, B, A) TB chunks, got "
+                         f"{tuple(tb_chunks.shape)}")
+    rntis = torch.as_tensor(rnti_chunks, dtype=torch.int64, device=tb_chunks.device)
+    energy = []
+    for tb, rnti in zip(tb_chunks, rntis):
+        iq = encode_slot(tb, rnti, precoding, cfg)
+        energy.append((iq.real ** 2 + iq.imag ** 2).sum(dim=(1, 2)))
+    return torch.stack(energy)
+
+
+def decode_slots_scan(iq_chunks: torch.Tensor, rnti_chunks, tb_expected: torch.Tensor,
+                      cfg: CellConfig):
+    """k*B UL slot decodes: k chunks, each one batched ``decode_slot`` of
+    B slots (twin of ``encode_slots_scan``).
+
+    iq_chunks: (k, B, P, ns) complex64; rnti_chunks: (k, B) integers;
+    tb_expected: (A,) uint8, the transmitted payload, compared on the
+    device.  Returns (crc_ok (k, B) int32, bit_errors (k, B) int32) on
+    iq_chunks' device (no host read in the loop)."""
+    if iq_chunks.dim() != 4:
+        raise ValueError(f"decode_slots_scan: want (k, B, P, ns) IQ chunks, got "
+                         f"{tuple(iq_chunks.shape)}")
+    rntis = torch.as_tensor(rnti_chunks, dtype=torch.int64, device=iq_chunks.device)
+    tb_expected = tb_expected.to(iq_chunks.device)
+    ok, errs = [], []
+    for iq, rnti in zip(iq_chunks, rntis):
+        out = decode_slot(iq, rnti, cfg)
+        ok.append(out["tb_crc_ok"].to(torch.int32))
+        errs.append((out["tb_bits"] != tb_expected[None]).sum(dim=1, dtype=torch.int32))
+    return torch.stack(ok), torch.stack(errs)

@@ -99,15 +99,19 @@ def _import_targets(name: str) -> list[str]:
                                     "srsran_project_tpu_torch/apps/du_low_sim.py",
                                     "srsran_project_tpu_torch/apps/bler_parity.py",
                                     "srsran_project_tpu_torch/apps/gnb_sim.py",
-                                    "srsran_project_tpu_torch/apps/ue_sim.py"])
+                                    "srsran_project_tpu_torch/apps/ue_sim.py",
+                                    "srsran_project_tpu_torch/apps/cu_sim.py",
+                                    "srsran_project_tpu_torch/apps/du_sim.py",
+                                    "tests/torch_dist_worker.py"])
 def test_package_imports_no_jax(target):
     """The port's package (its FAPI, DL channels, upper PHY, channel
     emulator, config and app modules, the reference-exact modes'
     estimator_ref / estimator_reftorch / demapper_i8, and the scheduler
     slice's modules, SLICE_MODULES below, among them),
-    chip_smoke.py, the profiler script and the apps (du_low_sim, the
-    BLER-parity harness, gnb_sim and its UE side ue_sim; a module of the
-    package's is imported by its dotted name) name neither jax nor anything of
+    chip_smoke.py, the profiler and multi-GPU scripts and the apps (du_low_sim, the
+    BLER-parity harness, gnb_sim and its UE side ue_sim, the split's
+    cu_sim and du_sim; a module of the package's is imported by its dotted
+    name) and the multi-rank tests' worker script name neither jax nor anything of
     srsran_project_tpu in any import, and loading them (with every module
     they name) in a fresh interpreter leaves both out of sys.modules."""
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -117,8 +121,8 @@ def test_package_imports_no_jax(target):
 
 
 # The scheduler slice's, the initial-access slice's, the RU slice's and the
-# monolithic gNB slice's modules: each is among those the package check above loads in a fresh
-# interpreter.
+# monolithic gNB slice's and the last slice's (the split, positioning, replay, the parallel
+# layer) modules: each is among those the package check above loads in a fresh interpreter.
 SLICE_MODULES = ["ran.tdd", "ran.dci", "ran.precoding", "l2sim", "l2sim.link_adaptation",
                  "l2sim.power_control", "l2sim.srs_alloc", "l2sim.ue_context_loops",
                  "l2sim.pdcch_alloc", "l2sim.pucch_alloc", "l2sim.uci_alloc", "l2sim.scheduler",
@@ -132,7 +136,10 @@ SLICE_MODULES = ["ran.tdd", "ran.dci", "ran.precoding", "l2sim", "l2sim.link_ada
                  "l2.security", "l2.pdcp", "l2.sdap", "l2.gtpu", "l2.nru", "l2.rlc",
                  "l2.cu_up_sim", "l2.du_high_sim", "l3", "l3.messages", "l3.amf_sim", "l3.rrc",
                  "l3.cu_cp", "l3.cu_up_e1", "l3.du_f1", "l3.mobility", "l3.cu_cp_sim",
-                 "l3.e2_sim", "units", "apps.ue_sim", "apps.gnb_sim"]
+                 "l3.e2_sim", "units", "apps.ue_sim", "apps.gnb_sim", "l3.transport",
+                 "l3.positioning", "support.replay", "apps.cu_sim", "apps.du_sim", "parallel",
+                 "parallel.mesh", "parallel.sharded_estimator", "parallel.sharded_decode",
+                 "parallel.sharded_carrier", "parallel.sharded_encode", "parallel.multihost"]
 
 
 @pytest.mark.parametrize("module", SLICE_MODULES)
@@ -154,6 +161,80 @@ def test_slice_module_is_checked(module):
                  else [])
         assert not [n for n in names if n.split(".")[0] in ("jax", "jaxlib",
                                                              "srsran_project_tpu")], (path, names)
+
+
+# The JAX package's modules and functions that stay out of the port by its
+# ground rules: file (or file:function) -> the words that name it in
+# ROADMAP.md's stay-out list.
+STAY_OUT = {
+    "support/hostio.py": "`support/{hostio,staging}`",
+    "support/staging.py": "`support/{hostio,staging}`",
+    "ops/demap_pallas.py": "`*_pallas.py`",
+    "ops/equalizer_pallas.py": "`*_pallas.py`",
+    "ops/ldpc/decoder_pallas.py": "`*_pallas.py`",
+    "ops/estimator_refjax.py": "`ops/estimator_refjax`",
+    "ops/ofdm.py:_matmul_dft": "the matmul DFT",
+    "parallel/sharded_encode.py:encode_hlo_text": "`sharded_encode.encode_hlo_text`",
+}
+
+
+def _roadmap_stay_outs() -> str:
+    """The text of ROADMAP.md's stay-out list (from "these stay out:" to
+    the next blank line)."""
+    text = open(os.path.join(REPO, "ROADMAP.md")).read()
+    start = text.index("these stay out:")
+    return text[start : text.index("\n\n", start)]
+
+
+def _top_level_names(path: str) -> set:
+    import ast
+
+    tree = ast.parse(open(path).read())
+    return {n.name for n in tree.body if isinstance(n, (ast.FunctionDef, ast.ClassDef))}
+
+
+def test_every_reference_module_has_a_port_file():
+    """Every module of the JAX package and every app at the root's apps/
+    has its file in the port, or stands on ROADMAP's stay-out list."""
+    ref = os.path.join(REPO, "srsran_project_tpu")
+    port = os.path.join(REPO, "srsran_project_tpu_torch")
+    modules = sorted(os.path.relpath(os.path.join(d, f), ref) for d, _, fs in os.walk(ref)
+                     for f in fs if f.endswith(".py"))
+    modules += sorted(os.path.join("apps", f) for f in os.listdir(os.path.join(REPO, "apps"))
+                      if f.endswith(".py"))
+    assert len(modules) > 140 and "apps/cu_sim.py" in modules
+    missing = [m for m in modules if not os.path.isfile(os.path.join(port, m))]
+    assert missing == sorted(k for k in STAY_OUT if ":" not in k)
+    listed = _roadmap_stay_outs()
+    for item, words in STAY_OUT.items():
+        assert words in listed, (item, words)
+    for item in (k for k in STAY_OUT if ":" in k):
+        path, name = item.split(":")
+        assert name in _top_level_names(os.path.join(ref, path))
+        assert name not in _top_level_names(os.path.join(port, path))
+
+
+# The last slice's modules: every public function and class of the
+# reference's has its namesake in the port (the stay-outs excepted), and so
+# do the private helpers the parallel layer's callers reach.
+SLICE_FILES = ["l3/transport.py", "l3/positioning.py", "support/replay.py", "parallel/mesh.py",
+               "parallel/sharded_estimator.py", "parallel/sharded_decode.py",
+               "parallel/sharded_carrier.py", "parallel/sharded_encode.py",
+               "parallel/multihost.py", "models/cell.py"]
+SLICE_PRIVATE = {"_halo_exchange", "_check_shardable", "_local_geometry", "_global_pilots",
+                 "_encode_tb_cb_sharded", "_flatten_arrays", "_slot_key"}
+# The port's models/cell has one eager encode and decode for the
+# reference's staged and fused programs (its docstring says which).
+RENAMED = {"encode_slot_fused": "encode_slot", "decode_slot_fused": "decode_slot"}
+
+
+@pytest.mark.parametrize("path", SLICE_FILES)
+def test_slice_functions_have_port_namesakes(path):
+    ref = _top_level_names(os.path.join(REPO, "srsran_project_tpu", path))
+    port = _top_level_names(os.path.join(REPO, "srsran_project_tpu_torch", path))
+    want = {n for n in ref if not n.startswith("_") or n in SLICE_PRIVATE}
+    want -= {k.split(":")[1] for k in STAY_OUT if k.startswith(path + ":")}
+    assert {RENAMED.get(n, n) for n in want} - port == set()
 
 
 def test_native_build_and_ru_modes_import_no_jax(tmp_path):

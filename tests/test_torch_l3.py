@@ -32,6 +32,7 @@ from srsran_project_tpu.l2sim import slicing as j_slicing
 from srsran_project_tpu.l3 import cu_cp_sim as j_cucp
 from srsran_project_tpu.l3 import e2_sim as j_e2
 from srsran_project_tpu.l3 import messages as j_m
+from srsran_project_tpu.l3 import positioning as j_pos  # noqa: F401  (registers NRPPa)
 from srsran_project_tpu_torch.apps import ue_sim as t_ue
 from srsran_project_tpu_torch.l2 import pdcp as t_pdcp
 from srsran_project_tpu_torch.l2 import security as t_sec
@@ -40,6 +41,7 @@ from srsran_project_tpu_torch.l2sim import slicing as t_slicing
 from srsran_project_tpu_torch.l3 import cu_cp_sim as t_cucp
 from srsran_project_tpu_torch.l3 import e2_sim as t_e2
 from srsran_project_tpu_torch.l3 import messages as t_m
+from srsran_project_tpu_torch.l3 import positioning as t_pos
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -79,9 +81,10 @@ def _sample(ftype: str, rng):
     return int(rng.integers(0, 2**32))
 
 
-# RRC, F1AP, NGAP, E1AP and E2AP; NRPPa (``l3/positioning``, not ported yet)
-# joins the reference's registry when another test imports that module.
-PROTOS = (t_m.PROTO_RRC, t_m.PROTO_F1AP, t_m.PROTO_NGAP, t_m.PROTO_E1AP, t_e2.PROTO_E2AP)
+# RRC, F1AP, NGAP, E1AP, E2AP and NRPPa (``l3/positioning``, imported here
+# in both packages, so that each registry holds it whatever ran before).
+PROTOS = (t_m.PROTO_RRC, t_m.PROTO_F1AP, t_m.PROTO_NGAP, t_m.PROTO_E1AP, t_e2.PROTO_E2AP,
+          t_pos.PROTO_NRPPA)
 
 
 def test_registries_match_reference():
@@ -91,7 +94,7 @@ def test_registries_match_reference():
         return {k: (c.__name__, [(f.name, f.type) for f in dataclasses.fields(c)])
                 for k, c in m._REGISTRY.items() if k[0] in PROTOS}
     assert table(t_m) == table(j_m)
-    assert set(t_m._REGISTRY) == set(table(t_m)) and len(t_m._REGISTRY) >= 45
+    assert set(t_m._REGISTRY) == set(table(t_m)) and len(t_m._REGISTRY) >= 47
 
 
 def test_every_message_encodes_to_the_reference_bytes():
