@@ -18,8 +18,9 @@ Port of ``apps/du_low_sim.py`` in three modes:
   stream per cell (``MultiCellScheduler``), per-cell metrics at the end.
 
 It prints the slots, seconds and BLER, and exits 1 when no grant passed
-its CRC.  ``--trace`` writes the L1 tracer's Chrome JSON (its spans are
-the single-UE loop's, as in the reference) and ``--metrics-json`` prints
+its CRC.  ``--trace`` writes the L1 tracer's Chrome JSON: the single-UE
+loop's slot spans (as in the reference) and the stage spans of the slot
+path nested in them, on torch.profiler's clock; ``--metrics-json`` prints
 the metrics collector (multi-cell mode: the per-cell metrics).
 
 Usage:
@@ -432,7 +433,7 @@ def main(argv: list[str] | None = None) -> int:
         torch.set_float32_matmul_precision("highest")
     cell = cfg_mod.to_cell_config(du_cfg)
     if args.trace:
-        tracing.enable_all()
+        tracing.l1_tracer.enabled = True
     phy = UpperPhy(UpperPhyConfig(nof_ports=cell.nof_ports, nof_grid_sc=cell.nof_sc,
                                   device=str(device)))
     # Built as the reference's app builds it; no mode pushes a slot through

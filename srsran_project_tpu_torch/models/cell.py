@@ -30,6 +30,7 @@ from ..phy.allocation import Allocation
 from ..phy.sch import _desegment_stage, _fused_decode, decode_from_planes, decode_transport_block
 from ..ran import tbs as tbs_mod
 from ..ran.constants import NRE, CyclicPrefix, SubcarrierSpacing, min_dft_size
+from ..support.tracing import l1_tracer
 
 
 @dataclasses.dataclass(frozen=True)
@@ -143,12 +144,15 @@ def encode_slot(tb_bits: torch.Tensor, rnti, precoding: torch.Tensor,
                 cfg: CellConfig) -> torch.Tensor:
     """DL slot: TB payload (A,) or (B, A) uint8 -> baseband IQ (P, ns) or
     (B, P, ns) complex64.  rnti: int or (B,) tensor; precoding: (nl, P)."""
-    tb, squeeze = _batched(tb_bits, 1)
-    dev = tb.device
-    cw = pdsch._bit_chain(tb, _rntis(rnti, tb.shape[0], dev), cfg.pdsch_cfg)
-    grid = pdsch._grid_chain(cw, precoding.to(dev), cfg.pdsch_cfg)
-    iq = ofdm.modulate_slot(grid, cfg.scs, cfg.dft_size, cfg.cp, 0, f_center_hz=cfg.f_center_hz)
-    return iq[0] if squeeze else iq
+    with l1_tracer.span("cell.encode_slot") as span:
+        tb, squeeze = _batched(tb_bits, 1)
+        span.count(slots=tb.shape[0])
+        dev = tb.device
+        cw = pdsch._bit_chain(tb, _rntis(rnti, tb.shape[0], dev), cfg.pdsch_cfg)
+        grid = pdsch._grid_chain(cw, precoding.to(dev), cfg.pdsch_cfg)
+        iq = ofdm.modulate_slot(grid, cfg.scs, cfg.dft_size, cfg.cp, 0,
+                                f_center_hz=cfg.f_center_hz)
+        return iq[0] if squeeze else iq
 
 
 def decode_slot(iq: torch.Tensor, rnti, cfg: CellConfig) -> dict:
@@ -157,31 +161,33 @@ def decode_slot(iq: torch.Tensor, rnti, cfg: CellConfig) -> dict:
 
     New data only: like the reference's fused program, it keeps no HARQ
     buffer, so no rate dematch runs beside the fused K1 decode."""
-    x, squeeze = _batched(iq, 2)
-    pc = cfg.pusch_cfg
-    grid = ofdm.demodulate_slot(x, cfg.nof_rb, cfg.scs, cfg.dft_size, cfg.cp, 0,
-                                f_center_hz=cfg.f_center_hz)
-    rntis = _rntis(rnti, x.shape[0], x.device)
-    if pusch._demap_planes_ok(pc):
-        planes, noise_var, snr_acc = pusch._front_end_planes(grid, rntis, pc)
-        tb, ok = decode_from_planes(planes, pc.sch, pc.nof_ldpc_iterations,
-                                    early_stop=pc.ldpc_early_stop)
-    else:
-        llr_i8, noise_var, snr_acc = pusch._front_end(grid, rntis, pc)
-        if pc.sch.decoder == "reference_i8":
-            tb, ok, _harq = decode_transport_block(llr_i8, pc.sch, pc.nof_ldpc_iterations,
-                                                   early_stop=pc.ldpc_early_stop)
+    with l1_tracer.span("cell.decode_slot") as span:
+        x, squeeze = _batched(iq, 2)
+        span.count(slots=x.shape[0])
+        pc = cfg.pusch_cfg
+        grid = ofdm.demodulate_slot(x, cfg.nof_rb, cfg.scs, cfg.dft_size, cfg.cp, 0,
+                                    f_center_hz=cfg.f_center_hz)
+        rntis = _rntis(rnti, x.shape[0], x.device)
+        if pusch._demap_planes_ok(pc):
+            planes, noise_var, snr_acc = pusch._front_end_planes(grid, rntis, pc)
+            tb, ok = decode_from_planes(planes, pc.sch, pc.nof_ldpc_iterations,
+                                        early_stop=pc.ldpc_early_stop)
         else:
-            bits, _iters = _fused_decode(llr_i8, pc.sch, pc.nof_ldpc_iterations,
-                                         pc.ldpc_early_stop)
-            tb, ok = _desegment_stage(bits, pc.sch, llr_i8.shape[:-1])
-    out = {
-        "tb_bits": tb,
-        "tb_crc_ok": ok,
-        "noise_var": noise_var,
-        "snr_db": 10.0 * torch.log10(torch.clamp_min(snr_acc, 1e-12)),
-    }
-    return {k: v[0] for k, v in out.items()} if squeeze else out
+            llr_i8, noise_var, snr_acc = pusch._front_end(grid, rntis, pc)
+            if pc.sch.decoder == "reference_i8":
+                tb, ok, _harq = decode_transport_block(llr_i8, pc.sch, pc.nof_ldpc_iterations,
+                                                       early_stop=pc.ldpc_early_stop)
+            else:
+                bits, _iters = _fused_decode(llr_i8, pc.sch, pc.nof_ldpc_iterations,
+                                             pc.ldpc_early_stop)
+                tb, ok = _desegment_stage(bits, pc.sch, llr_i8.shape[:-1])
+        out = {
+            "tb_bits": tb,
+            "tb_crc_ok": ok,
+            "noise_var": noise_var,
+            "snr_db": 10.0 * torch.log10(torch.clamp_min(snr_acc, 1e-12)),
+        }
+        return {k: v[0] for k, v in out.items()} if squeeze else out
 
 
 def encode_slots_scan(tb_chunks: torch.Tensor, rnti_chunks, precoding: torch.Tensor,

@@ -46,6 +46,7 @@ import functools
 import numpy as np
 import torch
 
+from ...support.tracing import l1_tracer
 from .. import cuda_lib
 from .._tables import device_table
 from . import graphs
@@ -457,8 +458,12 @@ def decode_dematch_groups(llrs: torch.Tensor, groups, bg: int, z: int, k_prime: 
     if llrs.dim() not in (2, 3) or llrs.shape[-1] * (1 if llrs.dim() == 2 else qm) != g:
         raise ValueError(f"decode_dematch_groups: want (B, {g}) or (B, {qm}, {g // qm}), "
                          f"got {tuple(llrs.shape)}")
-    return _dematch(group_views(llrs, groups, qm), [e for _c, e in groups], bg, z, k_prime,
-                    rv, qm, n_cb, nof_iterations, early_stop, llrs.dim() == 3)
+    with l1_tracer.span("ldpc.decode") as span:
+        bits, iters = _dematch(group_views(llrs, groups, qm), [e for _c, e in groups], bg, z,
+                               k_prime, rv, qm, n_cb, nof_iterations, early_stop,
+                               llrs.dim() == 3)
+        span.count(iterations=iters, codeblocks=iters.shape[0])
+    return bits, iters
 
 
 def decode_dematch(llrs: torch.Tensor, bg: int, z: int, k_prime: int, e: int, rv: int,
@@ -543,15 +548,17 @@ def decode(llrs: torch.Tensor, bg: int, z: int, nof_iterations: int = 6,
     if llrs.dim() != 2 or llrs.dtype not in (torch.int8, torch.float32):
         raise ValueError(f"decode: want (C, N) int8 or float32, got "
                          f"{tuple(llrs.shape)} {llrs.dtype}")
-    if llrs.device.type == "cpu":
-        return decode_plain(llrs, bg, z, nof_iterations, early_stop, bits_only, n_cb)
-    if llrs.device.type != "cuda":
+    if llrs.device.type not in ("cpu", "cuda"):
         raise ValueError(f"decode: unsupported device {llrs.device}")
-    plan = decode_plan(bg, z, llrs.shape[1], n_cb)
-    out, iters = _launch_decode(llrs, plan, nof_iterations, early_stop, bits_only)
-    if bits_only:
-        return out, None, iters
-    return hard_bits(out, plan), out, iters
+    with l1_tracer.span("ldpc.decode") as span:
+        if llrs.device.type == "cpu":
+            out = decode_plain(llrs, bg, z, nof_iterations, early_stop, bits_only, n_cb)
+        else:
+            plan = decode_plan(bg, z, llrs.shape[1], n_cb)
+            app, iters = _launch_decode(llrs, plan, nof_iterations, early_stop, bits_only)
+            out = (app, None, iters) if bits_only else (hard_bits(app, plan), app, iters)
+        span.count(iterations=out[2], codeblocks=out[2].shape[0])
+    return out
 
 
 decode.launches = 0

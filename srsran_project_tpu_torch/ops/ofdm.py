@@ -28,6 +28,7 @@ from ..ran.constants import (
     sampling_rate_hz,
 )
 
+from ..support.tracing import l1_tracer
 from ._tables import device_table
 
 
@@ -112,19 +113,20 @@ def modulate_slot(grid: torch.Tensor, scs: SubcarrierSpacing = SubcarrierSpacing
                   dft_size: int = 1024, cp: CyclicPrefix = CyclicPrefix.NORMAL,
                   slot_in_subframe: int = 0, f_center_hz: float = 0.0) -> torch.Tensor:
     """Grid (..., nsym, nsc) complex64 -> samples (..., slot_nof_samples)."""
-    nsym, nsc = grid.shape[-2], grid.shape[-1]
-    assert nsym == nof_symbols_per_slot(cp)
-    assert nsc <= dft_size and nsc % 2 == 0
-    half = nsc // 2
-    dev = grid.device
-    spec = torch.zeros(grid.shape[:-1] + (dft_size,), dtype=torch.complex64, device=dev)
-    spec[..., :half] = grid[..., half:]
-    spec[..., dft_size - half :] = grid[..., :half]
-    gain = float(np.float32(dft_size * (1.0 / np.sqrt(dft_size))))
-    x = torch.fft.ifft(spec, dim=-1) * gain
-    x = x * _phase_on(dev, scs, dft_size, cp, slot_in_subframe, f_center_hz)[:, None]
-    flat = x.reshape(x.shape[:-2] + (nsym * dft_size,))
-    return flat[..., _cp_index_on(dev, scs, dft_size, cp, slot_in_subframe)]
+    with l1_tracer.span("ofdm.modulate"):
+        nsym, nsc = grid.shape[-2], grid.shape[-1]
+        assert nsym == nof_symbols_per_slot(cp)
+        assert nsc <= dft_size and nsc % 2 == 0
+        half = nsc // 2
+        dev = grid.device
+        spec = torch.zeros(grid.shape[:-1] + (dft_size,), dtype=torch.complex64, device=dev)
+        spec[..., :half] = grid[..., half:]
+        spec[..., dft_size - half :] = grid[..., :half]
+        gain = float(np.float32(dft_size * (1.0 / np.sqrt(dft_size))))
+        x = torch.fft.ifft(spec, dim=-1) * gain
+        x = x * _phase_on(dev, scs, dft_size, cp, slot_in_subframe, f_center_hz)[:, None]
+        flat = x.reshape(x.shape[:-2] + (nsym * dft_size,))
+        return flat[..., _cp_index_on(dev, scs, dft_size, cp, slot_in_subframe)]
 
 
 def demodulate_slot(samples: torch.Tensor, nof_rb: int,
@@ -139,15 +141,17 @@ def demodulate_slot(samples: torch.Tensor, nof_rb: int,
     of its CP early (the reference's intra-CP window); or
     window_offset_samples: a fixed advance for every symbol (below the
     shortest CP).  Either is compensated per subcarrier."""
-    nsc = nof_rb * NRE
-    dev = samples.device
-    win = (float(window_offset), window_offset_samples)
-    x = samples[..., _body_index_on(dev, scs, dft_size, cp, slot_in_subframe, *win)]
-    x = x * _phase_on(dev, scs, dft_size, cp, slot_in_subframe, f_center_hz).conj()[:, None]
-    gain = float(np.float32(dft_size * (1.0 / np.sqrt(dft_size))))
-    spec = torch.fft.fft(x, dim=-1) / gain
-    half = nsc // 2
-    grid = torch.cat([spec[..., dft_size - half :], spec[..., :half]], dim=-1)
-    if window_offset or window_offset_samples:
-        grid = grid * _window_correction_on(dev, nsc, scs, dft_size, cp, slot_in_subframe, *win)
-    return grid
+    with l1_tracer.span("ofdm.demodulate"):
+        nsc = nof_rb * NRE
+        dev = samples.device
+        win = (float(window_offset), window_offset_samples)
+        x = samples[..., _body_index_on(dev, scs, dft_size, cp, slot_in_subframe, *win)]
+        x = x * _phase_on(dev, scs, dft_size, cp, slot_in_subframe, f_center_hz).conj()[:, None]
+        gain = float(np.float32(dft_size * (1.0 / np.sqrt(dft_size))))
+        spec = torch.fft.fft(x, dim=-1) / gain
+        half = nsc // 2
+        grid = torch.cat([spec[..., dft_size - half :], spec[..., :half]], dim=-1)
+        if window_offset or window_offset_samples:
+            grid = grid * _window_correction_on(dev, nsc, scs, dft_size, cp, slot_in_subframe,
+                                                *win)
+        return grid

@@ -24,6 +24,7 @@ from ..ops import scrambling, sequences, transform_precoding
 from ..ops._tables import device_table
 from ..ops.modulation import Modulation, map_bits
 from ..ran import dmrs as dmrs_mod
+from ..support.tracing import l1_tracer
 from . import allocation as alloc_mod
 from .sch import SchConfig, encode_transport_block
 
@@ -184,8 +185,9 @@ def _precode(grid_l: torch.Tensor, precoding: torch.Tensor) -> torch.Tensor:
 
 def _bit_chain(tb_bits: torch.Tensor, rnti: torch.Tensor, cfg: PdschConfig) -> torch.Tensor:
     """Segment + LDPC encode + rate match + scramble: (..., A) -> (..., G)."""
-    cw = encode_transport_block(tb_bits, cfg.sch)
-    return scrambling.scramble_bits(cw, _pdsch_c_init(rnti, cfg.n_id))
+    with l1_tracer.span("pdsch.bit_chain"):
+        cw = encode_transport_block(tb_bits, cfg.sch)
+        return scrambling.scramble_bits(cw, _pdsch_c_init(rnti, cfg.n_id))
 
 
 def _low_papr_pilots(cfg, nof_pilots: int) -> np.ndarray:
@@ -264,13 +266,15 @@ def _grid_chain(cw: torch.Tensor, precoding: torch.Tensor, cfg: PdschConfig,
     transform precoding), else the scatter assembly.  ``dmrs_override``
     (..., nl, nsym_d, Np) replaces the config's DM-RS pilot values per
     leading element."""
-    syms = map_bits(cw, cfg.modulation)  # (..., G/Qm)
-    nl = cfg.nof_layers
-    layered = syms.reshape(syms.shape[:-1] + (-1, nl)).transpose(-1, -2)  # symbol i -> layer i%nl
-    if (uniform_data_rows(cfg.alloc) and not cfg.transform_precoding
-            and not cfg.ptrs_enabled and cfg.alloc.dmrs_config_type == 1):
-        return _grid_rows_fast(layered, precoding, cfg, dmrs_override)
-    return _grid_scatter(layered, precoding, cfg, dmrs_override)
+    with l1_tracer.span("pdsch.grid"):
+        syms = map_bits(cw, cfg.modulation)  # (..., G/Qm)
+        nl = cfg.nof_layers
+        # symbol i -> layer i % nl
+        layered = syms.reshape(syms.shape[:-1] + (-1, nl)).transpose(-1, -2)
+        if (uniform_data_rows(cfg.alloc) and not cfg.transform_precoding
+                and not cfg.ptrs_enabled and cfg.alloc.dmrs_config_type == 1):
+            return _grid_rows_fast(layered, precoding, cfg, dmrs_override)
+        return _grid_scatter(layered, precoding, cfg, dmrs_override)
 
 
 # TS 38.211 Table 7.4.1.2.2-1 (DM-RS type 1): subcarrier k_RE_ref per

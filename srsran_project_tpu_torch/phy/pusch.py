@@ -52,6 +52,7 @@ from ..ops.modulation.evm import evm
 from ..ran import csi as csi_mod
 from ..ran import dmrs as dmrs_mod
 from ..ran import ulsch_info
+from ..support.tracing import l1_tracer
 from . import allocation as alloc_mod
 from . import pdsch as pdsch_mod
 from . import ulsch_demux
@@ -252,8 +253,14 @@ def _estimate(grid: torch.Tensor, cfg: PuschConfig, r_override=None):
     nsym_d, Np) replaces the config's DM-RS pilot values per batch element
     (the grants of a multi-UE slot share a compact config, but their
     pilots follow each grant's absolute CRB)."""
-    if cfg.estimator == "reference":
-        return _estimate_reference(grid, cfg, r_override)
+    with l1_tracer.span("pusch.estimate"):
+        if cfg.estimator == "reference":
+            return _estimate_reference(grid, cfg, r_override)
+        return _estimate_fast(grid, cfg, r_override)
+
+
+def _estimate_fast(grid: torch.Tensor, cfg: PuschConfig, r_override):
+    """``_estimate`` with the fast estimator."""
     a = cfg.alloc
     nl, npr = cfg.nof_layers, cfg.nof_rx_ports
     nsym_d = len(a.dmrs_symbols)
@@ -490,24 +497,25 @@ def _equalize_stage(gflat: torch.Tensor, h: torch.Tensor, noise_var: torch.Tenso
     symbol.  Otherwise (data on the DM-RS symbols), and for the reference
     equalizers: the data-RE gather and the per-RE ``equalize`` (or
     ``equalize_ref``) with each RE's channel, as the reference does."""
-    nl, npr = cfg.nof_layers, cfg.nof_rx_ports
-    if not pdsch_mod.uniform_data_rows(cfg.alloc) or cfg.equalizer.endswith("_ref"):
-        dev = gflat.device
-        y = gflat[:, :, _data_re_on(dev, cfg)].transpose(1, 2)  # (B, ndata, P)
-        h_data = h[:, :, _data_sc_on(dev, cfg), :].transpose(1, 2)  # (B, ndata, P, nl)
-        if cfg.equalizer.endswith("_ref"):
-            # The reference's per-port noise: the grant's, on every port.
-            return equalize_ref(y, h_data, noise_var[:, None].expand(-1, npr),
-                                method=cfg.equalizer[: -len("_ref")])
-        return equalize(y, h_data, noise_var[:, None], method=cfg.equalizer)
-    y = _data_rows(gflat, cfg)  # (B, P, nsym_d, nof_sc)
-    b, _, nsym_d, nsc = y.shape
-    w, eq_sc = _weights(h, noise_var, cfg)
-    # x[b, s, n, l] = sum_p w[b, n, l, p] y[b, p, s, n]
-    x = torch.stack([sum(w[:, None, :, l, p] * y[:, p] for p in range(npr))
-                     for l in range(nl)], dim=-1)  # (B, nsym_d, nof_sc, nl)
-    eq_nvar = eq_sc[:, None].expand(b, nsym_d, nsc, nl)
-    return x.reshape(b, -1, nl), eq_nvar.reshape(b, -1, nl)
+    with l1_tracer.span("pusch.equalize"):
+        nl, npr = cfg.nof_layers, cfg.nof_rx_ports
+        if not pdsch_mod.uniform_data_rows(cfg.alloc) or cfg.equalizer.endswith("_ref"):
+            dev = gflat.device
+            y = gflat[:, :, _data_re_on(dev, cfg)].transpose(1, 2)  # (B, ndata, P)
+            h_data = h[:, :, _data_sc_on(dev, cfg), :].transpose(1, 2)  # (B, ndata, P, nl)
+            if cfg.equalizer.endswith("_ref"):
+                # The reference's per-port noise: the grant's, on every port.
+                return equalize_ref(y, h_data, noise_var[:, None].expand(-1, npr),
+                                    method=cfg.equalizer[: -len("_ref")])
+            return equalize(y, h_data, noise_var[:, None], method=cfg.equalizer)
+        y = _data_rows(gflat, cfg)  # (B, P, nsym_d, nof_sc)
+        b, _, nsym_d, nsc = y.shape
+        w, eq_sc = _weights(h, noise_var, cfg)
+        # x[b, s, n, l] = sum_p w[b, n, l, p] y[b, p, s, n]
+        x = torch.stack([sum(w[:, None, :, l, p] * y[:, p] for p in range(npr))
+                         for l in range(nl)], dim=-1)  # (B, nsym_d, nof_sc, nl)
+        eq_nvar = eq_sc[:, None].expand(b, nsym_d, nsc, nl)
+        return x.reshape(b, -1, nl), eq_nvar.reshape(b, -1, nl)
 
 
 def _deprecode_stage(x_hat: torch.Tensor, eq_nvar: torch.Tensor, cfg: PuschConfig):
@@ -543,20 +551,21 @@ def _demap_stage(x_hat: torch.Tensor, eq_nvar: torch.Tensor, rnti: torch.Tensor,
     """Soft demap + de-layer-map + quantize + descramble (+ the PT-RS
     erasure), and the decision-directed post-equalization SINR ->
     (llr_i8 (B, G), sinr (B,))."""
-    b, _, nl = x_hat.shape
-    qm = cfg.sch.qm
-    if cfg.demapper == "reference":
-        # RE-major layer interleave = the codeword order.
-        llr_i8 = demap_llr_i8(x_hat.reshape(b, -1), eq_nvar.reshape(b, -1), cfg.modulation)
-    else:
-        llr = demap_soft(x_hat.transpose(1, 2), eq_nvar.transpose(1, 2), cfg.modulation)
-        llr = llr.reshape(b, nl, -1, qm).transpose(1, 2).reshape(b, -1)  # (B, G)
-        llr_i8 = quantize_llr(llr, cfg.llr_range_limit)
-    llr_i8 = scrambling.descramble_llrs(llr_i8, _pusch_c_init(rnti, cfg.n_id))
-    if cfg.ptrs_enabled:
-        llr_i8 = llr_i8.index_fill(-1, _ptrs_bits_on(llr_i8.device, cfg), 0)
-    e = evm(x_hat.reshape(b, -1), cfg.modulation)
-    return llr_i8, 1.0 / torch.clamp_min(e * e, 1e-12)
+    with l1_tracer.span("pusch.demap"):
+        b, _, nl = x_hat.shape
+        qm = cfg.sch.qm
+        if cfg.demapper == "reference":
+            # RE-major layer interleave = the codeword order.
+            llr_i8 = demap_llr_i8(x_hat.reshape(b, -1), eq_nvar.reshape(b, -1), cfg.modulation)
+        else:
+            llr = demap_soft(x_hat.transpose(1, 2), eq_nvar.transpose(1, 2), cfg.modulation)
+            llr = llr.reshape(b, nl, -1, qm).transpose(1, 2).reshape(b, -1)  # (B, G)
+            llr_i8 = quantize_llr(llr, cfg.llr_range_limit)
+        llr_i8 = scrambling.descramble_llrs(llr_i8, _pusch_c_init(rnti, cfg.n_id))
+        if cfg.ptrs_enabled:
+            llr_i8 = llr_i8.index_fill(-1, _ptrs_bits_on(llr_i8.device, cfg), 0)
+        e = evm(x_hat.reshape(b, -1), cfg.modulation)
+        return llr_i8, 1.0 / torch.clamp_min(e * e, 1e-12)
 
 
 def _after_estimate(gflat: torch.Tensor, h: torch.Tensor, noise_var: torch.Tensor,
@@ -776,7 +785,9 @@ def _front_end_planes(grid: torch.Tensor, rnti: torch.Tensor, cfg: PuschConfig):
     the weights, demaps, quantizes and descrambles straight into the
     planes ``sch.decode_from_planes`` reads."""
     gflat, h, noise_var, extras = _estimate(grid, cfg)
-    planes, err2 = demap_planes(*_plane_inputs_of(gflat, h, noise_var, rnti, cfg),
-                                cfg.modulation, cfg.llr_range_limit)
+    with l1_tracer.span("pusch.equalize"):
+        inputs = _plane_inputs_of(gflat, h, noise_var, rnti, cfg)
+    with l1_tracer.span("pusch.demap"):
+        planes, err2 = demap_planes(*inputs, cfg.modulation, cfg.llr_range_limit)
     snr = 1.0 / torch.clamp_min(err2.mean(dim=(1, 2)), 1e-12)
     return _with_metrics(planes, noise_var, snr, extras, cfg)

@@ -22,6 +22,7 @@ from ..ops.ldpc import rate_match as rm
 from ..ops.ldpc import segmenter
 from ..ops import crc as crc_mod
 from ..ops.ldpc.decoder import decode, decode_dematch_groups, decode_i8
+from ..support.tracing import l1_tracer
 
 # LDPC decoder selections: "auto" runs K1 / K2 (the plain torch versions on
 # the CPU), "reference_i8" the reference-exact int8 min-sum in torch.
@@ -132,27 +133,30 @@ def _fused_decode(llrs: torch.Tensor, cfg: SchConfig, nof_iterations: int, early
 
 def _desegment_stage(bits: torch.Tensor, cfg: SchConfig, lead_shape: tuple):
     """(lead*C, K) codeblock bits -> (TB (lead..., A), CRC ok (lead...,))."""
-    seg = cfg.seg
-    return segmenter.desegment_rx(bits.reshape(tuple(lead_shape) + (seg.nof_codeblocks, -1)), seg)
+    with l1_tracer.span("sch.desegment"):
+        seg = cfg.seg
+        return segmenter.desegment_rx(
+            bits.reshape(tuple(lead_shape) + (seg.nof_codeblocks, -1)), seg)
 
 
 def _dematch_stage(llrs: torch.Tensor, harq_buffer, cfg: SchConfig) -> torch.Tensor:
     """Rate dematch per E-group, then the HARQ combine when a buffer is
     given: (..., G) int8 LLRs -> the new (..., C, N) int8 HARQ buffer, which
     is also the two-stage decoder's input."""
-    seg = cfg.seg
-    dematched = []
-    off = 0
-    for _start, count, e in _e_groups(cfg.cb_e_bits):
-        span = llrs[..., off : off + count * e]
-        dematched.append(rm.rate_dematch(
-            span.reshape(span.shape[:-1] + (count, e)), seg.base_graph, seg.lifting_size,
-            seg.nof_payload_bits_per_cb, e, cfg.rv, cfg.qm, cfg.n_cb))
-        off += count * e
-    buf = torch.cat(dematched, dim=-2)
-    if harq_buffer is not None:
-        buf = rm.combine_harq(harq_buffer, buf)
-    return buf
+    with l1_tracer.span("sch.dematch"):
+        seg = cfg.seg
+        dematched = []
+        off = 0
+        for _start, count, e in _e_groups(cfg.cb_e_bits):
+            span = llrs[..., off : off + count * e]
+            dematched.append(rm.rate_dematch(
+                span.reshape(span.shape[:-1] + (count, e)), seg.base_graph, seg.lifting_size,
+                seg.nof_payload_bits_per_cb, e, cfg.rv, cfg.qm, cfg.n_cb))
+            off += count * e
+        buf = torch.cat(dematched, dim=-2)
+        if harq_buffer is not None:
+            buf = rm.combine_harq(harq_buffer, buf)
+        return buf
 
 
 def _decode_i8_stage(buf: torch.Tensor, cfg: SchConfig, nof_iterations: int,

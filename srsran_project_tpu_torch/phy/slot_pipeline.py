@@ -56,7 +56,7 @@ class SlotPipeline:
     def push_dl_slot(self, request: fapi.DlTtiRequest, tx_data: fapi.TxDataRequest, deadline_s: float):
         """Dispatch a DL slot asynchronously; returns nothing (collect later)."""
         self._drain_to(self.depth - 1)
-        with l1_tracer.span(f"dl_slot_{request.slot.count}", "L1"):
+        with l1_tracer.span(f"dl_slot_{request.slot.count}"):
             t0 = time.monotonic()
             grid = self.phy.process_dl_tti(request, tx_data)
             collector.record("dl_slot_dispatch", time.monotonic() - t0)
@@ -71,7 +71,7 @@ class SlotPipeline:
     # -- uplink --------------------------------------------------------
     def push_ul_slot(self, request: fapi.UlTtiRequest, rx_grid, deadline_s: float, prach_fd=None):
         self._drain_to(self.depth - 1)
-        with l1_tracer.span(f"ul_slot_{request.slot.count}", "L1"):
+        with l1_tracer.span(f"ul_slot_{request.slot.count}"):
             t0 = time.monotonic()
             res = self.phy.process_ul_tti(request, rx_grid, prach_fd=prach_fd)
             collector.record("ul_slot_dispatch", time.monotonic() - t0)

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from ..ops.ldpc.decoder import decode
+from ..support.tracing import l1_tracer
 from . import pucch as pucch_mod
 from . import pucch_f2 as f2_mod
 from . import pusch as pusch_mod
@@ -100,20 +101,21 @@ def _decode_group(llr_i8: torch.Tensor, bg: int, z: int, nof_iterations: int,
 
 def _config_groups(pdus: list) -> dict:
     """PuschConfig (with crb_start 0) -> indices of the PDUs that share it."""
-    groups: dict[PuschConfig, list[int]] = {}
-    for i, pdu in enumerate(pdus):
-        c = pdu.config
-        if c.uci is not None and c.uci.csi_report_cfg is not None:
-            raise ValueError("two-step CSI PDUs take the per-PDU path (part-2 size follows "
-                             "the decoded RI)")
-        # Everything but the absolute CRB (which only seeds the DM-RS,
-        # passed per grant) is shared by equal grants at other offsets.
-        # PT-RS values also follow the absolute CRB but come from the
-        # config, so PT-RS grants keep their crb_start in the key.
-        crb = c.alloc.crb_start if c.ptrs_enabled else 0
-        key = dataclasses.replace(c, alloc=dataclasses.replace(c.alloc, crb_start=crb))
-        groups.setdefault(key, []).append(i)
-    return groups
+    with l1_tracer.span("ul_slot.group"):
+        groups: dict[PuschConfig, list[int]] = {}
+        for i, pdu in enumerate(pdus):
+            c = pdu.config
+            if c.uci is not None and c.uci.csi_report_cfg is not None:
+                raise ValueError("two-step CSI PDUs take the per-PDU path (part-2 size follows "
+                                 "the decoded RI)")
+            # Everything but the absolute CRB (which only seeds the DM-RS,
+            # passed per grant) is shared by equal grants at other offsets.
+            # PT-RS values also follow the absolute CRB but come from the
+            # config, so PT-RS grants keep their crb_start in the key.
+            crb = c.alloc.crb_start if c.ptrs_enabled else 0
+            key = dataclasses.replace(c, alloc=dataclasses.replace(c.alloc, crb_start=crb))
+            groups.setdefault(key, []).append(i)
+        return groups
 
 
 def _code_groups(cfgs: tuple, fronts: list) -> list:
@@ -121,17 +123,18 @@ def _code_groups(cfgs: tuple, fronts: list) -> list:
     key, the config groups in it, their codeblock counts and their
     codeword buffers concatenated to (C', N) int8, the input of its one
     ``_decode_group``."""
-    by_code: dict[tuple, list[int]] = {}
-    for gi, cfg in enumerate(cfgs):
-        seg = cfg.sch.seg
-        key = (seg.base_graph, seg.lifting_size, cfg.nof_ldpc_iterations,
-               cfg.ldpc_early_stop, cfg.sch.n_cb)
-        by_code.setdefault(key, []).append(gi)
-    out = []
-    for key, gis in by_code.items():
-        flats = [fronts[gi][0].reshape((-1,) + fronts[gi][0].shape[-1:]) for gi in gis]
-        out.append((key, gis, [f.shape[0] for f in flats], torch.cat(flats)))
-    return out
+    with l1_tracer.span("ul_slot.group"):
+        by_code: dict[tuple, list[int]] = {}
+        for gi, cfg in enumerate(cfgs):
+            seg = cfg.sch.seg
+            key = (seg.base_graph, seg.lifting_size, cfg.nof_ldpc_iterations,
+                   cfg.ldpc_early_stop, cfg.sch.n_cb)
+            by_code.setdefault(key, []).append(gi)
+        out = []
+        for key, gis in by_code.items():
+            flats = [fronts[gi][0].reshape((-1,) + fronts[gi][0].shape[-1:]) for gi in gis]
+            out.append((key, gis, [f.shape[0] for f in flats], torch.cat(flats)))
+        return out
 
 
 def process_slot(grid: torch.Tensor, pdus: list, f1_cfgs=(), f0_cfgs=(), f2_cfgs=()):
@@ -148,30 +151,32 @@ def process_slot(grid: torch.Tensor, pdus: list, f1_cfgs=(), f0_cfgs=(), f2_cfgs
     grant's own); f1_results[j] is (bits,
     metric); f0_results[k] is (value, metric); f2_results[m] is
     (uci_bits, ok, snr_db)."""
-    groups = _config_groups(pdus)
-    cfgs = tuple(groups)
-    fronts = _slot_front(grid, groups, pdus)
+    with l1_tracer.span("ul_slot.process_slot") as span:
+        span.count(slots=1)
+        groups = _config_groups(pdus)
+        cfgs = tuple(groups)
+        fronts = _slot_front(grid, groups, pdus)
 
-    bits_g: list = [None] * len(cfgs)
-    for (bg, z, iters, es, n_cb), gis, sizes, llrs in _code_groups(cfgs, fronts):
-        bits_all = _decode_group(llrs, bg, z, iters, es, n_cb=n_cb)
-        for gi, part in zip(gis, bits_all.split(sizes)):
-            bits_g[gi] = part
+        bits_g: list = [None] * len(cfgs)
+        for (bg, z, iters, es, n_cb), gis, sizes, llrs in _code_groups(cfgs, fronts):
+            bits_all = _decode_group(llrs, bg, z, iters, es, n_cb=n_cb)
+            for gi, part in zip(gis, bits_all.split(sizes)):
+                bits_g[gi] = part
 
-    finished = _slot_finish(bits_g, cfgs, tuple(len(idxs) for idxs in groups.values()))
-    results: list = [None] * len(pdus)
-    for idxs, (harq, nvs, snrs, extra), (tb, ok) in zip(groups.values(), fronts, finished):
-        for k, i in enumerate(idxs):
-            results[i] = {
-                "tb_bits": tb[k],
-                "tb_crc_ok": ok[k],
-                "harq_buffer": harq[k],
-                "noise_var": nvs[k],
-                "snr_db": 10.0 * torch.log10(torch.clamp_min(snrs[k], 1e-12)),
-                **{key: v[k] for key, v in extra.items()},
-            }
-    f1_outs = [pucch_mod.format1_detect(grid, f1)[::2] for f1 in f1_cfgs]
-    f0_outs = [pucch_mod.format0_detect(grid, f0)[:2] for f0 in f0_cfgs]
-    if f2_cfgs:
-        return results, f1_outs, f0_outs, [f2_mod.process(grid, f2) for f2 in f2_cfgs]
-    return results, f1_outs, f0_outs
+        finished = _slot_finish(bits_g, cfgs, tuple(len(idxs) for idxs in groups.values()))
+        results: list = [None] * len(pdus)
+        for idxs, (harq, nvs, snrs, extra), (tb, ok) in zip(groups.values(), fronts, finished):
+            for k, i in enumerate(idxs):
+                results[i] = {
+                    "tb_bits": tb[k],
+                    "tb_crc_ok": ok[k],
+                    "harq_buffer": harq[k],
+                    "noise_var": nvs[k],
+                    "snr_db": 10.0 * torch.log10(torch.clamp_min(snrs[k], 1e-12)),
+                    **{key: v[k] for key, v in extra.items()},
+                }
+        f1_outs = [pucch_mod.format1_detect(grid, f1)[::2] for f1 in f1_cfgs]
+        f0_outs = [pucch_mod.format0_detect(grid, f0)[:2] for f0 in f0_cfgs]
+        if f2_cfgs:
+            return results, f1_outs, f0_outs, [f2_mod.process(grid, f2) for f2 in f2_cfgs]
+        return results, f1_outs, f0_outs

@@ -2,18 +2,17 @@
 
 Counterpart of the reference's metrics decorators + aggregators
 (lib/phy/metrics/phy_metrics_*_decorator.h,
-lib/phy/upper/metrics/aggregators/): wrap any callable in a timing
-decorator feeding a named aggregator; a collector renders the report
-(dict / JSON line), standing in for the reference's stdout/JSON consumers
-and the remote WebSocket endpoint.  A copy of
-``srsran_project_tpu/support/metrics.py``.
+lib/phy/upper/metrics/aggregators/): timings recorded under a name feed
+its aggregator; a collector renders the report (dict / JSON line),
+standing in for the reference's stdout/JSON consumers and the remote
+WebSocket endpoint.  Port of ``srsran_project_tpu/support/metrics.py``
+without its timing decorator, which nothing calls.
 """
 
 from __future__ import annotations
 
 import json
 import threading
-import time
 from collections import defaultdict
 
 
@@ -55,24 +54,6 @@ class MetricsCollector:
     def record(self, name: str, elapsed_s: float, units: float = 0.0) -> None:
         with self._lock:
             self._aggs[name].record(elapsed_s, units)
-
-    def timed(self, name: str, units_fn=None):
-        """Decorator: time each call of fn under `name`.
-
-        units_fn(result) -> float optionally accounts throughput units.
-        """
-
-        def wrap(fn):
-            def inner(*a, **kw):
-                t0 = time.monotonic()
-                r = fn(*a, **kw)
-                dt = time.monotonic() - t0
-                self.record(name, dt, units_fn(r) if units_fn else 0.0)
-                return r
-
-            return inner
-
-        return wrap
 
     def report(self) -> dict:
         with self._lock:

@@ -236,29 +236,49 @@ def test_common_broadcast_slots_fail_the_loopback(capsys):
 
 @pytest.fixture
 def fresh_tracer(monkeypatch):
-    """The L1 tracer with no events, its state restored afterwards."""
+    """The L1 tracer with no spans kept, its state restored afterwards."""
     tr = ttracing.l1_tracer
-    monkeypatch.setattr(tr, "_events", [])
+    monkeypatch.setattr(tr, "_kept", [])
     monkeypatch.setattr(tr, "enabled", tr.enabled)
-    monkeypatch.setattr(tr, "threshold_us", tr.threshold_us)
     return tr
+
+
+UL_STAGES = {"pusch.estimate", "pusch.equalize", "pusch.demap", "sch.dematch", "ldpc.decode",
+             "sch.desegment"}
 
 
 @pytest.mark.parametrize("mode", ["single", "scheduler"])
 def test_trace_is_chrome_json(mode, tmp_path, fresh_tracer, capsys):
-    """--trace writes Chrome trace JSON: a DL and a UL span a slot in the
-    single-UE loop; none in scheduler mode, whose loop has no spans in the
-    reference either (kept for parity)."""
+    """--trace writes Chrome trace JSON on one clock: in the single-UE loop
+    a DL and a UL span a slot, as in the reference, with the slot path's
+    stage spans nested in them; the scheduler mode's loop has no slot span
+    (in the reference neither), so its outermost spans are the stages and
+    ``ul_slot.process_slot``, with the uplink's stages nested in it."""
     path = tmp_path / "trace.json"
     argv = (SMALL if mode == "single" else SCHED + ["--ues", "2", "--slots", "3"])
     assert du_low_sim.main(argv + ["--trace", str(path), "--metrics-json"]) == 0
     events = json.loads(path.read_text())["traceEvents"]
     assert capsys.readouterr().out.splitlines()[-1] == "{}"
-    if mode == "scheduler":
-        assert events == []
-        return
-    assert [e["name"] for e in events] == [f"{d}_slot_{i}" for i in range(3) for d in ("dl", "ul")]
     assert all(e["ph"] == "X" and e["dur"] >= 0 and e["cat"] == "L1" for e in events)
+    by_id = {e["args"]["id"]: e for e in events}
+    top = [e for e in events if e["args"]["parent"] == 0]
+    for e in events:
+        outer = by_id[e["args"]["request"]]
+        assert outer["args"]["parent"] == 0
+        assert outer["ts"] - 0.5 <= e["ts"]
+        assert e["ts"] + e["dur"] <= outer["ts"] + outer["dur"] + 0.5
+    inner = {}
+    for e in events:
+        if e["args"]["parent"]:
+            inner.setdefault(by_id[e["args"]["parent"]]["name"], set()).add(e["name"])
+    if mode == "scheduler":
+        assert {e["name"] for e in top} == {"pdsch.bit_chain", "pdsch.grid",
+                                            "ul_slot.process_slot"}
+        assert inner == {"ul_slot.process_slot": UL_STAGES | {"ul_slot.group"}}
+        return
+    assert [e["name"] for e in top] == [f"{d}_slot_{i}" for i in range(3) for d in ("dl", "ul")]
+    assert inner == {**{f"dl_slot_{i}": {"pdsch.bit_chain", "pdsch.grid"} for i in range(3)},
+                     **{f"ul_slot_{i}": UL_STAGES for i in range(3)}}
 
 
 def test_scheduler_mode_config_and_ul_synthesis():

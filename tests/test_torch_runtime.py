@@ -1,7 +1,9 @@
 """The port's runtime support against the JAX package's: ``support/timers``,
-``support/metrics``, ``support/tracing`` and ``support/logger`` on the
-same call sequences (the clocks replaced by one fake clock in both, so
-nothing depends on wall-clock speed; every value compared exactly), and
+``support/metrics`` and ``support/logger`` on the same call sequences (the
+clocks replaced by one fake clock in both, so nothing depends on
+wall-clock speed; every value compared exactly), ``support/tracing`` on its
+own contract (the port's tracer has the stage spans and the profiler's
+clock, which the JAX package's has not), and
 ``phy/slot_pipeline``'s deadline accounting and depth-limited dispatch on
 the port's UpperPhy on the CPU, with deadlines of now + 30 s and now - 1 s
 only."""
@@ -27,7 +29,6 @@ from srsran_project_tpu.ran.slot_point import SlotPoint as JSlot
 from srsran_project_tpu.support import logger as j_log
 from srsran_project_tpu.support import metrics as j_metrics
 from srsran_project_tpu.support import timers as j_timers
-from srsran_project_tpu.support import tracing as j_tracing
 from srsran_project_tpu_torch.fapi import messages as t_fapi
 from srsran_project_tpu_torch.phy import slot_pipeline as t_pipeline_mod
 from srsran_project_tpu_torch.phy.slot_pipeline import SlotPipeline as TSlotPipeline
@@ -107,6 +108,8 @@ def test_timers():
 # ---- metrics -------------------------------------------------------------------
 
 def _metrics_sequence(m, monkeypatch):
+    """The JAX package's collector: three calls through its timing decorator,
+    two recorded durations and one plain timed call, on the fake clock."""
     monkeypatch.setattr(m, "time", fake_time(FakeClock()))
     c = m.MetricsCollector()
 
@@ -124,48 +127,88 @@ def _metrics_sequence(m, monkeypatch):
     return out + [c.report()]
 
 
+def _port_metrics_sequence():
+    """The same sequence on the port's collector, which has no decorator: its
+    callers record what they time, here on the same fake clock."""
+    clock = FakeClock()
+    c = t_metrics.MetricsCollector()
+
+    def timed(name, units=0.0):
+        t0 = clock()
+        c.record(name, clock() - t0, units)
+
+    for x in (1, 2, 3):
+        timed("op", 100.0 * x)
+    c.record("dl_slot_dispatch", 0.5e-3)
+    c.record("dl_slot_dispatch", 2.0e-3, units=7)
+    timed("plain")
+    out = [c.report(), json.loads(c.report_json()), t_metrics.Aggregator().report()]
+    c.reset()
+    return out + [c.report()]
+
+
 def test_metrics(monkeypatch):
+    """Durations recorded in the port's collector report as the JAX
+    package's decorator reports them: count, mean, min, max and rate."""
     ref = _metrics_sequence(j_metrics, monkeypatch)
-    port = _metrics_sequence(t_metrics, monkeypatch)
+    port = _port_metrics_sequence()
     assert port == ref
     assert port[0]["op"]["count"] == 3 and port[0]["op"]["rate_per_s"] > 0
+    assert not hasattr(t_metrics.MetricsCollector, "timed")
 
 
 # ---- tracing -------------------------------------------------------------------
 
-def _trace_sequence(m, monkeypatch, path):
-    monkeypatch.setattr(m, "time", fake_time(FakeClock()))
-    t = m.EventTracer(enabled=True, threshold_us=2000.0)
-    with t.span("short", "L1"):
-        pass
-    with t.span("work", "L2"):
-        t.instant("marker")
-    off = m.EventTracer()
-    with off.span("never"):
-        off.instant("never")
-    t.write(str(path))
-    off.write(str(path) + ".off")
-    return [json.loads(path.read_text()), json.loads(open(str(path) + ".off").read())]
-
-
 def test_tracing(monkeypatch, tmp_path):
-    """Spans over the threshold and instants as Chrome trace events; a
-    disabled tracer writes none; enable_all turns on the three tracers."""
-    ref = _trace_sequence(j_tracing, monkeypatch, tmp_path / "j.json")
-    port = _trace_sequence(t_tracing, monkeypatch, tmp_path / "t.json")
-    assert port == ref
-    assert [e["name"] for e in port[0]["traceEvents"]] == ["marker", "work"]
-    assert port[1] == {"traceEvents": []}
-    saved = [(tr.enabled, tr.threshold_us) for tr in (t_tracing.l1_tracer, t_tracing.up_tracer,
-                                                      t_tracing.ru_tracer)]
-    try:
-        t_tracing.enable_all(5.0)
-        assert all(tr.enabled and tr.threshold_us == 5.0
-                   for tr in (t_tracing.l1_tracer, t_tracing.up_tracer, t_tracing.ru_tracer))
-    finally:
-        for tr, (on, thr) in zip((t_tracing.l1_tracer, t_tracing.up_tracer,
-                                  t_tracing.ru_tracer), saved):
-            tr.enabled, tr.threshold_us = on, thr
+    """The port's tracer on a fake ``time_ns`` (1.25 ms a read): nested spans
+    kept with their parent, request id and counts (a device-style tensor
+    summed only when read), per-name self time, the Chrome JSON in us on
+    the same clock; ``take`` and ``write`` drain the kept spans; an off
+    tracer hands out one shared null context and keeps nothing."""
+    import torch
+
+    ns = iter(range(1_700_000_000_000_000_000, 1_800_000_000_000_000_000, 1_250_000))
+    monkeypatch.setattr(t_tracing, "time", types.SimpleNamespace(time_ns=lambda: next(ns)))
+    t = t_tracing.EventTracer(enabled=True)
+    with t.span("cell.decode_slot") as entry:
+        entry.count(slots=2)
+        with t.span("pusch.estimate"):
+            pass
+        with t.span("ldpc.decode") as dec:
+            dec.count(iterations=torch.tensor([2, 3, 6], dtype=torch.int32), codeblocks=3)
+    with t.span("cell.decode_slot") as entry:
+        entry.count(slots=1)
+    got = t.take()
+    assert [s.name for s in got.spans] == ["pusch.estimate", "ldpc.decode", "cell.decode_slot",
+                                           "cell.decode_slot"]
+    est, dec, first, second = got.spans
+    assert (est.parent, dec.parent, first.parent, second.parent) == (first.id, first.id, 0, 0)
+    assert {est.request, dec.request, first.request} == {first.id} and second.request == second.id
+    assert [s.end_ns - s.start_ns for s in got.spans] == [1_250_000, 1_250_000, 6_250_000,
+                                                          1_250_000]
+    assert dec.args == {"iterations": 11, "codeblocks": 3}
+    tot = got.totals["cell.decode_slot"]
+    assert (tot.spans, tot.total_ns, tot.self_ns, tot.counts) == (2, 7_500_000, 5_000_000,
+                                                                  {"slots": 3})
+    assert got.totals["ldpc.decode"].counts == {"iterations": 11, "codeblocks": 3}
+    assert t.take().spans == []
+
+    with t.span("ofdm.modulate"):
+        pass
+    t.write(str(tmp_path / "t.json"))
+    (ev,) = json.loads((tmp_path / "t.json").read_text())["traceEvents"]
+    assert ev["ph"] == "X" and ev["cat"] == "L1" and ev["name"] == "ofdm.modulate"
+    assert ev["dur"] == 1250.0
+    assert ev["ts"] == (1_700_000_000_000_000_000 + 8 * 1_250_000) / 1e3
+    assert ev["args"]["parent"] == 0 and ev["args"]["request"] == ev["args"]["id"]
+    t.write(str(tmp_path / "empty.json"))
+    assert json.loads((tmp_path / "empty.json").read_text()) == {"traceEvents": []}
+
+    off = t_tracing.EventTracer()
+    with off.span("never") as a:
+        a.count(slots=1)
+    assert off.span("other") is a and off.take().spans == []
+    assert not hasattr(t_tracing, "enable_all") and not hasattr(t_tracing, "up_tracer")
 
 
 # ---- logger --------------------------------------------------------------------
@@ -303,4 +346,4 @@ def test_slot_pipeline_uplink_and_metrics(monkeypatch):
     assert pipe.report() == {"slots": 2, "late": 0, "late_ratio": 0.0, "mean_lateness_us": 0.0}
     rep = collector.report()
     assert rep["dl_slot_dispatch"]["count"] == rep["ul_slot_dispatch"]["count"] == 1
-    assert [e["name"] for e in tracer._events] == ["dl_slot_0", "ul_slot_0"]
+    assert [s.name for s in tracer.take().spans] == ["dl_slot_0", "ul_slot_0"]
