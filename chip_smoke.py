@@ -20,7 +20,9 @@ read just after:
 
 1. the flagship cell (273 PRB, 30 kHz, 4x4, 256QAM r~0.926, LBRM): 8 random
    transport blocks -> ``encode_slot`` -> AWGN at 30 dB -> ``decode_slot``
-   (kernel K1, one launch over both E-groups, and K3);
+   (kernel K1, one launch over both E-groups, K3, and K5, whose launches
+   are counted on this path alone), K5 and K1 held against their plain
+   versions on the batch's own tensors;
 2. a heterogeneous 8-UE uplink slot on the same 273-PRB carrier with 4 RX
    ports -> ``ul_slot.process_slot`` (kernel K2 once per code group, and
    K3): two 4-layer 256QAM grants, four rank-1 64QAM grants and two
@@ -223,8 +225,8 @@ Output: progress and timing lines, then one JSON line with the kernels
 launches per path, device time and bound at path 5's shapes
 ("shapes_ms") and, for K2 and K3, on path 7 (a)'s inputs
 ("prach_ul_tti_ms"), and for K1, K2 and K3 on path 8's inputs
-("refmodes_ms", "refmodes_bound_ms"); the resident blocks per SM, and for K3 and K4 the
-registers a thread and the same three numbers at 8 flagship slots, "b8_",
+("refmodes_ms", "refmodes_bound_ms"); the resident blocks per SM, and for K3, K4 and K5
+the registers a thread and the same three numbers at 8 flagship slots, "b8_",
 K3 also at the uplink slot's group A, "group_a_"), the
 card's name and power limit, and as the LAST line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -318,9 +320,9 @@ def kernel_ms(fn, reps: int = 20) -> float:
 # and float32 operations/s outside the tensor cores.
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 67e12
-# No single PyTorch call computes any of the four kernels' functions
+# No single PyTorch call computes any of the five kernels' functions
 # (min-sum decoding, 4x4 MMSE weights with their post-equalization noise,
-# fused apply + max-log demap + quantize + descramble), so library_ms is
+# fused [apply +] max-log demap + quantize + descramble), so library_ms is
 # null for all.
 LIBRARY_MS = None
 
@@ -1205,12 +1207,13 @@ def noisy_llrs(cfg, rng, dev):
 
 
 def kernel_phase(card: str):
-    """K1 (both layouts), K2, K3 and K4 against their plain versions on the
+    """K1 (both layouts), K2, K3, K4 and K5 against their plain versions on the
     card, at the shapes of the three paths; returns the per-kernel entries
     of the JSON line (without launch counts)."""
     import torch
 
     from srsran_project_tpu_torch.models.cell import CellConfig
+    from srsran_project_tpu_torch.ops import demap_llrs as dl
     from srsran_project_tpu_torch.ops import demap_planes as dp
     from srsran_project_tpu_torch.ops import equalizer
     from srsran_project_tpu_torch.ops.ldpc import decoder
@@ -1324,6 +1327,14 @@ def kernel_phase(card: str):
         for name, (ms, pms, bd, _e) in k4.items())
         + f"; {k4_occ['registers']} registers, {k4_occ['blocks_per_sm']} blocks of 128 per SM")
 
+    k5 = {name: check_k5(rng, dev, b, name) for name, b in (("b1", 1), ("b8", NOF_SLOTS))}
+    k5_err = max(r[3] for r in k5.values())
+    k5_occ = dl.occupancy(Modulation.QAM256, 4)
+    print(f"# [{card}] K5 demap_llrs, 256QAM x 4 layers: " + "; ".join(
+        f"{name} kernel {ms:.4f} ms, plain torch {pms:.4f} ms, bound {bd[0]:.5f} ms ({bd[1]})"
+        for name, (ms, pms, bd, _e) in k5.items())
+        + f"; {k5_occ['registers']} registers, {k5_occ['blocks_per_sm']} blocks of 128 per SM")
+
     k2_ms, k2_plain_ms, k2_bound = k2_times["group A"]
 
     def entry(name, src, replaces, err, ms, plain_ms, bd, **extra):
@@ -1348,6 +1359,11 @@ def kernel_phase(card: str):
         entry("demap_planes", "demap_planes.cu", "srsran_project_tpu/ops/demap_pallas.py:45",
               k4_err, *k4["b1"][:3], b8_ms=k4["b8"][0], b8_plain_ms=k4["b8"][1],
               b8_bound_ms=k4["b8"][2][0], **k4_occ),
+        entry("demap_llrs", "demap_llrs.cu",
+              "srsran_project_tpu_torch/phy/pusch.py:_demap_stage (eager demap_soft, "
+              "quantize_llr, descramble_llrs, evm)",
+              k5_err, *k5["b1"][:3], b8_ms=k5["b8"][0], b8_plain_ms=k5["b8"][1],
+              b8_bound_ms=k5["b8"][2][0], **k5_occ),
     ]
 
 
@@ -1419,6 +1435,58 @@ def check_k4(rng, dev, batch: int, name: str):
     return ms, plain_ms, bd, err
 
 
+def check_k5(rng, dev, batch: int, name: str):
+    """K5 against its plain version at the flagship's shape (39,312 data
+    REs, 4 layers, 256QAM) for ``batch`` slots of random symbols, noise and
+    Gold bits: LLRs and err2 bitwise equal.  Returns (kernel ms, plain ms,
+    bound, largest absolute difference from the plain version)."""
+    import torch
+
+    from srsran_project_tpu_torch.ops import demap_llrs as dl
+    from srsran_project_tpu_torch.ops.modulation import Modulation
+
+    nd, l, qm = 12 * 3276, 4, 8
+    x = rng.standard_normal((batch, nd, l, 2)) * 0.6
+    ins = (torch.from_numpy((x[..., 0] + 1j * x[..., 1]).astype(np.complex64)).to(dev),
+           torch.from_numpy((0.001 + 0.05 * rng.random((batch, nd, l))).astype(np.float32))
+           .to(dev),
+           torch.from_numpy(rng.integers(0, 2, size=(batch, nd * l * qm), dtype=np.uint8))
+           .to(dev))
+    err = check_k5_on(ins, Modulation.QAM256, 20.0, f"K5 {name}")
+    llr_k, err_k = dl.demap_llrs(*ins, Modulation.QAM256)
+    ms = kernel_ms(lambda: dl.demap_llrs(*ins, Modulation.QAM256), reps=50)
+    plain_ms = cuda_ms(lambda: dl.demap_llrs_plain(*ins, Modulation.QAM256), reps=10)
+    # Float32 operations a lane, as for K4 without the apply: 8 per PAM
+    # level (the distances and label min trees of both axes), 4 per bit.
+    lanes = batch * nd * l
+    bd = bound(nbytes(*ins, llr_k, err_k), lanes * (8.0 * 2 ** (qm // 2) + 4.0 * qm))
+    return ms, plain_ms, bd, err
+
+
+def check_k5_on(ins, mod, range_limit: float, what: str) -> float:
+    """K5 against its plain version on ``ins`` (x_hat, eq_nvar, Gold bits):
+    one launch, LLRs and err2 bitwise equal.  Returns the largest absolute
+    difference of the LLRs and err2 from the plain version."""
+    import torch
+
+    from srsran_project_tpu_torch.ops import demap_llrs as dl
+
+    before = dl.demap_llrs.launches
+    llr_k, err_k = dl.demap_llrs(*ins, mod, range_limit)
+    llr_p, err_p = dl.demap_llrs_plain(*ins, mod, range_limit)
+    torch.cuda.synchronize()
+    if dl.demap_llrs.launches != before + 1:
+        fail(f"{what}: not one launch")
+    err = max_abs_diff((llr_k, llr_p), (err_k, err_p))
+    if not math.isfinite(err):
+        fail(f"{what}: non-finite err2")
+    if not (torch.equal(llr_k, llr_p)
+            and torch.equal(err_k.view(torch.int32), err_p.view(torch.int32))):
+        fail(f"{what}: LLRs or err2 differ from the plain version (max {err:.3e})")
+    print(f"# {what} {tuple(ins[0].shape)}: LLRs and err2 bitwise equal to the plain version")
+    return err
+
+
 def check_k4_on(ins, mod, range_limit: float, what: str) -> float:
     """K4 against its plain version on ``ins`` (y, w, eq_nvar, Gold bits):
     one launch, planes and err2 bitwise equal.  Returns the largest
@@ -1477,7 +1545,8 @@ def slice_phase(card: str):
     import torch
 
     from srsran_project_tpu_torch.models import cell
-    from srsran_project_tpu_torch.ops import ofdm
+    from srsran_project_tpu_torch.ops import demap_llrs as dl
+    from srsran_project_tpu_torch.ops import ofdm, scrambling
     from srsran_project_tpu_torch.phy import pusch, sch as sch_mod
 
     dev = torch.device(DEVICE)
@@ -1495,12 +1564,19 @@ def slice_phase(card: str):
     torch.cuda.synchronize()
 
     reset_counts()
+    k5_before = dl.demap_llrs.launches
     out = cell.decode_slot(rx, RNTI, cfg)
     torch.cuda.synchronize()
     launches = read_counts()
     if len(sch_mod._e_groups(cfg.pusch_cfg.sch.cb_e_bits)) != 2:
         fail("flagship: want two E-groups, decoded by one K1 launch")
     expect_counts("flagship decode", launches, {"decode_dematch": 1, "mmse_weights_4x4": 1})
+    # K5 is counted on this path alone (the other paths' expectations
+    # predate it).
+    launches["demap_llrs"] = dl.demap_llrs.launches - k5_before
+    if launches["demap_llrs"] != 1:
+        fail(f"flagship decode: {launches['demap_llrs']} K5 launches, want 1")
+    print(f"# flagship decode: K5 launches {launches['demap_llrs']}")
     check_flagship(out, tb, cfg, "flagship")
 
     # Timing: per-slot encode and decode at batch 1 and 8 (device time
@@ -1519,6 +1595,8 @@ def slice_phase(card: str):
     gflat, h, nv = pusch._estimate_stage(grid, pc)
     x_hat, eq_nvar = pusch._equalize_stage(gflat, h, nv, pc)
     llr_i8, _ = pusch._demap_stage(x_hat, eq_nvar, rnti_t, pc)
+    c = scrambling.gold_sequence(pusch._pusch_c_init(rnti_t, pc.n_id), llr_i8.shape[-1])
+    check_k5_on((x_hat, eq_nvar, c), pc.modulation, pc.llr_range_limit, "flagship K5")
     bits, iters = sch_mod._fused_decode(llr_i8, pc.sch, pc.nof_ldpc_iterations, True)
     check_k1_batch(llr_i8, bits, iters, pc, "flagship")
     stages = {
@@ -5005,10 +5083,11 @@ def main(argv=None) -> int:
     # Each kernel's launches on the path it serves (one call of it), and
     # on every path.
     home = {"decode_dematch": "flagship", "mmse_weights_4x4": "flagship", "decode": "ul_slot",
-            "decode_dematch_planes": "plane", "demap_planes": "plane"}
+            "decode_dematch_planes": "plane", "demap_planes": "plane", "demap_llrs": "flagship"}
     for k in kernels:
         k["launches"] = per_path[home[k["name"]]][k["name"]]
-        k["launches_per_path"] = {path: c[k["name"]] for path, c in per_path.items()}
+        k["launches_per_path"] = {path: c[k["name"]] for path, c in per_path.items()
+                                  if k["name"] in c}
         k["max_abs_err"] = max(k["max_abs_err"], errs.get(k["name"], 0.0))
         if k["name"] in times5:  # device ms and bound at path 5's shapes
             k["shapes_ms"] = times5[k["name"]]

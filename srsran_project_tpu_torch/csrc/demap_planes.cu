@@ -17,7 +17,8 @@
 // layer, evaluates per axis the squared distances to the PAM levels and the
 // min tree of each bit label, and quantizes each LLR.  The constellation is
 // a template parameter:
-// its PAM levels and Gray labels are compile-time tables (Pam<M> below), so
+// its PAM levels and Gray labels are compile-time tables (Pam<M> in
+// demap_common.cuh, shared with K5), so
 // every min tree unrolls into a fixed sequence of fminf, as the TPU kernel
 // unrolls them over Python constants.  It descrambles from the Gold
 // sequence c itself (uint8, stream order): plane bit t of lane j = (s*nsc +
@@ -44,63 +45,18 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include "demap_common.cuh"
+
 namespace {
+
+using demap::axis_llrs;
+using demap::GoldBits;
+using demap::load_lanes;
+using demap::store_lanes;
 
 constexpr float kLlrMax = 120.0f;
 constexpr int kThreads = 128;
 constexpr int kMaxGrid = 65535;  // largest gridDim.y and gridDim.z
-
-// Per square QAM of 2M bits a symbol: the PAM levels of one axis, ascending,
-// and their Gray labels (bit t of a label is axis bit t), exactly as float32
-// values of ops/modulation/mapper.pam_levels.  Keep each table on its line:
-// tests/test_torch_demap_planes.py parses them and compares them with
-// pam_levels.
-template <int M>
-struct Pam;
-template <>
-struct Pam<1> {  // QPSK
-  __device__ static float level(int k) {
-    constexpr float kLevels[2] = {-0.707106769f, 0.707106769f};
-    return kLevels[k];
-  }
-  __device__ static int label(int k) {
-    constexpr int kLabels[2] = {1, 0};
-    return kLabels[k];
-  }
-};
-template <>
-struct Pam<2> {  // 16QAM
-  __device__ static float level(int k) {
-    constexpr float kLevels[4] = {-0.948683321f, -0.316227764f, 0.316227764f, 0.948683321f};
-    return kLevels[k];
-  }
-  __device__ static int label(int k) {
-    constexpr int kLabels[4] = {3, 1, 0, 2};
-    return kLabels[k];
-  }
-};
-template <>
-struct Pam<3> {  // 64QAM
-  __device__ static float level(int k) {
-    constexpr float kLevels[8] = {-1.08012342f, -0.77151674f, -0.462910056f, -0.154303357f, 0.154303357f, 0.462910056f, 0.77151674f, 1.08012342f};
-    return kLevels[k];
-  }
-  __device__ static int label(int k) {
-    constexpr int kLabels[8] = {7, 3, 1, 5, 4, 0, 2, 6};
-    return kLabels[k];
-  }
-};
-template <>
-struct Pam<4> {  // 256QAM
-  __device__ static float level(int k) {
-    constexpr float kLevels[16] = {-1.15044749f, -0.997054458f, -0.843661487f, -0.690268517f, -0.536875486f, -0.383482486f, -0.230089501f, -0.0766965002f, 0.0766965002f, 0.230089501f, 0.383482486f, 0.536875486f, 0.690268517f, 0.843661487f, 0.997054458f, 1.15044749f};
-    return kLevels[k];
-  }
-  __device__ static int label(int k) {
-    constexpr int kLabels[16] = {15, 7, 3, 11, 9, 1, 5, 13, 12, 4, 0, 8, 10, 2, 6, 14};
-    return kLabels[k];
-  }
-};
 
 struct Args {
   const float2* y;        // (B, P, nsym, nsc) complex64
@@ -113,39 +69,6 @@ struct Args {
   float* err2;            // (B, nsym, nsc * L)
 };
 
-// Per-axis LLRs (m1 - m0 per bit label) of v into out; returns the squared
-// distance to the nearest level.
-template <int M>
-__device__ __forceinline__ float axis_llrs(float v, float* out) {
-  constexpr int kLevels = 1 << M;
-  float d2[kLevels], dmin = 0.0f;
-#pragma unroll
-  for (int k = 0; k < kLevels; ++k) {
-    const float t = __fsub_rn(v, Pam<M>::level(k));
-    d2[k] = __fmul_rn(t, t);
-  }
-#pragma unroll
-  for (int t = 0; t < M; ++t) {
-    float m0 = 0.0f, m1 = 0.0f;
-    bool have0 = false, have1 = false;  // resolved at compile time
-#pragma unroll
-    for (int k = 0; k < kLevels; ++k) {
-      if ((Pam<M>::label(k) >> t) & 1) {
-        m1 = have1 ? fminf(m1, d2[k]) : d2[k];
-        have1 = true;
-      } else {
-        m0 = have0 ? fminf(m0, d2[k]) : d2[k];
-        have0 = true;
-      }
-    }
-    out[t] = __fsub_rn(m1, m0);
-    // Bit 0's two trees cover every level between them: their smaller
-    // minimum is the nearest level's distance, exactly (min is exact).
-    if (t == 0) dmin = fminf(m0, m1);
-  }
-  return dmin;
-}
-
 // x += w y as the plain version forms it: port 0 sets x, later ports add
 // each part's two products in turn.
 __device__ __forceinline__ void apply_port(float& xr, float& xi, float2 wv, float2 yv,
@@ -156,76 +79,6 @@ __device__ __forceinline__ void apply_port(float& xr, float& xi, float2 wv, floa
   } else {
     xr = __fsub_rn(__fadd_rn(xr, __fmul_rn(wv.x, yv.x)), __fmul_rn(wv.y, yv.y));
     xi = __fadd_rn(__fadd_rn(xi, __fmul_rn(wv.x, yv.y)), __fmul_rn(wv.y, yv.x));
-  }
-}
-
-// The NB Gold bytes of one subcarrier (NB = L*qm, always even), packed four
-// to a word, loaded with the widest vector that NB's alignment allows.
-template <int NB>
-struct GoldBits {
-  static constexpr int kVec = NB % 16 == 0 ? 16 : NB % 8 == 0 ? 8 : NB % 4 == 0 ? 4 : 2;
-  uint32_t word[(NB + 3) / 4];
-
-  __device__ __forceinline__ explicit GoldBits(const uint8_t* c) {
-    if constexpr (kVec == 16) {
-#pragma unroll
-      for (int i = 0; i < NB / 16; ++i) {
-        const uint4 v = reinterpret_cast<const uint4*>(c)[i];
-        word[4 * i] = v.x;
-        word[4 * i + 1] = v.y;
-        word[4 * i + 2] = v.z;
-        word[4 * i + 3] = v.w;
-      }
-    } else if constexpr (kVec == 8) {
-#pragma unroll
-      for (int i = 0; i < NB / 8; ++i) {
-        const uint2 v = reinterpret_cast<const uint2*>(c)[i];
-        word[2 * i] = v.x;
-        word[2 * i + 1] = v.y;
-      }
-    } else if constexpr (kVec == 4) {
-#pragma unroll
-      for (int i = 0; i < NB / 4; ++i) word[i] = reinterpret_cast<const uint32_t*>(c)[i];
-    } else {
-#pragma unroll
-      for (int i = 0; i < (NB + 3) / 4; ++i) word[i] = 0;
-#pragma unroll
-      for (int i = 0; i < NB / 2; ++i) {
-        const uint32_t v = reinterpret_cast<const uint16_t*>(c)[i];
-        word[i / 2] |= v << (16 * (i % 2));
-      }
-    }
-  }
-
-  __device__ __forceinline__ bool operator()(int k) const {
-    return (word[k / 4] >> (8 * (k % 4))) & 1u;
-  }
-};
-
-// L consecutive floats, as one vector where L allows.
-template <int L>
-__device__ __forceinline__ void load_lanes(const float* src, float* v) {
-  if constexpr (L == 4) {
-    const float4 x = *reinterpret_cast<const float4*>(src);
-    v[0] = x.x, v[1] = x.y, v[2] = x.z, v[3] = x.w;
-  } else if constexpr (L == 2) {
-    const float2 x = *reinterpret_cast<const float2*>(src);
-    v[0] = x.x, v[1] = x.y;
-  } else {
-#pragma unroll
-    for (int l = 0; l < L; ++l) v[l] = src[l];
-  }
-}
-
-template <int L>
-__device__ __forceinline__ void store_lanes(float* dst, const float* v) {
-  if constexpr (L == 4) {
-    *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
-  } else if constexpr (L == 2) {
-    *reinterpret_cast<float2*>(dst) = make_float2(v[0], v[1]);
-  } else {
-#pragma unroll
-    for (int l = 0; l < L; ++l) dst[l] = v[l];
   }
 }
 

@@ -2,7 +2,7 @@
 
 Each ``csrc/*.cu`` file is compiled by its own ``nvcc`` into a shared
 library with a plain C interface, loaded with ``ctypes``; the compilers
-run side by side (5.2-5.6 s for the four sources on an H100 host, against
+run side by side (5.2-5.6 s for four sources on an H100 host, against
 11.3-13.2 s for one ``nvcc`` over all of them).  The build happens at first use, into ``build/`` at the
 repository root, in a directory named by a hash of every source and
 header and of the flags, so a changed source rebuilds.  ``--fmad=false``
@@ -68,6 +68,13 @@ _SIGNATURES = {
             _P, _P,  # planes (B, qm, S*N*L) int8, err2 (B, S, N*L) f32
             _P),  # stream
         "demap_planes_occupancy": (_I, _I, _P, _P)},  # qm, L, registers, blocks per SM
+    "demap_llrs.cu": {
+        "demap_llrs": (
+            _P, _P, _P,  # x_hat (B, ndata, L) c64, eq_nvar (B, ndata, L) f32, Gold bits u8
+            _L, _I, _I, _F,  # rows B*ndata, L, qm, scale
+            _P, _P,  # llr (B, ndata*L*qm) int8, err2 (B, ndata*L) f32
+            _P),  # stream
+        "demap_llrs_occupancy": (_I, _I, _P, _P)},  # qm, L, registers, blocks per SM
 }
 
 

@@ -21,16 +21,22 @@ _levels_on = device_table(lambda mod: pam_levels(mod)[0].astype(np.float32))
 _points_on = device_table(constellation)
 
 
-def evm(symbols: torch.Tensor, mod: Modulation) -> torch.Tensor:
-    """RMS EVM of (..., S) symbols against the nearest constellation point
-    -> (...,) float32."""
+def nearest_err2(symbols: torch.Tensor, mod: Modulation) -> torch.Tensor:
+    """Squared distance of each of the (..., S) symbols to the nearest
+    constellation point -> (..., S) float32."""
     if mod not in SQUARE_QAM:
         d = symbols[..., None] - _points_on(symbols.device, mod)
-        return torch.sqrt((d.abs() ** 2).amin(dim=-1).mean(dim=-1))
+        return (d.abs() ** 2).amin(dim=-1)
     levels = _levels_on(symbols.device, mod)
     err_re = ((symbols.real[..., None] - levels) ** 2).amin(dim=-1)
     err_im = ((symbols.imag[..., None] - levels) ** 2).amin(dim=-1)
-    return torch.sqrt((err_re + err_im).mean(dim=-1))
+    return err_re + err_im
+
+
+def evm(symbols: torch.Tensor, mod: Modulation) -> torch.Tensor:
+    """RMS EVM of (..., S) symbols against the nearest constellation point
+    -> (...,) float32."""
+    return torch.sqrt(nearest_err2(symbols, mod).mean(dim=-1))
 
 
 def hard_decision_bits(symbols: torch.Tensor, mod: Modulation) -> torch.Tensor:

@@ -119,8 +119,13 @@ def scramble_bits(bits: torch.Tensor, c_init: torch.Tensor) -> torch.Tensor:
 
 
 def descramble_llrs(llrs: torch.Tensor, c_init: torch.Tensor) -> torch.Tensor:
-    """Flip the sign of (..., N) int8 LLRs where the sequence bit is 1; a
-    flipped -128 saturates to +127 to stay in int8."""
-    seq = gold_sequence(c_init, llrs.shape[-1])
+    """Flip the sign of (..., N) int8 LLRs where the sequence bit of the
+    (...,) seeds is 1 (``flip_llrs``)."""
+    return flip_llrs(llrs, gold_sequence(c_init, llrs.shape[-1]))
+
+
+def flip_llrs(llrs: torch.Tensor, seq: torch.Tensor) -> torch.Tensor:
+    """Flip the sign of (..., N) int8 LLRs where the (..., N) sequence bit
+    is 1; a flipped -128 saturates to +127 to stay in int8."""
     flipped = torch.where(llrs == -128, 127, -(llrs.to(torch.int16))).to(torch.int8)
     return torch.where(seq == 1, flipped, llrs)

@@ -11,9 +11,9 @@ MMSE or ZF weights (4x4 MMSE: kernel K3; every other rank and port count:
 ``equalize_weights``) applied across full data rows, or the per-RE
 ``equalize`` where data shares the DM-RS symbols (``_equalize_stage``),
 the DFT-s-OFDM deprecode (``_deprecode_stage``), the float max-log
-demapper (BPSK, pi/2-BPSK, QPSK, square QAM) with int8 quantization,
-descrambling, the PT-RS LLR erasure and post-equalization SINR
-(``_demap_stage``; ``sinr_method="channel_estimator"`` reports the
+demapper (BPSK, pi/2-BPSK, QPSK, square QAM; kernel K5 for QPSK and
+square QAM) with int8 quantization, descrambling, the PT-RS LLR erasure
+and post-equalization SINR (``_demap_stage``; ``sinr_method="channel_estimator"`` reports the
 estimator's pilot SNR instead), and the back end with UCI on PUSCH
 (HARQ-ACK, CSI parts 1 and 2 demultiplexed and decoded, two-step CSI whose part-2 size
 follows the decoded RI, ``phy/ulsch_demux``) and HARQ (``finish``).  ``process`` decodes one grant per slot,
@@ -43,12 +43,14 @@ import torch
 
 from ..ops import estimator_reftorch, scrambling, transform_precoding
 from ..ops._tables import device_table
+from ..ops.demap_llrs import demap_llrs, quantized_llrs
 from ..ops.demap_planes import demap_planes
 from ..ops.equalizer import equalize, equalize_ref, equalize_weights, mmse_weights_4x4
 from ..ops.estimator import channel_metrics, estimate_h
-from ..ops.modulation import Modulation, demap_soft, quantize_llr
+from ..ops.modulation import Modulation
 from ..ops.modulation.demapper_i8 import demap_llr_i8
-from ..ops.modulation.evm import evm
+from ..ops.modulation.evm import nearest_err2
+from ..ops.modulation.mapper import SQUARE_QAM
 from ..ran import csi as csi_mod
 from ..ran import dmrs as dmrs_mod
 from ..ran import ulsch_info
@@ -550,21 +552,33 @@ def _demap_stage(x_hat: torch.Tensor, eq_nvar: torch.Tensor, rnti: torch.Tensor,
                  cfg: PuschConfig):
     """Soft demap + de-layer-map + quantize + descramble (+ the PT-RS
     erasure), and the decision-directed post-equalization SINR ->
-    (llr_i8 (B, G), sinr (B,))."""
-    with l1_tracer.span("pusch.demap"):
-        b, _, nl = x_hat.shape
+    (llr_i8 (B, G), sinr (B,)).  The float demapper on QPSK and square QAM
+    runs kernel K5 (``demap_llrs``) on a CUDA tensor; BPSK, pi/2-BPSK and
+    ``demapper="reference"`` run eager.  The span counts the ``lanes``
+    (B * ndata * nl) and the ``kernel_lanes`` K5 demapped."""
+    with l1_tracer.span("pusch.demap") as span:
+        b, ndata, nl = x_hat.shape
         qm = cfg.sch.qm
-        if cfg.demapper == "reference":
-            # RE-major layer interleave = the codeword order.
-            llr_i8 = demap_llr_i8(x_hat.reshape(b, -1), eq_nvar.reshape(b, -1), cfg.modulation)
+        c_init = _pusch_c_init(rnti, cfg.n_id)
+        fused = cfg.demapper != "reference" and cfg.modulation in SQUARE_QAM
+        if fused:  # kernel K5 on a CUDA tensor, its plain version on the CPU
+            c = scrambling.gold_sequence(c_init, ndata * nl * qm)
+            llr_i8, err2 = demap_llrs(x_hat.contiguous(), eq_nvar.contiguous(), c,
+                                      cfg.modulation, cfg.llr_range_limit)
         else:
-            llr = demap_soft(x_hat.transpose(1, 2), eq_nvar.transpose(1, 2), cfg.modulation)
-            llr = llr.reshape(b, nl, -1, qm).transpose(1, 2).reshape(b, -1)  # (B, G)
-            llr_i8 = quantize_llr(llr, cfg.llr_range_limit)
-        llr_i8 = scrambling.descramble_llrs(llr_i8, _pusch_c_init(rnti, cfg.n_id))
+            if cfg.demapper == "reference":
+                # RE-major layer interleave = the codeword order.
+                llr_i8 = demap_llr_i8(x_hat.reshape(b, -1), eq_nvar.reshape(b, -1),
+                                      cfg.modulation)
+            else:  # BPSK, pi/2-BPSK
+                llr_i8 = quantized_llrs(x_hat, eq_nvar, cfg.modulation, cfg.llr_range_limit)
+            llr_i8 = scrambling.descramble_llrs(llr_i8, c_init)
+            err2 = nearest_err2(x_hat.reshape(b, -1), cfg.modulation)
+        lanes = b * ndata * nl
+        span.count(lanes=lanes, kernel_lanes=lanes if fused and x_hat.is_cuda else 0)
         if cfg.ptrs_enabled:
             llr_i8 = llr_i8.index_fill(-1, _ptrs_bits_on(llr_i8.device, cfg), 0)
-        e = evm(x_hat.reshape(b, -1), cfg.modulation)
+        e = torch.sqrt(err2.mean(dim=-1))
         return llr_i8, 1.0 / torch.clamp_min(e * e, 1e-12)
 
 

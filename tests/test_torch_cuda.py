@@ -13,8 +13,10 @@ none; there, skip the suite's conftest (which pins JAX to the CPU):
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
 Tolerances: K1 and K2 bits, a-posteriori LLRs and iteration counts exact;
-K3's W and eq_nvar and K4's planes and err2 bitwise (both sides round the
-same float operations in the same order);
+K3's W and eq_nvar, K4's planes and err2, and K5's LLRs, err2 and the
+SINR made from them bitwise (both sides round the same float operations
+in the same order), and so the slot entries with K5 and with its plain
+version on the card;
 IQ 1e-4 x RMS and int8 LLRs within +-1 (cuFFT and pocketfft round
 differently); TB bits and CRC exact; noise_var and SINR 1e-3 relative;
 HARQ buffers within +-2 (two +-1 LLRs combined); UCI codewords, decoded
@@ -25,14 +27,17 @@ same int8-valued LLRs (every sum is an integer, exact in any order).
 import numpy as np
 import pytest
 import torch
+from test_torch_demap_llrs import SQUARE, _inputs
 from torch_parity import RETX_UE, SLOT_PLAN, cuda_device, small_slot, to_np, to_torch  # noqa: F401
 
 from srsran_project_tpu_torch.models import cell
+from srsran_project_tpu_torch.ops import demap_llrs as dl
 from srsran_project_tpu_torch.ops import demap_planes as dp
 from srsran_project_tpu_torch.ops import equalizer, ofdm, short_block, uci
 from srsran_project_tpu_torch.ops.ldpc import decoder
 from srsran_project_tpu_torch.ops.modulation import Modulation
 from srsran_project_tpu_torch.phy import pusch, sch, ul_slot
+from srsran_project_tpu_torch.support import tracing
 
 pytestmark = pytest.mark.cuda
 
@@ -197,14 +202,139 @@ def test_k4_matches_plain(cuda_device, mod, l, p, n):  # noqa: F811
     np.testing.assert_array_equal(to_np(err_k).view(np.int32), to_np(err_p).view(np.int32))
 
 
+def _sinr(err2: torch.Tensor) -> torch.Tensor:
+    """The demap stage's SINR of per-lane squared distances."""
+    e = torch.sqrt(err2.mean(dim=-1))
+    return 1.0 / torch.clamp_min(e * e, 1e-12)
+
+
+@pytest.mark.parametrize("range_limit", [20.0, 7.5])
+@pytest.mark.parametrize("batch", [1, 3])
+@pytest.mark.parametrize("layers", [1, 2, 3, 4])
+@pytest.mark.parametrize("mod", SQUARE, ids=lambda m: m.name)
+def test_k5_matches_plain(cuda_device, mod, layers, batch, range_limit):  # noqa: F811
+    """K5 equals its plain version on the card bitwise (LLRs, err2 and the
+    SINR made from err2) in one launch, on the CPU tests' inputs: symbols
+    on the quantizer's half-points, saturating LLRs, tiny eq_nvar."""
+    x, ev, c_init = _inputs(mod, layers, batch)
+    from srsran_project_tpu_torch.ops import scrambling
+
+    c = scrambling.gold_sequence(c_init, x.shape[1] * layers * int(mod))
+    ins = [t.to(cuda_device) for t in (x, ev, c)]
+    before = dl.demap_llrs.launches
+    llr_k, err_k = dl.demap_llrs(*ins, mod, range_limit)
+    assert dl.demap_llrs.launches == before + 1
+    llr_p, err_p = dl.demap_llrs_plain(*ins, mod, range_limit)
+    np.testing.assert_array_equal(to_np(llr_k), to_np(llr_p))
+    np.testing.assert_array_equal(to_np(err_k).view(np.int32), to_np(err_p).view(np.int32))
+    np.testing.assert_array_equal(to_np(_sinr(err_k)).view(np.int32),
+                                  to_np(_sinr(err_p)).view(np.int32))
+    llr_c, err_c = dl.demap_llrs_plain(x, ev, c, mod, range_limit)  # the CPU's
+    np.testing.assert_array_equal(to_np(llr_k), to_np(llr_c))
+    np.testing.assert_array_equal(to_np(err_k).view(np.int32), to_np(err_c).view(np.int32))
+
+
+def test_k5_at_the_flagship_in_the_demap_stage(cuda_device, monkeypatch):  # noqa: F811
+    """``_demap_stage`` at the flagship's shape (8 slots, 39,312 data REs,
+    4 layers, 256QAM) launches K5 once a call, its span's ``kernel_lanes``
+    equals ``lanes``, and its LLRs and SINR equal the stage's with K5's
+    plain version on the card; the LLRs equal the CPU's."""
+    cfg = cell.CellConfig().pusch_cfg
+    rng = np.random.default_rng(4)
+    b, nd, nl = 8, 39312, 4
+    x = ((rng.standard_normal((b, nd, nl)) + 1j * rng.standard_normal((b, nd, nl))) * 0.6
+         ).astype(np.complex64)
+    ev = (0.001 + 0.05 * rng.random((b, nd, nl))).astype(np.float32)
+    rnti = torch.arange(0x4601, 0x4601 + b)
+    ins = (to_torch(x).to(cuda_device), to_torch(ev).to(cuda_device), rnti.to(cuda_device))
+    tracer = tracing.l1_tracer
+    monkeypatch.setattr(tracer, "_kept", [])
+    monkeypatch.setattr(tracer, "enabled", True)
+    before = dl.demap_llrs.launches
+    llr_k, sinr_k = pusch._demap_stage(*ins, cfg)
+    assert dl.demap_llrs.launches == before + 1
+    counts = tracer.take().totals["pusch.demap"].counts
+    assert counts == {"lanes": b * nd * nl, "kernel_lanes": b * nd * nl}
+    monkeypatch.setattr(pusch, "demap_llrs", dl.demap_llrs_plain)
+    llr_p, sinr_p = pusch._demap_stage(*ins, cfg)
+    assert dl.demap_llrs.launches == before + 1
+    np.testing.assert_array_equal(to_np(llr_k), to_np(llr_p))
+    np.testing.assert_array_equal(to_np(sinr_k).view(np.int32), to_np(sinr_p).view(np.int32))
+    llr_c, _ = pusch._demap_stage(to_torch(x), to_torch(ev), rnti, cfg)
+    np.testing.assert_array_equal(to_np(llr_k), to_np(llr_c))
+
+
+def _entry_runs(entry):
+    """(run(device) -> outputs to compare, the number of demap stages a
+    call) for the 24-PRB 4x4 slice's ``decode_slot`` and the small
+    multi-UE slot's ``process_slot``."""
+    if entry == "decode_slot":
+        cfg = cell.CellConfig(nof_rb=24, nof_ports=4, nof_layers=4)
+        rng = np.random.default_rng(1)
+        tb = torch.from_numpy(rng.integers(0, 2, size=(2, cfg.tbs), dtype=np.uint8))
+        rnti = torch.tensor([0x4601, 0x4602])
+        iq = cell.encode_slot(tb, rnti, torch.eye(4, dtype=torch.complex64), cfg)
+        rms = float(iq.abs().pow(2).mean().sqrt())
+        noise = ((rng.standard_normal(iq.shape) + 1j * rng.standard_normal(iq.shape))
+                 * np.sqrt(0.5) * rms * 10 ** (-30 / 20)).astype(np.complex64)
+        rx = iq + to_torch(noise)
+
+        def run(dev):
+            out = cell.decode_slot(rx.to(dev), rnti.to(dev), cfg)
+            return {k: out[k] for k in ("tb_bits", "tb_crc_ok", "noise_var", "snr_db")}
+        return run, 1
+    cfgs, _tbs, grid = small_slot()
+
+    def run(dev):
+        pdus = [ul_slot.UlSlotPdu(rnti=r, first_rb=rb0, config=c)
+                for (r, rb0, _n, _m), c in zip(SLOT_PLAN, cfgs)]
+        outs, _, _ = ul_slot.process_slot(grid.to(dev), pdus)
+        return {f"{i}.{k}": o[k] for i, o in enumerate(outs)
+                for k in ("tb_bits", "tb_crc_ok", "noise_var", "snr_db", "harq_buffer")}
+    return run, None
+
+
+@pytest.mark.parametrize("entry", ["decode_slot", "process_slot"])
+def test_entries_with_k5_match_plain_route_on_card(cuda_device, monkeypatch, entry):  # noqa: F811
+    """``decode_slot`` and ``process_slot`` on the card launch K5 once per
+    demap stage, and give what they give with K5's plain version in its
+    place on the card, bitwise (TB bits, CRC, noise, SINR, HARQ buffers);
+    TB bits and CRC verdicts equal the CPU's."""
+    run, want_stages = _entry_runs(entry)
+    stages = []
+    real_stage = pusch._demap_stage
+    monkeypatch.setattr(pusch, "_demap_stage",
+                        lambda *a: stages.append(1) or real_stage(*a))
+    before = dl.demap_llrs.launches
+    got = run(cuda_device)
+    assert dl.demap_llrs.launches - before == len(stages) >= 1
+    if want_stages is not None:
+        assert len(stages) == want_stages
+    with monkeypatch.context() as m:
+        m.setattr(pusch, "demap_llrs", dl.demap_llrs_plain)
+        plain = run(cuda_device)
+    assert dl.demap_llrs.launches - before == len(stages) // 2
+    for k in got:
+        a, b = to_np(got[k]), to_np(plain[k])
+        if a.dtype == np.float32:
+            a, b = a.view(np.int32), b.view(np.int32)
+        np.testing.assert_array_equal(a, b, err_msg=k)
+    cpu = run("cpu")
+    for k in got:
+        if k.endswith("tb_bits") or k.endswith("tb_crc_ok"):
+            np.testing.assert_array_equal(to_np(got[k]), to_np(cpu[k]), err_msg=k)
+
+
 def test_k3_k4_occupancy_on_card(cuda_device):  # noqa: F811
-    """The occupancy entry points answer for K3 and every K4 instance."""
+    """The occupancy entry points answer for K3 and every K4 and K5
+    instance."""
     k3 = equalizer.occupancy()
     assert k3["registers"] > 0 and k3["blocks_per_sm"] >= 1
     for mod in (Modulation.QPSK, Modulation.QAM16, Modulation.QAM64, Modulation.QAM256):
         for l in (1, 2, 3, 4):
-            k4 = dp.occupancy(mod, l)
-            assert k4["registers"] > 0 and k4["blocks_per_sm"] >= 1, (mod, l, k4)
+            for occupancy in (dp.occupancy, dl.occupancy):
+                k = occupancy(mod, l)
+                assert k["registers"] > 0 and k["blocks_per_sm"] >= 1, (mod, l, k)
 
 
 def test_k1_plane_layout_on_card(cuda_device):  # noqa: F811

@@ -112,9 +112,12 @@ _PAM_TABLE = re.compile(
 
 
 def test_k4_constellation_tables_match_pam_levels():
-    """K4's compile-time PAM levels and Gray labels (csrc/demap_planes.cu)
-    are pam_levels' float32 values, for every square QAM."""
-    src = (pathlib.Path(tdp.__file__).resolve().parent.parent / "csrc" / "demap_planes.cu")
+    """K4's compile-time PAM levels and Gray labels (csrc/demap_common.cuh,
+    which K4 includes and shares with K5) are pam_levels' float32 values,
+    for every square QAM."""
+    csrc = pathlib.Path(tdp.__file__).resolve().parent.parent / "csrc"
+    assert '#include "demap_common.cuh"' in (csrc / "demap_planes.cu").read_text()
+    src = csrc / "demap_common.cuh"
     tables = {int(m): (lv, lab) for m, lv, lab in _PAM_TABLE.findall(src.read_text())}
     assert sorted(tables) == [1, 2, 3, 4]
     for mod in (Modulation.QPSK, Modulation.QAM16, Modulation.QAM64, Modulation.QAM256):
