@@ -609,10 +609,13 @@ def ul4_pucch():
     f1 = dict(start_symbol=0, nof_symbols=14, occ_index=0, n_id=UL4_NID, nof_grid_sc=nsc)
     f0 = dict(start_symbol=12, nof_symbols=2, initial_cyclic_shift=0, n_id=UL4_NID,
               nof_grid_sc=nsc)
-    # F1 #1 starts on PRB 267, not on F1 #0's PRB: the F1 detector (the
-    # reference's) estimates the channel per subcarrier, so a second F1 on
-    # the same PRB, whatever its cyclic shift, adds its own d |h|^2 to the
-    # correlation and pulls rho under the DTX threshold.
+    # F1 #1 starts on PRB 267, not on F1 #0's PRB: the lone-occasion F1
+    # detector (``pucch.format1_detect``, the reference's) estimates the
+    # channel per subcarrier, so a second F1 on the same PRB would add its
+    # own d |h|^2 to the correlation and pull rho under the DTX threshold.
+    # Occasions that share a resource go through the batch detector instead
+    # (``pucch.format1_detect_all``, the routing ``ul_slot.process_slot`` and
+    # ``UpperPhy`` take); this path keeps one occasion a resource.
     return ((pucch.PucchFormat1Config(prb=266, initial_cyclic_shift=0, nof_harq_bits=1, **f1),
              pucch.PucchFormat1Config(prb=267, initial_cyclic_shift=6, nof_harq_bits=2,
                                       second_hop_prb=272, **f1)),

@@ -29,6 +29,7 @@ import torch
 
 from ..ops._tables import device_table
 from ..ops.lower_phy import KAPPA_S, PRACH_PREAMBLES
+from ..support.tracing import l1_tracer
 
 # Zero-correlation-zone -> N_CS, long preambles, unrestricted set
 # (TS 38.211 Table 6.3.3.1-5).
@@ -176,7 +177,16 @@ def detect(rx_fd: torch.Tensor, cfg: PrachConfig) -> dict:
     subcarriers rx_fd (nof_rx_ports, L_RA) complex64.  Returns a dict of
     tensors on rx_fd's device: detected (64,) bool, metric (64,) float32
     and ta_samples (64,) float32, the delay in bins of the
-    dft_size-point profile."""
+    dft_size-point profile.  In the span ``prach.detect``, with counts
+    ``roots`` and ``detected`` (a device count, read when the spans are
+    taken)."""
+    with l1_tracer.span("prach.detect") as span:
+        out = _detect(rx_fd, cfg)
+        span.count(roots=cfg.nof_roots, detected=out["detected"])
+        return out
+
+
+def _detect(rx_fd: torch.Tensor, cfg: PrachConfig) -> dict:
     dev = rx_fd.device
     c = rx_fd[None, :, :] * _roots_on(dev, cfg)[:, None, :]  # (nroot, P, L)
     pdp = torch.fft.ifft(c, n=cfg.dft_size, dim=-1).abs() ** 2

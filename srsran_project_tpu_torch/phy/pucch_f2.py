@@ -23,6 +23,7 @@ from ..ops._tables import device_table
 from ..ops.estimator import estimate_channel
 from ..ops.modulation import Modulation, demap_soft, map_bits
 from ..ran.constants import NRE
+from ..support.tracing import l1_tracer
 
 
 @dataclasses.dataclass(frozen=True)
@@ -120,7 +121,15 @@ _sc_on = device_table(lambda cfg, si: _data_subcarriers(cfg)[si].astype(np.int64
 
 def process(grid: torch.Tensor, cfg: PucchFormat2Config):
     """(P, nsym, nsc) received grid -> (uci_bits (nof_uci_bits,) uint8, ok
-    bool, snr_db float32)."""
+    bool, snr_db float32), in the span ``pucch.f2`` (counts ``occasions``
+    and the UCI code: ``polar`` or ``short_block``)."""
+    with l1_tracer.span("pucch.f2") as span:
+        short = cfg.nof_uci_bits <= 11
+        span.count(occasions=1, polar=int(not short), short_block=int(short))
+        return _process(grid, cfg)
+
+
+def _process(grid: torch.Tensor, cfg: PucchFormat2Config):
     p = cfg.nof_rx_ports
     dev = grid.device
     gflat = grid.reshape(p, -1)

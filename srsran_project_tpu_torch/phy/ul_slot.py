@@ -10,10 +10,13 @@ one rate dematch + HARQ combine, and the LDPC decode batches every
 group's codeblocks per (base graph, Z, iterations, early stop, n_cb) into
 ONE launch of kernel K2.  Then desegment + CRC per group, the results
 scatter back to input order, and the PUCCH occasions are detected on the
-same grid.  Any allocation shape and waveform of ``pusch`` runs here
-(data on the DM-RS symbols, DM-RS type 2, PT-RS, DFT-s-OFDM), with each
-grant's own CFO compensation and TA; two-step CSI grants are sent away
-with ValueError, as the reference's slot does.
+same grid: F1 occasions that share a resource (PRBs, symbols, hopping id)
+are code-multiplexed and go through ``pucch.format1_detect_batch``, one
+call a resource, a lone F1 occasion through ``pucch.format1_detect``
+(``pucch.format1_detect_all``).  Any allocation shape and waveform of
+``pusch`` runs here (data on the DM-RS symbols, DM-RS type 2, PT-RS,
+DFT-s-OFDM), with each grant's own CFO compensation and TA; two-step CSI
+grants are sent away with ValueError, as the reference's slot does.
 """
 
 from __future__ import annotations
@@ -148,9 +151,10 @@ def process_slot(grid: torch.Tensor, pdus: list, f1_cfgs=(), f0_cfgs=(), f2_cfgs
     as the reference does: results[i] is a dict per input PDU (tb_bits,
     tb_crc_ok, harq_buffer, noise_var, snr_db, with UCI harq_ack_bits,
     csi1_bits, csi2_bits and their _ok flags, with compute_ta ta_s: each
-    grant's own); f1_results[j] is (bits,
-    metric); f0_results[k] is (value, metric); f2_results[m] is
-    (uci_bits, ok, snr_db)."""
+    grant's own); f1_results[j] is (bits, metric), through
+    ``pucch.format1_detect_all`` (F1 occasions on one resource detected
+    together by cyclic shift and OCC); f0_results[k] is (value, metric);
+    f2_results[m] is (uci_bits, ok, snr_db)."""
     with l1_tracer.span("ul_slot.process_slot") as span:
         span.count(slots=1)
         groups = _config_groups(pdus)
@@ -175,7 +179,7 @@ def process_slot(grid: torch.Tensor, pdus: list, f1_cfgs=(), f0_cfgs=(), f2_cfgs
                     "snr_db": 10.0 * torch.log10(torch.clamp_min(snrs[k], 1e-12)),
                     **{key: v[k] for key, v in extra.items()},
                 }
-        f1_outs = [pucch_mod.format1_detect(grid, f1)[::2] for f1 in f1_cfgs]
+        f1_outs = pucch_mod.format1_detect_all(grid, f1_cfgs)
         f0_outs = [pucch_mod.format0_detect(grid, f0)[:2] for f0 in f0_cfgs]
         if f2_cfgs:
             return results, f1_outs, f0_outs, [f2_mod.process(grid, f2) for f2 in f2_cfgs]

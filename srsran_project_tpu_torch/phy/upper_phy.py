@@ -11,7 +11,16 @@ asks for it), RxData, UCI, SRS, RACH and error indications (compact
 PUSCH grants and the PUCCH occasions through ``ul_slot.process_slot``,
 the others through ``pusch.process``, PRACH through ``prach.detect``
 after everything else; PUCCH F3/F4 get an error indication, as in the
-reference).  HARQ
+reference).  F1 occasions that share a resource (PRBs, symbols, hopping
+id) are code-multiplexed by cyclic shift and OCC and go through
+``pucch.format1_detect_batch``, one call a resource; a lone F1 occasion
+goes through ``pucch.format1_detect`` (``pucch.format1_detect_all``,
+inside the slot program or, without one, here).  The call is the span
+``upper_phy.process_ul_tti`` (counts ``slots`` and the PDUs of each
+channel); the host's assembly of the indications is the span
+``upper_phy.indications``, whose count ``host_syncs`` is the number of
+device values it reads on the host (``_host``; each waits for the
+device).  HARQ
 soft bits live in a ``HarqBufferPool`` keyed like the reference's
 trx_buffer_identifier (rnti, harq id).
 
@@ -28,6 +37,7 @@ import numpy as np
 import torch
 
 from ..fapi import messages as fapi
+from ..support.tracing import l1_tracer
 from . import dl_slot as dl_slot_mod
 from . import pdcch as pdcch_mod
 from . import pdsch as pdsch_mod
@@ -75,7 +85,15 @@ class HarqBufferPool:
         self._buffers.pop((rnti, harq_id), None)
 
 
-def _host(x: torch.Tensor) -> np.ndarray:
+# Tensors read on the host, each a wait for the device: the span
+# ``upper_phy.indications`` counts its own as ``host_syncs``.
+_host_reads = [0]
+
+
+def _host(x) -> np.ndarray:
+    if not isinstance(x, torch.Tensor):
+        return np.asarray(x)
+    _host_reads[0] += 1
     return x.detach().cpu().numpy()
 
 
@@ -197,6 +215,13 @@ class UpperPhy:
         demodulated preamble subcarriers (``lower_phy.prach_demodulate``)
         for the request's PRACH PDUs; without it each PRACH PDU gets an
         error indication."""
+        with l1_tracer.span("upper_phy.process_ul_tti") as span:
+            span.count(slots=1, pusch=len(request.pusch), pucch=len(request.pucch),
+                       prach=len(request.prach))
+            return self._process_ul_tti(request, rx_grid, prach_fd)
+
+    def _process_ul_tti(self, request: fapi.UlTtiRequest, rx_grid: torch.Tensor,
+                        prach_fd: torch.Tensor | None) -> fapi.SlotResults:
         rx_grid = self._check_grid(rx_grid)
         if prach_fd is not None:
             prach_fd = self._check_grid(prach_fd)
@@ -212,21 +237,32 @@ class UpperPhy:
             file_vector.write_vector(f"{self.cfg.rx_symbols_filename}.{request.slot.count}",
                                      _host(rx_grid).reshape(-1), "cbf16")
         outs, pucch_outs = self._decode_pusch(request, rx_grid)
-        for pdu, out in zip(request.pusch, outs):
-            self._pusch_indications(res, pdu, out)
-        for j, pdu in enumerate(request.pucch):
-            self._pucch_indication(res, request, rx_grid, j, pdu, pucch_outs)
-        for pdu in request.srs:
-            est = srs_mod.estimate(rx_grid, pdu.config)
-            snr = float(est["epre"].mean()) / max(float(est["noise_var"].mean()), 1e-12)
-            res.srs.append(fapi.SrsIndicationPdu(pdu.rnti, 10.0 * np.log10(max(snr, 1e-12)),
-                                                 float(est["phase_slope"].mean()),
-                                                 _host(est["h"])))
-        for pdu in request.prach:
-            if prach_fd is None:
-                res.errors.append(fapi.ErrorIndication(request.slot, "PRACH requested, no buffer"))
-                continue
-            rach_indications(res, prach_mod.detect(prach_fd, pdu.config))
+        # F1 occasions the slot program did not take: all of them at once,
+        # so that those on one resource are detected together.
+        f1_left = [j for j, pp in enumerate(request.pucch)
+                   if isinstance(pp.config, pucch_mod.PucchFormat1Config) and j not in pucch_outs]
+        pucch_outs.update(zip(f1_left, pucch_mod.format1_detect_all(
+            rx_grid, [request.pucch[j].config for j in f1_left])))
+        with l1_tracer.span("upper_phy.indications") as span:
+            reads = _host_reads[0]
+            for pdu, out in zip(request.pusch, outs):
+                self._pusch_indications(res, pdu, out)
+            for j, pdu in enumerate(request.pucch):
+                self._pucch_indication(res, request, rx_grid, j, pdu, pucch_outs)
+            for pdu in request.srs:
+                est = srs_mod.estimate(rx_grid, pdu.config)
+                snr = float(_host(est["epre"].mean())) / max(float(_host(est["noise_var"].mean())),
+                                                            1e-12)
+                res.srs.append(fapi.SrsIndicationPdu(pdu.rnti, 10.0 * np.log10(max(snr, 1e-12)),
+                                                     float(_host(est["phase_slope"].mean())),
+                                                     _host(est["h"])))
+            for pdu in request.prach:
+                if prach_fd is None:
+                    res.errors.append(fapi.ErrorIndication(request.slot,
+                                                           "PRACH requested, no buffer"))
+                    continue
+                rach_indications(res, prach_mod.detect(prach_fd, pdu.config))
+            span.count(host_syncs=_host_reads[0] - reads)
         self._notify("ul_results", request.slot, res)
         return res
 
@@ -277,15 +313,15 @@ class UpperPhy:
     def _pusch_indications(self, res: fapi.SlotResults, pdu, out: dict) -> None:
         """CRC, UCI and RxData indications of one PUSCH PDU, and its HARQ
         buffer kept (CRC failed) or released (CRC passed)."""
-        ok = bool(out["tb_crc_ok"])
+        ok = bool(_host(out["tb_crc_ok"]))
         for bits_key, ok_key in ("harq_ack_bits", "harq_ack_ok"), ("csi1_bits", "csi1_ok"), \
                                 ("csi2_bits", "csi2_ok"):
             if bits_key in out:
                 res.uci.append(fapi.UciIndicationPdu(pdu.rnti, _host(out[bits_key]),
-                                                     bool(out[ok_key]), 0.0))
+                                                     bool(_host(out[ok_key])), 0.0))
         res.crc.append(fapi.CrcIndicationPdu(
-            pdu.rnti, pdu.harq_id, ok, snr_db=float(out["snr_db"]),
-            ta_s=float(out["ta_s"]) if "ta_s" in out else None))
+            pdu.rnti, pdu.harq_id, ok, snr_db=float(_host(out["snr_db"])),
+            ta_s=float(_host(out["ta_s"])) if "ta_s" in out else None))
         if ok:
             res.rx_data.append(fapi.RxDataIndicationPdu(pdu.rnti, pdu.harq_id,
                                                         _host(out["tb_bits"])))
@@ -296,7 +332,8 @@ class UpperPhy:
     def _pucch_indication(self, res: fapi.SlotResults, request, rx_grid: torch.Tensor, j: int,
                           pdu, folded: dict) -> None:
         """The UCI indication of one PUCCH PDU (an error indication for F3
-        and F4, as the reference's upper PHY gives)."""
+        and F4, as the reference's upper PHY gives).  ``folded`` holds every
+        F1 occasion's (bits, rho) (``pucch.format1_detect_all``)."""
         c = pdu.config
         if isinstance(c, pucch_mod.PucchFormat0Config):
             val, metric = folded[j] if j in folded else pucch_mod.format0_detect(rx_grid, c)[:2]
@@ -304,19 +341,21 @@ class UpperPhy:
             # opportunity the upper half of the candidates means a positive
             # SR, sent as a trailing bit.
             n_base = max(1, 1 << c.nof_harq_bits)
-            harq_val = int(val) % n_base
+            val, metric = int(_host(val)), float(_host(metric))
+            harq_val = val % n_base
             bits = [(harq_val >> i) & 1 for i in range(c.nof_harq_bits)]
             if c.sr_opportunity:
-                bits.append(1 if int(val) >= n_base else 0)
+                bits.append(1 if val >= n_base else 0)
             res.uci.append(fapi.UciIndicationPdu(
-                pdu.rnti, np.asarray(bits, np.uint8),
-                float(metric) > pucch_mod.F0_DTX_THRESHOLD, float(metric)))
+                pdu.rnti, np.asarray(bits, np.uint8), metric > pucch_mod.F0_DTX_THRESHOLD, metric))
         elif isinstance(c, pucch_mod.PucchFormat1Config):
-            bits, metric = folded[j] if j in folded else pucch_mod.format1_detect(rx_grid, c)[::2]
+            bits, metric = folded[j]
+            metric = float(_host(metric))
             res.uci.append(fapi.UciIndicationPdu(
-                pdu.rnti, _host(bits), float(metric) > pucch_mod.F1_DTX_THRESHOLD, float(metric)))
+                pdu.rnti, _host(bits), metric > pucch_mod.F1_DTX_THRESHOLD, metric))
         elif isinstance(c, pucch_f2_mod.PucchFormat2Config):
             bits, ok, snr = folded[j] if j in folded else pucch_f2_mod.process(rx_grid, c)
-            res.uci.append(fapi.UciIndicationPdu(pdu.rnti, _host(bits), bool(ok), float(snr)))
+            res.uci.append(fapi.UciIndicationPdu(pdu.rnti, _host(bits), bool(_host(ok)),
+                                                 float(_host(snr))))
         else:
             res.errors.append(fapi.ErrorIndication(request.slot, f"unsupported PUCCH {type(c)}"))

@@ -211,3 +211,68 @@ def test_the_apps_trace_merges_with_a_profiler_export(tracer, tmp_path):
             inside = {o[2] for o in ops if s["ts"] <= o[0] and o[0] + o[1] <= s["ts"] + s["dur"]}
             stages = {c["name"] for c in spans if c["args"]["parent"] == s["args"]["id"]}
             assert stages and stages <= inside and any(n.startswith("aten::") for n in inside)
+
+
+@pytest.fixture(scope="module")
+def ul_tti():
+    """One whole FAPI uplink slot (``portbench/tests/small_ul_tti.py``: 2
+    PUSCH UEs, 4 F1 UEs on one resource, 2 F2, a PRACH occasion) and a
+    call of ``UpperPhy.process_ul_tti`` on it."""
+    from portbench.harness import cells
+    from portbench.tests import small_ul_tti
+
+    spec = small_ul_tti.spec()
+    entry = cells.entry(spec.config, spec.traffic, 19, torch.device("cpu"))
+    return entry, lambda: entry.dispatch(entry.generate(0, 0, None))
+
+
+# The FAPI entry's spans and their parents; ``ul_slot.process_slot``'s own
+# (two config groups, one code group each) nest in it unchanged.
+UL_TTI_PARENTS = {"upper_phy.process_ul_tti": None,
+                  "ul_slot.process_slot": "upper_phy.process_ul_tti",
+                  "pucch.f1": "ul_slot.process_slot", "pucch.f2": "ul_slot.process_slot",
+                  "upper_phy.indications": "upper_phy.process_ul_tti",
+                  "prach.detect": "upper_phy.indications"}
+
+
+def test_the_fapi_entry_records_its_spans_and_counts(tracer, ul_tti):
+    entry, call = ul_tti
+    _profiled(call)
+    reading = tracer.take()
+    by_id = {s.id: s for s in reading.spans}
+    names = collections.Counter(s.name for s in reading.spans)
+    assert names == collections.Counter(
+        {**dict.fromkeys(UL_TTI_PARENTS, 1), "pucch.f2": 2},
+        **{n: 2 for n in SPANS["process_slot"][1:]})
+    for s in reading.spans:
+        if s.name in UL_TTI_PARENTS:
+            parent = by_id[s.parent].name if s.parent else None
+            assert parent == UL_TTI_PARENTS[s.name], s.name
+        else:  # the slot program's stages
+            assert by_id[s.parent].name == "ul_slot.process_slot", s.name
+    t = reading.totals
+    assert t["upper_phy.process_ul_tti"].counts == {"slots": 1, "pusch": 2, "pucch": 6,
+                                                   "prach": 1}
+    assert t["pucch.f1"].counts == {"occasions": 4, "resources": 1}
+    assert t["pucch.f2"].counts == {"occasions": 2, "polar": 1, "short_block": 1}
+    assert t["prach.detect"].counts == {"roots": 8, "detected": 2}
+    # Per PUSCH PDU its CRC verdict, SINR and (passed) TB; per F1 occasion
+    # its bits and rho, per F2 its bits, CRC verdict and SNR; the PRACH's
+    # three vectors.
+    assert t["upper_phy.indications"].counts == {"host_syncs": 3 * 2 + 2 * 4 + 3 * 2 + 3}
+
+
+def test_the_fapi_entry_is_off_without_a_profiler(tracer, monkeypatch, ul_tti):
+    """With the tracer off and no profiler, no span of the FAPI entry is
+    made: every ``span`` call hands out the shared off context, which
+    formats, launches and syncs nothing."""
+    _entry, call = ul_tti
+
+    def refused(*args, **kwargs):
+        raise AssertionError("a span was made with the tracer off")
+
+    monkeypatch.setattr(tracing, "_On", refused)
+    monkeypatch.setattr(tracing, "_range", refused)
+    call()
+    assert tracer.take().spans == []
+    assert tracing.l1_tracer.span("upper_phy.process_ul_tti") is tracing._OFF
