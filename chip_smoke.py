@@ -44,7 +44,8 @@ read just after:
    (polar + CRC6 + PC bits); two rank-1 QPSK grants with repetition and 1
    HARQ-ACK bit; and six PUCCH occasions: F2 with 22 and 6 UCI bits, F1
    with 1 and 2 HARQ bits (one hopping), F0 with 1 HARQ bit and a positive
-   SR and with 2 HARQ bits.  The UE side is the port's own (``pusch.transmit``
+   SR and with 2 HARQ bits, both F2 in one K6 launch (counted on this path
+   alone).  The UE side is the port's own (``pusch.transmit``
    with UCI, ``pucch.format0/1_generate``, ``pucch_f2.generate``).  K2 is
    held against its plain version on the slot's code groups (BG1 Z=384,
    Z=320, BG2 Z=36);
@@ -225,7 +226,8 @@ Output: progress and timing lines, then one JSON line with the kernels
 launches per path, device time and bound at path 5's shapes
 ("shapes_ms") and, for K2 and K3, on path 7 (a)'s inputs
 ("prach_ul_tti_ms"), and for K1, K2 and K3 on path 8's inputs
-("refmodes_ms", "refmodes_bound_ms"); the resident blocks per SM, and for K3, K4 and K5
+("refmodes_ms", "refmodes_bound_ms"); K6 at ``fapi_ul_tti``'s four F2
+occasions; the resident blocks per SM, and for K3, K4, K5 and K6
 the registers a thread and the same three numbers at 8 flagship slots, "b8_",
 K3 also at the uplink slot's group A, "group_a_"), the
 card's name and power limit, and as the LAST line
@@ -717,6 +719,7 @@ def ul4_phase(card: str) -> tuple[dict, float]:
     largest a-posteriori difference."""
     import torch
 
+    from srsran_project_tpu_torch.ops import pucch_f2_rx
     from srsran_project_tpu_torch.phy import pucch, ul_slot
 
     dev = torch.device(DEVICE)
@@ -742,10 +745,15 @@ def ul4_phase(card: str) -> tuple[dict, float]:
 
     torch.cuda.synchronize()
     reset_counts()
+    k6_before = pucch_f2_rx.receive.launches
     res, f1_out, f0_out, f2_out = run()
     torch.cuda.synchronize()
     counts = read_counts()
     expect_counts("ul_slot_uci", counts, {"decode": 3, "mmse_weights_4x4": 1})
+    # K6 is counted on this path alone: both F2 occasions in one launch.
+    counts["pucch_f2_rx"] = pucch_f2_rx.receive.launches - k6_before
+    if counts["pucch_f2_rx"] != 1:
+        fail(f"ul_slot_uci: {counts['pucch_f2_rx']} K6 launches for the two F2 occasions, want 1")
     k2_err, geometries = check_code_groups(grid, pdus, "ul_slot_uci")
     want = ["BG1 Z=384", "BG1 Z=320", "BG2 Z=36"]
     if sorted(geometries) != sorted(want):
@@ -1211,14 +1219,15 @@ def noisy_llrs(cfg, rng, dev):
 
 def kernel_phase(card: str):
     """K1 (both layouts), K2, K3, K4 and K5 against their plain versions on the
-    card, at the shapes of the three paths; returns the per-kernel entries
-    of the JSON line (without launch counts)."""
+    card, at the shapes of the three paths, and K6 at ``fapi_ul_tti``'s F2
+    occasions; returns the per-kernel entries of the JSON line (without
+    launch counts)."""
     import torch
 
     from srsran_project_tpu_torch.models.cell import CellConfig
     from srsran_project_tpu_torch.ops import demap_llrs as dl
     from srsran_project_tpu_torch.ops import demap_planes as dp
-    from srsran_project_tpu_torch.ops import equalizer
+    from srsran_project_tpu_torch.ops import equalizer, pucch_f2_rx
     from srsran_project_tpu_torch.ops.ldpc import decoder
     from srsran_project_tpu_torch.ops.modulation import Modulation
     from srsran_project_tpu_torch.phy import sch as sch_mod
@@ -1338,6 +1347,12 @@ def kernel_phase(card: str):
         for name, (ms, pms, bd, _e) in k5.items())
         + f"; {k5_occ['registers']} registers, {k5_occ['blocks_per_sm']} blocks of 128 per SM")
 
+    k6_ms, k6_plain_ms, k6_bound, k6_err = check_k6(rng, dev)
+    k6_occ = pucch_f2_rx.occupancy()
+    print(f"# [{card}] K6 pucch_f2_rx, fapi_ul_tti's 4 F2 occasions: kernel {k6_ms:.4f} ms, "
+          f"plain torch {k6_plain_ms:.4f} ms, bound {k6_bound[0]:.6f} ms ({k6_bound[1]}); "
+          f"{k6_occ['registers']} registers, {k6_occ['blocks_per_sm']} blocks of 256 per SM")
+
     k2_ms, k2_plain_ms, k2_bound = k2_times["group A"]
 
     def entry(name, src, replaces, err, ms, plain_ms, bd, **extra):
@@ -1367,6 +1382,10 @@ def kernel_phase(card: str):
               "quantize_llr, descramble_llrs, evm)",
               k5_err, *k5["b1"][:3], b8_ms=k5["b8"][0], b8_plain_ms=k5["b8"][1],
               b8_bound_ms=k5["b8"][2][0], **k5_occ),
+        entry("pucch_f2_rx", "pucch_f2_rx.cu",
+              "srsran_project_tpu_torch/phy/pucch_f2.py:process (the eager chain an occasion "
+              "at a time: estimate_channel, MRC, demap_soft, descrambling, uci.decode_uci)",
+              k6_err, k6_ms, k6_plain_ms, k6_bound, **k6_occ),
     ]
 
 
@@ -1464,6 +1483,66 @@ def check_k5(rng, dev, batch: int, name: str):
     lanes = batch * nd * l
     bd = bound(nbytes(*ins, llr_k, err_k), lanes * (8.0 * 2 ** (qm // 2) + 4.0 * qm))
     return ms, plain_ms, bd, err
+
+
+# ``fapi_ul_tti``'s F2 occasions (portbench/configs/nr100_4rx_ul_tti_pucch_prach.json):
+# (rb_start, UCI bits), 2 PRB on symbols 12-13, 4 ports, n_id = n_id0 = 1.
+K6_OCCASIONS = ((2, 22), (4, 22), (267, 6), (269, 6))
+# K6's snr_db against the plain version's: both sum in their own order and
+# round atan2 / cos / sin / log10 in their own last place.
+K6_SNR_DB_ATOL = 1e-4
+
+
+def check_k6(rng, dev):
+    """K6 against its plain version (on the CPU) at ``fapi_ul_tti``'s four
+    F2 occasions on a full-carrier grid, each UE through a random
+    unit-norm row over the ports, 15 dB above a port's noise as in the
+    cell: one launch, bits and ok exact and the sent ones, snr_db within
+    K6_SNR_DB_ATOL.  Returns (kernel ms, plain ms on the card, bound,
+    largest snr_db gap)."""
+    import torch
+
+    from srsran_project_tpu_torch.ops import pucch_f2_rx as rx
+    from srsran_project_tpu_torch.phy import pucch_f2
+
+    nsc, ports = UL_NOF_PRB * 12, UL_NOF_PORTS
+    cfgs = [pucch_f2.PucchFormat2Config(rb_start=rb, rb_count=2, start_symbol=12, nof_symbols=2,
+                                        nof_uci_bits=k, rnti=0x4601 + i, n_id=1, n_id0=1,
+                                        nof_rx_ports=ports, nof_grid_sc=nsc)
+            for i, (rb, k) in enumerate(K6_OCCASIONS)]
+    s = np.sqrt(0.5 * 10 ** (-15.0 / 10))
+    grid = (rng.standard_normal((ports, 14, nsc)) + 1j * rng.standard_normal((ports, 14, nsc))) * s
+    sent = []
+    for c in cfgs:
+        bits = rng.integers(0, 2, size=(c.nof_uci_bits,), dtype=np.uint8)
+        h = rng.standard_normal(ports) + 1j * rng.standard_normal(ports)
+        h = h / np.linalg.norm(h)
+        grid = grid + h[:, None, None] * pucch_f2.generate(c, bits, device="cpu").numpy()[None]
+        sent.append(bits)
+    grid_cpu = torch.from_numpy(grid.astype(np.complex64))
+    grid = grid_cpu.to(dev)
+    before = rx.receive.launches
+    bits_k, ok_k, snr_k = rx.receive(grid, cfgs)
+    bits_p, ok_p, snr_p = rx.receive_plain(grid_cpu, cfgs)
+    torch.cuda.synchronize()
+    if rx.receive.launches != before + 1:
+        fail("K6: not one launch for the four occasions")
+    err = float((snr_k.cpu() - snr_p).abs().max())
+    if not (torch.equal(bits_k.cpu(), bits_p) and torch.equal(ok_k.cpu(), ok_p)):
+        fail(f"K6: bits or ok differ from the plain version: {ok_k.tolist()} / {ok_p.tolist()}")
+    if not err <= K6_SNR_DB_ATOL:
+        fail(f"K6: snr_db {snr_k.tolist()} against the plain version's {snr_p.tolist()}")
+    for c, b, o, want in zip(cfgs, bits_k.cpu(), ok_k.cpu(), sent):
+        if not bool(o) or not np.array_equal(b[: c.nof_uci_bits].numpy(), want):
+            fail(f"K6: occasion at PRB {c.rb_start} ok {bool(o)}, not the sent bits")
+    print(f"# K6 {len(cfgs)} occasions: bits and ok equal the plain version's and the sent ones, "
+          f"snr_db {[round(v, 3) for v in snr_k.tolist()]} within {err:.2e} dB")
+    ms = kernel_ms(lambda: rx.receive(grid, cfgs), reps=50)
+    plain_ms = cuda_ms(lambda: rx.receive_plain(grid, cfgs), reps=5)
+    # Bytes once: the REs the occasions read, the parameter buffer, the outputs.
+    read = sum(c.nof_rx_ports * c.nof_symbols * c.rb_count * 12 * 8 for c in cfgs)
+    table = rx._params_on(grid.device, tuple(cfgs))
+    return ms, plain_ms, bound(read + nbytes(table, bits_k, ok_k, snr_k), 0.0), err
 
 
 def check_k5_on(ins, mod, range_limit: float, what: str) -> float:
@@ -5086,7 +5165,8 @@ def main(argv=None) -> int:
     # Each kernel's launches on the path it serves (one call of it), and
     # on every path.
     home = {"decode_dematch": "flagship", "mmse_weights_4x4": "flagship", "decode": "ul_slot",
-            "decode_dematch_planes": "plane", "demap_planes": "plane", "demap_llrs": "flagship"}
+            "decode_dematch_planes": "plane", "demap_planes": "plane", "demap_llrs": "flagship",
+            "pucch_f2_rx": "ul_slot_uci"}
     for k in kernels:
         k["launches"] = per_path[home[k["name"]]][k["name"]]
         k["launches_per_path"] = {path: c[k["name"]] for path, c in per_path.items()

@@ -75,6 +75,13 @@ _SIGNATURES = {
             _P, _P,  # llr (B, ndata*L*qm) int8, err2 (B, ndata*L) f32
             _P),  # stream
         "demap_llrs_occupancy": (_I, _I, _P, _P)},  # qm, L, registers, blocks per SM
+    "pucch_f2_rx.cu": {
+        "pucch_f2_rx": (
+            _P, _L, _P,  # grid c64, its element count, the parameter buffer (int32)
+            _I, _I,  # occasions, K_max
+            _P, _P, _P,  # bits (O, K_max) u8, ok (O,) bool, snr_db (O,) f32
+            _P),  # stream
+        "pucch_f2_rx_occupancy": (_P, _P)},  # registers, blocks per SM
 }
 
 

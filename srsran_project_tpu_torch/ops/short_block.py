@@ -124,7 +124,8 @@ def detect(llrs: torch.Tensor, k: int, e: int):
         folded = folded + x[..., r, :]
     scores = (folded[..., None, :] * signs).sum(dim=-1)  # (..., 2^K)
     best = torch.argmax(scores, dim=-1)
-    bits = _msgs_on(llrs.device, k)[best]
+    # A gather: indexing by a 0-d tensor would read it on the host.
+    bits = _msgs_on(llrs.device, k).index_select(0, best.reshape(-1)).reshape(best.shape + (k,))
     denom = folded.abs().sum(dim=-1) + 1e-9
     metric = torch.gather(scores, -1, best[..., None])[..., 0] / denom
     return bits, metric

@@ -182,5 +182,5 @@ def process_slot(grid: torch.Tensor, pdus: list, f1_cfgs=(), f0_cfgs=(), f2_cfgs
         f1_outs = pucch_mod.format1_detect_all(grid, f1_cfgs)
         f0_outs = [pucch_mod.format0_detect(grid, f0)[:2] for f0 in f0_cfgs]
         if f2_cfgs:
-            return results, f1_outs, f0_outs, [f2_mod.process(grid, f2) for f2 in f2_cfgs]
+            return results, f1_outs, f0_outs, f2_mod.process_all(grid, f2_cfgs)
         return results, f1_outs, f0_outs

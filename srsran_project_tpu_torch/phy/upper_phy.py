@@ -237,12 +237,16 @@ class UpperPhy:
             file_vector.write_vector(f"{self.cfg.rx_symbols_filename}.{request.slot.count}",
                                      _host(rx_grid).reshape(-1), "cbf16")
         outs, pucch_outs = self._decode_pusch(request, rx_grid)
-        # F1 occasions the slot program did not take: all of them at once,
-        # so that those on one resource are detected together.
-        f1_left = [j for j, pp in enumerate(request.pucch)
-                   if isinstance(pp.config, pucch_mod.PucchFormat1Config) and j not in pucch_outs]
-        pucch_outs.update(zip(f1_left, pucch_mod.format1_detect_all(
-            rx_grid, [request.pucch[j].config for j in f1_left])))
+        # F1 and F2 occasions the slot program did not take: each format's
+        # all at once, so that F1 occasions on one resource are detected
+        # together and the F2 ones take one launch.
+        for kind, detect in ((pucch_mod.PucchFormat1Config, pucch_mod.format1_detect_all),
+                             (pucch_f2_mod.PucchFormat2Config, pucch_f2_mod.process_all)):
+            left = [j for j, pp in enumerate(request.pucch)
+                    if isinstance(pp.config, kind) and j not in pucch_outs]
+            if left:
+                pucch_outs.update(zip(left, detect(rx_grid,
+                                                   [request.pucch[j].config for j in left])))
         with l1_tracer.span("upper_phy.indications") as span:
             reads = _host_reads[0]
             for pdu, out in zip(request.pusch, outs):
@@ -333,7 +337,8 @@ class UpperPhy:
                           pdu, folded: dict) -> None:
         """The UCI indication of one PUCCH PDU (an error indication for F3
         and F4, as the reference's upper PHY gives).  ``folded`` holds every
-        F1 occasion's (bits, rho) (``pucch.format1_detect_all``)."""
+        F1 occasion's (bits, rho) (``pucch.format1_detect_all``) and every F2
+        occasion's (bits, ok, snr_db) (``pucch_f2.process_all``)."""
         c = pdu.config
         if isinstance(c, pucch_mod.PucchFormat0Config):
             val, metric = folded[j] if j in folded else pucch_mod.format0_detect(rx_grid, c)[:2]
@@ -354,7 +359,7 @@ class UpperPhy:
             res.uci.append(fapi.UciIndicationPdu(
                 pdu.rnti, _host(bits), metric > pucch_mod.F1_DTX_THRESHOLD, metric))
         elif isinstance(c, pucch_f2_mod.PucchFormat2Config):
-            bits, ok, snr = folded[j] if j in folded else pucch_f2_mod.process(rx_grid, c)
+            bits, ok, snr = folded[j]
             res.uci.append(fapi.UciIndicationPdu(pdu.rnti, _host(bits), bool(_host(ok)),
                                                  float(_host(snr))))
         else:
