@@ -1,22 +1,20 @@
-"""Heterogeneous multi-UE uplink slot.
+"""Heterogeneous multi-UE uplink slot, and the PUCCH of a slot.
 
 Port of ``srsran_project_tpu/phy/ul_slot.py``: one slot carries PUSCH
 grants of different MCS, widths and layer counts (ranks 1-4, MMSE or ZF),
-each with an optional HARQ buffer and UCI on PUSCH, and PUCCH F0/F1/F2
-occasions.  Grants are grouped by their compact window config; each group
-runs one batched front end, one UCI demultiplex + decode (HARQ-ACK, CSI
-parts 1 and 2; the punctured ACK positions read 0 in the data stream) and
-one rate dematch + HARQ combine, and the LDPC decode batches every
-group's codeblocks per (base graph, Z, iterations, early stop, n_cb) into
-ONE launch of kernel K2.  Then desegment + CRC per group, the results
-scatter back to input order, and the PUCCH occasions are detected on the
-same grid: F1 occasions that share a resource (PRBs, symbols, hopping id)
-are code-multiplexed and go through ``pucch.format1_detect_batch``, one
-call a resource, a lone F1 occasion through ``pucch.format1_detect``
-(``pucch.format1_detect_all``).  Any allocation shape and waveform of
-``pusch`` runs here (data on the DM-RS symbols, DM-RS type 2, PT-RS,
-DFT-s-OFDM), with each grant's own CFO compensation and TA; two-step CSI
-grants are sent away with ValueError, as the reference's slot does.
+each with an optional HARQ buffer and UCI on PUSCH.  Grants are grouped
+by their compact window config; each group runs one batched front end,
+one UCI demultiplex + decode (HARQ-ACK, CSI parts 1 and 2; the punctured
+ACK positions read 0 in the data stream) and one rate dematch + HARQ
+combine, and the LDPC decode batches every group's codeblocks per (base
+graph, Z, iterations, early stop, n_cb) into ONE launch of kernel K2.
+Then desegment + CRC per group, and the results scatter back to input
+order.  Any allocation shape and waveform of ``pusch`` runs here (data on
+the DM-RS symbols, DM-RS type 2, PT-RS, DFT-s-OFDM), with each grant's
+own CFO compensation and TA; two-step CSI grants are sent away with
+ValueError, as the reference's slot does.  ``detect_pucch`` is the port's
+one map from a PUCCH format to its detector, for ``process_slot`` and
+``UpperPhy.process_ul_tti`` alike.
 """
 
 from __future__ import annotations
@@ -140,21 +138,46 @@ def _code_groups(cfgs: tuple, fronts: list) -> list:
         return out
 
 
+# The PUCCH formats ``detect_pucch`` detects, in the order it launches them.
+PUCCH_FORMATS = (pucch_mod.PucchFormat1Config, pucch_mod.PucchFormat0Config,
+                 f2_mod.PucchFormat2Config)
+
+
+def detect_pucch(grid: torch.Tensor, cfgs) -> list:
+    """PUCCH occasions of one (P, nsym, nsc) grid, in any order -> per
+    occasion, in input order, F1's (bits, rho), F0's (value, metric) or
+    F2's (uci_bits, ok, snr_db): every F1 in one
+    ``pucch.format1_detect_all``, each F0 through ``pucch.format0_detect``,
+    every F2 in one ``pucch_f2.process_all``.  No occasion, no launch;
+    another format raises ValueError."""
+    by_format: dict = {kind: [] for kind in PUCCH_FORMATS}
+    for j, cfg in enumerate(cfgs):
+        if type(cfg) not in by_format:
+            raise ValueError(f"no PUCCH detector for {type(cfg).__name__}")
+        by_format[type(cfg)].append(j)
+    f1, f0, f2 = by_format.values()
+    out: dict = {}
+    for js, detect in ((f1, pucch_mod.format1_detect_all),
+                       (f0, lambda g, cs: [pucch_mod.format0_detect(g, c)[:2] for c in cs]),
+                       (f2, f2_mod.process_all)):
+        if js:
+            out.update(zip(js, detect(grid, [cfgs[j] for j in js])))
+    return [out[j] for j in range(len(cfgs))]
+
+
 def process_slot(grid: torch.Tensor, pdus: list, f1_cfgs=(), f0_cfgs=(), f2_cfgs=()):
     """Decode a heterogeneous multi-UE UL slot.
 
     grid: (P, nsym, nof_grid_sc) received slot grid; pdus: list[UlSlotPdu]
     with mixed configs; f1_cfgs / f0_cfgs / f2_cfgs: PUCCH F1 / F0 / F2
-    occasions on the same grid.
+    occasions on the same grid, through ``detect_pucch``.
 
     Returns (results, f1_results, f0_results[, f2_results when f2_cfgs])
     as the reference does: results[i] is a dict per input PDU (tb_bits,
     tb_crc_ok, harq_buffer, noise_var, snr_db, with UCI harq_ack_bits,
     csi1_bits, csi2_bits and their _ok flags, with compute_ta ta_s: each
-    grant's own); f1_results[j] is (bits, metric), through
-    ``pucch.format1_detect_all`` (F1 occasions on one resource detected
-    together by cyclic shift and OCC); f0_results[k] is (value, metric);
-    f2_results[m] is (uci_bits, ok, snr_db)."""
+    grant's own); f1_results[j] is (bits, metric); f0_results[k] is
+    (value, metric); f2_results[m] is (uci_bits, ok, snr_db)."""
     with l1_tracer.span("ul_slot.process_slot") as span:
         span.count(slots=1)
         groups = _config_groups(pdus)
@@ -179,8 +202,7 @@ def process_slot(grid: torch.Tensor, pdus: list, f1_cfgs=(), f0_cfgs=(), f2_cfgs
                     "snr_db": 10.0 * torch.log10(torch.clamp_min(snrs[k], 1e-12)),
                     **{key: v[k] for key, v in extra.items()},
                 }
-        f1_outs = pucch_mod.format1_detect_all(grid, f1_cfgs)
-        f0_outs = [pucch_mod.format0_detect(grid, f0)[:2] for f0 in f0_cfgs]
-        if f2_cfgs:
-            return results, f1_outs, f0_outs, f2_mod.process_all(grid, f2_cfgs)
-        return results, f1_outs, f0_outs
+        found = detect_pucch(grid, (*f1_cfgs, *f0_cfgs, *f2_cfgs))
+        n1, n0 = len(f1_cfgs), len(f0_cfgs)
+        outs = (results, found[:n1], found[n1 : n1 + n0])
+        return outs + (found[n1 + n0 :],) if f2_cfgs else outs

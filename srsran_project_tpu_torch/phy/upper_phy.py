@@ -7,22 +7,18 @@ the others one by one, then every PDCCH, SSB and CSI-RS through
 ``dl_slot.assemble_broadcast``), a UL_DCI.request into PDCCH on a grid,
 and a UL_TTI.request + received grid (+ the PRACH occasion's
 demodulated preamble subcarriers) into CRC (with the TA where the grant
-asks for it), RxData, UCI, SRS, RACH and error indications (compact
-PUSCH grants and the PUCCH occasions through ``ul_slot.process_slot``,
-the others through ``pusch.process``, PRACH through ``prach.detect``
-after everything else; PUCCH F3/F4 get an error indication, as in the
-reference).  F1 occasions that share a resource (PRBs, symbols, hopping
-id) are code-multiplexed by cyclic shift and OCC and go through
-``pucch.format1_detect_batch``, one call a resource; a lone F1 occasion
-goes through ``pucch.format1_detect`` (``pucch.format1_detect_all``,
-inside the slot program or, without one, here).  The call is the span
-``upper_phy.process_ul_tti`` (counts ``slots`` and the PDUs of each
-channel); the host's assembly of the indications is the span
-``upper_phy.indications``, whose count ``host_syncs`` is the number of
-device values it reads on the host (``_host``; each waits for the
-device).  HARQ
-soft bits live in a ``HarqBufferPool`` keyed like the reference's
-trx_buffer_identifier (rnti, harq id).
+asks for it), RxData, UCI, SRS, RACH and error indications.  All of the
+slot's device work is launched first: two or more compact PUSCH grants
+through ``ul_slot.process_slot``, the others through ``pusch.process``,
+every PUCCH F0/F1/F2 occasion through ``ul_slot.detect_pucch`` (F3/F4
+get an error indication, as in the reference), ``srs.estimate`` and
+``prach.detect``.  The call is the span ``upper_phy.process_ul_tti``
+(counts ``slots`` and the PDUs of each channel); then its child span
+``upper_phy.indications`` launches nothing and reads the results on the
+host, its count ``host_syncs`` the number of device values read
+(``_host``; each waits for the device).  HARQ soft bits live in a
+``HarqBufferPool`` keyed like the reference's trx_buffer_identifier
+(rnti, harq id).
 
 Everything runs on ``UpperPhyConfig.device`` (default the card): grids
 are made there, request payloads are moved there, and a received grid or
@@ -237,47 +233,38 @@ class UpperPhy:
             file_vector.write_vector(f"{self.cfg.rx_symbols_filename}.{request.slot.count}",
                                      _host(rx_grid).reshape(-1), "cbf16")
         outs, pucch_outs = self._decode_pusch(request, rx_grid)
-        # F1 and F2 occasions the slot program did not take: each format's
-        # all at once, so that F1 occasions on one resource are detected
-        # together and the F2 ones take one launch.
-        for kind, detect in ((pucch_mod.PucchFormat1Config, pucch_mod.format1_detect_all),
-                             (pucch_f2_mod.PucchFormat2Config, pucch_f2_mod.process_all)):
-            left = [j for j, pp in enumerate(request.pucch)
-                    if isinstance(pp.config, kind) and j not in pucch_outs]
-            if left:
-                pucch_outs.update(zip(left, detect(rx_grid,
-                                                   [request.pucch[j].config for j in left])))
+        srs = [(e["epre"].mean(), e["noise_var"].mean(), e["phase_slope"].mean(), e["h"])
+               for e in (srs_mod.estimate(rx_grid, pdu.config) for pdu in request.srs)]
+        rach = [None if prach_fd is None else prach_mod.detect(prach_fd, pdu.config)
+                for pdu in request.prach]
         with l1_tracer.span("upper_phy.indications") as span:
             reads = _host_reads[0]
             for pdu, out in zip(request.pusch, outs):
                 self._pusch_indications(res, pdu, out)
             for j, pdu in enumerate(request.pucch):
-                self._pucch_indication(res, request, rx_grid, j, pdu, pucch_outs)
-            for pdu in request.srs:
-                est = srs_mod.estimate(rx_grid, pdu.config)
-                snr = float(_host(est["epre"].mean())) / max(float(_host(est["noise_var"].mean())),
-                                                            1e-12)
+                self._pucch_indication(res, request.slot, pdu, pucch_outs.get(j))
+            for pdu, est in zip(request.srs, srs):
+                epre, noise_var, slope, h = map(_host, est)
+                snr = float(epre) / max(float(noise_var), 1e-12)
                 res.srs.append(fapi.SrsIndicationPdu(pdu.rnti, 10.0 * np.log10(max(snr, 1e-12)),
-                                                     float(_host(est["phase_slope"].mean())),
-                                                     _host(est["h"])))
-            for pdu in request.prach:
-                if prach_fd is None:
+                                                     float(slope), h))
+            for found in rach:
+                if found is None:
                     res.errors.append(fapi.ErrorIndication(request.slot,
                                                            "PRACH requested, no buffer"))
-                    continue
-                rach_indications(res, prach_mod.detect(prach_fd, pdu.config))
+                else:
+                    rach_indications(res, found)
             span.count(host_syncs=_host_reads[0] - reads)
         self._notify("ul_results", request.slot, res)
         return res
 
     def _decode_pusch(self, request: fapi.UlTtiRequest, rx_grid: torch.Tensor):
-        """Per PUSCH PDU its result dict, and the PUCCH results the slot
-        program detected (PDU index -> result).  Two or more compact grants
-        without two-step CSI go through ``ul_slot.process_slot`` with every
-        PUCCH F0/F1/F2 occasion folded in; the rest one by one through
-        ``pusch.process`` on their window."""
+        """Every PUSCH PDU's result dict, in PDU order, and every PUCCH
+        F0/F1/F2 PDU's result (PDU index -> result).  Two or more compact
+        grants without two-step CSI go through ``ul_slot.process_slot``, the
+        other grants one by one through ``pusch.process`` on their window;
+        then the PUCCH occasions in one ``ul_slot.detect_pucch``."""
         outs: dict[int, dict] = {}
-        pucch_outs: dict[int, tuple] = {}
         eligible = [i for i, pdu in enumerate(request.pusch)
                     if (pdu.first_rb is not None
                         and (pdu.config.uci is None or pdu.config.uci.csi_report_cfg is None)
@@ -289,16 +276,7 @@ class UpperPhy:
                 hb = None if p.new_data else self.harq_pool.get(p.rnti, p.harq_id)
                 slot_pdus.append(ul_slot_mod.UlSlotPdu(rnti=p.rnti, first_rb=p.first_rb,
                                                        config=p.config, harq_buffer=hb))
-            by_kind = {kind: [j for j, pp in enumerate(request.pucch) if isinstance(pp.config, kind)]
-                       for kind in (pucch_mod.PucchFormat1Config, pucch_mod.PucchFormat0Config,
-                                    pucch_f2_mod.PucchFormat2Config)}
-            idx = list(by_kind.values())
-            cfgs = [tuple(request.pucch[j].config for j in js) for js in idx]
-            results = ul_slot_mod.process_slot(rx_grid, slot_pdus, *cfgs)
-            for i, out in zip(eligible, results[0]):
-                outs[i] = out
-            for js, found in zip(idx, results[1:]):
-                pucch_outs.update(zip(js, found))
+            outs.update(zip(eligible, ul_slot_mod.process_slot(rx_grid, slot_pdus)[0]))
         for i, pdu in enumerate(request.pusch):
             if i in outs:
                 continue
@@ -312,7 +290,10 @@ class UpperPhy:
                                                  device=self.device),
                                     pdu.config, harq_buffer=None if harq is None else harq[None])
             outs[i] = {k: v[0] for k, v in out.items()}
-        return [outs[i] for i in range(len(request.pusch))], pucch_outs
+        js = [j for j, p in enumerate(request.pucch)
+              if isinstance(p.config, ul_slot_mod.PUCCH_FORMATS)]
+        found = ul_slot_mod.detect_pucch(rx_grid, [request.pucch[j].config for j in js])
+        return [outs[i] for i in range(len(request.pusch))], dict(zip(js, found))
 
     def _pusch_indications(self, res: fapi.SlotResults, pdu, out: dict) -> None:
         """CRC, UCI and RxData indications of one PUSCH PDU, and its HARQ
@@ -333,15 +314,12 @@ class UpperPhy:
         else:
             self.harq_pool.put(pdu.rnti, pdu.harq_id, out["harq_buffer"])
 
-    def _pucch_indication(self, res: fapi.SlotResults, request, rx_grid: torch.Tensor, j: int,
-                          pdu, folded: dict) -> None:
-        """The UCI indication of one PUCCH PDU (an error indication for F3
-        and F4, as the reference's upper PHY gives).  ``folded`` holds every
-        F1 occasion's (bits, rho) (``pucch.format1_detect_all``) and every F2
-        occasion's (bits, ok, snr_db) (``pucch_f2.process_all``)."""
+    def _pucch_indication(self, res: fapi.SlotResults, slot, pdu, found) -> None:
+        """The UCI indication of one PUCCH PDU from its ``detect_pucch``
+        result; F3 and F4, with none, get an error indication, as in the reference."""
         c = pdu.config
         if isinstance(c, pucch_mod.PucchFormat0Config):
-            val, metric = folded[j] if j in folded else pucch_mod.format0_detect(rx_grid, c)[:2]
+            val, metric = found
             # The candidate index carries the HARQ bits; with an SR
             # opportunity the upper half of the candidates means a positive
             # SR, sent as a trailing bit.
@@ -354,13 +332,13 @@ class UpperPhy:
             res.uci.append(fapi.UciIndicationPdu(
                 pdu.rnti, np.asarray(bits, np.uint8), metric > pucch_mod.F0_DTX_THRESHOLD, metric))
         elif isinstance(c, pucch_mod.PucchFormat1Config):
-            bits, metric = folded[j]
+            bits, metric = found
             metric = float(_host(metric))
             res.uci.append(fapi.UciIndicationPdu(
                 pdu.rnti, _host(bits), metric > pucch_mod.F1_DTX_THRESHOLD, metric))
         elif isinstance(c, pucch_f2_mod.PucchFormat2Config):
-            bits, ok, snr = folded[j]
+            bits, ok, snr = found
             res.uci.append(fapi.UciIndicationPdu(pdu.rnti, _host(bits), bool(_host(ok)),
                                                  float(_host(snr))))
         else:
-            res.errors.append(fapi.ErrorIndication(request.slot, f"unsupported PUCCH {type(c)}"))
+            res.errors.append(fapi.ErrorIndication(slot, f"unsupported PUCCH {type(c)}"))

@@ -31,7 +31,7 @@ from torch_parity import cuda_device  # noqa: F401
 
 from srsran_project_tpu_torch.ops import pucch_f2_rx as rx
 from srsran_project_tpu_torch.ops import short_block, uci
-from srsran_project_tpu_torch.phy import pucch_f2, upper_phy
+from srsran_project_tpu_torch.phy import pucch, pucch_f2, ul_slot, upper_phy
 from srsran_project_tpu_torch.support import tracing
 
 NSC = 273 * 12
@@ -289,18 +289,33 @@ def ul_tti():
 
 @pytest.mark.parametrize("pusch", [True, False], ids=["in-slot-program", "without-pusch"])
 def test_the_fapi_entry_calls_process_all_once_a_slot(monkeypatch, ul_tti, pusch):
-    """Inside ``ul_slot.process_slot`` (two PUSCH grants) and without it,
-    ``UpperPhy.process_ul_tti`` receives its F2 occasions in one call, and
-    their indications carry the sent bits."""
-    calls = []
-    inner = pucch_f2.process_all
+    """With ``ul_slot.process_slot`` (two PUSCH grants) and without it,
+    ``UpperPhy.process_ul_tti`` receives its F2 occasions in one call and
+    its F1 occasions in one ``format1_detect_all`` call, and hands
+    ``process_slot`` no PUCCH occasion; the F2 indications carry the sent
+    bits."""
+    calls, f1_calls, slot_calls = [], [], []
+    inner, f1_inner, slot_inner = (pucch_f2.process_all, pucch.format1_detect_all,
+                                   ul_slot.process_slot)
 
     def counted(grid, cfgs):
         calls.append(len(cfgs))
         return inner(grid, cfgs)
 
+    def f1_counted(grid, cfgs):
+        f1_calls.append(len(cfgs))
+        return f1_inner(grid, cfgs)
+
+    def slot_counted(grid, pdus, *pucch_cfgs):
+        slot_calls.append(pucch_cfgs)
+        return slot_inner(grid, pdus, *pucch_cfgs)
+
     monkeypatch.setattr(pucch_f2, "process_all", counted)
+    monkeypatch.setattr(pucch, "format1_detect_all", f1_counted)
+    monkeypatch.setattr(ul_slot, "process_slot", slot_counted)
     entry = ul_tti
+    n_f1 = sum(isinstance(p.config, pucch.PucchFormat1Config) for p in entry.requests[0].pucch)
+    assert n_f1 > 1
     phy = upper_phy.UpperPhy(upper_phy.UpperPhyConfig(nof_ports=4, nof_grid_sc=entry.nsc,
                                                       device="cpu"))
     for unit in range(2):
@@ -308,8 +323,12 @@ def test_the_fapi_entry_calls_process_all_once_a_slot(monkeypatch, ul_tti, pusch
         if not pusch:
             req = dataclasses.replace(req, pusch=[])
         calls.clear()
+        f1_calls.clear()
+        slot_calls.clear()
         res = phy.process_ul_tti(req, entry.grid[unit], entry.prach_fd[unit])
         assert calls == [len(entry.f2)]
+        assert f1_calls == [n_f1]
+        assert slot_calls == ([()] if pusch else [])
         f2_ind = res.uci[-len(entry.f2):]
         for ind, bits in zip(f2_ind, entry.f2_bits):
             assert ind.valid

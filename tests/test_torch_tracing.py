@@ -227,17 +227,21 @@ def ul_tti():
 
 
 # The FAPI entry's spans and their parents; ``ul_slot.process_slot``'s own
-# (two config groups, one code group each) nest in it unchanged.
+# (two config groups, one code group each) nest in it unchanged.  Every
+# channel's device work runs before ``upper_phy.indications``, which only
+# reads: compute, then read.
 UL_TTI_PARENTS = {"upper_phy.process_ul_tti": None,
                   "ul_slot.process_slot": "upper_phy.process_ul_tti",
-                  "pucch.f1": "ul_slot.process_slot", "pucch.f2": "ul_slot.process_slot",
+                  "pucch.f1": "upper_phy.process_ul_tti", "pucch.f2": "upper_phy.process_ul_tti",
                   "upper_phy.indications": "upper_phy.process_ul_tti",
-                  "prach.detect": "upper_phy.indications"}
+                  "prach.detect": "upper_phy.process_ul_tti"}
 
 
-def test_the_fapi_entry_records_its_spans_and_counts(tracer, ul_tti):
+def test_the_fapi_entry_records_its_spans_and_counts(tracer, ul_tti, tmp_path):
+    import json
+
     entry, call = ul_tti
-    _profiled(call)
+    _profiled(call).export_chrome_trace(str(tmp_path / "profile.json"))
     reading = tracer.take()
     by_id = {s.id: s for s in reading.spans}
     names = collections.Counter(s.name for s in reading.spans)
@@ -261,6 +265,16 @@ def test_the_fapi_entry_records_its_spans_and_counts(tracer, ul_tti):
     # its bits and rho, per F2 its bits, CRC verdict and SNR; the PRACH's
     # three vectors.
     assert t["upper_phy.indications"].counts == {"host_syncs": 3 * 2 + 2 * 4 + 3 * 2 + 3}
+    # Compute, then read: the operators inside the indications are the host
+    # reads' alone (``upper_phy._host``: a detach and a copy to numpy).
+    exported = json.loads((tmp_path / "profile.json").read_text())
+    base_us = exported["baseTimeNanoseconds"] / 1e3
+    ind = next(s for s in reading.spans if s.name == "upper_phy.indications")
+    inside = {e["name"] for e in exported["traceEvents"]
+              if e.get("ph") == "X" and e.get("cat") == "cpu_op"
+              and ind.start_ns / 1e3 <= base_us + e["ts"] <= ind.end_ns / 1e3}
+    assert inside <= {"detach", "aten::detach", "aten::to", "aten::resolve_conj",
+                      "aten::resolve_neg"}, inside
 
 
 def test_the_fapi_entry_is_off_without_a_profiler(tracer, monkeypatch, ul_tti):

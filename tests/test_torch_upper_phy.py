@@ -182,8 +182,8 @@ def test_ul_slot_pusch_and_pucch():
 
 def test_ul_multi_ue_slot_with_pucch(monkeypatch):
     """Four compact grants (two configs) through ul_slot.process_slot in
-    one call, with PUCCH F0, F1 and F2 folded in; a fifth grant with
-    crb_start != first_rb takes the per-PDU path."""
+    one call, and PUCCH F0, F1 and F2 through ul_slot.detect_pucch after
+    it; a fifth grant with crb_start != first_rb takes the per-PDU path."""
     calls = []
     real = tul.process_slot
     monkeypatch.setattr(tul, "process_slot", lambda *a, **k: calls.append(1) or real(*a, **k))
