@@ -20,9 +20,9 @@ read just after:
 
 1. the flagship cell (273 PRB, 30 kHz, 4x4, 256QAM r~0.926, LBRM): 8 random
    transport blocks -> ``encode_slot`` -> AWGN at 30 dB -> ``decode_slot``
-   (kernel K1, one launch over both E-groups, K3, and K5, whose launches
-   are counted on this path alone), K5 and K1 held against their plain
-   versions on the batch's own tensors;
+   (kernel K1, one launch over both E-groups, K3, and K5 and K7, whose
+   launches are counted on this path alone), K5 and K1 held against their
+   plain versions on the batch's own tensors;
 2. a heterogeneous 8-UE uplink slot on the same 273-PRB carrier with 4 RX
    ports -> ``ul_slot.process_slot`` (kernel K2 once per code group, and
    K3): two 4-layer 256QAM grants, four rank-1 64QAM grants and two
@@ -227,7 +227,8 @@ launches per path, device time and bound at path 5's shapes
 ("shapes_ms") and, for K2 and K3, on path 7 (a)'s inputs
 ("prach_ul_tti_ms"), and for K1, K2 and K3 on path 8's inputs
 ("refmodes_ms", "refmodes_bound_ms"); K6 at ``fapi_ul_tti``'s four F2
-occasions; the resident blocks per SM, and for K3, K4, K5 and K6
+occasions; K7 at the flagship and at every config group of ``mu8_ul`` and
+``fapi_ul_tti`` ("shapes"); the resident blocks per SM, and for K3, K4, K5, K6 and K7
 the registers a thread and the same three numbers at 8 flagship slots, "b8_",
 K3 also at the uplink slot's group A, "group_a_"), the
 card's name and power limit, and as the LAST line
@@ -322,9 +323,10 @@ def kernel_ms(fn, reps: int = 20) -> float:
 # and float32 operations/s outside the tensor cores.
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 67e12
-# No single PyTorch call computes any of the five kernels' functions
+# No single PyTorch call computes any of the kernels' functions
 # (min-sum decoding, 4x4 MMSE weights with their post-equalization noise,
-# fused [apply +] max-log demap + quantize + descramble), so library_ms is
+# fused [apply +] max-log demap + quantize + descramble, the F2 receiver,
+# the DM-RS estimate with its second-difference noise), so library_ms is
 # null for all.
 LIBRARY_MS = None
 
@@ -1219,15 +1221,15 @@ def noisy_llrs(cfg, rng, dev):
 
 def kernel_phase(card: str):
     """K1 (both layouts), K2, K3, K4 and K5 against their plain versions on the
-    card, at the shapes of the three paths, and K6 at ``fapi_ul_tti``'s F2
-    occasions; returns the per-kernel entries of the JSON line (without
-    launch counts)."""
+    card, at the shapes of the three paths, K6 at ``fapi_ul_tti``'s F2
+    occasions and K7 at the uplink cells' estimate shapes; returns the
+    per-kernel entries of the JSON line (without launch counts)."""
     import torch
 
     from srsran_project_tpu_torch.models.cell import CellConfig
     from srsran_project_tpu_torch.ops import demap_llrs as dl
     from srsran_project_tpu_torch.ops import demap_planes as dp
-    from srsran_project_tpu_torch.ops import equalizer, pucch_f2_rx
+    from srsran_project_tpu_torch.ops import equalizer, pucch_f2_rx, pusch_estimate
     from srsran_project_tpu_torch.ops.ldpc import decoder
     from srsran_project_tpu_torch.ops.modulation import Modulation
     from srsran_project_tpu_torch.phy import sch as sch_mod
@@ -1353,6 +1355,13 @@ def kernel_phase(card: str):
           f"plain torch {k6_plain_ms:.4f} ms, bound {k6_bound[0]:.6f} ms ({k6_bound[1]}); "
           f"{k6_occ['registers']} registers, {k6_occ['blocks_per_sm']} blocks of 256 per SM")
 
+    k7 = {name: check_k7(rng, dev, name) for name in K7_SHAPES}
+    k7_occ = pusch_estimate.occupancy()
+    print(f"# [{card}] K7 pusch_estimate: " + "; ".join(
+        f"{name} kernel {ms:.4f} ms, plain torch {pms:.4f} ms, bound {bd[0]:.6f} ms ({bd[1]})"
+        for name, (ms, pms, bd, _e) in k7.items())
+        + f"; {k7_occ['registers']} registers, {k7_occ['blocks_per_sm']} blocks of 256 per SM")
+
     k2_ms, k2_plain_ms, k2_bound = k2_times["group A"]
 
     def entry(name, src, replaces, err, ms, plain_ms, bd, **extra):
@@ -1386,6 +1395,16 @@ def kernel_phase(card: str):
               "srsran_project_tpu_torch/phy/pucch_f2.py:process (the eager chain an occasion "
               "at a time: estimate_channel, MRC, demap_soft, descrambling, uci.decode_uci)",
               k6_err, k6_ms, k6_plain_ms, k6_bound, **k6_occ),
+        entry("pusch_estimate", "pusch_estimate.cu",
+              "srsran_project_tpu_torch/phy/pusch.py:_estimate_fast (eager estimate_h and "
+              "the second-difference noise)",
+              max(r[3]["h_abs"] for r in k7.values()), *k7["flagship-b1"][:3],
+              b8_ms=k7["flagship-b8"][0], b8_plain_ms=k7["flagship-b8"][1],
+              b8_bound_ms=k7["flagship-b8"][2][0],
+              h_rel_err=max(r[3]["h_rel"] for r in k7.values()),
+              noise_rel_err=max(r[3]["nv_rel"] for r in k7.values()),
+              shapes={name: {"ms": ms, "plain_ms": pms, "bound_ms": bd[0]}
+                      for name, (ms, pms, bd, _e) in k7.items()}, **k7_occ),
     ]
 
 
@@ -1545,6 +1564,90 @@ def check_k6(rng, dev):
     return ms, plain_ms, bound(read + nbytes(table, bits_k, ok_k, snr_k), 0.0), err
 
 
+# K7's shapes: (PRBs, layers, ports, first PRBs of the batch's grants, with
+# a per-grant pilot bank unless all 0, DM-RS symbols): the flagship at 1
+# and 8 slots, the config groups of mu8_ul and of fapi_ul_tti, and a grant
+# on two DM-RS symbols.
+K7_SHAPES = {
+    "flagship-b1": (273, 4, 4, (0,), (2,)),
+    "flagship-b8": (273, 4, 4, (0,) * NOF_SLOTS, (2,)),
+    "mu8-rank4-80prb": (80, 4, 4, (0, 80), (2,)),
+    "mu8-rank1-24prb": (24, 1, 4, (160, 184, 208, 232), (2,)),
+    "mu8-rank1-8prb": (8, 1, 4, (256, 264), (2,)),
+    "fapi-rank4-72prb": (72, 4, 4, (18, 90), (2,)),
+    "fapi-rank1-20prb": (20, 1, 4, (162, 182, 202, 222), (2,)),
+    "fapi-rank1-8prb": (8, 1, 4, (242, 250), (2,)),
+    "two-dmrs-symbols": (24, 2, 2, (0, 0), (2, 11)),
+}
+# K7 against its plain version: the slope's and the noise's sums reduce in
+# another order, and atan2 / sin / cos / hypot round in their own last place.
+K7_H_TOL = 1e-5  # max |dh| over RMS(h)
+K7_NV_RTOL = 1e-5
+
+
+def check_k7(rng, dev, name: str):
+    """K7 against its plain version on the card at K7_SHAPES[name]: each
+    grant through its own random flat channel with orthonormal columns at
+    SNR_DB, its DM-RS from its own CRB; two launches, h within K7_H_TOL x
+    RMS(h), the noise within K7_NV_RTOL, a second run bitwise the first.
+    Returns (kernel ms, plain ms, bound, {"h_abs", "h_rel", "nv_rel"})."""
+    import torch
+
+    from srsran_project_tpu_torch.models.cell import CellConfig
+    from srsran_project_tpu_torch.ops import pusch_estimate as pe
+    from srsran_project_tpu_torch.phy import pusch
+    from srsran_project_tpu_torch.ran import dmrs as dmrs_mod
+
+    nof_rb, layers, ports, first_rbs, dmrs = K7_SHAPES[name]
+    cfg = CellConfig(nof_rb=nof_rb, nof_ports=ports, nof_layers=layers).pusch_cfg
+    cfg = dataclasses.replace(cfg, alloc=dataclasses.replace(cfg.alloc, dmrs_symbols=dmrs))
+    if not pusch._fused_estimate_ok(cfg):
+        fail(f"K7 {name}: not on K7's route")
+    grids = []
+    for k, rb0 in enumerate(first_rbs):
+        at = dataclasses.replace(cfg, alloc=dataclasses.replace(cfg.alloc, crb_start=rb0))
+        tb = torch.from_numpy(rng.integers(0, 2, size=(cfg.tbs,), dtype=np.uint8)).to(dev)
+        x = pusch.transmit(tb, torch.tensor(RNTI + k, device=dev), at)  # (nl, nsym, nsc)
+        q = np.linalg.qr(rng.standard_normal((ports, layers))
+                         + 1j * rng.standard_normal((ports, layers)))[0]
+        y = torch.einsum("pl,lsk->psk", torch.from_numpy(q.astype(np.complex64)).to(dev), x)
+        s = float(y.abs().pow(2).mean().sqrt()) * 10 ** (-SNR_DB / 20) * math.sqrt(0.5)
+        noise = rng.standard_normal((2, *y.shape)).astype(np.float32)
+        grids.append(y + s * torch.complex(*torch.from_numpy(noise).to(dev)))
+    grid = torch.stack(grids)
+    r = (pusch._pilot_bank_on(dev, cfg, first_rbs) if any(first_rbs)
+         else pusch._est_on(dev, cfg, 2)[None])
+    beta2 = dmrs_mod.sch_to_dmrs_beta(cfg.alloc.nof_cdm_groups_without_data) ** 2
+    args = (pusch._est_on(dev, cfg, 0), r, pusch._est_on(dev, cfg, 1),
+            pusch._estimate_constants(cfg)[3], cfg.alloc.nof_sc, beta2)
+    before = pe.estimate.launches
+    h_k, nv_k = pe.estimate(grid, *args)
+    h_p, nv_p = pe.estimate_plain(grid, *args)
+    h_k2, nv_k2 = pe.estimate(grid, *args)
+    torch.cuda.synchronize()
+    if pe.estimate.launches != before + 4:
+        fail(f"K7 {name}: not two launches a call")
+    err = {"h_abs": float((h_k - h_p).abs().max())}
+    err["h_rel"] = err["h_abs"] / float(h_p.abs().pow(2).mean().sqrt())
+    err["nv_rel"] = float(((nv_k - nv_p).abs() / nv_p).max())
+    if not (err["h_rel"] <= K7_H_TOL and err["nv_rel"] <= K7_NV_RTOL):
+        fail(f"K7 {name}: h {err['h_rel']:.3e} x RMS, noise {err['nv_rel']:.3e} relative "
+             "from the plain version")
+    if not (torch.equal(torch.view_as_real(h_k), torch.view_as_real(h_k2))
+            and torch.equal(nv_k.view(torch.int32), nv_k2.view(torch.int32))):
+        fail(f"K7 {name}: two runs on the same inputs differ")
+    print(f"# K7 {name} {tuple(h_k.shape)}: h within {err['h_rel']:.2e} x RMS, noise "
+          f"{err['nv_rel']:.2e} relative of the plain version; deterministic")
+    ms = kernel_ms(lambda: pe.estimate(grid, *args), reps=50)
+    plain_ms = cuda_ms(lambda: pe.estimate_plain(grid, *args), reps=10)
+    # Bytes once: the distinct pilot REs of each grid's ports, the pilot,
+    # OCC, index and interpolation tables, h and the noise.
+    pilot_res = int(torch.unique(args[0]).numel())
+    plan = pe._plan_on(dev, tuple(args[3]), args[4])
+    read = grid.shape[0] * ports * pilot_res * 8 + nbytes(*args[:3], *plan)
+    return ms, plain_ms, bound(read + nbytes(h_k, nv_k), 0.0), err
+
+
 def check_k5_on(ins, mod, range_limit: float, what: str) -> float:
     """K5 against its plain version on ``ins`` (x_hat, eq_nvar, Gold bits):
     one launch, LLRs and err2 bitwise equal.  Returns the largest absolute
@@ -1629,6 +1732,7 @@ def slice_phase(card: str):
     from srsran_project_tpu_torch.models import cell
     from srsran_project_tpu_torch.ops import demap_llrs as dl
     from srsran_project_tpu_torch.ops import ofdm, scrambling
+    from srsran_project_tpu_torch.ops import pusch_estimate as pe
     from srsran_project_tpu_torch.phy import pusch, sch as sch_mod
 
     dev = torch.device(DEVICE)
@@ -1646,7 +1750,7 @@ def slice_phase(card: str):
     torch.cuda.synchronize()
 
     reset_counts()
-    k5_before = dl.demap_llrs.launches
+    k5_before, k7_before = dl.demap_llrs.launches, pe.estimate.launches
     out = cell.decode_slot(rx, RNTI, cfg)
     torch.cuda.synchronize()
     launches = read_counts()
@@ -1658,7 +1762,11 @@ def slice_phase(card: str):
     launches["demap_llrs"] = dl.demap_llrs.launches - k5_before
     if launches["demap_llrs"] != 1:
         fail(f"flagship decode: {launches['demap_llrs']} K5 launches, want 1")
-    print(f"# flagship decode: K5 launches {launches['demap_llrs']}")
+    launches["pusch_estimate"] = pe.estimate.launches - k7_before
+    if launches["pusch_estimate"] != 2:
+        fail(f"flagship decode: {launches['pusch_estimate']} K7 launches, want 2")
+    print(f"# flagship decode: K5 launches {launches['demap_llrs']}, K7 launches "
+          f"{launches['pusch_estimate']}")
     check_flagship(out, tb, cfg, "flagship")
 
     # Timing: per-slot encode and decode at batch 1 and 8 (device time
@@ -5166,7 +5274,7 @@ def main(argv=None) -> int:
     # on every path.
     home = {"decode_dematch": "flagship", "mmse_weights_4x4": "flagship", "decode": "ul_slot",
             "decode_dematch_planes": "plane", "demap_planes": "plane", "demap_llrs": "flagship",
-            "pucch_f2_rx": "ul_slot_uci"}
+            "pucch_f2_rx": "ul_slot_uci", "pusch_estimate": "flagship"}
     for k in kernels:
         k["launches"] = per_path[home[k["name"]]][k["name"]]
         k["launches_per_path"] = {path: c[k["name"]] for path, c in per_path.items()

@@ -82,6 +82,15 @@ _SIGNATURES = {
             _P, _P, _P,  # bits (O, K_max) u8, ok (O,) bool, snr_db (O,) f32
             _P),  # stream
         "pucch_f2_rx_occupancy": (_P, _P)},  # registers, blocks per SM
+    "pusch_estimate.cu": {
+        "pusch_estimate": (
+            _P, _L, _L, _L, _L, _I,  # grid (B, P, nsym, nsc) c64, its four element strides, nsc
+            _P, _P, _I, _P,  # pilot REs (nl, nsym_d*Np) i64, pilots (rb, nl, nsym_d, Np), rb, OCC
+            _P, _P, _P, _P, _P,  # interpolation: left, right (i64), fraction, coordinate; taps
+            _I, _I, _I, _I, _I, _I, _F,  # B, P, nl, nsym_d, Np, nof_sc, beta^2
+            _P, _P, _P,  # h (B, nof_sc, P, nl) c64, partial sums (B, nl*P) f32, noise_var (B,)
+            _P),  # stream
+        "pusch_estimate_occupancy": (_P, _P)},  # registers, blocks per SM
 }
 
 

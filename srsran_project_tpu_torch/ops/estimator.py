@@ -8,7 +8,8 @@ Per (rx port, layer): LS at the pilot REs -> OCC despread over CDM pairs
 raised-cosine smoothing in frequency -> linear interpolation to every
 subcarrier -> re-rotation, then the pilot-residual noise variance and the
 EPRE / RSRP / SNR metrics (PUCCH F2 reads them; PUSCH measures its noise
-by second differences unless asked for the pilot residual, phy/pusch.py),
+by second differences unless asked for the pilot residual,
+ops/pusch_estimate.py),
 and on request the CFO metric (phase per DM-RS symbol interval) and the
 TA metric (``estimate_ta_samples``: the delay-profile peak of the pair
 channel before derotation).

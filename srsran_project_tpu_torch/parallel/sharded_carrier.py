@@ -248,8 +248,8 @@ def _local_front_end(g: torch.Tensor, cfg: PuschConfig, ax: Axis, local_sc: int,
     rsrp_terms = [((h_pair_sym.abs() ** 2) * pair_valid).sum(),
                   pair_valid.sum() * nl * npr * nsym_d]
     if cfg.noise_method == "second_difference":
-        # Same estimator as the unsharded path (pusch.py
-        # _second_difference_noise): the OCC despread in h_pair has removed
+        # Same estimator as the unsharded path
+        # (ops/pusch_estimate.second_difference_noise): the OCC despread in h_pair has removed
         # the co-CDM layer exactly, and the (1, -2, 1) stencil over
         # neighbouring pairs cancels channel level + slope, so |d2|^2 reads
         # 3 sigma^2 / nsym_d.  Cross-shard neighbours come from the halo

@@ -6,8 +6,9 @@ second-difference or pilot-residual noise, CFO compensation (estimate,
 derotate each symbol by the slope, estimate again), the TA estimate and
 PT-RS common-phase-error tracking (``_estimate``, per-grant pilots
 through ``r_override``, the low-PAPR DM-RS of transform precoding; every
-estimate per batch element, never averaged across grants), per-subcarrier
-MMSE or ZF weights (4x4 MMSE: kernel K3; every other rank and port count:
+estimate per batch element, never averaged across grants; kernel K7 for
+the estimate with second-difference noise and no CFO, TA or PT-RS),
+per-subcarrier MMSE or ZF weights (4x4 MMSE: kernel K3; every other rank and port count:
 ``equalize_weights``) applied across full data rows, or the per-RE
 ``equalize`` where data shares the DM-RS symbols (``_equalize_stage``),
 the DFT-s-OFDM deprecode (``_deprecode_stage``), the float max-log
@@ -41,7 +42,7 @@ import functools
 import numpy as np
 import torch
 
-from ..ops import estimator_reftorch, scrambling, transform_precoding
+from ..ops import estimator_reftorch, pusch_estimate, scrambling, transform_precoding
 from ..ops._tables import device_table
 from ..ops.demap_llrs import demap_llrs, quantized_llrs
 from ..ops.demap_planes import demap_planes
@@ -254,15 +255,39 @@ def _estimate(grid: torch.Tensor, cfg: PuschConfig, r_override=None):
     SINR method and "ta_s" (B,) with compute_ta.  ``r_override`` (B, nl,
     nsym_d, Np) replaces the config's DM-RS pilot values per batch element
     (the grants of a multi-UE slot share a compact config, but their
-    pilots follow each grant's absolute CRB)."""
-    with l1_tracer.span("pusch.estimate"):
+    pilots follow each grant's absolute CRB).  The span counts the
+    ``grants`` (B) and the ``kernel_grants`` K7 estimated."""
+    with l1_tracer.span("pusch.estimate") as span:
+        b = grid.shape[0]
+        fused = _fused_estimate_ok(cfg)
+        span.count(grants=b, kernel_grants=b if fused and grid.is_cuda else 0)
         if cfg.estimator == "reference":
             return _estimate_reference(grid, cfg, r_override)
-        return _estimate_fast(grid, cfg, r_override)
+        return _estimate_fast(grid, cfg, r_override, fused)
 
 
-def _estimate_fast(grid: torch.Tensor, cfg: PuschConfig, r_override):
-    """``_estimate`` with the fast estimator."""
+def _metrics_needed(cfg: PuschConfig) -> bool:
+    """Whether the fast estimate needs ``channel_metrics``: CFO
+    compensation over two or more DM-RS symbols, the TA, the pilot-residual
+    noise (as in the reference, a noise method other than second
+    differences) or the estimator's SINR (a SINR method other than post
+    equalization)."""
+    return ((cfg.cfo_compensation and len(cfg.alloc.dmrs_symbols) > 1) or cfg.compute_ta
+            or cfg.noise_method != "second_difference"
+            or cfg.sinr_method != "post_equalization")
+
+
+def _fused_estimate_ok(cfg: PuschConfig) -> bool:
+    """Gate of ``pusch_estimate.estimate`` (K7 on a CUDA tensor): the fast
+    estimator without metrics or PT-RS, and at least 3 CDM pairs (the
+    second differences need 3)."""
+    return (cfg.estimator == "fast" and not _metrics_needed(cfg) and not cfg.ptrs_enabled
+            and len(_estimate_constants(cfg)[3]) >= 3)
+
+
+def _estimate_fast(grid: torch.Tensor, cfg: PuschConfig, r_override, fused: bool):
+    """``_estimate`` with the fast estimator; ``fused``: through
+    ``pusch_estimate.estimate`` (``_fused_estimate_ok``)."""
     a = cfg.alloc
     nl, npr = cfg.nof_layers, cfg.nof_rx_ports
     nsym_d = len(a.dmrs_symbols)
@@ -270,14 +295,18 @@ def _estimate_fast(grid: torch.Tensor, cfg: PuschConfig, r_override):
     dev = grid.device
     _, _, _, pair_pos = _estimate_constants(cfg)
     idx_all = _est_on(dev, cfg, 0)
+    r_all = _est_on(dev, cfg, 2)[None] if r_override is None else r_override
+    # Pilot descaling (_estimate_constants) divides the pilot-domain noise
+    # by beta^2; the noise and SNR are referred back to the data REs.
+    beta2 = dmrs_mod.sch_to_dmrs_beta(a.nof_cdm_groups_without_data) ** 2
+    if fused:  # kernel K7 on a CUDA tensor, its plain version on the CPU
+        h, nv = pusch_estimate.estimate(grid, idx_all, r_all, _est_on(dev, cfg, 1), pair_pos,
+                                        a.nof_sc, beta2)
+        return grid.reshape(b, npr, -1), h, nv, {}
     wf = _est_on(dev, cfg, 1)[:, None, None, :]
-    r_all = (_est_on(dev, cfg, 2)[None] if r_override is None else r_override)[:, :, None]
+    r_all = r_all[:, :, None]
     cfo = cfg.cfo_compensation and nsym_d > 1
-    # As in the reference, a noise method other than second differences
-    # is the pilot residual, and a SINR method other than post
-    # equalization the estimator's.
-    metrics = (cfo or cfg.compute_ta or cfg.noise_method != "second_difference"
-               or cfg.sinr_method != "post_equalization")
+    metrics = _metrics_needed(cfg)
 
     def estimate(g):
         """(pair values (B, nl, P, nsym_d, Np/2), h, residual noise (B, nl,
@@ -301,11 +330,8 @@ def _estimate_fast(grid: torch.Tensor, cfg: PuschConfig, r_override):
         grid = grid * torch.polar(torch.ones_like(phase), phase)[:, None, :, None]
         h_pair, h, m = estimate(grid)
     gflat = grid.reshape(b, npr, -1)
-    # Pilot descaling (_estimate_constants) divides the pilot-domain noise
-    # by beta^2; the noise and SNR are referred back to the data REs.
-    beta2 = dmrs_mod.sch_to_dmrs_beta(a.nof_cdm_groups_without_data) ** 2
     if cfg.noise_method == "second_difference":
-        nv = _second_difference_noise(h_pair, nsym_d, beta2)
+        nv = pusch_estimate.second_difference_noise(h_pair, nsym_d, beta2)
     else:
         nv = m[0].mean(dim=(1, 2)) * beta2
     extras = {}
@@ -387,23 +413,6 @@ def _estimate_reference(grid: torch.Tensor, cfg: PuschConfig, r_override=None):
     if cfg.ptrs_enabled:
         gflat = _ptrs_derotate(grid, gflat, h, cfg)
     return gflat, h, outs["noise_var"].mean(dim=1), extras
-
-
-def _second_difference_noise(h_pair: torch.Tensor, nsym_d: int, beta2: float) -> torch.Tensor:
-    """Noise from (1, -2, 1) second differences of the OCC-despread pair
-    estimates (B, nl, P, nsym_d, Np/2): the co-CDM layer is removed
-    exactly and the channel's level and slope cancel; the bulk delay is
-    derotated first so that curvature from a fast phase ramp does not read
-    as noise.  Returns (B,)."""
-    h_pair = h_pair.mean(dim=-2)  # (B, nl, P, NpPairs)
-    npair = h_pair.shape[-1]
-    slope = torch.angle(torch.sum(h_pair[..., 1:] * h_pair[..., :-1].conj(), dim=-1,
-                                  keepdim=True))
-    ramp = torch.arange(npair, dtype=torch.float32, device=h_pair.device)
-    h_pair = h_pair * torch.polar(torch.ones_like(slope), -slope * ramp)
-    d2 = h_pair[..., 2:] - 2.0 * h_pair[..., 1:-1] + h_pair[..., :-2]
-    nv = (d2.abs() ** 2).reshape(h_pair.shape[0], -1).mean(dim=-1) * nsym_d / 3.0 * beta2
-    return torch.clamp_min(nv, 1e-10)
 
 
 def _estimate_stage(grid: torch.Tensor, cfg: PuschConfig, r_override=None):

@@ -22,18 +22,29 @@ differently); TB bits and CRC exact; noise_var and SINR 1e-3 relative;
 HARQ buffers within +-2 (two +-1 LLRs combined); UCI codewords, decoded
 bits, ok flags and short-block metrics bitwise between card and CPU on the
 same int8-valued LLRs (every sum is an integer, exact in any order).
+K7 against its plain version on the card: h within 1e-5 x RMS(h) and the
+noise variance within 1e-5 relative (the slope's and the noise's sums
+reduce in another order, and atan2 / sin / cos / hypot round in their own
+last place, so not bitwise); the front end's int8 LLRs equal on at least
+99.9 % of lanes and within +-1 (h's float32 rounding moves 0.04-0.05 % of
+256QAM lanes across a quantizer step: 4,560 of 10,063,872 at 8 flagship
+slots on an H100); TB bits and CRC verdicts exact; two K7 runs on the same
+inputs bitwise equal, and a strided grid gives what its contiguous copy
+gives.
 """
 
 import numpy as np
 import pytest
 import torch
 from test_torch_demap_llrs import SQUARE, _inputs
+from test_torch_pusch_estimate import estimate_args, rx_grids
 from torch_parity import RETX_UE, SLOT_PLAN, cuda_device, small_slot, to_np, to_torch  # noqa: F401
 
 from srsran_project_tpu_torch.models import cell
 from srsran_project_tpu_torch.ops import demap_llrs as dl
 from srsran_project_tpu_torch.ops import demap_planes as dp
 from srsran_project_tpu_torch.ops import equalizer, ofdm, short_block, uci
+from srsran_project_tpu_torch.ops import pusch_estimate as pe
 from srsran_project_tpu_torch.ops.ldpc import decoder
 from srsran_project_tpu_torch.ops.modulation import Modulation
 from srsran_project_tpu_torch.phy import pusch, sch, ul_slot
@@ -323,6 +334,105 @@ def test_entries_with_k5_match_plain_route_on_card(cuda_device, monkeypatch, ent
     for k in got:
         if k.endswith("tb_bits") or k.endswith("tb_crc_ok"):
             np.testing.assert_array_equal(to_np(got[k]), to_np(cpu[k]), err_msg=k)
+
+
+# Shape -> (PRBs, layers, ports, first PRBs of the batch's grants: with a
+# per-grant pilot bank unless all 0, DM-RS symbols): the flagship, the
+# config groups of mu8_ul and fapi_ul_tti, and a grant on two DM-RS symbols.
+K7_SHAPES = {
+    "flagship-b1": (273, 4, 4, (0,), (2,)),
+    "flagship-b8": (273, 4, 4, (0,) * 8, (2,)),
+    "mu8-rank4-80prb": (80, 4, 4, (0, 80), (2,)),
+    "mu8-rank1-24prb": (24, 1, 4, (160, 184, 208, 232), (2,)),
+    "mu8-rank1-8prb": (8, 1, 4, (256, 264), (2,)),
+    "fapi-rank4-72prb": (72, 4, 4, (18, 90), (2,)),
+    "fapi-rank1-20prb": (20, 1, 4, (162, 182, 202, 222), (2,)),
+    "fapi-rank1-8prb": (8, 1, 4, (242, 250), (2,)),
+    "two-dmrs-symbols": (24, 2, 2, (0, 0), (2, 11)),
+}
+K7_H_TOL = 1e-5  # max |dh| / RMS(h)
+K7_NV_RTOL = 1e-5
+K7_LLR_EQUAL = 0.999  # share of the front end's int8 LLRs equal to the plain route's
+
+
+def _k7_case(shape, dev):
+    """(PuschConfig, grid on dev, estimate's arguments after the grid on
+    dev) of a K7_SHAPES entry."""
+    import dataclasses
+
+    nof_rb, layers, ports, first_rbs, dmrs = K7_SHAPES[shape]
+    cfg = cell.CellConfig(nof_rb=nof_rb, nof_ports=ports, nof_layers=layers).pusch_cfg
+    cfg = dataclasses.replace(cfg, alloc=dataclasses.replace(cfg.alloc, dmrs_symbols=dmrs))
+    assert pusch._fused_estimate_ok(cfg)
+    bank = (pusch._pilot_bank_on(dev, cfg, first_rbs) if any(first_rbs) else None)
+    grid = rx_grids(cfg, first_rbs, seed=len(shape)).to(dev)
+    return cfg, grid, estimate_args(cfg, dev, bank)
+
+
+@pytest.mark.parametrize("shape", sorted(K7_SHAPES))
+def test_k7_matches_plain(cuda_device, shape):  # noqa: F811
+    """K7 (two launches) against its plain version on the card: h within
+    K7_H_TOL x RMS(h), the noise within K7_NV_RTOL; h in the (B, nof_sc,
+    P, nl) memory the equalizer reads; a second run bitwise the first."""
+    _cfg, grid, args = _k7_case(shape, cuda_device)
+    before = pe.estimate.launches
+    h_k, nv_k = pe.estimate(grid, *args)
+    assert pe.estimate.launches == before + 2
+    h_p, nv_p = pe.estimate_plain(grid, *args)
+    assert h_k.shape == h_p.shape and h_k.transpose(1, 2).is_contiguous()
+    rms = float(h_p.abs().pow(2).mean().sqrt())
+    assert float((h_k - h_p).abs().max()) <= K7_H_TOL * rms, shape
+    assert float(((nv_k - nv_p).abs() / nv_p).max()) <= K7_NV_RTOL, shape
+    h_k2, nv_k2 = pe.estimate(grid, *args)
+    assert torch.equal(torch.view_as_real(h_k2), torch.view_as_real(h_k))
+    assert torch.equal(nv_k2.view(torch.int32), nv_k.view(torch.int32))
+
+
+@pytest.mark.parametrize("shape", ["flagship-b8", "mu8-rank4-80prb", "fapi-rank1-20prb"])
+def test_k7_in_the_front_end(cuda_device, monkeypatch, shape):  # noqa: F811
+    """The front end with K7 and with its plain version in its place, on
+    the card: the span's ``kernel_grants`` equals ``grants``, the int8
+    LLRs equal on a K7_LLR_EQUAL share of lanes and within +-1, the noise
+    within K7_NV_RTOL, and the decoded TB bits and CRC verdicts equal."""
+    cfg, grid, args = _k7_case(shape, cuda_device)
+    b = grid.shape[0]
+    rnti = torch.arange(0x4601, 0x4601 + b, device=cuda_device)
+    r = args[1] if args[1].shape[0] == b else None
+    tracer = tracing.l1_tracer
+    monkeypatch.setattr(tracer, "_kept", [])
+    monkeypatch.setattr(tracer, "enabled", True)
+
+    def run():
+        llr, nv, snr = pusch._after_estimate(*pusch._estimate(grid, cfg, r), rnti, cfg)
+        return llr, nv, pusch.finish(llr, nv, snr, cfg)
+
+    llr_k, nv_k, out_k = run()
+    assert tracer.take().totals["pusch.estimate"].counts == {"grants": b, "kernel_grants": b}
+    with monkeypatch.context() as m:
+        m.setattr(pe, "estimate", pe.estimate_plain)
+        llr_p, nv_p, out_p = run()
+    diff = (llr_k.int() - llr_p.int()).abs()
+    assert int(diff.max()) <= 1 and float((diff == 0).float().mean()) >= K7_LLR_EQUAL, shape
+    assert float(((nv_k - nv_p).abs() / nv_p).max()) <= K7_NV_RTOL
+    for k in ("tb_bits", "tb_crc_ok"):
+        np.testing.assert_array_equal(to_np(out_k[k]), to_np(out_p[k]), err_msg=k)
+    assert to_np(out_k["tb_crc_ok"]).all()
+
+
+@pytest.mark.parametrize("layout", ["subcarrier-window", "transposed", "port-strided"])
+def test_k7_on_a_strided_grid(cuda_device, layout):  # noqa: F811
+    """K7 reads the grid through its strides: a view (a window of a wider
+    grid, symbol and subcarrier axes swapped in memory, every other port
+    of a wider stack) gives bitwise what its contiguous copy gives."""
+    _cfg, grid, args = _k7_case("mu8-rank4-80prb", cuda_device)
+    view = {"subcarrier-window": lambda g: torch.cat([g, g], -1)[..., : g.shape[-1]],
+            "transposed": lambda g: g.transpose(2, 3).contiguous().transpose(2, 3),
+            "port-strided": lambda g: torch.stack([g, g], 2).flatten(1, 2)[:, ::2]}[layout](grid)
+    assert not view.is_contiguous()
+    h_v, nv_v = pe.estimate(view, *args)
+    h_c, nv_c = pe.estimate(view.contiguous(), *args)
+    assert torch.equal(torch.view_as_real(h_v), torch.view_as_real(h_c))
+    assert torch.equal(nv_v.view(torch.int32), nv_c.view(torch.int32))
 
 
 def test_k3_k4_occupancy_on_card(cuda_device):  # noqa: F811

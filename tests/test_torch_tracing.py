@@ -143,6 +143,18 @@ def test_the_ldpc_span_counts_the_decoders_iterations(tracer, monkeypatch, entry
     assert counts["iterations"] >= counts["codeblocks"] > 0
 
 
+@pytest.mark.parametrize("entry", ["decode_slot", "process_slot"])
+def test_the_estimate_span_counts_its_grants(tracer, entry):
+    """``pusch.estimate`` counts the grants of each call (two slots of the
+    tiny cell; two config groups of one grant each) and those kernel K7
+    estimated: none on the CPU."""
+    call = _calls()[entry]
+    tracer.enabled = True
+    call()
+    counts = tracer.take().totals["pusch.estimate"].counts
+    assert counts == {"grants": 2, "kernel_grants": 0}
+
+
 def test_spans_lie_on_the_profilers_clock(tracer):
     """Each kept span starts and ends within 50 us of the profiler's event
     of the same span (the range the span opened)."""
@@ -260,6 +272,7 @@ def test_the_fapi_entry_records_its_spans_and_counts(tracer, ul_tti, tmp_path):
     assert t["pucch.f1"].counts == {"occasions": 4, "resources": 1}
     assert t["pucch.f2"].counts == {"occasions": 2, "polar": 1, "short_block": 1,
                                     "kernel_occasions": 0}
+    assert t["pusch.estimate"].counts == {"grants": 2, "kernel_grants": 0}
     assert t["prach.detect"].counts == {"roots": 8, "detected": 2}
     # Per PUSCH PDU its CRC verdict, SINR and (passed) TB; per F1 occasion
     # its bits and rho, per F2 its bits, CRC verdict and SNR; the PRACH's
