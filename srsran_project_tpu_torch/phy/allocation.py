@@ -56,11 +56,35 @@ class Allocation:
         return self.rb_start * NRE
 
 
+@dataclasses.dataclass(frozen=True)
+class RePattern:
+    """REs a shared channel is rate-matched around, as srsRAN's
+    ``re_pattern``: the PRBs it covers, counted on the channel's own grid,
+    the REs of each of those PRBs (bit k: subcarrier k, 12 bits) and the
+    OFDM symbols (bit l: symbol l, 14 bits)."""
+
+    prbs: tuple[int, ...]
+    re_mask: int
+    symbol_mask: int
+
+
+def _reserved_mask(reserved: tuple, nof_symbols: int, nof_sc_grid: int) -> np.ndarray:
+    """(nof_symbols, nof_sc_grid) bool: the REs of the patterns."""
+    mask = np.zeros((nof_symbols, nof_sc_grid // NRE, NRE), dtype=bool)
+    for p in reserved:
+        syms = [l for l in range(nof_symbols) if (p.symbol_mask >> l) & 1]
+        res = [k for k in range(NRE) if (p.re_mask >> k) & 1]
+        mask[np.ix_(syms, list(p.prbs), res)] = True
+    return mask.reshape(nof_symbols, nof_sc_grid)
+
+
 @functools.lru_cache(maxsize=None)
-def data_re_indices(alloc: Allocation, nof_symbols: int, nof_sc_grid: int) -> np.ndarray:
+def data_re_indices(alloc: Allocation, nof_symbols: int, nof_sc_grid: int,
+                    reserved: tuple = ()) -> np.ndarray:
     """Flat indices (into a (nof_symbols, nof_sc_grid) grid) of the data REs
     of the allocation, in mapping order: subcarrier-major within each symbol,
-    symbols ascending (TS 38.211 §7.3.1.5)."""
+    symbols ascending (TS 38.211 §7.3.1.5); the REs of the ``reserved``
+    patterns (``RePattern``) skipped."""
     out = []
     dmask = dmrs_mod.data_subcarrier_mask(
         alloc.dmrs_config_type, alloc.nof_cdm_groups_without_data
@@ -71,7 +95,10 @@ def data_re_indices(alloc: Allocation, nof_symbols: int, nof_sc_grid: int) -> np
                 if sym in alloc.dmrs_symbols and not dmask[re]:
                     continue
                 out.append(sym * nof_sc_grid + rb * NRE + re)
-    return np.asarray(out, dtype=np.int32)
+    out = np.asarray(out, dtype=np.int32)
+    if reserved:
+        out = out[~_reserved_mask(reserved, nof_symbols, nof_sc_grid).reshape(-1)[out]]
+    return out
 
 
 @functools.lru_cache(maxsize=None)

@@ -18,6 +18,7 @@ import torch
 from ..ops import scrambling
 from ..ops._tables import device_table
 from ..ran.constants import NRE
+from ..support.tracing import l1_tracer
 
 # CDM cover codes: wf over k' (FD2), wt over l' (TD length 1/2/4)
 _WF = np.array([[1.0, 1.0], [1.0, -1.0]])
@@ -198,11 +199,14 @@ _plan_on = device_table(lambda cfg, amplitude, which: _port_plan(cfg, amplitude)
 def generate(cfg: CsiRsConfig, amplitude: float = 1.0,
              device: torch.device | str = "cuda") -> torch.Tensor:
     """CSI-RS contribution on ``device`` as a (nof_ports, nsym, nsc)
-    complex64 grid, squeezed to (nsym, nsc) for single-port rows."""
-    dev = torch.device(device)
-    nports = len(_re_layout(cfg))
-    grid = torch.zeros(nports * cfg.nof_grid_symbols * cfg.nof_grid_sc, dtype=torch.complex64,
-                       device=dev)
-    grid[_plan_on(dev, cfg, amplitude, 0)] = _plan_on(dev, cfg, amplitude, 1)
-    grid = grid.reshape(nports, cfg.nof_grid_symbols, cfg.nof_grid_sc)
-    return grid[0] if nports == 1 else grid
+    complex64 grid, squeezed to (nsym, nsc) for single-port rows.  The span
+    ``csi_rs.generate`` counts ``resources`` and ``ports``."""
+    with l1_tracer.span("csi_rs.generate") as span:
+        dev = torch.device(device)
+        nports = len(_re_layout(cfg))
+        span.count(resources=1, ports=nports)
+        grid = torch.zeros(nports * cfg.nof_grid_symbols * cfg.nof_grid_sc,
+                           dtype=torch.complex64, device=dev)
+        grid[_plan_on(dev, cfg, amplitude, 0)] = _plan_on(dev, cfg, amplitude, 1)
+        grid = grid.reshape(nports, cfg.nof_grid_symbols, cfg.nof_grid_sc)
+        return grid[0] if nports == 1 else grid

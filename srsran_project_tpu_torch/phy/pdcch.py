@@ -24,6 +24,7 @@ from ..ops._tables import device_table
 from ..ops.modulation import Modulation, map_bits
 from ..ops.polar import tables as ptab
 from ..ran.constants import NRE
+from ..support.tracing import l1_tracer
 
 
 @dataclasses.dataclass(frozen=True)
@@ -159,25 +160,33 @@ _plan_on = device_table(lambda cfg, which: _re_indices(cfg)[which].astype(np.int
 _dmrs_on = device_table(_dmrs_values)
 
 
+_c_init_on = device_table(lambda cfg: np.asarray([(cfg.n_rnti << 16) + cfg.n_id], np.int64))
+
+
 def _data_c_init(cfg: PdcchConfig, device: torch.device) -> torch.Tensor:
-    return torch.tensor((cfg.n_rnti << 16) + cfg.n_id, dtype=torch.int64, device=device)
+    """The data scrambling's c_init, 0-d int64 on the device (a table
+    uploaded once per config)."""
+    return _c_init_on(device, cfg)[0]
 
 
 def process(payload: torch.Tensor, rnti, cfg: PdcchConfig) -> torch.Tensor:
     """Encode one DCI into a single-port grid: (..., A) payload bits and an
     RNTI (int or tensor of the leading shape) -> (..., nsym, nsc)
-    complex64 on the payload's device."""
-    dev = payload.device
-    rnti = torch.as_tensor(rnti, dtype=torch.int64, device=dev)
-    coded = polar.encode(_crc24c_with_rnti(payload, rnti), cfg.code, interleave_input=True)
-    coded = scrambling.scramble_bits(coded, _data_c_init(cfg, dev))
-    syms = map_bits(coded, Modulation.QPSK)
+    complex64 on the payload's device.  The span ``pdcch.encode`` counts
+    ``pdus``, the DCIs encoded."""
     lead = payload.shape[:-1]
-    grid = torch.zeros(lead + (cfg.nof_grid_symbols * cfg.nof_grid_sc,), dtype=torch.complex64,
-                       device=dev)
-    grid[..., _plan_on(dev, cfg, 0)] = syms
-    grid[..., _plan_on(dev, cfg, 1)] = _dmrs_on(dev, cfg)
-    return grid.reshape(lead + (cfg.nof_grid_symbols, cfg.nof_grid_sc))
+    with l1_tracer.span("pdcch.encode") as span:
+        span.count(pdus=lead.numel())
+        dev = payload.device
+        rnti = torch.as_tensor(rnti, dtype=torch.int64, device=dev)
+        coded = polar.encode(_crc24c_with_rnti(payload, rnti), cfg.code, interleave_input=True)
+        coded = scrambling.scramble_bits(coded, _data_c_init(cfg, dev))
+        syms = map_bits(coded, Modulation.QPSK)
+        grid = torch.zeros(lead + (cfg.nof_grid_symbols * cfg.nof_grid_sc,),
+                           dtype=torch.complex64, device=dev)
+        grid[..., _plan_on(dev, cfg, 0)] = syms
+        grid[..., _plan_on(dev, cfg, 1)] = _dmrs_on(dev, cfg)
+        return grid.reshape(lead + (cfg.nof_grid_symbols, cfg.nof_grid_sc))
 
 
 @functools.lru_cache(maxsize=None)

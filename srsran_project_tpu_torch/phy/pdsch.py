@@ -10,6 +10,13 @@ precoding with the low-PAPR DM-RS; exact float32 precoding by scalar
 multiply-adds.  ``process_multi`` encodes N equal-config grants of one
 slot as one leading-batch pass through both chains, each grant with its
 own DM-RS values (the Gold index follows its absolute CRB) and precoding.
+
+A config's ``reserved`` RE patterns (``allocation.RePattern``, srsRAN's
+``re_pattern`` list of the PDSCH PDU; e.g. a TRS on the grant's PRBs) take
+REs out of the data: the codeword is rate matched to the REs left (TS
+38.214 5.1.4), the data skip the reserved REs in mapping order, and the
+scatter assembly leaves them empty on every port.  The DM-RS is not
+rate matched around them.
 """
 
 from __future__ import annotations
@@ -39,7 +46,8 @@ def uniform_data_rows(a: alloc_mod.Allocation) -> bool:
 
 @dataclasses.dataclass(frozen=True)
 class PdschConfig:
-    """Twin of the reference's ``PdschConfig`` (same fields and defaults)."""
+    """Twin of the reference's ``PdschConfig`` (same fields and defaults),
+    with the port's own ``reserved``."""
 
     tbs: int
     target_code_rate: float
@@ -60,13 +68,18 @@ class PdschConfig:
     ptrs_k_rb_ref: int = 0
     transform_precoding: bool = False
     n_rs_id: int = 0
+    # REs the data are rate matched around (``allocation.RePattern``s on
+    # this config's grid); the port's own, the reference has none.
+    reserved: tuple[alloc_mod.RePattern, ...] = ()
 
     @classmethod
     def from_reference(cls, ref) -> "PdschConfig":
         """Copy a reference (JAX package) ``PdschConfig`` field by field, by
         attribute access only (the modulation by value, the allocation as
-        the port's own ``Allocation``)."""
-        kw = {f.name: getattr(ref, f.name) for f in dataclasses.fields(cls)}
+        the port's own ``Allocation``); ``reserved``, which the reference
+        lacks, stays empty."""
+        kw = {f.name: getattr(ref, f.name) for f in dataclasses.fields(cls)
+              if f.name != "reserved"}
         kw["modulation"] = Modulation(int(kw["modulation"]))
         kw["alloc"] = alloc_mod.Allocation.from_fields(kw["alloc"])
         return cls(**kw)
@@ -79,9 +92,22 @@ class PdschConfig:
             target_code_rate=self.target_code_rate,
             qm=qm,
             nof_layers=self.nof_layers,
-            nof_total_bits=alloc_mod.nof_data_re(self.alloc) * qm * self.nof_layers,
+            nof_total_bits=self.nof_data_re * qm * self.nof_layers,
             rv=self.rv,
         )
+
+    @functools.cached_property
+    def nof_data_re(self) -> int:
+        """Data REs of one layer: the allocation's less the reserved ones."""
+        if not self.reserved:
+            return alloc_mod.nof_data_re(self.alloc)
+        return len(alloc_mod.data_re_indices(self.alloc, self.nof_grid_symbols,
+                                             self.nof_grid_sc, self.reserved))
+
+    @functools.cached_property
+    def nof_reserved_re(self) -> int:
+        """Data REs of one layer that the reserved patterns leave empty."""
+        return alloc_mod.nof_data_re(self.alloc) - self.nof_data_re
 
 
 def _pdsch_c_init(rnti: torch.Tensor, n_id: int, q: int = 0) -> torch.Tensor:
@@ -205,7 +231,8 @@ def _scatter_plan(cfg: PdschConfig):
     a = cfg.alloc
     nl = cfg.nof_layers
     n = cfg.nof_grid_symbols * cfg.nof_grid_sc
-    didx = alloc_mod.data_re_indices(a, cfg.nof_grid_symbols, cfg.nof_grid_sc).astype(np.int64)
+    didx = alloc_mod.data_re_indices(a, cfg.nof_grid_symbols, cfg.nof_grid_sc,
+                                     cfg.reserved).astype(np.int64)
     data_idx = (np.arange(nl)[:, None] * n + didx[None]).reshape(-1)
     beta = np.float32(dmrs_mod.sch_to_dmrs_beta(a.nof_cdm_groups_without_data))
     d_idx, d_val = [], []
@@ -263,16 +290,19 @@ def _grid_chain(cw: torch.Tensor, precoding: torch.Tensor, cfg: PdschConfig,
     """Modulate + layer map + DM-RS (+ PT-RS) + precode: (..., G) bits ->
     (..., P, nsym, nsc) port grids.  The scatter-free rows where the
     reference takes them (full data rows, type-1 DM-RS, no PT-RS, no
-    transform precoding), else the scatter assembly.  ``dmrs_override``
-    (..., nl, nsym_d, Np) replaces the config's DM-RS pilot values per
-    leading element."""
-    with l1_tracer.span("pdsch.grid"):
+    transform precoding, no reserved REs), else the scatter assembly.
+    ``dmrs_override`` (..., nl, nsym_d, Np) replaces the config's DM-RS
+    pilot values per leading element.  The span counts ``reserved_res``,
+    the REs the reserved patterns leave empty, summed over the grants."""
+    with l1_tracer.span("pdsch.grid") as span:
+        span.count(reserved_res=cfg.nof_reserved_re * cw.shape[:-1].numel())
         syms = map_bits(cw, cfg.modulation)  # (..., G/Qm)
         nl = cfg.nof_layers
         # symbol i -> layer i % nl
         layered = syms.reshape(syms.shape[:-1] + (-1, nl)).transpose(-1, -2)
         if (uniform_data_rows(cfg.alloc) and not cfg.transform_precoding
-                and not cfg.ptrs_enabled and cfg.alloc.dmrs_config_type == 1):
+                and not cfg.ptrs_enabled and cfg.alloc.dmrs_config_type == 1
+                and not cfg.reserved):
             return _grid_rows_fast(layered, precoding, cfg, dmrs_override)
         return _grid_scatter(layered, precoding, cfg, dmrs_override)
 
@@ -346,15 +376,22 @@ def _multi_dmrs_bank(cfg: PdschConfig, first_rbs: tuple) -> np.ndarray:
 _bank_on = device_table(_multi_dmrs_bank)
 
 
-def _multi_encode(tbs: torch.Tensor, rntis: torch.Tensor, first_scs: list, bank: torch.Tensor,
-                  precoding: torch.Tensor, grid: torch.Tensor, cfg: PdschConfig) -> torch.Tensor:
-    """N equal-config grants through both chains as one leading batch, then
-    each grant's window added into the slot grid at its offset, in grant
-    order."""
-    subs = _grid_chain(_bit_chain(tbs, rntis, cfg), precoding, cfg, dmrs_override=bank)
+def multi_bit_chain(tbs: torch.Tensor, rntis: torch.Tensor, cfg: PdschConfig) -> torch.Tensor:
+    """The bit chain of N equal-config grants as one leading batch: (N, A)
+    payload bits and (N,) RNTIs -> (N, G) scrambled codewords."""
+    return _bit_chain(tbs, rntis, cfg)
+
+
+def add_multi_grid(grid: torch.Tensor, first_rbs: tuple, cfg: PdschConfig, cw: torch.Tensor,
+                   precoding: torch.Tensor) -> torch.Tensor:
+    """The grid chain of N equal-config grants: their (N, G) codewords and
+    (N, nl, P) precoding through one batched pass, then each grant's
+    window added into the slot grid (in place) at its first PRB, in grant
+    order; returns the grid."""
+    subs = _grid_chain(cw, precoding, cfg, dmrs_override=_bank_on(grid.device, cfg, first_rbs))
     width = subs.shape[-1]
-    for i, off in enumerate(first_scs):
-        grid[:, :, off : off + width] += subs[i]
+    for i, rb in enumerate(first_rbs):
+        grid[:, :, 12 * rb : 12 * rb + width] += subs[i]
     return grid
 
 
@@ -370,7 +407,7 @@ def process_multi(tbs: torch.Tensor, rntis, first_rbs, precoding, cfg: PdschConf
     grant; grid: an optional (P, nsym, nof_slot_sc) slot grid to add into
     (a new grid is returned; the given one is left as it was).  Without a
     grid the slot spans at least the config's width and the last grant's
-    window."""
+    window.  The config's reserved REs lie on every grant's window."""
     if cfg.ptrs_enabled:
         raise ValueError("process_multi: PT-RS PDUs take the per-PDU path")
     first_rbs = tuple(int(r) for r in first_rbs)
@@ -388,5 +425,4 @@ def process_multi(tbs: torch.Tensor, rntis, first_rbs, precoding, cfg: PdschConf
     w = torch.as_tensor(precoding).to(device=dev, dtype=torch.complex64)
     if w.dim() == 2:
         w = w.expand((tbs.shape[0],) + tuple(w.shape))
-    return _multi_encode(tbs, rntis, [12 * rb for rb in first_rbs],
-                         _bank_on(dev, cfg, first_rbs), w, grid, cfg)
+    return add_multi_grid(grid, first_rbs, cfg, multi_bit_chain(tbs, rntis, cfg), w)

@@ -21,6 +21,7 @@ from ..ops import polar, scrambling
 from ..ops._tables import device_table
 from ..ops.modulation import Modulation, map_bits
 from ..ops.polar import tables as ptab
+from ..support.tracing import l1_tracer
 
 A_BITS = 32
 E_PBCH = 864
@@ -167,10 +168,16 @@ _mask1_on = device_table(_first_scrambling_mask)
 _mask2_on = device_table(_second_scrambling)
 
 
-def encode_pbch(payload: torch.Tensor, cfg: SsbConfig) -> torch.Tensor:
-    """(..., 32) payload bits -> (..., 864) scrambled coded bits."""
+def encode_pbch(payload: torch.Tensor, cfg: SsbConfig,
+                first_mask: torch.Tensor | None = None) -> torch.Tensor:
+    """(..., 32) payload bits -> (..., 864) scrambled coded bits.
+    ``first_mask``: the first scrambling's (32,) bits on the payload's
+    device in place of the config's (``_first_scrambling_mask``), the one
+    part of the chain that follows the SFN."""
     dev = payload.device
-    a = pbch_payload_interleave(payload) ^ _mask1_on(dev, cfg)
+    if first_mask is None:
+        first_mask = _mask1_on(dev, cfg)
+    a = pbch_payload_interleave(payload) ^ first_mask
     coded = polar.encode(crc_mod.crc_append(a, "24C"), cfg.code, interleave_input=True)
     return coded ^ _mask2_on(dev, cfg)
 
@@ -220,13 +227,19 @@ _fixed_on = device_table(_fixed_block)
 _layout_on = device_table(lambda pci, which: _ssb_re_layout(pci)[which].astype(np.int64))
 
 
-def assemble_ssb(payload: torch.Tensor, cfg: SsbConfig, beta: float = 1.0) -> torch.Tensor:
+def assemble_ssb(payload: torch.Tensor, cfg: SsbConfig, beta: float = 1.0,
+                 first_mask: torch.Tensor | None = None) -> torch.Tensor:
     """(32,) PBCH payload bits -> the SSB block (4, 240) complex64 with PSS,
-    SSS, PBCH and its DM-RS, on the payload's device."""
-    dev = payload.device
-    grid = _fixed_on(dev, cfg).clone()
-    grid[_layout_on(dev, cfg.pci, 0)] = map_bits(encode_pbch(payload, cfg), Modulation.QPSK)
-    return (beta * grid).reshape(SSB_NSYM, SSB_NSC)
+    SSS, PBCH and its DM-RS, on the payload's device; the span
+    ``ssb.assemble`` counts ``ssbs``.  ``first_mask`` as in
+    ``encode_pbch``."""
+    with l1_tracer.span("ssb.assemble") as span:
+        span.count(ssbs=1)
+        dev = payload.device
+        grid = _fixed_on(dev, cfg).clone()
+        grid[_layout_on(dev, cfg.pci, 0)] = map_bits(encode_pbch(payload, cfg, first_mask),
+                                                     Modulation.QPSK)
+        return (beta * grid).reshape(SSB_NSYM, SSB_NSC)
 
 
 def decode_pbch(llrs: torch.Tensor, cfg: SsbConfig):

@@ -2,12 +2,23 @@
 
 Port of ``srsran_project_tpu/phy/upper_phy.py``: ``UpperPhy`` turns a
 DL_TTI.request + TX_Data.request into the slot's resource grid
-(equal-config compact PDSCH grants as one ``pdsch.process_multi`` batch,
-the others one by one, then every PDCCH, SSB and CSI-RS through
-``dl_slot.assemble_broadcast``), a UL_DCI.request into PDCCH on a grid,
-and a UL_TTI.request + received grid (+ the PRACH occasion's
-demodulated preamble subcarriers) into CRC (with the TA where the grant
-asks for it), RxData, UCI, SRS, RACH and error indications.  All of the
+(equal-config compact PDSCH grants as one batch through
+``pdsch.multi_bit_chain`` and ``pdsch.add_multi_grid``, the halves of
+``process_multi``, the others one by one through ``pdsch.process``, then
+the PDCCH, SSB and CSI-RS PDUs onto port 0 through ``dl_slot.add_pdcch``,
+``add_ssbs`` and ``add_csi_rs``), a UL_DCI.request into PDCCH on a grid
+(each call a span, ``upper_phy.process_dl_tti`` with counts ``slots``, the
+PDUs of each channel and ``pdsch_batches``, and ``upper_phy.process_ul_dci``
+with count ``pdcch``, around the channels' own: ``pdsch.bit_chain``,
+``pdsch.grid``, ``pdcch.encode``, ``ssb.assemble``, ``csi_rs.generate``).
+A request's structure is planned once (``_DlPlan``: the batches and each
+stage's key) and each of those stages runs through
+``support/stage_graphs``: on the card a CUDA graph per stage, replayed
+inside the stage's span on payloads uploaded in one copy, into a grid the
+PHY keeps (each call returns a copy of it).  It turns a UL_TTI.request + received
+grid (+ the PRACH occasion's demodulated preamble subcarriers) into CRC
+(with the TA where the grant asks for it), RxData, UCI, SRS, RACH and
+error indications.  All of the
 slot's device work is launched first: two or more compact PUSCH grants
 through ``ul_slot.process_slot``, the others through ``pusch.process``,
 every PUCCH F0/F1/F2 occasion through ``ul_slot.detect_pucch`` (F3/F4
@@ -28,20 +39,22 @@ PRACH buffer on another device raises ValueError.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
 
 from ..fapi import messages as fapi
+from ..support.stage_graphs import StageGraphs
 from ..support.tracing import l1_tracer
 from . import dl_slot as dl_slot_mod
-from . import pdcch as pdcch_mod
 from . import pdsch as pdsch_mod
 from . import prach as prach_mod
 from . import pucch as pucch_mod
 from . import pucch_f2 as pucch_f2_mod
 from . import pusch as pusch_mod
 from . import srs as srs_mod
+from . import ssb as ssb_mod
 from . import ul_slot as ul_slot_mod
 
 
@@ -101,6 +114,33 @@ def rach_indications(res: fapi.SlotResults, detected: dict) -> None:
         res.rach.append(fapi.RachIndicationPdu(int(idx), float(metric[idx]), float(ta[idx])))
 
 
+@dataclasses.dataclass(frozen=True)
+class _PdschBatch:
+    """Equal-config compact PDSCH PDUs (indices into the request) that go
+    through one batched bit chain and grid chain, with their stage keys."""
+
+    cfg: object  # the PDUs' PdschConfig with crb_start 0
+    pdus: tuple
+    first_rbs: tuple
+    bit_key: object
+    grid_key: object
+
+
+@dataclasses.dataclass(frozen=True)
+class _DlPlan:
+    """What a DL_TTI.request's structure decides: the PDSCH batches, the
+    PDSCH PDUs that go one by one (in order), and the PDCCH, SSB and
+    CSI-RS stages' configs and keys.  ``configs`` holds the request's
+    config objects, whose ids key the plan."""
+
+    batches: list
+    singles: list
+    pdcch: tuple  # (configs, key)
+    ssb: tuple  # (configs with sfn_2lsb 0, (first symbol, first subcarrier)s, key)
+    csi_rs: tuple | None  # (configs, key)
+    configs: tuple
+
+
 class UpperPhy:
     """One cell's upper PHY."""
 
@@ -111,6 +151,13 @@ class UpperPhy:
         # PHY taps: observers called at stage boundaries as fn(event, slot,
         # payload) with the grid or the results; they must not mutate it.
         self._taps: list = []
+        # The downlink entries' stages (support/stage_graphs), the grid
+        # their graphs write, the plans of the requests met (``_dl_plan``)
+        # and the stages' key tokens (``_stage_key``).
+        self._stages = StageGraphs(self.device)
+        self._grid: torch.Tensor | None = None
+        self._plans: dict = {}
+        self._stage_keys: dict = {}
 
     def add_tap(self, fn) -> None:
         """Register an observer of 'dl_grid' / 'ul_grid' / 'ul_results'."""
@@ -132,53 +179,151 @@ class UpperPhy:
         """A request payload (numpy or tensor) on the PHY's device."""
         return torch.as_tensor(x, dtype=dtype, device=self.device)
 
+    def _slot_grid(self, src: torch.Tensor | None = None) -> torch.Tensor:
+        """The grid a downlink entry's stages add into, zeroed or holding
+        ``src``: a new tensor, or the one the stages' graphs write where
+        they replay graphs (``_slot_result`` hands out a copy of it)."""
+        if not self._stages.enabled:
+            return self._zeros() if src is None else src.clone()
+        if self._grid is None:
+            self._grid = self._zeros()
+        return self._grid.zero_() if src is None else self._grid.copy_(src)
+
+    def _slot_result(self, grid: torch.Tensor) -> torch.Tensor:
+        return grid.clone() if self._stages.enabled else grid
+
     # ------------------------------------------------------------------
     # Downlink: DL_TTI.request + TX_Data.request -> resource grid
     # ------------------------------------------------------------------
     def process_dl_tti(self, request: fapi.DlTtiRequest,
                        tx_data: fapi.TxDataRequest) -> torch.Tensor:
+        with l1_tracer.span("upper_phy.process_dl_tti") as span:
+            span.count(slots=1, pdsch=len(request.pdsch), pdcch=len(request.pdcch),
+                       ssb=len(request.ssb), csi_rs=len(request.csi_rs))
+            grid, batches = self._process_dl_tti(request, tx_data)
+            span.count(pdsch_batches=batches)
+            return grid
+
+    def _process_dl_tti(self, request: fapi.DlTtiRequest, tx_data: fapi.TxDataRequest):
+        """(the slot's grid, the number of ``process_multi`` batches)."""
         cfg = self.cfg
         if cfg.validate_requests:
             from ..fapi.validators import validate_dl_tti
 
             validate_dl_tti(request, tx_data, cfg.nof_grid_sc)
-        grid = self._zeros()
-        # Equal-config compact PDUs batch into one process_multi per config.
-        # The key takes crb_start to 0 (process_multi derives each grant's
-        # pilots from its first_rb); only crb_start == first_rb grants
-        # batch, since a crb_start = 0 grant at first_rb != 0 would get its
-        # DM-RS Gold index from the wrong CRB.
-        batched, singles = {}, []
-        for pdu in request.pdsch:
-            c = pdu.config
-            if (pdu.first_rb is not None and not c.ptrs_enabled
-                    and c.alloc.crb_start == pdu.first_rb):
-                key = dataclasses.replace(c, alloc=dataclasses.replace(c.alloc, crb_start=0))
-                batched.setdefault(key, []).append(pdu)
-            else:
-                singles.append(pdu)
-        for cfg_g, pdus in batched.items():
-            if len(pdus) == 1:
-                singles.extend(pdus)
-                continue
-            tbs = torch.stack([self._on(tx_data.payloads[p.tb_index], torch.uint8) for p in pdus])
-            rntis = torch.tensor([p.rnti for p in pdus], dtype=torch.int64, device=self.device)
-            w = torch.stack([self._on(p.precoding, torch.complex64) for p in pdus])
-            grid = pdsch_mod.process_multi(tbs, rntis, [p.first_rb for p in pdus], w, cfg_g,
-                                           grid=grid)
-        for pdu in singles:
+        plan = self._dl_plan(request)
+        pdsch = request.pdsch
+        parts = []
+        for b in plan.batches:
+            parts += [([tx_data.payloads[pdsch[i].tb_index] for i in b.pdus], np.uint8),
+                      ([pdsch[i].rnti for i in b.pdus], np.int64),
+                      ([pdsch[i].precoding for i in b.pdus], np.complex64)]
+        parts += [([p.rnti for p in request.pdcch], np.int64)] if request.pdcch else []
+        parts += [(p.payload, np.uint8) for p in request.pdcch]
+        parts += [(p.payload, np.uint8) for p in request.ssb]
+        parts += [(ssb_mod._first_scrambling_mask(p.config), np.uint8) for p in request.ssb]
+        inputs = iter(self._stages.upload(parts))
+        grid = self._slot_grid()
+        st = self._stages
+        for b in plan.batches:
+            tbs, rntis, w = next(inputs), next(inputs), next(inputs)
+            cw = st.run("pdsch.bit_chain", {}, b.bit_key,
+                        functools.partial(pdsch_mod.multi_bit_chain, cfg=b.cfg), tbs, rntis)
+            st.run("pdsch.grid", {"reserved_res": b.cfg.nof_reserved_re * len(b.pdus)},
+                   b.grid_key, functools.partial(pdsch_mod.add_multi_grid, grid, b.first_rbs, b.cfg),
+                   cw, w)
+        for i in plan.singles:
+            pdu = pdsch[i]
             sub = pdsch_mod.process(self._on(tx_data.payloads[pdu.tb_index], torch.uint8),
                                     pdu.rnti, self._on(pdu.precoding, torch.complex64),
                                     pdu.config)
             if pdu.first_rb is None:
-                grid = grid + sub
+                grid += sub
             else:
                 # A compact-grid PDU goes to its granted PRB offset.
                 off = pdu.first_rb * 12
                 grid[:, :, off : off + sub.shape[2]] += sub
-        grid = dl_slot_mod.assemble_broadcast(grid, request, cfg)
+        if request.pdcch:
+            self._run_pdcch(grid, plan.pdcch, [next(inputs) for _ in range(len(request.pdcch) + 1)])
+        if request.ssb:
+            cfgs, places, key = plan.ssb
+            st.run("ssb.assemble", {"ssbs": len(cfgs)}, key,
+                   functools.partial(dl_slot_mod.add_ssbs, grid, cfgs, places), *inputs)
+        if plan.csi_rs:
+            cfgs, key = plan.csi_rs
+            st.run("csi_rs.generate",
+                   {"resources": len(cfgs), "ports": sum(c.nof_ports for c in cfgs)}, key,
+                   functools.partial(dl_slot_mod.add_csi_rs, grid, cfgs))
+        grid = self._slot_result(grid)
         self._notify("dl_grid", request.slot, grid)
-        return grid
+        return grid, len(plan.batches)
+
+    def _dl_plan(self, request: fapi.DlTtiRequest) -> "_DlPlan":
+        """What a DL_TTI.request's structure decides (``_DlPlan``), made once
+        per structure: requests whose PDUs hold the same config objects at
+        the same places share it."""
+        sig = (tuple((id(p.config), p.first_rb) for p in request.pdsch),
+               tuple(id(p.config) for p in request.pdcch),
+               tuple((id(p.config), p.first_symbol, p.first_subcarrier) for p in request.ssb),
+               tuple((p.row, p.rb_start, p.rb_count, p.symbol, p.scrambling_id)
+                     for p in request.csi_rs), request.slot.slot_in_frame)
+        plan = self._plans.get(sig)
+        if plan is not None:
+            return plan
+        cfg = self.cfg
+        csi_cfgs = tuple(dl_slot_mod.csi_rs_config(p, request.slot.slot_in_frame, cfg)
+                         for p in request.csi_rs)
+        # Equal-config compact PDUs batch into one process_multi pass per
+        # config.  The key takes crb_start to 0 (process_multi derives each
+        # grant's pilots from its first_rb); only crb_start == first_rb
+        # grants batch, since a crb_start = 0 grant at first_rb != 0 would
+        # get its DM-RS Gold index from the wrong CRB.
+        batched, singles = {}, []
+        for i, pdu in enumerate(request.pdsch):
+            c = pdu.config
+            if (pdu.first_rb is not None and not c.ptrs_enabled
+                    and c.alloc.crb_start == pdu.first_rb):
+                key = dataclasses.replace(c, alloc=dataclasses.replace(c.alloc, crb_start=0))
+                batched.setdefault(key, []).append(i)
+            else:
+                singles.append(i)
+        batches = []
+        for cfg_g, idx in batched.items():
+            if len(idx) == 1:
+                singles.extend(idx)
+                continue
+            first_rbs = tuple(request.pdsch[i].first_rb for i in idx)
+            batches.append(_PdschBatch(cfg_g, tuple(idx), first_rbs,
+                                       self._stage_key("pdsch.bit_chain", cfg_g),
+                                       self._stage_key("pdsch.grid", cfg_g, first_rbs)))
+        pdcch_cfgs = tuple(p.config for p in request.pdcch)
+        ssb_cfgs = tuple(dataclasses.replace(p.config, sfn_2lsb=0) for p in request.ssb)
+        places = tuple((p.first_symbol, p.first_subcarrier) for p in request.ssb)
+        plan = _DlPlan(
+            batches=batches, singles=singles,
+            pdcch=(pdcch_cfgs, self._stage_key("pdcch", pdcch_cfgs)),
+            ssb=(ssb_cfgs, places, self._stage_key("ssb", ssb_cfgs, places)),
+            csi_rs=(csi_cfgs, self._stage_key("csi_rs", csi_cfgs)) if csi_cfgs else None,
+            configs=tuple(p.config for p in (*request.pdsch, *request.pdcch, *request.ssb)))
+        return self._keep_plan(sig, plan)
+
+    def _keep_plan(self, sig: tuple, plan):
+        if len(self._plans) >= 1024:
+            self._plans.clear()
+        self._plans[sig] = plan
+        return plan
+
+    def _stage_key(self, *key):
+        """A token of a stage's key, one object per distinct key: hashed by
+        identity, so a slot's graph lookups do not hash configs."""
+        if len(self._stage_keys) >= 4096 and key not in self._stage_keys:
+            self._stage_keys.clear()
+        return self._stage_keys.setdefault(key, object())
+
+    def _run_pdcch(self, grid: torch.Tensor, pdcch: tuple, inputs: list) -> None:
+        cfgs, key = pdcch
+        self._stages.run("pdcch.encode", {"pdus": len(cfgs)}, key,
+                         functools.partial(dl_slot_mod.add_pdcch, grid, cfgs), *inputs)
 
     # ------------------------------------------------------------------
     # Uplink: UL_DCI.request, UL_TTI.request + received grid -> indications
@@ -187,11 +332,19 @@ class UpperPhy:
                        grid: torch.Tensor | None = None) -> torch.Tensor:
         """Encode the UL_DCI.request PDCCH PDUs onto a new grid, or onto a
         copy of the given one."""
-        grid = self._zeros() if grid is None else self._check_grid(grid).clone()
-        for pdu in request.pdcch:
-            grid[0] += pdcch_mod.process(self._on(pdu.payload, torch.uint8), pdu.rnti,
-                                         pdu.config)
-        return grid
+        with l1_tracer.span("upper_phy.process_ul_dci") as span:
+            span.count(pdcch=len(request.pdcch))
+            grid = self._slot_grid(None if grid is None else self._check_grid(grid))
+            if request.pdcch:
+                sig = ("ul_dci",) + tuple(id(p.config) for p in request.pdcch)
+                plan = self._plans.get(sig)
+                if plan is None:
+                    cfgs = tuple(p.config for p in request.pdcch)
+                    plan = self._keep_plan(sig, (cfgs, self._stage_key("pdcch", cfgs)))
+                self._run_pdcch(grid, plan, self._stages.upload(
+                    [([p.rnti for p in request.pdcch], np.int64)]
+                    + [(p.payload, np.uint8) for p in request.pdcch]))
+            return self._slot_result(grid)
 
     def _check_grid(self, grid) -> torch.Tensor:
         """A received grid (or PRACH buffer) as given: a tensor on the

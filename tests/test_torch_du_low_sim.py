@@ -251,11 +251,13 @@ UL_STAGES = {"pusch.estimate", "pusch.equalize", "pusch.demap", "sch.dematch", "
 def test_trace_is_chrome_json(mode, tmp_path, fresh_tracer, capsys):
     """--trace writes Chrome trace JSON on one clock: in the single-UE loop
     a DL and a UL span a slot, as in the reference, with the slot path's
-    stage spans nested in them (the uplink's inside the FAPI entry's span
+    stage spans nested in them (the downlink's inside the FAPI entry's span
+    ``upper_phy.process_dl_tti``, the uplink's inside
     ``upper_phy.process_ul_tti``, beside ``upper_phy.indications``); the
     scheduler mode's loop has no slot span (in the reference neither), so
-    its outermost spans are the downlink's stages and the FAPI entry, with
-    ``ul_slot.process_slot`` and the uplink's stages nested in it."""
+    its outermost spans are the two FAPI entries, with the downlink's
+    stages, and ``ul_slot.process_slot`` and the uplink's stages, nested in
+    them."""
     path = tmp_path / "trace.json"
     argv = (SMALL if mode == "single" else SCHED + ["--ues", "2", "--slots", "3"])
     assert du_low_sim.main(argv + ["--trace", str(path), "--metrics-json"]) == 0
@@ -274,14 +276,16 @@ def test_trace_is_chrome_json(mode, tmp_path, fresh_tracer, capsys):
         if e["args"]["parent"]:
             inner.setdefault(by_id[e["args"]["parent"]]["name"], set()).add(e["name"])
     if mode == "scheduler":
-        assert {e["name"] for e in top} == {"pdsch.bit_chain", "pdsch.grid",
+        assert {e["name"] for e in top} == {"upper_phy.process_dl_tti",
                                             "upper_phy.process_ul_tti"}
-        assert inner == {"upper_phy.process_ul_tti": {"ul_slot.process_slot",
+        assert inner == {"upper_phy.process_dl_tti": {"pdsch.bit_chain", "pdsch.grid"},
+                         "upper_phy.process_ul_tti": {"ul_slot.process_slot",
                                                       "upper_phy.indications"},
                          "ul_slot.process_slot": UL_STAGES | {"ul_slot.group"}}
         return
     assert [e["name"] for e in top] == [f"{d}_slot_{i}" for i in range(3) for d in ("dl", "ul")]
-    assert inner == {**{f"dl_slot_{i}": {"pdsch.bit_chain", "pdsch.grid"} for i in range(3)},
+    assert inner == {**{f"dl_slot_{i}": {"upper_phy.process_dl_tti"} for i in range(3)},
+                     "upper_phy.process_dl_tti": {"pdsch.bit_chain", "pdsch.grid"},
                      **{f"ul_slot_{i}": {"upper_phy.process_ul_tti"} for i in range(3)},
                      "upper_phy.process_ul_tti": UL_STAGES | {"upper_phy.indications"}}
 

@@ -384,11 +384,19 @@ def _fields(obj) -> dict:
     return {f.name: getattr(obj, f.name) for f in dataclasses.fields(obj)}
 
 
+# Fields a twin has beyond the reference's, with the value a copy of a
+# reference config gives them: PdschConfig's reserved RE patterns.
+_PORT_ONLY = {"reserved": ()}
+
+
 def _same_fields(ref, twin):
-    """Same field names; equal values (enums compared by value, nested
+    """Same field names, but for the twin's own ``_PORT_ONLY`` fields at
+    their values; equal values (enums compared by value, nested
     dataclasses such as the two packages' Allocation field by field)."""
     a, b = _fields(ref), _fields(twin)
-    assert a.keys() == b.keys()
+    assert a.keys() <= b.keys(), a.keys() - b.keys()
+    for k in b.keys() - a.keys():
+        assert b[k] == _PORT_ONLY[k], (k, b[k])
     for k in a:
         va, vb = a[k], b[k]
         if dataclasses.is_dataclass(va):

@@ -304,3 +304,75 @@ def test_the_fapi_entry_is_off_without_a_profiler(tracer, monkeypatch, ul_tti):
     call()
     assert tracer.take().spans == []
     assert tracing.l1_tracer.span("upper_phy.process_ul_tti") is tracing._OFF
+
+
+@pytest.fixture(scope="module")
+def dl_tti():
+    """One whole FAPI downlink slot (``portbench/tests/small_dl_tti.py``: 2
+    PDSCH UEs of one config under a TRS, 2 DCIs in the DL_TTI.request and 2
+    in the UL_DCI.request, an SSB, the TRS's 2 CSI-RS resources) and a call
+    of ``UpperPhy.process_dl_tti`` and ``process_ul_dci`` on it."""
+    from portbench.harness import cells
+    from portbench.tests import small_dl_tti
+
+    spec = small_dl_tti.spec()
+    entry = cells.entry(spec.config, spec.traffic, 23, torch.device("cpu"))
+    return entry, lambda: entry.dispatch(entry.generate(0, 0, None))
+
+
+# The downlink FAPI entries' spans: name -> (parent, spans a call).
+DL_TTI_SPANS = {"upper_phy.process_dl_tti": (None, 1), "upper_phy.process_ul_dci": (None, 1),
+                "pdsch.bit_chain": ("upper_phy.process_dl_tti", 1),
+                "pdsch.grid": ("upper_phy.process_dl_tti", 1),
+                "ssb.assemble": ("upper_phy.process_dl_tti", 1),
+                "csi_rs.generate": ("upper_phy.process_dl_tti", 2)}
+
+
+def test_the_downlink_fapi_entry_records_its_spans_and_counts(tracer, dl_tti):
+    entry, call = dl_tti
+    _profiled(call)
+    reading = tracer.take()
+    by_id = {s.id: s for s in reading.spans}
+    names = collections.Counter(s.name for s in reading.spans)
+    assert names == collections.Counter({n: k for n, (_, k) in DL_TTI_SPANS.items()},
+                                        **{"pdcch.encode": 4})
+    parents = collections.Counter()
+    for s in reading.spans:
+        parent = by_id[s.parent].name if s.parent else None
+        if s.name == "pdcch.encode":
+            parents[parent] += 1
+        else:
+            assert parent == DL_TTI_SPANS[s.name][0], s.name
+    # The DCI 1_1s inside the DL_TTI.request, the DCI 0_1s inside the UL_DCI.request.
+    assert parents == {"upper_phy.process_dl_tti": 2, "upper_phy.process_ul_dci": 2}
+    t = reading.totals
+    assert t["upper_phy.process_dl_tti"].counts == {"slots": 1, "pdsch": 2, "pdcch": 2, "ssb": 1,
+                                                   "csi_rs": 2, "pdsch_batches": 1}
+    assert t["upper_phy.process_ul_dci"].counts == {"pdcch": 2}
+    assert t["pdcch.encode"].counts == {"pdus": 4}
+    assert t["ssb.assemble"].counts == {"ssbs": 1}
+    assert t["csi_rs.generate"].counts == {"resources": 2, "ports": 2}
+    # Two grants of 12 PRB, each with 3 REs of 2 TRS symbols a PRB left empty.
+    assert t["pdsch.grid"].counts == {"reserved_res": 2 * 12 * 3 * 2}
+    assert sum(x.self_ns for x in t.values()) == (t["upper_phy.process_dl_tti"].total_ns
+                                                  + t["upper_phy.process_ul_dci"].total_ns)
+
+
+def test_a_grant_without_reserved_res_counts_none(tracer):
+    """``encode_slot``'s grant has no reserved REs: ``pdsch.grid`` counts 0."""
+    _profiled(_calls()["encode_slot"])
+    assert tracer.take().totals["pdsch.grid"].counts == {"reserved_res": 0}
+
+
+def test_the_downlink_fapi_entry_is_off_without_a_profiler(tracer, monkeypatch, dl_tti):
+    """With the tracer off and no profiler, no span of the downlink FAPI
+    entries is made."""
+    _entry, call = dl_tti
+
+    def refused(*args, **kwargs):
+        raise AssertionError("a span was made with the tracer off")
+
+    monkeypatch.setattr(tracing, "_On", refused)
+    monkeypatch.setattr(tracing, "_range", refused)
+    call()
+    assert tracer.take().spans == []

@@ -132,12 +132,14 @@ def test_dl_slot_multi_pdu():
 def test_dl_compact_grants(monkeypatch, crb_matches):
     """Four equal-config compact 2-port grants at four PRB offsets, plus a
     full-grid PT-RS PDU: with crb_start == first_rb the four take one
-    process_multi batch, with crb_start = 0 they go one by one; the grid
-    equals the JAX package's either way."""
+    batch (``multi_bit_chain``, ``process_multi``'s first half), with
+    crb_start = 0 they go one by one; the grid equals the JAX package's
+    either way."""
     rb, offs = 8, (0, 10, 20, 30)
     calls = []
-    real = tpdsch.process_multi
-    monkeypatch.setattr(tpdsch, "process_multi", lambda *a, **k: calls.append(1) or real(*a, **k))
+    real = tpdsch.multi_bit_chain
+    monkeypatch.setattr(tpdsch, "multi_bit_chain",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
     rng = np.random.default_rng(3)
     pdus, tbs = [], []
     for i, off in enumerate(offs):
