@@ -16,16 +16,20 @@ It builds the port's CUDA kernels from ``srsran_project_tpu_torch/csrc``
 kernel against its plain torch version on the card at the shapes of the
 paths below, then drives thirteen paths through the port's public entry
 points, each with every kernel launch counter set to 0 just before it and
-read just after:
+read just after.  The float paths equalize in K8 (the MMSE weights and
+their apply, one launch a config group of 1, 2 or 4 layers on 4 ports
+over full data rows), whose launches every path counts; K3 runs on the
+plane paths (3, 13 (a)) and where a check holds it against its plain
+version on a path's own estimate, and its count is 0 on every other path:
 
 1. the flagship cell (273 PRB, 30 kHz, 4x4, 256QAM r~0.926, LBRM): 8 random
    transport blocks -> ``encode_slot`` -> AWGN at 30 dB -> ``decode_slot``
-   (kernel K1, one launch over both E-groups, K3, and K5 and K7, whose
+   (kernel K1, one launch over both E-groups, K8, and K5 and K7, whose
    launches are counted on this path alone), K5 and K1 held against their
    plain versions on the batch's own tensors;
 2. a heterogeneous 8-UE uplink slot on the same 273-PRB carrier with 4 RX
    ports -> ``ul_slot.process_slot`` (kernel K2 once per code group, and
-   K3): two 4-layer 256QAM grants, four rank-1 64QAM grants and two
+   K8): two 4-layer 256QAM grants, four rank-1 64QAM grants and two
    rank-1 QPSK grants whose E exceeds the circular buffer (repetition);
    then the same grid again with UE 3 retransmitted at rv 2 and its HARQ
    buffer attached: UE 3 is attenuated so that rv 0 fails its CRC and the
@@ -37,7 +41,7 @@ read just after:
    TB bits must equal the float path's; K4 and K1 are held against their
    plain versions on that batch's own tensors;
 4. the whole uplink slot on the same carrier -> ``ul_slot.process_slot``
-   (K2 once per code group, K3 once): two 4-layer 256QAM grants with 2
+   (K2 once per code group, K8 a config group): two 4-layer 256QAM grants with 2
    HARQ-ACK bits (reserved, punctured), CSI part 1 of 40 bits and CSI part
    2 of 400 bits (two polar segments); four rank-2 64QAM grants with 11
    HARQ-ACK bits (short block, rate-matched) and CSI part 1 of 19 bits
@@ -52,13 +56,13 @@ read just after:
 5. every allocation shape and waveform on the same carrier and 4 RX
    ports, the UE side the port's own (``pdsch.process`` with a
    PdschConfig twin): (a) ``pusch.process`` on a 273-PRB 4x4 256QAM grant
-   with PT-RS (K = 2) under a random common phase per symbol (K3, K1);
+   with PT-RS (K = 2) under a random common phase per symbol (K8, K1);
    (b) a 273-PRB 4x4 64QAM grant with DM-RS type 2 and data on the DM-RS
    symbol (the per-RE equalizer, K1); (c) 270-PRB DFT-s-OFDM grants with
    pi/2-BPSK and with QPSK and the low-PAPR DM-RS (K1 at qm = 1 and 2);
    (d) narrower grants of those shapes side by side through
    ``ul_slot.process_slot``, two PT-RS grants at different PRBs (K2 once
-   per code group, K3 once per PT-RS group); (e) a 273-PRB rank-2 grant
+   per code group, K8 once per PT-RS group); (e) a 273-PRB rank-2 grant
    with two-step CSI (RI, part-2 size and bits checked).  K1 is held
    against its plain version on (a)-(c) and (e)'s own LLRs, K3 on (a)'s
    channel estimate, K2 on (d)'s code groups;
@@ -75,11 +79,11 @@ read just after:
    two-step CSI grant (the per-PDU path, K1) and an SRS, path 4's six
    PUCCH occasions, one UE failing its CRC in the first call and passing
    in the second as an rv-2 retransmission out of the HARQ pool (K2 per
-   code group, K3 and K1 each call; K2 held against its plain version on
+   code group, K8 and K1 each call; K2 held against its plain version on
    both calls' code groups, K3 on group A's estimate, K1 on the two-step
    grant's LLRs); every CRC, RxData, UCI and SRS indication checked;
    (c) the port's ``apps/du_low_sim`` in-process: its defaults (the
-   flagship on TDL-A at 25 dB, 8 slots: K1 and K3 a slot), whose exit code
+   flagship on TDL-A at 25 dB, 8 slots: K1 and K8 a slot), whose exit code
    must match its BLER, and 273 PRB with 4 ports and 1 layer on one tap at
    30 dB (4 slots, K1 a slot), which must be CRC-clean;
 7. random access and the rest of the uplink's measurements on the same
@@ -87,7 +91,7 @@ read just after:
    ``process_ul_tti(request, rx_grid, prach_fd=...)`` with two compact
    4-layer 64QAM grants of 128 PRB (DM-RS on symbols 2 and 11, TA and CFO
    compensation on; per UE a random unitary channel, a delay of +0.40 or
-   -0.20 us and a CFO of +400 or -250 Hz, 30 dB; K2 once, K3 once) and a
+   -0.20 us and a CFO of +400 or -250 Hz, 30 dB; K2 once, K8 once) and a
    format-0 PRACH occasion at PRB 258 carrying preambles 5 and 50 at 2.0
    and 9.0 us, built at 122.88 MHz on the card and demodulated by
    ``lower_phy.prach_demodulate``: both CRCs, each ta_s within 10 ns of
@@ -103,9 +107,9 @@ read just after:
    delayed by 37.3 samples.  (b)-(f) launch no kernel;
 8. the reference-exact conformance modes: (a) ``pusch.process`` on the
    flagship grant (273 PRB, 4x4 over a random unitary channel, 256QAM r
-   948/1024, DM-RS on symbol 2, 30 dB) with ``estimator="reference"``: K3
-   and K1 once each, both held against their plain versions on the call's
-   inputs; (b) the whole conformance chain (reference estimator,
+   948/1024, DM-RS on symbol 2, 30 dB) with ``estimator="reference"``: K8
+   and K1 once each, K3 and K1 held against their plain versions on the
+   call's inputs; (b) the whole conformance chain (reference estimator,
    ``zf_ref`` / ``mmse_ref``, the int8 demapper, ``decode_i8`` without
    early stop) on 273-PRB 64QAM MCS 20 grants, 2 layers on 2 ports and 1
    layer on 4 ports, DM-RS on symbols 2 and 11: no kernel; (c) the
@@ -132,8 +136,8 @@ read just after:
    grant decoding back from the DL grid, K2 and K3 held against their
    plain versions on one slot's inputs, the pipeline's late ratio against
    0.5 ms printed.  Every UL_TTI call's launches are checked against the
-   ones its grants imply (K2 per code group and K3 per 4x4 config group
-   with two or more grants, else K1 and K3).
+   ones its grants imply (K2 per code group with two or more grants, else
+   K1; K3 never).
 10. initial access and the MAC's remaining stages on the app's default
    cell (273 PRB, 30 kHz, 4 ports): (a) 4-step random access into
    connected data, slots 136-164 through ``CellScheduler`` with every
@@ -144,15 +148,15 @@ read just after:
    a format-0 preamble delayed 25 us through ``lower_phy.prach_demodulate``,
    the RAR read back (RAPID, TC-RNTI, TA command), Msg3 alone in its
    UL_TTI (K1), Msg4 with the ConRes CE NACKed once and retransmitted,
-   SRB1, then the UE's data grants (K1 and K3 a call), every CRC OK; the
+   SRB1, then the UE's data grants (K1 and K8 a call), every CRC OK; the
    SI and paging PDSCH read back, the counters, the bufferer's stats and
    each UL_TTI call's launches checked; K1 and K3 against their plain
    versions on the calls' inputs; (b) ``SliceScheduler`` over an ``rr``
    and a ``qos`` slice of 4 UEs each for 10 FDD slots, the RRM policy
    raising slice 2's minimum after slot 5: quotas, disjoint PRBs, every
    CRC, each call's launches (slice 1's grants through ``process_slot``,
-   K2 and K3; slice 2's, whose window is not at their crb_start, one by
-   one, K1 and K3), K2 and K3 against their plain versions; (c) the
+   K2 and K8; slice 2's, whose window is not at their crb_start, one by
+   one, K1 and K8), K2 and K3 against their plain versions; (c) the
    helpers on CUDA tensors against their CPU results: ``decode_count_iters``
    on the flagship's 141 codeblocks (beside K1's iterations on the same
    LLRs), ``detect_ref``, ``hard_decision_bits`` and ``selection_indices``.
@@ -160,19 +164,19 @@ read just after:
    layers, 256QAM r 948/1024, a 4096-point DFT at 122.88 MHz): (a)
    ``du_low_sim --ru generic --slots 10 --snr-db 30`` in-process (the DL
    grid OFDM-modulated by ``ru.RuGeneric``, looped back with AWGN and
-   demodulated as the uplink): every CRC OK, K1 + K3 in each UL_TTI call,
+   demodulated as the uplink): every CRC OK, K1 + K8 in each UL_TTI call,
    both against their plain versions on its first call's grid; the RU's
    modulate and demodulate on one slot against the CPU within 1e-4 x RMS;
    a format-0 PRACH occasion (path 7's two preambles) through the RU at
    122.88 MHz, detected with its delays (no kernel); (b) ``--ru ofh``
    (``ru.RuOfh``: paced C-/U-plane frames with 9-bit BFP from the port's
-   native library, the wire looped back): every CRC OK, K1 + K3 a call, no
+   native library, the wire looped back): every CRC OK, K1 + K8 a call, no
    late, early, lost or evicted frame, 8 C-plane and 112 U-plane frames a
    slot; then one slot replayed stage by stage (DL_TTI, the grid's copy to
    the host, serdes, the copy back, UL_TTI); (c) one 273-PRB 4-layer
    16QAM grant through the RU and the time-domain TDL-A
    (``apply_channel_time_taps`` on the card against the CPU on the same
-   draws), CRC OK (K1 + K3); (d) the scheduler mode with ``--pcap`` and
+   draws), CRC OK (K1 + K8); (d) the scheduler mode with ``--pcap`` and
    ``--remote-port 0``: a WebSocket client subscribes, reads a periodic
    report, asks for the metrics and quits the run; the pcap holds one
    record per scheduled DL TB (K2 per code group in each UL_TTI call).
@@ -193,7 +197,7 @@ read just after:
 13. the last slice: (a) ``cell.encode_slots_scan`` / ``decode_slots_scan``
    at the flagship, 2 chunks of 4 slots: the energies against the
    per-slot ``encode_slot``'s (``P13_ENERGY_RTOL``), every decode
-   CRC-clean with no bit error at 30 dB, K1 and K3 once a chunk, and with
+   CRC-clean with no bit error at 30 dB, K1 and K8 once a chunk, and with
    ``demapper="planes"`` K1 (planes), K3 and K4 once a chunk; K1, K3 and
    K4 against their plain versions on chunk 0's tensors; ms a chunk and
    slots/s; (b) the parallel layer on a world of one (``parallel.mesh.
@@ -228,7 +232,8 @@ launches per path, device time and bound at path 5's shapes
 ("prach_ul_tti_ms"), and for K1, K2 and K3 on path 8's inputs
 ("refmodes_ms", "refmodes_bound_ms"); K6 at ``fapi_ul_tti``'s four F2
 occasions; K7 at the flagship and at every config group of ``mu8_ul`` and
-``fapi_ul_tti`` ("shapes"); the resident blocks per SM, and for K3, K4, K5, K6 and K7
+``fapi_ul_tti``, K8 at the flagship and at ``mu8_ul``'s config groups
+("shapes"); the resident blocks per SM, and for K3, K4, K5, K6, K7 and K8
 the registers a thread and the same three numbers at 8 flagship slots, "b8_",
 K3 also at the uplink slot's group A, "group_a_"), the
 card's name and power limit, and as the LAST line
@@ -364,7 +369,17 @@ def _counted():
             ("decode_dematch_planes", decoder.decode_dematch, "plane_launches"),
             ("decode", decoder.decode, "launches"),
             ("mmse_weights_4x4", equalizer.mmse_weights_4x4, "launches"),
+            ("mmse_equalize", equalizer.mmse_equalize, "launches"),
             ("demap_planes", demap_planes.demap_planes, "launches"))
+
+
+def k8_launches(cfgs) -> int:
+    """K8's launches for one front end of each of these PuschConfigs: MMSE
+    on 4 ports at 1, 2 or 4 layers over full data rows."""
+    from srsran_project_tpu_torch.phy import pusch
+
+    return sum(1 for c in cfgs if c.equalizer == "mmse" and c.nof_rx_ports == 4
+               and c.nof_layers in (1, 2, 4) and pusch.pdsch_mod.uniform_data_rows(c.alloc))
 
 
 def reset_counts() -> None:
@@ -544,7 +559,8 @@ def ul_slot_phase(card: str) -> tuple[dict, float]:
                   c.ldpc_early_stop, c.sch.n_cb) for c in cfgs}
         if len(codes) != 3:
             fail(f"ul_slot pass {p}: {len(codes)} code groups, want 3")
-        expect_counts(f"ul_slot pass {p}", got, {"decode": len(codes), "mmse_weights_4x4": 1})
+        expect_counts(f"ul_slot pass {p}", got, {
+            "decode": len(codes), "mmse_equalize": k8_launches(ul_slot._config_groups(pdus))})
         err, geometries = check_code_groups(grid, pdus, f"ul_slot pass {p}")
         want = ["BG1 Z=384", "BG1 Z=288", "BG2 Z=36"]
         if sorted(geometries) != sorted(want):
@@ -751,7 +767,8 @@ def ul4_phase(card: str) -> tuple[dict, float]:
     res, f1_out, f0_out, f2_out = run()
     torch.cuda.synchronize()
     counts = read_counts()
-    expect_counts("ul_slot_uci", counts, {"decode": 3, "mmse_weights_4x4": 1})
+    expect_counts("ul_slot_uci", counts, {
+        "decode": 3, "mmse_equalize": k8_launches(ul_slot._config_groups(pdus))})
     # K6 is counted on this path alone: both F2 occasions in one launch.
     counts["pucch_f2_rx"] = pucch_f2_rx.receive.launches - k6_before
     if counts["pucch_f2_rx"] != 1:
@@ -1132,11 +1149,8 @@ def shapes_phase(card: str) -> tuple[dict, dict, dict]:
     for ue, cfg, grid, rnti in singles:
         if not _fused_ok(cfg):
             fail(f"shapes {ue['shape']}: repetition geometry, K1 would not run")
-        want = {"decode_dematch": 1}
-        if (cfg.nof_layers, cfg.nof_rx_ports) == (4, 4) and pusch.pdsch_mod.uniform_data_rows(
-                cfg.alloc):
-            want["mmse_weights_4x4"] = 1  # the fast equalizer: full data rows
-        res = counted(ue["shape"], lambda: pusch.process(grid, rnti, cfg), want)
+        res = counted(ue["shape"], lambda: pusch.process(grid, rnti, cfg),
+                      {"decode_dematch": 1, "mmse_equalize": k8_launches([cfg])})
         check_p5_result(f"{ue['shape']} ({ue['nof_rb']} PRB, {cfg.nof_layers} layers, "
                         f"{cfg.modulation.name}, G {cfg.g_total})", res, ue["tb"])
         llr = pusch._front_end(grid, rnti, cfg)[0]
@@ -1164,12 +1178,13 @@ def shapes_phase(card: str) -> tuple[dict, dict, dict]:
     cfgs = tuple(groups)
     codes = {(c.sch.seg.base_graph, c.sch.seg.lifting_size, c.nof_ldpc_iterations,
               c.ldpc_early_stop, c.sch.n_cb) for c in cfgs}
-    k3_groups = sum(1 for c in cfgs if (c.nof_layers, c.nof_rx_ports) == (4, 4)
-                    and pusch.pdsch_mod.uniform_data_rows(c.alloc))
-    if len(groups) != 5 or k3_groups != 2:
-        fail(f"shapes slot: {len(groups)} config groups and {k3_groups} K3 groups, want 5 and 2")
+    groups_4x4 = sum(1 for c in cfgs if (c.nof_layers, c.nof_rx_ports) == (4, 4)
+                     and pusch.pdsch_mod.uniform_data_rows(c.alloc))
+    if len(groups) != 5 or groups_4x4 != 2:
+        fail(f"shapes slot: {len(groups)} config groups and {groups_4x4} 4x4 full-row groups, "
+             f"want 5 and 2")
     res, _, _ = counted("slot", lambda: ul_slot.process_slot(grid, pdus),
-                        {"decode": len(codes), "mmse_weights_4x4": 2})
+                        {"decode": len(codes), "mmse_equalize": k8_launches(cfgs)})
     for i, (r, ue) in enumerate(zip(res, slot)):
         check_p5_result(f"slot UE {i} ({ue['shape']}, PRB {ue['first_rb']}+{ue['nof_rb']})",
                         {k: v[None] for k, v in r.items()}, ue["tb"])
@@ -1188,7 +1203,8 @@ def shapes_phase(card: str) -> tuple[dict, dict, dict]:
 
     # (e): two-step CSI through pusch.process.
     cfg, grid, rnti = cfg_e, grid_e, rnti_e
-    res = counted("two-step CSI", lambda: pusch.process(grid, rnti, cfg), {"decode_dematch": 1})
+    res = counted("two-step CSI", lambda: pusch.process(grid, rnti, cfg),
+                  {"decode_dematch": 1, "mmse_equalize": k8_launches([cfg])})
     check_p5_result(f"two-step CSI ({P5_CSI_NOF_PRB} PRB, 2 layers, QAM16)", res, two["tb"])
     n2 = int(res["nof_csi2_bits"][0])
     flags = {"rank": int(res["csi_rank"][0]), "nof_csi2_bits": n2}
@@ -1222,8 +1238,9 @@ def noisy_llrs(cfg, rng, dev):
 def kernel_phase(card: str):
     """K1 (both layouts), K2, K3, K4 and K5 against their plain versions on the
     card, at the shapes of the three paths, K6 at ``fapi_ul_tti``'s F2
-    occasions and K7 at the uplink cells' estimate shapes; returns the
-    per-kernel entries of the JSON line (without launch counts)."""
+    occasions, K7 at the uplink cells' estimate shapes and K8 at the
+    flagship's and ``mu8_ul``'s equalizer shapes; returns the per-kernel
+    entries of the JSON line (without launch counts)."""
     import torch
 
     from srsran_project_tpu_torch.models.cell import CellConfig
@@ -1362,6 +1379,14 @@ def kernel_phase(card: str):
         for name, (ms, pms, bd, _e) in k7.items())
         + f"; {k7_occ['registers']} registers, {k7_occ['blocks_per_sm']} blocks of 256 per SM")
 
+    k8 = {name: check_k8(rng, dev, name) for name in K8_SHAPES}
+    k8_occ = {f"layers_{l}": equalizer.mmse_equalize_occupancy(l) for l in (1, 2, 4)}
+    print(f"# [{card}] K8 mmse_equalize: " + "; ".join(
+        f"{name} kernel {ms:.4f} ms, plain torch {pms:.4f} ms, bound {bd[0]:.6f} ms ({bd[1]})"
+        for name, (ms, pms, bd, _e) in k8.items())
+        + "; " + ", ".join(f"{l}: {o['registers']} registers, {o['blocks_per_sm']} blocks per SM"
+                           for l, o in k8_occ.items()))
+
     k2_ms, k2_plain_ms, k2_bound = k2_times["group A"]
 
     def entry(name, src, replaces, err, ms, plain_ms, bd, **extra):
@@ -1405,6 +1430,14 @@ def kernel_phase(card: str):
               noise_rel_err=max(r[3]["nv_rel"] for r in k7.values()),
               shapes={name: {"ms": ms, "plain_ms": pms, "bound_ms": bd[0]}
                       for name, (ms, pms, bd, _e) in k7.items()}, **k7_occ),
+        entry("mmse_equalize", "mmse_equalize.cu",
+              "srsran_project_tpu_torch/phy/pusch.py:_equalize_stage (the data-row gather, "
+              "K3 or equalize_weights, the eager weight apply and eq_nvar's copy)",
+              max(r[3] for r in k8.values()), *k8["flagship-b1"][:3],
+              b8_ms=k8["flagship-b8"][0], b8_plain_ms=k8["flagship-b8"][1],
+              b8_bound_ms=k8["flagship-b8"][2][0],
+              shapes={name: {"ms": ms, "plain_ms": pms, "bound_ms": bd[0]}
+                      for name, (ms, pms, bd, _e) in k8.items()}, occupancy=k8_occ),
     ]
 
 
@@ -1648,6 +1681,89 @@ def check_k7(rng, dev, name: str):
     return ms, plain_ms, bound(read + nbytes(h_k, nv_k), 0.0), err
 
 
+# The data symbols of a grant on symbols 1-13: the flagship's (DM-RS on
+# symbol 2) and path 7's (DM-RS on symbols 2 and 11).
+K8_DATA_SYMBOLS = [1] + list(range(3, 14))
+K8_DATA_SYMBOLS_2DMRS = [1] + list(range(3, 11)) + [12, 13]
+# K8 at the flagship (one slot, 8 slots), at mu8_ul's three config groups,
+# at the rank-2 grants of paths 4 (group B) and 5 (e), and at path 7's two
+# DM-RS symbols: name -> (grants, subcarriers, layers, data symbols).
+K8_SHAPES = {
+    "flagship-b1": (1, 3276, 4, K8_DATA_SYMBOLS),
+    "flagship-b8": (NOF_SLOTS, 3276, 4, K8_DATA_SYMBOLS),
+    "mu8-rank4-80prb": (2, 960, 4, K8_DATA_SYMBOLS),
+    "mu8-rank1-24prb": (4, 288, 1, K8_DATA_SYMBOLS),
+    "mu8-rank1-8prb": (2, 96, 1, K8_DATA_SYMBOLS),
+    "p4-rank2-22prb": (4, 264, 2, K8_DATA_SYMBOLS),
+    "p5e-rank2-273prb": (1, 3276, 2, K8_DATA_SYMBOLS),
+    "p7-rank4-128prb-2dmrs": (2, 1536, 4, K8_DATA_SYMBOLS_2DMRS),
+}
+# K8 against its plain version at 1 and 2 layers (4 layers: bitwise): its
+# real closed forms against torch's complex products; mu's last place
+# near 1 moves eq_nvar = (1 - mu) / mu, so that tolerance is on
+# (1 + eq_nvar).
+K8_X_TOL = 1e-4  # max |dx| over RMS(x)
+K8_EV_TOL = 1e-5  # max |d eq_nvar| over (1 + eq_nvar)
+
+
+def check_k8(rng, dev, name: str):
+    """K8 against its plain version on the card at K8_SHAPES[name]: random
+    grids and channels in K7's layout ((B, nsc, P, L) in memory), noise
+    variances from 1e-3 to 0.3; one launch, 4 layers bitwise, 1 and 2
+    within K8_X_TOL and K8_EV_TOL, a second run bitwise the first.
+    Returns (kernel ms, plain ms, bound, the largest difference)."""
+    import torch
+
+    from srsran_project_tpu_torch.ops import equalizer
+
+    b, nsc, nl, syms = K8_SHAPES[name]
+
+    def cplx(shape):
+        return torch.complex(*torch.from_numpy(
+            (rng.standard_normal((2, *shape)) * 0.5).astype(np.float32)).to(dev))
+
+    grid = cplx((b, 4, 14, nsc))
+    h = cplx((b, nsc, 4, nl)).transpose(1, 2)
+    nv = torch.from_numpy(np.geomspace(1e-3, 0.3, b).astype(np.float32)).to(dev)
+    ins = (grid, h, nv, syms, 0)
+    before = equalizer.mmse_equalize.launches
+    x_k, ev_k = equalizer.mmse_equalize(*ins)
+    x_p, ev_p = equalizer.mmse_equalize_plain(*ins)
+    x_k2, ev_k2 = equalizer.mmse_equalize(*ins)
+    torch.cuda.synchronize()
+    if equalizer.mmse_equalize.launches != before + 2:
+        fail(f"K8 {name}: not one launch a call")
+    err = max_abs_diff((x_k, x_p), (ev_k, ev_p))
+    if not math.isfinite(err):
+        fail(f"K8 {name}: non-finite x_hat or eq_nvar")
+    if nl == 4:
+        if not (torch.equal(torch.view_as_real(x_k).view(torch.int32),
+                            torch.view_as_real(x_p).view(torch.int32))
+                and torch.equal(ev_k.view(torch.int32), ev_p.view(torch.int32))):
+            fail(f"K8 {name}: x_hat / eq_nvar differ from the plain version ({err:.3e})")
+        how = "bitwise equal to"
+    else:
+        dx = float((x_k - x_p).abs().max()) / float(x_p.abs().pow(2).mean().sqrt())
+        dev_ = float(((ev_k - ev_p).abs() / (1.0 + ev_p)).max())
+        if not (dx <= K8_X_TOL and dev_ <= K8_EV_TOL):
+            fail(f"K8 {name}: x_hat {dx:.3e} x RMS, eq_nvar {dev_:.3e} x (1 + eq_nvar) from "
+                 "the plain version")
+        how = f"within {dx:.2e} x RMS and {dev_:.2e} x (1 + eq_nvar) of"
+    if not (torch.equal(torch.view_as_real(x_k), torch.view_as_real(x_k2))
+            and torch.equal(ev_k.view(torch.int32), ev_k2.view(torch.int32))):
+        fail(f"K8 {name}: two runs on the same inputs differ")
+    print(f"# K8 {name} ({b} x {nsc}, {nl} layers): x_hat and eq_nvar {how} the plain version; "
+          "deterministic")
+    ms = kernel_ms(lambda: equalizer.mmse_equalize(*ins), reps=50)
+    plain_ms = cuda_ms(lambda: equalizer.mmse_equalize_plain(*ins), reps=10)
+    # Bytes once: h, the data REs of the 4 ports, the noise, x_hat and
+    # eq_nvar.  Operations: the weights about 1.5k a subcarrier at 4 layers
+    # (K3's), 0.2k at 1; the apply 32 an RE and layer.
+    y_bytes = b * 4 * len(syms) * nsc * 8
+    ops = b * nsc * ((1500.0 if nl == 4 else 200.0) + 32.0 * nl * len(syms))
+    return ms, plain_ms, bound(nbytes(h, nv, x_k, ev_k) + y_bytes, ops), err
+
+
 def check_k5_on(ins, mod, range_limit: float, what: str) -> float:
     """K5 against its plain version on ``ins`` (x_hat, eq_nvar, Gold bits):
     one launch, LLRs and err2 bitwise equal.  Returns the largest absolute
@@ -1756,9 +1872,9 @@ def slice_phase(card: str):
     launches = read_counts()
     if len(sch_mod._e_groups(cfg.pusch_cfg.sch.cb_e_bits)) != 2:
         fail("flagship: want two E-groups, decoded by one K1 launch")
-    expect_counts("flagship decode", launches, {"decode_dematch": 1, "mmse_weights_4x4": 1})
-    # K5 is counted on this path alone (the other paths' expectations
-    # predate it).
+    expect_counts("flagship decode", launches, {"decode_dematch": 1, "mmse_equalize": 1})
+    # K5 and K7 are counted on this path alone (the other paths'
+    # expectations predate them).
     launches["demap_llrs"] = dl.demap_llrs.launches - k5_before
     if launches["demap_llrs"] != 1:
         fail(f"flagship decode: {launches['demap_llrs']} K5 launches, want 1")
@@ -2311,8 +2427,11 @@ def fapi_ul_phase(card: str) -> tuple[dict, dict]:
         torch.cuda.synchronize()
         counts = read_counts()
         name = f"fapi UL_TTI call {call + 1}"
-        expect_counts(name, counts, {"decode": len(codes), "mmse_weights_4x4": 1,
-                                     "decode_dematch": 1})
+        per_pdu = [p.config for p in req.pusch
+                   if p.config.uci is not None and p.config.uci.csi_report_cfg is not None]
+        k8 = k8_launches(list(ul_slot._config_groups(slot_pdus)) + per_pdu)
+        expect_counts(name, counts, {"decode": len(codes), "decode_dematch": 1,
+                                     "mmse_equalize": k8})
         for k, v in counts.items():
             total[k] = total.get(k, 0) + v
         retx = plan[0][P6_RETX_UE]
@@ -2371,10 +2490,9 @@ def app_phase(card: str) -> dict:
             fail(f"du_low_sim {argv}: rc {rc} with BLER {bler}")
         if want_bler is not None and (rc != 0 or bler != want_bler):
             fail(f"du_low_sim {argv}: rc {rc}, BLER {bler}, want rc 0 and BLER {want_bler}")
-        want = {"decode_dematch": slots}
-        if "cell.nof_layers=1" not in argv:
-            want["mmse_weights_4x4"] = slots  # 4x4 MMSE on full data rows
-        expect_counts(f"du_low_sim {' '.join(argv)}", counts, want)
+        # 4 ports at 4 layers and at 1: K8 a slot in both runs.
+        expect_counts(f"du_low_sim {' '.join(argv)}", counts,
+                      {"decode_dematch": slots, "mmse_equalize": slots})
         for k, v in counts.items():
             total[k] = total.get(k, 0) + v
     return total
@@ -2631,7 +2749,7 @@ def prach_ul_phase(card: str) -> tuple[dict, dict, dict, dict]:
     res = phy.process_ul_tti(req_a, grid, prach_fd=fd_a)
     torch.cuda.synchronize()
     counts_a = read_counts()
-    expect_counts("prach UL_TTI (a)", counts_a, {"decode": 1, "mmse_weights_4x4": 1})
+    expect_counts("prach UL_TTI (a)", counts_a, {"decode": 1, "mmse_equalize": 1})
     crc = [c.tb_crc_ok for c in res.crc]
     tas = [c.ta_s for c in res.crc]
     print(f"# prach UL_TTI (a): prach_fd {tuple(fd_a.shape)}, CRC {crc}, SINR dB "
@@ -2886,7 +3004,7 @@ def p8_check(what: str, out: dict, tb) -> None:
 def refmodes_phase(card: str) -> tuple[dict, dict, dict, dict, dict, dict]:
     """Path 8: the reference-exact conformance modes.  (a) the flagship
     grant through ``pusch.process`` with the reference estimator (K1 and
-    K3 once, both held against their plain versions on the call's
+    K8 once, K1 and K3 held against their plain versions on the call's
     inputs); (b) the whole conformance chain, no kernel; (c) the
     BLER-parity harness on three manifest rows (K2 once a chunk, held
     against its plain version on one chunk's buffers); (d) du_low_sim
@@ -2923,7 +3041,7 @@ def refmodes_phase(card: str) -> tuple[dict, dict, dict, dict, dict, dict]:
     out = pusch.process(rx, rnti, pc)
     torch.cuda.synchronize()
     counts_a = read_counts()
-    expect_counts("refmodes (a)", counts_a, {"decode_dematch": 1, "mmse_weights_4x4": 1})
+    expect_counts("refmodes (a)", counts_a, {"decode_dematch": 1, "mmse_equalize": 1})
     p8_check("(a) flagship, estimator=reference", out, tb)
     _gflat, h, nv = pusch._estimate_stage(rx, pc)
     hs = h.transpose(1, 2)
@@ -3091,27 +3209,24 @@ def p9_slot(i: int):
 def p9_expected(pdus) -> dict:
     """The kernel launches ``UpperPhy.process_ul_tti`` makes for a request
     of these compact grants: two or more whose window starts at their
-    crb_start go through ``process_slot``, K2 once per code group and K3
-    once per 4x4 MMSE config group; every other grant through
-    ``pusch.process``: K1 (K2 where its geometry repeats) and K3 for 4x4
-    MMSE."""
+    crb_start go through ``process_slot``, K2 once per code group and K8
+    once per config group of MMSE on 4 ports at 1, 2 or 4 layers; every
+    other grant through ``pusch.process``: K1 (K2 where its geometry
+    repeats) and K8 for such a grant.  K3 never."""
     from srsran_project_tpu_torch.phy import ul_slot
 
-    def k3(c) -> int:
-        return int((c.nof_layers, c.nof_rx_ports, c.equalizer) == (4, 4, "mmse"))
-
-    want = {"decode_dematch": 0, "decode": 0, "mmse_weights_4x4": 0}
+    want = {"decode_dematch": 0, "decode": 0, "mmse_equalize": 0}
     batch = [p for p in pdus if p.config.alloc.crb_start == p.first_rb]
     if len(batch) >= 2:
         groups = ul_slot._config_groups(batch)
         codes = {(c.sch.seg.base_graph, c.sch.seg.lifting_size, c.nof_ldpc_iterations,
                   c.ldpc_early_stop, c.sch.n_cb) for c in groups}
         want["decode"] += len(codes)
-        want["mmse_weights_4x4"] += sum(k3(c) for c in groups)
+        want["mmse_equalize"] += k8_launches(groups)
     for p in pdus:
         if len(batch) < 2 or p not in batch:
             want["decode_dematch" if _fused_ok(p.config) else "decode"] += 1
-            want["mmse_weights_4x4"] += k3(p.config)
+            want["mmse_equalize"] += k8_launches([p.config])
     return want
 
 
@@ -4028,7 +4143,7 @@ def helpers_phase(card: str, rx) -> None:
 # kHz, 4 ports, 4 layers, 256QAM r 948/1024, a 4096-point DFT at 122.88
 # MHz) through the generic RU (OFDM baseband looped back with AWGN) and
 # the OFH RU (paced C-/U-plane frames with 9-bit BFP looped back, AWGN on
-# the reassembled grid).  Each UL_TTI: K1 + K3.
+# the reassembled grid).  Each UL_TTI: K1 + K8.
 P11_APP = {"generic": ["--ru", "generic", "--slots", "10", "--snr-db", "30"],
            "ofh": ["--ru", "ofh", "--slots", "10", "--snr-db", "30"]}
 P11_SLOTS = 10
@@ -4087,7 +4202,7 @@ class OfhRecorder:
 
 def p11_check_app(what: str, rc: int, err: str, calls: list, counts: dict) -> float:
     """An RU run of the app: exit 0, BLER 0, every UL_TTI call one grant
-    with its CRC OK and K1 + K3 launched.  Returns the ms a slot on the
+    with its CRC OK and K1 and K8 launched.  Returns the ms a slot on the
     host's clock."""
     import re
 
@@ -4099,9 +4214,9 @@ def p11_check_app(what: str, rc: int, err: str, calls: list, counts: dict) -> fl
         fail(f"{what}: {len(calls)} UL_TTI calls with CRCs {crcs}, want {P11_SLOTS} all OK")
     for n, call in enumerate(calls):
         got = {k: v for k, v in call["launches"].items() if v}
-        if got != {"decode_dematch": 1, "mmse_weights_4x4": 1}:
-            fail(f"{what} UL_TTI call {n}: kernel launches {got}, want K1 1 and K3 1")
-    expect_counts(what, counts, {"decode_dematch": P11_SLOTS, "mmse_weights_4x4": P11_SLOTS})
+        if got != {"decode_dematch": 1, "mmse_equalize": 1}:
+            fail(f"{what} UL_TTI call {n}: kernel launches {got}, want K1 1 and K8 1")
+    expect_counts(what, counts, {"decode_dematch": P11_SLOTS, "mmse_equalize": P11_SLOTS})
     return 1e3 * float(m.group(2)) / int(m.group(1))
 
 
@@ -4148,7 +4263,7 @@ def p11_generic_ru(device, ru_cls, cfg_cls, slot, grid):
 
 def ru_generic_phase(card: str) -> tuple[dict, dict]:
     """Path 11 (a): ``du_low_sim --ru generic`` on the card (every CRC, K1
-    and K3 a UL_TTI), K1 and K3 against their plain versions on its first
+    and K8 a UL_TTI), K1 and K3 against their plain versions on its first
     call's received grid; the RU's modulate and demodulate on one slot
     against the CPU; a format-0 PRACH occasion through the RU at 122.88
     MHz, detected with its delays.  Returns the run's launch counts and
@@ -4232,7 +4347,7 @@ def ru_generic_phase(card: str) -> tuple[dict, dict]:
 
 def ru_ofh_phase(card: str) -> tuple[dict, dict]:
     """Path 11 (b): ``du_low_sim --ru ofh`` on the card: every CRC, K1 and
-    K3 a UL_TTI, no late frame and no eviction, the frames a slot; K1 and
+    K8 a UL_TTI, no late frame and no eviction, the frames a slot; K1 and
     K3 against their plain versions on its first call's grid; then one
     slot replayed stage by stage (the DL_TTI call, the grid's copy to the
     host, serdes, the copy back, the UL_TTI call).  Returns the run's
@@ -4322,7 +4437,7 @@ def ru_tdl_phase(card: str) -> tuple[dict, dict]:
     UE side through a RuGeneric, the time-domain TDL-A (4x4, 122.88 MHz,
     the draws made on the CPU from the seed, applied on the card), the RU's
     demodulator and ``UpperPhy.process_ul_tti``: CRC OK and TB bits equal,
-    K1 + K3.  Returns the launch counts and K3's difference on its
+    K1 + K8.  Returns the launch counts and K3's difference on its
     estimate."""
     import torch
 
@@ -4360,7 +4475,7 @@ def ru_tdl_phase(card: str) -> tuple[dict, dict]:
     res = phy.process_ul_tti(req, grid)
     torch.cuda.synchronize()
     counts = read_counts()
-    expect_counts("ru tdl UL_TTI", counts, {"decode_dematch": 1, "mmse_weights_4x4": 1})
+    expect_counts("ru tdl UL_TTI", counts, {"decode_dematch": 1, "mmse_equalize": 1})
     ok = bool(res.crc[0].tb_crc_ok)
     if not ok or not np.array_equal(np.asarray(res.rx_data[0].payload), tb):
         fail(f"ru tdl: CRC {ok} on the TDL-A grant, want OK and the TB back")
@@ -4478,14 +4593,16 @@ P12_PCAPS = ("gnb_e1ap.pcap", "gnb_e2ap.pcap", "gnb_f1ap.pcap", "gnb_gtpu.pcap",
 def p12_expected(pdus) -> dict:
     """The launches ``UpperPhy.process_ul_tti`` makes for the gNB's 1-layer
     grants: two or more through ``process_slot`` (``p9_expected``: K2 per
-    code group); a single grant through ``pusch.process``: K1 for new data,
-    K2 for a retransmission combined with its HARQ buffer; never K3."""
+    code group, K8 per config group); a single grant through
+    ``pusch.process``: K1 for new data, K2 for a retransmission combined
+    with its HARQ buffer, and K8; never K3."""
     if len(pdus) >= 2:
         return p9_expected(pdus)
-    want = {"decode_dematch": 0, "decode": 0, "mmse_weights_4x4": 0}
+    want = {"decode_dematch": 0, "decode": 0, "mmse_equalize": 0}
     for p in pdus:
         fused = p.harq_buffer is None and _fused_ok(p.config)
         want["decode_dematch" if fused else "decode"] += 1
+        want["mmse_equalize"] += k8_launches([p.config])
     return want
 
 
@@ -4744,7 +4861,7 @@ def scan_phase(card: str) -> tuple[dict, dict, dict]:
     rx = iq[None] + noise * torch.sqrt(sig_pow * 10.0 ** (-SNR_DB / 10.0))
     out = {}
     for name, demapper, want in (
-            ("scan", "float", {"decode_dematch": k, "mmse_weights_4x4": k}),
+            ("scan", "float", {"decode_dematch": k, "mmse_equalize": k}),
             ("scan_planes", "planes", {"decode_dematch_planes": k, "mmse_weights_4x4": k,
                                        "demap_planes": k})):
         c = cell.CellConfig(demapper=demapper)
@@ -5272,7 +5389,8 @@ def main(argv=None) -> int:
     print(f"# path 13 took {time.perf_counter() - t13:.1f} s")
     # Each kernel's launches on the path it serves (one call of it), and
     # on every path.
-    home = {"decode_dematch": "flagship", "mmse_weights_4x4": "flagship", "decode": "ul_slot",
+    home = {"decode_dematch": "flagship", "mmse_weights_4x4": "plane", "decode": "ul_slot",
+            "mmse_equalize": "flagship",
             "decode_dematch_planes": "plane", "demap_planes": "plane", "demap_llrs": "flagship",
             "pucch_f2_rx": "ul_slot_uci", "pusch_estimate": "flagship"}
     for k in kernels:

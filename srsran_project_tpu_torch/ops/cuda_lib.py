@@ -61,6 +61,14 @@ _SIGNATURES = {
             _P, _P,  # w (B, nsc, 4, 4) c64, eq_nvar (B, nsc, 4) f32
             _P),  # stream
         "mmse_weights_4x4_occupancy": (_P, _P)},  # registers, blocks per SM
+    "mmse_equalize.cu": {
+        "mmse_equalize": (
+            _P, _L, _L, _L, _L,  # grid (B, 4, nsym, nsc_grid) c64 and its element strides
+            _P, _L, _L, _L, _L,  # h (B, 4, nsc, L) c64 and its element strides
+            _P, _I, _I, _I, _I, _I,  # nv (B,) f32, B, nsc, L, sc_start, data-symbol mask
+            _P, _P,  # x_hat (B, nsym_d*nsc, L) c64, eq_nvar (B, nsym_d*nsc, L) f32
+            _P),  # stream
+        "mmse_equalize_occupancy": (_I, _P, _P)},  # L, registers, blocks per SM
     "demap_planes.cu": {
         "demap_planes": (
             _P, _P, _P, _P,  # y (B, P, S, N) c64, w (B, N, L, P) c64, eq_nvar f32, Gold bits u8

@@ -1,5 +1,6 @@
 """Equalizer weights per subcarrier: MMSE and ZF on any ports x layers
-(L <= 4), the 4x4 MMSE kernel K3, and the per-RE equalizer.
+(L <= 4), the 4x4 MMSE kernel K3, the full-row MMSE equalizer K8, and the
+per-RE equalizer.
 
 Port of ``equalize_weights`` and ``equalize`` (srsran_project_tpu/ops/
 equalizer.py, tx_scaling = 1) and of the TPU kernel
@@ -19,6 +20,13 @@ equalizer.py, tx_scaling = 1) and of the TPU kernel
   algebra (gram, closed-form ``_inv_small``, W) as
   elementwise complex products summed over the short axes, again no
   matmul.
+* ``mmse_equalize`` is K8's entry point: the MMSE weights of 1, 2 or 4
+  layers from 4 ports, applied to every data symbol of full data rows
+  read straight from the grid.  A CUDA tensor launches the hand-written
+  kernel (``csrc/mmse_equalize.cu``), a CPU tensor runs
+  ``mmse_equalize_plain``: the data-row gather, the weights
+  (``mmse_weights_4x4_plain`` or ``equalize_weights``) and
+  ``apply_weights``, the eager composition it replaced.
 * ``equalize(y, h, noise_var, method)`` equalizes each resource element
   with its own channel, for allocations whose data REs do not fill whole
   rows (data on the DM-RS symbols): plain torch, as in the reference.
@@ -182,6 +190,113 @@ def occupancy() -> dict:
     cuda_lib.check(cuda_lib.library().mmse_weights_4x4_occupancy(ctypes.byref(regs),
                                                                  ctypes.byref(blocks)),
                    "mmse_weights_4x4_occupancy")
+    return {"registers": regs.value, "blocks_per_sm": blocks.value}
+
+
+# ---- full data rows: K8 ----------------------------------------------------
+
+MMSE_EQUALIZE_LAYERS = (1, 2, 4)  # K8's layer counts, at P ports
+_MAX_SYMBOLS = 14
+
+
+def apply_weights(y: torch.Tensor, w: torch.Tensor, eq_sc: torch.Tensor):
+    """Per-subcarrier weights applied to full data rows: y (B, P, nsym_d,
+    nsc), w (B, nsc, L, P), eq_sc (B, nsc, L) -> (x_hat (B, nsym_d * nsc,
+    L) complex64, eq_nvar (B, nsym_d * nsc, L) float32) in data-RE order,
+    x[b, s, n, l] = sum_p w[b, n, l, p] y[b, p, s, n]."""
+    b, npr, nsym_d, nsc = y.shape
+    nl = w.shape[-2]
+    x = torch.stack([sum(w[:, None, :, l, p] * y[:, p] for p in range(npr))
+                     for l in range(nl)], dim=-1)  # (B, nsym_d, nsc, nl)
+    eq_nvar = eq_sc[:, None].expand(b, nsym_d, nsc, nl)
+    return x.reshape(b, -1, nl), eq_nvar.reshape(b, -1, nl)
+
+
+def _equalize_check(grid: torch.Tensor, h: torch.Tensor, noise_var, data_symbols,
+                    sc_start: int) -> torch.Tensor:
+    """Validate K8's inputs and return noise_var as a (B,) float32 tensor
+    on h's device."""
+    if grid.dim() != 4 or grid.shape[1] != P or grid.dtype != torch.complex64:
+        raise ValueError(f"mmse_equalize: want a (B, 4, nsym, nsc) complex64 grid, got "
+                         f"{tuple(grid.shape)} {grid.dtype}")
+    b, _, nsym, nsc_grid = grid.shape
+    if (h.dim() != 4 or h.shape[:2] != (b, P) or h.shape[-1] not in MMSE_EQUALIZE_LAYERS
+            or h.dtype != torch.complex64):
+        raise ValueError(f"mmse_equalize: want (B, 4, nsc, L in {MMSE_EQUALIZE_LAYERS}) "
+                         f"complex64 channels, got {tuple(h.shape)} {h.dtype}")
+    if h.device != grid.device:
+        raise ValueError(f"mmse_equalize: grid on {grid.device}, channels on {h.device}")
+    if not 0 <= sc_start <= nsc_grid - h.shape[2]:
+        raise ValueError(f"mmse_equalize: {h.shape[2]} subcarriers from {sc_start} leave "
+                         f"the grid's {nsc_grid}")
+    syms = list(data_symbols)
+    if not syms or syms != sorted(set(syms)) or syms[0] < 0 or syms[-1] >= min(nsym,
+                                                                              _MAX_SYMBOLS):
+        raise ValueError(f"mmse_equalize: data symbols {syms} of a {nsym}-symbol grid")
+    nv = torch.as_tensor(noise_var, dtype=torch.float32, device=h.device)
+    if nv.shape != (b,):
+        raise ValueError(f"mmse_equalize: noise_var shape {tuple(nv.shape)} != ({b},)")
+    return nv
+
+
+def mmse_equalize_plain(grid: torch.Tensor, h: torch.Tensor, noise_var: torch.Tensor,
+                        data_symbols, sc_start: int):
+    """K8's plain version: the eager composition it replaced (the data-row
+    gather, the weights, ``apply_weights``)."""
+    nv = _equalize_check(grid, h, noise_var, data_symbols, sc_start)
+    y = grid[:, :, list(data_symbols), sc_start : sc_start + h.shape[2]]
+    hs = h.transpose(1, 2)  # (B, nsc, P, L)
+    if h.shape[-1] == L:
+        w, eq_sc = mmse_weights_4x4_plain(hs, nv)
+    else:
+        w, eq_sc = equalize_weights(hs.contiguous(), nv[:, None])
+    return apply_weights(y, w, eq_sc)
+
+
+def mmse_equalize(grid: torch.Tensor, h: torch.Tensor, noise_var: torch.Tensor,
+                  data_symbols, sc_start: int):
+    """MMSE-equalize full data rows: grid (B, 4, nsym, nsc_grid) complex64,
+    h (B, 4, nsc, L in {1, 2, 4}) complex64 (the channel of subcarriers
+    sc_start..sc_start + nsc - 1), noise_var (B,), the data symbols
+    (ascending, below 14) -> (x_hat (B, nsym_d * nsc, L) complex64,
+    eq_nvar (B, nsym_d * nsc, L) float32) in data-RE order.
+
+    The grid and h may be any strided views: the kernel reads them through
+    their strides.  CUDA tensor: kernel K8 (one launch); CPU tensor: the
+    plain version."""
+    if grid.device.type == "cpu":
+        return mmse_equalize_plain(grid, h, noise_var, data_symbols, sc_start)
+    if grid.device.type != "cuda":
+        raise ValueError(f"mmse_equalize: unsupported device {grid.device}")
+    nv = _equalize_check(grid, h, noise_var, data_symbols, sc_start).contiguous()
+    syms = list(data_symbols)
+    b, nsc, nl = grid.shape[0], h.shape[2], h.shape[3]
+    shape = (b, len(syms) * nsc, nl)
+    x = torch.empty(shape, dtype=torch.complex64, device=grid.device)
+    ev = torch.empty(shape, dtype=torch.float32, device=grid.device)
+    if x.numel() == 0:
+        return x, ev
+    mask = sum(1 << s for s in syms)
+    with torch.cuda.device(grid.device):
+        status = cuda_lib.library().mmse_equalize(
+            grid.data_ptr(), *grid.stride(), h.data_ptr(), *h.stride(), nv.data_ptr(), b, nsc,
+            nl, sc_start, mask, x.data_ptr(), ev.data_ptr(),
+            torch.cuda.current_stream(grid.device).cuda_stream)
+    cuda_lib.check(status, "mmse_equalize")
+    mmse_equalize.launches += 1
+    return x, ev
+
+
+mmse_equalize.launches = 0
+
+
+def mmse_equalize_occupancy(layers: int) -> dict:
+    """K8's registers a thread and resident blocks per SM at ``layers``
+    (256-thread blocks at 4, 128 at 1 and 2), by the CUDA occupancy
+    calculator on the current device."""
+    regs, blocks = ctypes.c_int(0), ctypes.c_int(0)
+    cuda_lib.check(cuda_lib.library().mmse_equalize_occupancy(
+        layers, ctypes.byref(regs), ctypes.byref(blocks)), "mmse_equalize_occupancy")
     return {"registers": regs.value, "blocks_per_sm": blocks.value}
 
 

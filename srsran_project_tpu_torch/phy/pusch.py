@@ -8,8 +8,9 @@ PT-RS common-phase-error tracking (``_estimate``, per-grant pilots
 through ``r_override``, the low-PAPR DM-RS of transform precoding; every
 estimate per batch element, never averaged across grants; kernel K7 for
 the estimate with second-difference noise and no CFO, TA or PT-RS),
-per-subcarrier MMSE or ZF weights (4x4 MMSE: kernel K3; every other rank and port count:
-``equalize_weights``) applied across full data rows, or the per-RE
+per-subcarrier MMSE weights of 1, 2 or 4 layers from 4 ports applied across
+full data rows in kernel K8 (``mmse_equalize``; ZF, 3 layers and other port
+counts: ``equalize_weights`` and ``apply_weights``), or the per-RE
 ``equalize`` where data shares the DM-RS symbols (``_equalize_stage``),
 the DFT-s-OFDM deprecode (``_deprecode_stage``), the float max-log
 demapper (BPSK, pi/2-BPSK, QPSK, square QAM; kernel K5 for QPSK and
@@ -46,7 +47,8 @@ from ..ops import estimator_reftorch, pusch_estimate, scrambling, transform_prec
 from ..ops._tables import device_table
 from ..ops.demap_llrs import demap_llrs, quantized_llrs
 from ..ops.demap_planes import demap_planes
-from ..ops.equalizer import equalize, equalize_ref, equalize_weights, mmse_weights_4x4
+from ..ops.equalizer import (MMSE_EQUALIZE_LAYERS, apply_weights, equalize, equalize_ref,
+                             equalize_weights, mmse_equalize, mmse_weights_4x4)
 from ..ops.estimator import channel_metrics, estimate_h
 from ..ops.modulation import Modulation
 from ..ops.modulation.demapper_i8 import demap_llr_i8
@@ -472,20 +474,29 @@ def _ptrs_derotate(grid: torch.Tensor, gflat: torch.Tensor, h: torch.Tensor,
     return (grid * phase.conj()[:, None, :, None]).reshape(gflat.shape)
 
 
+def _data_symbols(cfg: PuschConfig) -> list:
+    """The allocation's symbols that carry no DM-RS, ascending."""
+    a = cfg.alloc
+    return [s for s in range(a.sym_start, a.sym_start + a.sym_count) if s not in a.dmrs_symbols]
+
+
+def _grid_of(gflat: torch.Tensor, cfg: PuschConfig) -> torch.Tensor:
+    """(B, P, nsym*nsc) grid -> its (B, P, nsym, nsc) view."""
+    return gflat.reshape(gflat.shape[0], cfg.nof_rx_ports, cfg.nof_grid_symbols, cfg.nof_grid_sc)
+
+
 def _data_rows(gflat: torch.Tensor, cfg: PuschConfig) -> torch.Tensor:
     """(B, P, nsym*nsc) grid -> (B, P, nsym_d, nof_sc) data symbols of the
     allocation (full rows: the DM-RS symbols carry no data)."""
     a = cfg.alloc
-    g3 = gflat.reshape(gflat.shape[0], cfg.nof_rx_ports, cfg.nof_grid_symbols, cfg.nof_grid_sc)
-    data_syms = [s for s in range(a.sym_start, a.sym_start + a.sym_count)
-                 if s not in a.dmrs_symbols]
-    return g3[:, :, data_syms, a.sc_start : a.sc_start + a.nof_sc]
+    return _grid_of(gflat, cfg)[:, :, _data_symbols(cfg), a.sc_start : a.sc_start + a.nof_sc]
 
 
 def _weights(h: torch.Tensor, noise_var: torch.Tensor, cfg: PuschConfig):
     """(B, P, nof_sc, nl) channels -> per-subcarrier weights (B, nof_sc,
     nl, P) and post-equalization noise (B, nof_sc, nl): kernel K3 for 4x4
-    MMSE, the general ``equalize_weights`` (MMSE or ZF) for the rest."""
+    MMSE (the plane path's K4 takes them), the general ``equalize_weights``
+    (MMSE or ZF) for the rest."""
     hs = h.transpose(1, 2)  # (B, nof_sc, P, nl)
     if (cfg.nof_layers, cfg.nof_rx_ports, cfg.equalizer) == (4, 4, "mmse"):
         return mmse_weights_4x4(hs, noise_var)  # K3 reads the view through its strides
@@ -505,28 +516,36 @@ def _equalize_stage(gflat: torch.Tensor, h: torch.Tensor, noise_var: torch.Tenso
                     cfg: PuschConfig):
     """(x_hat (B, ndata, nl) complex64, eq_nvar (B, ndata, nl)) in data-RE
     order.  Full data rows: per-subcarrier weights applied to every data
-    symbol.  Otherwise (data on the DM-RS symbols), and for the reference
-    equalizers: the data-RE gather and the per-RE ``equalize`` (or
-    ``equalize_ref``) with each RE's channel, as the reference does."""
-    with l1_tracer.span("pusch.equalize"):
+    symbol, in kernel K8 for MMSE at 4 ports and 1, 2 or 4 layers on a
+    CUDA tensor (its plain version on the CPU).  Otherwise (data on the
+    DM-RS symbols), and for the reference equalizers: the data-RE gather
+    and the per-RE ``equalize`` (or ``equalize_ref``) with each RE's
+    channel, as the reference does.  The span counts the ``res`` (B *
+    ndata) and the ``kernel_res`` K8 equalized."""
+    with l1_tracer.span("pusch.equalize") as span:
         nl, npr = cfg.nof_layers, cfg.nof_rx_ports
+        fused = False
         if not pdsch_mod.uniform_data_rows(cfg.alloc) or cfg.equalizer.endswith("_ref"):
             dev = gflat.device
             y = gflat[:, :, _data_re_on(dev, cfg)].transpose(1, 2)  # (B, ndata, P)
             h_data = h[:, :, _data_sc_on(dev, cfg), :].transpose(1, 2)  # (B, ndata, P, nl)
             if cfg.equalizer.endswith("_ref"):
                 # The reference's per-port noise: the grant's, on every port.
-                return equalize_ref(y, h_data, noise_var[:, None].expand(-1, npr),
-                                    method=cfg.equalizer[: -len("_ref")])
-            return equalize(y, h_data, noise_var[:, None], method=cfg.equalizer)
-        y = _data_rows(gflat, cfg)  # (B, P, nsym_d, nof_sc)
-        b, _, nsym_d, nsc = y.shape
-        w, eq_sc = _weights(h, noise_var, cfg)
-        # x[b, s, n, l] = sum_p w[b, n, l, p] y[b, p, s, n]
-        x = torch.stack([sum(w[:, None, :, l, p] * y[:, p] for p in range(npr))
-                         for l in range(nl)], dim=-1)  # (B, nsym_d, nof_sc, nl)
-        eq_nvar = eq_sc[:, None].expand(b, nsym_d, nsc, nl)
-        return x.reshape(b, -1, nl), eq_nvar.reshape(b, -1, nl)
+                x, eq_nvar = equalize_ref(y, h_data, noise_var[:, None].expand(-1, npr),
+                                          method=cfg.equalizer[: -len("_ref")])
+            else:
+                x, eq_nvar = equalize(y, h_data, noise_var[:, None], method=cfg.equalizer)
+        elif cfg.equalizer == "mmse" and npr == 4 and nl in MMSE_EQUALIZE_LAYERS:
+            # Kernel K8 on a CUDA tensor, its plain version on the CPU.
+            x, eq_nvar = mmse_equalize(_grid_of(gflat, cfg), h, noise_var, _data_symbols(cfg),
+                                       cfg.alloc.sc_start)
+            fused = x.is_cuda
+        else:
+            w, eq_sc = _weights(h, noise_var, cfg)
+            x, eq_nvar = apply_weights(_data_rows(gflat, cfg), w, eq_sc)
+        res = x.shape[0] * x.shape[1]
+        span.count(res=res, kernel_res=res if fused else 0)
+        return x, eq_nvar
 
 
 def _deprecode_stage(x_hat: torch.Tensor, eq_nvar: torch.Tensor, cfg: PuschConfig):

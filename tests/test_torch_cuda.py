@@ -16,7 +16,10 @@ Tolerances: K1 and K2 bits, a-posteriori LLRs and iteration counts exact;
 K3's W and eq_nvar, K4's planes and err2, and K5's LLRs, err2 and the
 SINR made from them bitwise (both sides round the same float operations
 in the same order), and so the slot entries with K5 and with its plain
-version on the card;
+version on the card; K8's x_hat and eq_nvar at 4 layers bitwise, at 1 and 2
+layers within 1e-4 x RMS and 1e-5 x (1 + eq_nvar) (its real algebra against
+torch's complex division and reciprocal), and so the front end's LLRs
+bitwise at 4 layers, 99.9 % equal and within +-1 at 1;
 IQ 1e-4 x RMS and int8 LLRs within +-1 (cuFFT and pocketfft round
 differently); TB bits and CRC exact; noise_var and SINR 1e-3 relative;
 HARQ buffers within +-2 (two +-1 LLRs combined); UCI codewords, decoded
@@ -128,9 +131,11 @@ def test_slice_on_card_matches_cpu(cuda_device):  # noqa: F811
     rx = iq_c + to_torch(noise)
 
     k1, k3 = decoder.decode_dematch.launches, equalizer.mmse_weights_4x4.launches
+    k8 = equalizer.mmse_equalize.launches
     out_g = cell.decode_slot(rx.to(cuda_device), rnti.to(cuda_device), cfg)
     assert decoder.decode_dematch.launches - k1 == 1  # every E-group in one launch
-    assert equalizer.mmse_weights_4x4.launches - k3 == 1
+    assert equalizer.mmse_equalize.launches - k8 == 1  # the weights and their apply
+    assert equalizer.mmse_weights_4x4.launches - k3 == 0
     out_c = cell.decode_slot(rx, rnti, cfg)
     np.testing.assert_array_equal(to_np(out_g["tb_bits"]), to_np(tb))
     assert to_np(out_g["tb_crc_ok"]).all() and to_np(out_c["tb_crc_ok"]).all()
@@ -142,6 +147,12 @@ def test_slice_on_card_matches_cpu(cuda_device):  # noqa: F811
     llr_g, _, _ = pusch._front_end(grid.to(cuda_device), rnti.to(cuda_device), cfg.pusch_cfg)
     diff = (llr_g.cpu().int() - llr_c.int()).abs()
     assert int(diff.max()) <= 1 and float((diff == 0).float().mean()) >= 0.999
+
+    # The plane path still takes K3's weights into K4.
+    k3, k8 = equalizer.mmse_weights_4x4.launches, equalizer.mmse_equalize.launches
+    pusch._front_end_planes(grid.to(cuda_device), rnti.to(cuda_device), cfg.pusch_cfg)
+    assert equalizer.mmse_weights_4x4.launches - k3 == 1
+    assert equalizer.mmse_equalize.launches - k8 == 0
 
 
 K2_CASES = [
@@ -419,6 +430,163 @@ def test_k7_in_the_front_end(cuda_device, monkeypatch, shape):  # noqa: F811
     assert to_np(out_k["tb_crc_ok"]).all()
 
 
+# K8 at the uplink cells' shapes (4 receive ports: K7_SHAPES but the last).
+K8_SHAPES = [name for name, (_rb, _l, ports, _f, _d) in K7_SHAPES.items() if ports == 4]
+# K8's 1- and 2-layer weights are separately rounded real algebra (the
+# reciprocal scaled as torch's complex division scales it); the plain
+# version's torch complex products round their own way, so mu, x_hat and
+# eq_nvar agree to a few units in the last place, not bitwise.  eq_nvar =
+# (1 - mu) / mu carries mu's error, whose unit in the last place is 6e-8
+# near mu = 1: at 30 dB that is 3e-4 of eq_nvar, so its tolerance is on
+# (1 + eq_nvar); the 2x2 inverse scales both errors by the channel's
+# condition.  Measured on a CPU model of the kernel against the plain
+# version on the CPU, channels of 3e-7 to 1e7: 1 layer 9e-9 x RMS(x) and
+# 1e-7 x (1 + eq_nvar), 2 layers 6e-6 and 1e-6.
+K8_X_TOL = 1e-4  # max |dx| / RMS(x), 1 and 2 layers
+K8_EV_TOL = 1e-5  # max |d eq_nvar| / (1 + eq_nvar), 1 and 2 layers
+
+
+def _k8_case(shape, dev):
+    """(PuschConfig, the equalizer's inputs from K7's estimate on dev) of
+    a K8_SHAPES entry."""
+    cfg, grid, args = _k7_case(shape, dev)
+    r = args[1] if args[1].shape[0] == grid.shape[0] else None
+    gflat, h, nv = pusch._estimate_stage(grid, cfg, r)
+    return cfg, (pusch._grid_of(gflat, cfg), h, nv, pusch._data_symbols(cfg), cfg.alloc.sc_start)
+
+
+def _assert_k8_close(x_k, ev_k, x_p, ev_p, layers, what):
+    if layers == 4:
+        assert torch.equal(torch.view_as_real(x_k).view(torch.int32),
+                           torch.view_as_real(x_p).view(torch.int32)), what
+        assert torch.equal(ev_k.view(torch.int32), ev_p.view(torch.int32)), what
+        return
+    rms = float(x_p.abs().pow(2).mean().sqrt())
+    assert float((x_k - x_p).abs().max()) <= K8_X_TOL * rms, what
+    assert float(((ev_k - ev_p).abs() / (1.0 + ev_p)).max()) <= K8_EV_TOL, what
+
+
+@pytest.mark.parametrize("shape", K8_SHAPES)
+def test_k8_matches_plain(cuda_device, shape):  # noqa: F811
+    """K8 (one launch) against its plain version on the card, on K7's
+    estimate of the shape's grants: 4 layers bitwise (x_hat and eq_nvar),
+    1 layer within K8_X_TOL and K8_EV_TOL; 4 layers also bitwise the
+    plain version on the CPU; a second run bitwise the first."""
+    cfg, ins = _k8_case(shape, cuda_device)
+    before = equalizer.mmse_equalize.launches
+    x_k, ev_k = equalizer.mmse_equalize(*ins)
+    assert equalizer.mmse_equalize.launches == before + 1
+    b, ndata = ins[0].shape[0], len(ins[3]) * cfg.alloc.nof_sc
+    assert x_k.shape == ev_k.shape == (b, ndata, cfg.nof_layers)
+    x_p, ev_p = equalizer.mmse_equalize_plain(*ins)
+    _assert_k8_close(x_k, ev_k, x_p, ev_p, cfg.nof_layers, shape)
+    if cfg.nof_layers == 4:
+        x_c, ev_c = equalizer.mmse_equalize_plain(*(t.cpu() if torch.is_tensor(t) else t
+                                                    for t in ins))
+        _assert_k8_close(x_k.cpu(), ev_k.cpu(), x_c, ev_c, 4, shape + " (CPU)")
+    x_k2, ev_k2 = equalizer.mmse_equalize(*ins)
+    assert torch.equal(torch.view_as_real(x_k2), torch.view_as_real(x_k))
+    assert torch.equal(ev_k2.view(torch.int32), ev_k.view(torch.int32))
+
+
+@pytest.mark.parametrize("layers", [1, 2])
+def test_k8_at_one_and_two_layers(cuda_device, layers):  # noqa: F811
+    """K8 against its plain version on random 1- and 2-layer channels of
+    3 grants on 24 PRB at sc_start 36 of a wider grid, noise variances
+    from 1e-3 to 0.3."""
+    rng = np.random.default_rng(layers)
+    nsc = 288
+
+    def cplx(shape):
+        return to_torch(((rng.standard_normal(shape) + 1j * rng.standard_normal(shape)) * 0.5
+                         ).astype(np.complex64)).to(cuda_device)
+
+    grid = cplx((3, 4, 14, 624))
+    h = cplx((3, nsc, 4, layers)).transpose(1, 2)
+    nv = torch.tensor([1e-3, 0.013, 0.3], device=cuda_device)
+    syms = [1] + list(range(3, 14))
+    x_k, ev_k = equalizer.mmse_equalize(grid, h, nv, syms, 36)
+    x_p, ev_p = equalizer.mmse_equalize_plain(grid, h, nv, syms, 36)
+    _assert_k8_close(x_k, ev_k, x_p, ev_p, layers, f"{layers} layers")
+
+
+@pytest.mark.parametrize("scale", [1e-5, 1e5])
+@pytest.mark.parametrize("layers", [1, 2])
+def test_k8_over_the_channel_range(cuda_device, layers, scale):  # noqa: F811
+    """K8 against its plain version with channels and grids of 1e-5 and
+    1e5 (the noise 20 dB below the channel, clamped to 1e-12), where a
+    2x2 determinant of about 1e-20 or 1e20 leaves an unscaled
+    conj(d) / |d|^2 outside float32's range: within K8_X_TOL and
+    K8_EV_TOL, every value finite."""
+    rng = np.random.default_rng(layers + 7)
+
+    def cplx(shape):
+        return to_torch(((rng.standard_normal(shape) + 1j * rng.standard_normal(shape))
+                         * 0.5 * scale).astype(np.complex64)).to(cuda_device)
+
+    grid = cplx((3, 4, 14, 288))
+    h = cplx((3, 288, 4, layers)).transpose(1, 2)
+    nv = torch.full((3,), max(0.01 * scale**2, 1e-12), device=cuda_device)
+    syms = [1] + list(range(3, 14))
+    x_k, ev_k = equalizer.mmse_equalize(grid, h, nv, syms, 0)
+    x_p, ev_p = equalizer.mmse_equalize_plain(grid, h, nv, syms, 0)
+    assert bool(torch.isfinite(torch.view_as_real(x_k)).all() and torch.isfinite(ev_k).all())
+    _assert_k8_close(x_k, ev_k, x_p, ev_p, layers, f"{layers} layers at {scale:g}")
+
+
+@pytest.mark.parametrize("shape", ["flagship-b8", "mu8-rank4-80prb", "fapi-rank1-20prb"])
+def test_k8_in_the_front_end(cuda_device, monkeypatch, shape):  # noqa: F811
+    """The front end with K8 and with its plain version in its place, on
+    the card: the span's ``kernel_res`` equals ``res``; 4 layers: the int8
+    LLRs, noise and SINR bitwise; 1 layer: the LLRs equal on a
+    K7_LLR_EQUAL share of lanes and within +-1; the decoded TB bits and
+    CRC verdicts equal."""
+    cfg, grid, args = _k7_case(shape, cuda_device)
+    b = grid.shape[0]
+    rnti = torch.arange(0x4601, 0x4601 + b, device=cuda_device)
+    r = args[1] if args[1].shape[0] == b else None
+    est = pusch._estimate(grid, cfg, r)
+    tracer = tracing.l1_tracer
+    monkeypatch.setattr(tracer, "_kept", [])
+    monkeypatch.setattr(tracer, "enabled", True)
+
+    def run():
+        llr, nv, snr = pusch._after_estimate(*est, rnti, cfg)
+        return llr, snr, pusch.finish(llr, nv, snr, cfg)
+
+    before = equalizer.mmse_equalize.launches
+    llr_k, snr_k, out_k = run()
+    assert equalizer.mmse_equalize.launches == before + 1
+    res = b * len(pusch._data_symbols(cfg)) * cfg.alloc.nof_sc
+    assert tracer.take().totals["pusch.equalize"].counts == {"res": res, "kernel_res": res}
+    with monkeypatch.context() as m:
+        m.setattr(pusch, "mmse_equalize", equalizer.mmse_equalize_plain)
+        llr_p, snr_p, out_p = run()
+    if cfg.nof_layers == 4:
+        assert torch.equal(llr_k, llr_p)
+        assert torch.equal(snr_k.view(torch.int32), snr_p.view(torch.int32))
+    else:
+        diff = (llr_k.int() - llr_p.int()).abs()
+        assert int(diff.max()) <= 1 and float((diff == 0).float().mean()) >= K7_LLR_EQUAL
+    for k in ("tb_bits", "tb_crc_ok"):
+        np.testing.assert_array_equal(to_np(out_k[k]), to_np(out_p[k]), err_msg=k)
+    assert to_np(out_k["tb_crc_ok"]).all()
+
+
+@pytest.mark.parametrize("layers", [1, 4])
+def test_k8_on_a_strided_grid(cuda_device, layers):  # noqa: F811
+    """K8 reads the grid and the channel through their strides: symbol and
+    subcarrier axes swapped in memory, and a contiguous channel, give
+    bitwise what the contiguous grid and K7's channel layout give."""
+    cfg, ins = _k8_case("mu8-rank4-80prb" if layers == 4 else "mu8-rank1-24prb", cuda_device)
+    grid, h = ins[0], ins[1]
+    swapped = grid.transpose(2, 3).contiguous().transpose(2, 3)
+    x_v, ev_v = equalizer.mmse_equalize(swapped, h.contiguous(), *ins[2:])
+    x_c, ev_c = equalizer.mmse_equalize(grid.contiguous(), h, *ins[2:])
+    assert torch.equal(torch.view_as_real(x_v), torch.view_as_real(x_c))
+    assert torch.equal(ev_v.view(torch.int32), ev_c.view(torch.int32))
+
+
 @pytest.mark.parametrize("layout", ["subcarrier-window", "transposed", "port-strided"])
 def test_k7_on_a_strided_grid(cuda_device, layout):  # noqa: F811
     """K7 reads the grid through its strides: a view (a window of a wider
@@ -436,10 +604,13 @@ def test_k7_on_a_strided_grid(cuda_device, layout):  # noqa: F811
 
 
 def test_k3_k4_occupancy_on_card(cuda_device):  # noqa: F811
-    """The occupancy entry points answer for K3 and every K4 and K5
-    instance."""
+    """The occupancy entry points answer for K3, K8 at 1, 2 and 4 layers and
+    every K4 and K5 instance."""
     k3 = equalizer.occupancy()
     assert k3["registers"] > 0 and k3["blocks_per_sm"] >= 1
+    for l in equalizer.MMSE_EQUALIZE_LAYERS:
+        k8 = equalizer.mmse_equalize_occupancy(l)
+        assert k8["registers"] > 0 and k8["blocks_per_sm"] >= 1, (l, k8)
     for mod in (Modulation.QPSK, Modulation.QAM16, Modulation.QAM64, Modulation.QAM256):
         for l in (1, 2, 3, 4):
             for occupancy in (dp.occupancy, dl.occupancy):

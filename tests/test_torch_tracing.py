@@ -155,6 +155,20 @@ def test_the_estimate_span_counts_its_grants(tracer, entry):
     assert counts == {"grants": 2, "kernel_grants": 0}
 
 
+@pytest.mark.parametrize("entry", ["decode_slot", "process_slot"])
+def test_the_equalize_span_counts_its_res(tracer, entry):
+    """``pusch.equalize`` counts the data REs it equalized, ``res`` (two
+    slots of the tiny cell; two config groups of one grant each), and
+    those kernel K8 equalized, ``kernel_res``: none on the CPU."""
+    cfgs = [cell.tiny_cell().pusch_cfg] * 2 if entry == "decode_slot" else _ul_configs()
+    call = _calls()[entry]
+    tracer.enabled = True
+    call()
+    counts = tracer.take().totals["pusch.equalize"].counts
+    assert counts == {"res": sum(c.g_total // (c.sch.qm * c.nof_layers) for c in cfgs),
+                      "kernel_res": 0}
+
+
 def test_spans_lie_on_the_profilers_clock(tracer):
     """Each kept span starts and ends within 50 us of the profiler's event
     of the same span (the range the span opened)."""
